@@ -1,0 +1,59 @@
+"""ompi_tpu_torch — the PyTorch/CUDA port of ``ompi_tpu``.
+
+A second package beside the JAX one, which stays the reference.  Same
+Open MPI shaped design — MCA components with priority selection and a typed
+var registry, communicators with a per-comm collective vtable — with the
+device tier rebuilt on PyTorch: the device world is N virtual ranks held as
+the rows of one tensor on one NVIDIA card, device collectives are torch
+reductions (coll/builtin) or hand-written ring kernels (coll/ring, CUDA
+C++), and the op framework's folds are hand-written Triton kernels
+(op/cuda_vpu).  Each kernel has a plain PyTorch version that serves CPU
+tensors, so the whole port runs on the CPU for its tests.
+
+The package imports torch and never jax, nor anything of ``ompi_tpu``.
+"""
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+# Lazy public API: importing the package stays cheap (no torch import).
+_API = {
+    "init": "ompi_tpu_torch.runtime.init",
+    "finalize": "ompi_tpu_torch.runtime.init",
+    "initialized": "ompi_tpu_torch.runtime.init",
+    "finalized": "ompi_tpu_torch.runtime.init",
+    "COMM_WORLD": "ompi_tpu_torch.runtime.init",
+    "Comm": "ompi_tpu_torch.api.comm",
+    "Group": "ompi_tpu_torch.api.group",
+    "Op": "ompi_tpu_torch.api.op",
+    "reduce_local": "ompi_tpu_torch.api.op",
+    # built-in reduction operators (MPI_SUM & friends)
+    "SUM": "ompi_tpu_torch.api.op",
+    "PROD": "ompi_tpu_torch.api.op",
+    "MAX": "ompi_tpu_torch.api.op",
+    "MIN": "ompi_tpu_torch.api.op",
+    "LAND": "ompi_tpu_torch.api.op",
+    "LOR": "ompi_tpu_torch.api.op",
+    "LXOR": "ompi_tpu_torch.api.op",
+    "BAND": "ompi_tpu_torch.api.op",
+    "BOR": "ompi_tpu_torch.api.op",
+    "BXOR": "ompi_tpu_torch.api.op",
+    "MAXLOC": "ompi_tpu_torch.api.op",
+    "MINLOC": "ompi_tpu_torch.api.op",
+    "REPLACE": "ompi_tpu_torch.api.op",
+    "NO_OP": "ompi_tpu_torch.api.op",
+}
+
+
+def __getattr__(name: str):
+    mod_name = _API.get(name)
+    if mod_name is None:
+        raise AttributeError(f"module 'ompi_tpu_torch' has no attribute {name!r}")
+    import importlib
+
+    mod = importlib.import_module(mod_name)
+    if name == "COMM_WORLD":
+        return mod.comm_world()
+    val = getattr(mod, name)
+    globals()[name] = val
+    return val

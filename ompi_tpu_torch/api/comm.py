@@ -1,0 +1,78 @@
+"""Communicators: group + CID + per-comm collective vtable.
+
+Port of the part of ``ompi_tpu/api/comm.py`` that the device-buffer
+allreduce needs: a communicator owns its group, a context id and a per-comm
+collective vtable ``c_coll`` filled by the priority vote of the coll
+components (``coll_base_comm_select.c``).  Every slot that no selected
+module fills raises ``MpiError(ERR_UNSUPPORTED_OPERATION)``; point-to-point,
+communicator construction and fault tolerance are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from ompi_tpu_torch.api import op as op_mod
+from ompi_tpu_torch.api.errors import ErrorClass, MpiError, RevokedError
+from ompi_tpu_torch.api.group import Group
+
+#: collective function slots a coll module can fill (the device-buffer
+#: entry points of ``ompi_tpu/api/comm.py:COLL_FUNCTIONS`` ported so far)
+COLL_FUNCTIONS = ("allreduce_array",)
+
+
+class Comm:
+    def __init__(self, group: Group, cid: int, rte, name: str = "") -> None:
+        self.group = group
+        self.cid = cid
+        self.rte = rte
+        self.name = name or f"comm#{cid}"
+        self.c_coll: dict[str, Any] = {}
+        self.coll_modules: list = []
+        self.info: dict[str, str] = {}
+        self.revoked = False
+        self.freed = False
+        self._rank = group.rank_of(rte.my_world_rank) if rte else 0
+
+    @property
+    def rank(self) -> int:
+        return self._rank
+
+    @property
+    def size(self) -> int:
+        return self.group.size
+
+    def _check_state(self) -> None:
+        # NOTE: allreduce_array inlines this predicate on its fast path
+        if self.freed:
+            raise MpiError(ErrorClass.ERR_COMM, "communicator was freed")
+        if self.revoked:
+            raise RevokedError(f"{self.name} revoked")
+
+    def _coll(self, name: str):
+        fn = self.c_coll.get(name)
+        if fn is None:
+            raise MpiError(
+                ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                f"no coll component provides '{name}' on {self.name}")
+        return fn
+
+    # device-array collectives (tensors with a leading rank axis) ----------
+    def allreduce_array(self, x, op: op_mod.Op = op_mod.SUM):
+        # THE hot call of the framework (DP gradient sync): inline the state
+        # check and skip the _coll indirection — one dict probe on the
+        # per-comm vtable, then straight into the module fast path
+        if self.freed or self.revoked:
+            self._check_state()
+        fn = self.c_coll.get("allreduce_array")
+        if fn is None:
+            return self._coll("allreduce_array")(self, x, op)  # raise path
+        return fn(self, x, op)
+
+    def release_coll_modules(self) -> None:
+        """Tear down per-comm coll module state (runtime finalize)."""
+        self.coll_modules = []
+        self.c_coll = {}
+
+    def __repr__(self) -> str:
+        return (f"Comm({self.name}, cid={self.cid}, rank={self.rank}/"
+                f"{self.size})")

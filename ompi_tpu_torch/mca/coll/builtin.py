@@ -1,0 +1,131 @@
+"""coll/builtin — device-buffer collectives as torch reductions over the rank axis.
+
+Port of ``XlaCollModule`` (``ompi_tpu/mca/coll/xla.py:96-248``), the
+coll/xla component at priority 90.  Data model: the world of n virtual
+ranks is one tensor with a leading rank axis, ``x[i]`` being rank i's
+buffer, on the world's device.  The reference lowers SUM/MAX/MIN to
+``psum``/``pmax``/``pmin``; here they are plain torch reductions over the
+rank axis (``sum``/``amax``/``amin`` of dim 0) — the baseline the
+hand-written ring kernels are measured against.  Every other op gathers
+(free on one device) and folds the stack: one pass through the op
+framework's stack reduction (``cuda_vpu``'s ``reduce_stack``, kernel K1,
+on the card) or, when no component offers one, chained two-operand folds.
+The quantized branch of the reference is not ported yet.
+
+Reductions are cached per (op, shape, dtype, device) — the reference's
+per-(coll, op, shape, dtype) program cache — so a cache hit is one dict
+probe and the reduction.
+"""
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from ompi_tpu_torch.api import op as op_mod
+from ompi_tpu_torch.api.errors import ErrorClass, MpiError
+from ompi_tpu_torch.base import cudaenv
+from ompi_tpu_torch.base.mca import Component
+from ompi_tpu_torch.base.var import VarType
+
+
+def _ar_key(x, op):
+    """Allreduce cache key — the hot-path inline form of the miss path's key;
+    the two MUST stay in sync."""
+    return ("allreduce", op.name, x.shape, x.dtype, x.device)
+
+
+class BuiltinCollModule:
+    def __init__(self, comm, device: torch.device, n: int) -> None:
+        self.device = device
+        self.n = n
+        self._cache: dict = {}
+        self._lock = threading.Lock()
+
+    # -- helpers ---------------------------------------------------------
+    def _check(self, comm, x) -> torch.Tensor:
+        """Validate and place a buffer (slow path, memoized by cache key)."""
+        if not isinstance(x, torch.Tensor):
+            return self.make_world_array(x)
+        if x.device != self.device:
+            raise MpiError(
+                ErrorClass.ERR_BUFFER,
+                f"device collective on {self.device} got a tensor on "
+                f"{x.device}")
+        if x.dim() == 0 or x.shape[0] != self.n:
+            raise MpiError(
+                ErrorClass.ERR_BUFFER,
+                f"device collective needs leading rank axis {self.n}, "
+                f"got shape {tuple(x.shape)}")
+        return x
+
+    def make_world_array(self, host_stack) -> torch.Tensor:
+        """Place a (size, ...) host stack so row i is rank i's buffer."""
+        arr = np.asarray(host_stack)
+        if arr.ndim == 0 or arr.shape[0] != self.n:
+            raise MpiError(
+                ErrorClass.ERR_BUFFER,
+                f"world array needs leading rank axis {self.n}, got shape "
+                f"{arr.shape}")
+        return cudaenv.make_world_array(arr, self.device)
+
+    def _reduce_fn(self, op: op_mod.Op, dtype):
+        """The rank-axis reduction for op: native reduction or stack fold."""
+        if op.torch_reduce == "sum":
+            return lambda t: t.sum(0, dtype=t.dtype)
+        if op.torch_reduce == "amax":
+            return lambda t: t.amax(0)
+        if op.torch_reduce == "amin":
+            return lambda t: t.amin(0)
+        # fused one-pass stack reduction (K1 on the card) when a component
+        # provides one; else chained folds
+        stack = op_mod.torch_stack_reduce(op, dtype)
+        if stack is not None:
+            return lambda t: stack(t.contiguous())
+        fold = op_mod.torch_fold(op, dtype)
+        n = self.n
+
+        def chained(t):
+            acc = t[0]
+            for i in range(1, n):
+                acc = fold(t[i].contiguous(), acc.contiguous())
+            return acc
+
+        return chained
+
+    # -- collective slots ------------------------------------------------
+    def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        # steady-state fast path: one dict probe, then the reduction
+        if isinstance(x, torch.Tensor):
+            fn = self._cache.get(_ar_key(x, op))
+            if fn is not None:
+                return fn(x)
+        x = self._check(comm, x)
+        key = _ar_key(x, op)
+        fn = self._cache.get(key)
+        if fn is None:
+            with self._lock:
+                fn = self._cache.setdefault(key, self._reduce_fn(op, x.dtype))
+        return fn(x)
+
+
+class BuiltinCollComponent(Component):
+    name = "builtin"
+    priority = 90
+
+    def register_vars(self, fw) -> None:
+        self._prio = self.register_var(
+            "priority", vtype=VarType.INT, default=90,
+            help="Selection priority of coll/builtin (device collectives as "
+                 "torch reductions over the rank axis)")
+
+    def comm_query(self, comm):
+        rte = comm.rte
+        if rte is None or not rte.is_device_world:
+            return None
+        return self._prio.value, BuiltinCollModule(
+            comm, rte.device_of(0), comm.size)
+
+
+COMPONENT = BuiltinCollComponent()

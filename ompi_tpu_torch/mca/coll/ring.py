@@ -1,0 +1,155 @@
+"""coll/ring — hand-written ring all-reduce kernels for the device world.
+
+Port of ``PallasCollModule`` (``ompi_tpu/mca/coll/pallas_coll.py``), the
+coll/pallas component at priority 85: below coll/builtin's 90, so the torch
+reductions stay the default; ``--mca coll_ring_priority 95`` (or
+``OTPU_MCA_coll_ring_priority=95``) makes it own the slot.  Float SUM, MAX,
+MIN and PROD go to the ring kernels of ``ompi_tpu_torch/ops/
+ring_collectives.py``: per-rank payloads up to ``vmem_max_bytes`` to the
+fused kernel (K3), larger ones to the segmented kernel (K4, window of
+``seg_bytes``).  Every call it does not cover (other ops, non-float or
+bfloat16 payloads, sizes outside ``[min_bytes, max_bytes]``) is delegated
+to coll/builtin, the way the reference falls through to coll/xla.  The
+duplex (``bidirectional``) and bf16-wire (``wire16``) variants are not
+ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from ompi_tpu_torch.api import op as op_mod
+from ompi_tpu_torch.api.errors import ErrorClass, MpiError
+from ompi_tpu_torch.base.mca import Component
+from ompi_tpu_torch.base.var import VarType
+
+#: MPI op name -> ring-kernel fold name (ompi_tpu_torch/ops/ring_collectives)
+_RING_OPS = {"SUM": "sum", "MAX": "max", "MIN": "min", "PROD": "prod"}
+
+#: payload dtypes of the ring kernels: the JAX package's gate is numpy kind
+#: 'f' (float16/32/64), which leaves out bfloat16 (kind 'V' under ml_dtypes)
+#: although torch counts it as floating point
+_RING_DTYPES = (torch.float16, torch.float32, torch.float64)
+
+#: per-rank payload ceiling on the CPU lane, where the ring runs its plain
+#: versions — the reference's interpreter cap (pallas_coll.py:43), kept so
+#: routing matches it in the tests; above this, delegate regardless of
+#: max_bytes
+_INTERPRET_MAX_BYTES = 16 << 20
+
+
+class RingCollModule:
+    def __init__(self, comm, device: torch.device, n: int, axis_name: str,
+                 max_bytes: int, vmem_max_bytes: int, seg_bytes: int,
+                 min_bytes: int = 0) -> None:
+        self.device = device
+        self.n = n
+        self.axis = axis_name
+        self.max_bytes = max_bytes
+        self.min_bytes = min_bytes
+        self.vmem_max_bytes = vmem_max_bytes
+        self.seg_bytes = seg_bytes
+        self._fallback = None   # resolved at comm_enable
+
+    def comm_enable(self, comm) -> None:
+        # next-lower provider of the device-array slots (coll/builtin):
+        # unsupported calls fall through to it
+        from ompi_tpu_torch.mca.coll.builtin import BuiltinCollModule
+
+        self._fallback = next(
+            (m for m in comm.coll_modules if isinstance(m, BuiltinCollModule)),
+            None)
+
+    # -- helpers ---------------------------------------------------------
+    def _delegate(self, name, comm, x, *args):
+        if self._fallback is None:
+            raise MpiError(ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                           f"coll/ring cannot run {name} and no fallback "
+                           "module is present")
+        return getattr(self._fallback, name)(comm, x, *args)
+
+    def _place(self, comm, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor) and x.device == self.device:
+            return x
+        if self._fallback is not None:
+            return self._fallback._check(comm, x)
+        raise MpiError(ErrorClass.ERR_BUFFER,
+                       f"coll/ring needs a tensor on {self.device}")
+
+    def _size_ok(self, x) -> bool:
+        cap = self.max_bytes
+        if self.device.type != "cuda":
+            cap = min(cap, _INTERPRET_MAX_BYTES)
+        per_rank = x.nbytes // max(1, self.n)
+        return self.min_bytes <= per_rank <= cap
+
+    def _supported(self, x) -> bool:
+        return x.dtype in _RING_DTYPES and self._size_ok(x)
+
+    def _route(self, x):
+        """Pick the accumulator regime from the per-rank payload size: fused
+        kernel up to ``vmem_max_bytes``, segmented (window of ``seg_bytes``)
+        above — the reference's selection between its linear and segmented
+        rings (``coll_base_allreduce.c:618``)."""
+        per_rank = x.nbytes // max(1, self.n)
+        if per_rank > self.vmem_max_bytes:
+            return "seg", max(1, self.seg_bytes // x.element_size())
+        return "fused", None
+
+    # -- collective slots ------------------------------------------------
+    def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        x = self._place(comm, x)
+        ring_op = _RING_OPS.get(op.name)
+        if ring_op is None or not self._supported(x):
+            return self._delegate("allreduce_array", comm, x, op)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        variant, seg_elems = self._route(x)
+        return rc.all_reduce(x.contiguous(), self.n, ring_op, variant=variant,
+                             seg_elems=seg_elems)
+
+
+class RingCollComponent(Component):
+    name = "ring"
+    priority = 85
+
+    def register_vars(self, fw) -> None:
+        self._prio = self.register_var(
+            "priority", vtype=VarType.INT, default=85,
+            help="Selection priority of coll/ring (hand-written ring "
+                 "all-reduce kernels); raise above coll/builtin's 90 to select")
+        self._min = self.register_var(
+            "min_bytes", vtype=VarType.SIZE, default="0",
+            help="Smallest per-rank payload routed to the ring kernels; "
+                 "smaller calls fall through to coll/builtin")
+        self._max = self.register_var(
+            "max_bytes", vtype=VarType.SIZE, default="1g",
+            help="Largest per-rank payload routed to the ring kernels; "
+                 "bigger calls fall through to coll/builtin")
+        self._vmem_max = self.register_var(
+            "vmem_max_bytes", vtype=VarType.SIZE, default="8m",
+            help="Per-rank payload crossover from the fused ring kernel "
+                 "(accumulator on chip) to the segmented one (accumulator "
+                 "in device memory); the default is the TPU's measured VMEM "
+                 "ceiling, kept until card numbers move it")
+        self._seg = self.register_var(
+            "seg_bytes", vtype=VarType.SIZE, default="512k",
+            help="Window of the segmented ring kernel; it rounds the ring "
+                 "blocks up to whole windows")
+        self._axis = self.register_var(
+            "axis_name", default="mpi",
+            help="Name of the rank axis (dim 0 of the world tensor), kept "
+                 "for configuration parity with coll/pallas")
+
+    def comm_query(self, comm):
+        rte = comm.rte
+        if rte is None or not rte.is_device_world:
+            return None
+        return self._prio.value, RingCollModule(
+            comm, rte.device_of(0), comm.size, self._axis.value,
+            int(self._max.value),
+            vmem_max_bytes=int(self._vmem_max.value),
+            seg_bytes=int(self._seg.value),
+            min_bytes=int(self._min.value))
+
+
+COMPONENT = RingCollComponent()

@@ -1,0 +1,112 @@
+"""Init/finalize state machine (``ompi/runtime/ompi_mpi_init.c`` flow).
+
+Port of the device-world boot of ``ompi_tpu/runtime/init.py``: apply
+``--mca`` arguments, bring up the device world (N virtual ranks on one
+device), build COMM_WORLD and run its per-comm coll selection.  ``finalize``
+drops the world and closes the MCA frameworks, so the next ``init`` selects
+afresh.  Sessions, COMM_SELF, hooks, fault tolerance and monitoring are not
+ported yet.
+"""
+from __future__ import annotations
+
+import enum
+import threading
+from typing import Optional
+
+from ompi_tpu_torch.base import mca, var
+
+
+class State(enum.IntEnum):
+    NOT_INITIALIZED = 0
+    INIT_STARTED = 1
+    INIT_COMPLETED = 2
+    FINALIZE_STARTED = 3
+    FINALIZE_COMPLETED = 4
+
+
+_lock = threading.RLock()
+_state = State.NOT_INITIALIZED
+_world = None
+_rte = None
+
+
+def initialized() -> bool:
+    return _state in (State.INIT_STARTED, State.INIT_COMPLETED)
+
+
+def finalized() -> bool:
+    return _state >= State.FINALIZE_STARTED
+
+
+def get_rte():
+    return _rte
+
+
+def init(device=None, rte=None, argv: Optional[list] = None):
+    """Initialize the runtime; idempotent (returns COMM_WORLD).
+
+    The world lives on the card unless ``device`` names another device
+    (``device="cpu"``: the CPU lane the tests run on).  With no card and no
+    explicit device it raises; it never falls back to the CPU.
+    """
+    global _state, _world, _rte
+    with _lock:
+        if _state is State.INIT_COMPLETED:
+            return _world
+        if _state is State.FINALIZE_STARTED:
+            raise RuntimeError("cannot init while finalize is running")
+        _state = State.INIT_STARTED
+        try:
+            # (re)apply --mca arguments and OTPU_MCA_* environment values to
+            # every registered var: each init reads the settings anew
+            var.registry.parse_cli(list(argv or ()))
+            from ompi_tpu_torch.rte.base import detect
+
+            _rte = rte if rte is not None else detect(device)
+            from ompi_tpu_torch.api.comm import Comm
+            from ompi_tpu_torch.api.group import Group
+
+            _world = Comm(Group(range(_rte.world_size)), cid=0, rte=_rte,
+                          name="COMM_WORLD")
+            # per-comm coll selection (ompi_mpi_init.c:956)
+            from ompi_tpu_torch.mca.coll.base import comm_select
+
+            comm_select(_world)
+        except BaseException:
+            _world = _rte = None
+            _state = State.NOT_INITIALIZED
+            raise
+        var.mark_runtime_initialized(True)
+        _state = State.INIT_COMPLETED
+        return _world
+
+
+def comm_world():
+    if _world is None:
+        init()
+    return _world
+
+
+def finalize() -> None:
+    global _state, _world, _rte
+    with _lock:
+        if _state is not State.INIT_COMPLETED:
+            return
+        _state = State.FINALIZE_STARTED
+        try:
+            _world.release_coll_modules()
+            if _rte is not None:
+                _rte.finalize()
+            mca.close_all()
+        finally:
+            _world = _rte = None
+            var.mark_runtime_initialized(False)
+            _state = State.FINALIZE_COMPLETED
+
+
+def reset_for_testing() -> None:
+    """Full teardown allowing re-init (tests only)."""
+    global _state
+    finalize()
+    with _lock:
+        _state = State.NOT_INITIALIZED
