@@ -10,21 +10,40 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    K2 ``combine2`` (Triton) — every op on float32, int32, int8 and bool;
    K1 ``reduce_stack`` (Triton) — k = 8, 16 MB slices, the same ops;
    K3 fused ring all-reduce (CUDA C++) — float32 sum/max/min/prod, 4 MB per
-   rank; K4 segmented ring all-reduce (CUDA C++) — the same at 16 MB per rank.
+   rank; K4 segmented ring all-reduce (CUDA C++) — the same at 16 MB per rank;
+   K5 fused ring reduce-scatter (CUDA C++) — the same four ops on
+   ``(8, 8, 131072)``, 4 MB per rank; K6 segmented ring reduce-scatter —
+   the same on ``(8, 8, 524288)``, 16 MB per rank; K5 and K6 on ragged
+   blocks ``S = (3, 5)`` and ``(1001,)``, float32 and float16; K10 ring
+   all-gather (CUDA C++) — 16 MB per rank float32, an odd int8 length and an
+   unaligned pointer; K12 ring bcast (CUDA C++) — roots 0, 3 and 7 at 16 MB
+   per rank float32 (root 3's row holding -0.0 and NaN), int32, an int8
+   payload of odd byte length, bool and bfloat16.  The copies (K10, K12) are
+   compared byte for byte.
 3. The main path, with every launch count set to 0 before and read after:
-   ``ompi_tpu_torch.init()`` (8 virtual ranks on ``cuda:0``), then
-   ``COMM_WORLD.allreduce_array`` at default priorities — SUM to
-   coll/builtin, PROD and BAND to coll/builtin's stack fold (K1) — and
+   ``ompi_tpu_torch.init()`` (8 virtual ranks on ``cuda:0``), then at
+   default priorities ``COMM_WORLD.allreduce_array`` — SUM to coll/builtin,
+   PROD and BAND to coll/builtin's stack fold (K1) — ``bcast_array(root=3)``
+   and ``allgather_array`` at 16 MB per rank and ``reduce_scatter_array``
+   SUM and PROD (K1) at 4 MB per rank, all through coll/builtin, and
    ``ompi_tpu_torch.reduce_local`` (MPI_Reduce_local, K2); then re-init with
-   ``OTPU_MCA_coll_ring_priority=95``: SUM at 4 MB per rank (K3) and at
-   16 MB per rank, the headline cell (K4).  Each result is held against the
-   plain version (bit-exact) and against ``torch.sum(x, 0)`` (tolerance
-   below).
+   ``OTPU_MCA_coll_ring_priority=95``: allreduce SUM at 4 MB per rank (K3)
+   and at 16 MB per rank, the headline cell (K4), ``bcast_array`` (K12) and
+   ``allgather_array`` (K10) at 16 MB per rank, ``reduce_scatter_array``
+   SUM at 4 MB (K5) and 16 MB per rank (K6).  Each result is held against
+   the plain version (bit-exact) and, for SUM, against ``torch.sum(x, 0)``
+   (tolerance below).
 4. Times: CUDA events around single calls, cold L2 (a 256 MB buffer is
    zeroed before each call), median of 25 after 3 warm-up calls, for each
    kernel, its plain version and one PyTorch library call computing the same
-   function; ``bound_ms`` is the bytes the function must move (inputs read
-   once, output written once) over 3.35 TB/s, the H100 SXM's memory rate.
+   function; the card spins first while the host enqueues every timed call,
+   so host dispatch is never timed.  ``bound_ms`` is the bytes the function
+   must move (inputs read once, output written once) over 3.35 TB/s, the
+   H100 SXM's memory rate.  The ``crossover_ms`` line times both
+   accumulator regimes of the all-reduce and of the reduce-scatter at 4 and
+   16 MB per rank; the ``host_us_per_call`` line is the host's time to
+   enqueue one call of each kernel's wrapper and of its library call
+   (200 calls while the card spins).
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
@@ -45,6 +64,8 @@ MB = 1 << 20
 N = 8                      # virtual ranks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device-memory rate
 REPS, WARMUP = 25, 3
+SPIN_CYCLES = 100_000_000  # ~50 ms of device spin before timed calls
+HOST_CALLS = 200
 SEED = 1234
 
 #: per kernel: route, source, the TPU kernel it replaces (def line)
@@ -57,7 +78,16 @@ KERNELS = {
                          "ompi_tpu/ops/pallas_collectives.py:361"),
     "all_reduce_seg": ("cuda", "ompi_tpu_torch/csrc/ring_seg.cu",
                        "ompi_tpu/ops/pallas_collectives.py:674"),
+    "reduce_scatter_fused": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
+                             "ompi_tpu/ops/pallas_collectives.py:502"),
+    "reduce_scatter_seg": ("cuda", "ompi_tpu_torch/csrc/ring_seg.cu",
+                           "ompi_tpu/ops/pallas_collectives.py:744"),
+    "all_gather": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
+                   "ompi_tpu/ops/pallas_collectives.py:177"),
+    "bcast": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
+              "ompi_tpu/ops/pallas_collectives.py:1294"),
 }
+SEG = 512 * 1024 // 4      # seg_bytes (512k) in float32 elements
 
 
 def log(msg: str) -> None:
@@ -98,6 +128,20 @@ def same_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
             f"{max_abs_err(got, want)}")
 
 
+def same_bytes(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """Byte-for-byte equality (NaN and -0.0 included): the copies' check."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{what}: {tuple(got.shape)} {got.dtype} vs "
+            f"{tuple(want.shape)} {want.dtype}")
+    require(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
+            f"{what}: bytes differ from the plain version")
+
+
+def rs_operands(per_rank: int, gen) -> torch.Tensor:
+    """(n, n, S) float32 reduce-scatter input of ``per_rank`` bytes a rank."""
+    return operands(torch.float32, (N, N, per_rank // 4 // N), gen)
+
+
 def operands(dtype, shape, gen) -> torch.Tensor:
     if dtype == torch.bool:
         return torch.randint(0, 2, shape, device="cuda", generator=gen).bool()
@@ -134,7 +178,7 @@ def check_kernels(gen) -> dict:
     for name, variant, per_rank in (("all_reduce_fused", "fused", 4 * MB),
                                     ("all_reduce_seg", "seg", 16 * MB)):
         x = operands(torch.float32, (N, per_rank // 4), gen)
-        seg = 512 * 1024 // 4 if variant == "seg" else None
+        seg = SEG if variant == "seg" else None
         for op in ("sum", "max", "min", "prod"):
             plain = (rc.all_reduce_seg_plain(x, N, op, seg) if variant == "seg"
                      else rc.all_reduce_fused_plain(x, N, op))
@@ -144,6 +188,62 @@ def check_kernels(gen) -> dict:
         log(f"{name}: float32 sum/max/min/prod at {per_rank // MB} MB per "
             "rank: bit-exact")
         del x
+    for name, variant, per_rank in (("reduce_scatter_fused", "fused", 4 * MB),
+                                    ("reduce_scatter_seg", "seg", 16 * MB)):
+        x = rs_operands(per_rank, gen)
+        seg = SEG if variant == "seg" else None
+        for op in ("sum", "max", "min", "prod"):
+            same_bits(rc.reduce_scatter(x, N, op, variant, seg),
+                      rc.reduce_scatter_plain(x, N, op),
+                      f"{name} {op} float32 {per_rank // MB} MB/rank")
+        err[name] = 0.0
+        log(f"{name}: float32 sum/max/min/prod on {tuple(x.shape)}, "
+            f"{per_rank // MB} MB per rank: bit-exact")
+        del x
+    # ragged ring blocks: a 16-byte pack would straddle two blocks, so the
+    # wrapper must take the element path (and the packed one for blocks of
+    # whole packs)
+    for dtype in (torch.float32, torch.float16):
+        for payload in ((3, 5), (1001,), (1024,)):
+            x = operands(dtype, (N, N, *payload), gen)
+            for variant in ("fused", "seg"):
+                for op in ("sum", "max", "min", "prod"):
+                    same_bits(rc.reduce_scatter(x, N, op, variant),
+                              rc.reduce_scatter_plain(x, N, op),
+                              f"reduce_scatter {variant} {op} {dtype} S={payload}")
+    log("reduce_scatter_fused/seg: ragged blocks S=(3, 5), (1001,) and "
+        "(1024,), float32 and float16, every op: bit-exact")
+
+    x = operands(torch.float32, (N, 16 * MB // 4), gen)
+    same_bytes(rc.all_gather(x, N), rc.all_gather_plain(x, N),
+               "all_gather float32 16 MB/rank")
+    odd = operands(torch.int8, (N, 1001), gen)
+    same_bytes(rc.all_gather(odd, N), rc.all_gather_plain(odd, N),
+               "all_gather int8 1001 B/rank")
+    skew = operands(torch.int8, (N * 1001 + 1,), gen)[1:].view(N, 1001)
+    require(skew.data_ptr() % 16 != 0, "the skewed view is aligned")
+    same_bytes(rc.all_gather(skew, N), rc.all_gather_plain(skew, N),
+               "all_gather int8 unaligned")
+    err["all_gather"] = 0.0
+    log("all_gather: float32 16 MB per rank, int8 1001 B per rank, an "
+        "unaligned int8 view: byte-exact")
+
+    x[3, :4] = torch.tensor([-0.0, float("nan"), -0.0, float("-inf")],
+                            device="cuda")
+    for root in (0, 3, 7):
+        same_bytes(rc.bcast(x, N, root), rc.bcast_plain(x, N, root),
+                   f"bcast float32 16 MB/rank root {root}")
+    require(bool(torch.signbit(rc.bcast(x, N, 3)[:, 0]).all()),
+            "bcast lost root's -0.0")
+    for dtype, per in ((torch.int32, 1000), (torch.int8, 1001),
+                       (torch.bool, 37), (torch.bfloat16, 24)):
+        y = operands(dtype, (N, per), gen)
+        same_bytes(rc.bcast(y, N, 5), rc.bcast_plain(y, N, 5),
+                   f"bcast {dtype} {per}")
+    err["bcast"] = 0.0
+    log("bcast: roots 0/3/7 float32 16 MB per rank (-0.0, NaN in root 3's "
+        "row), int32, int8 of odd length, bool, bfloat16: byte-exact")
+    del x
     torch.cuda.synchronize()
     return err
 
@@ -165,6 +265,10 @@ def check_sum(out, x, plain, what):
     require(bool(torch.isfinite(out).all()), f"{what}: non-finite values")
 
 
+def owner(world, slot: str) -> str:
+    return type(world.c_coll[slot].__self__).__name__
+
+
 def main_path(gen) -> dict:
     import ompi_tpu_torch
     from ompi_tpu_torch.ops import reduce
@@ -177,6 +281,9 @@ def main_path(gen) -> dict:
     inbuf = operands(torch.float32, (16 * MB // 4,), gen)
     inout = operands(torch.float32, (16 * MB // 4,), gen)
     inout_plain = reduce.combine2_plain("SUM", inbuf, inout)
+    rs_mid = rs_operands(4 * MB, gen)                            # 4 MB/rank
+    rs_big = rs_operands(16 * MB, gen)                           # 16 MB/rank
+    new_slots = ("bcast_array", "allgather_array", "reduce_scatter_array")
     torch.cuda.synchronize()
 
     reset_counts()
@@ -184,30 +291,45 @@ def main_path(gen) -> dict:
     world = ompi_tpu_torch.init()
     require(world.size == N and world.rte.device.type == "cuda",
             f"world of {world.size} on {world.rte.device}")
-    require(type(world.c_coll["allreduce_array"].__self__).__name__
-            == "BuiltinCollModule", "default owner is not coll/builtin")
+    for slot in ("allreduce_array", *new_slots):
+        require(owner(world, slot) == "BuiltinCollModule",
+                f"default owner of {slot} is not coll/builtin")
     s_builtin = world.allreduce_array(big, ompi_tpu_torch.SUM)
     p_prod = world.allreduce_array(big, ompi_tpu_torch.PROD)
     p_band = world.allreduce_array(ints, ompi_tpu_torch.BAND)
+    b_builtin = world.bcast_array(big, 3)
+    g_builtin = world.allgather_array(big)
+    rs_builtin = world.reduce_scatter_array(rs_mid, ompi_tpu_torch.SUM)
+    k1_before = reduce.launches["reduce_stack"]
+    rs_prod = world.reduce_scatter_array(rs_mid, ompi_tpu_torch.PROD)
+    k1_rs = reduce.launches["reduce_stack"] - k1_before
     ompi_tpu_torch.reduce_local(inbuf, inout, ompi_tpu_torch.SUM)
     rt.finalize()
 
     os.environ["OTPU_MCA_coll_ring_priority"] = "95"
     world = ompi_tpu_torch.init()
-    require(type(world.c_coll["allreduce_array"].__self__).__name__
-            == "RingCollModule", "raised owner is not coll/ring")
+    for slot in ("allreduce_array", *new_slots):
+        require(owner(world, slot) == "RingCollModule",
+                f"raised owner of {slot} is not coll/ring")
     s_fused = world.allreduce_array(mid, ompi_tpu_torch.SUM)
     s_seg = world.allreduce_array(big, ompi_tpu_torch.SUM)
+    b_ring = world.bcast_array(big, 3)
+    g_ring = world.allgather_array(big)
+    rs_fused = world.reduce_scatter_array(rs_mid, ompi_tpu_torch.SUM)
+    rs_seg = world.reduce_scatter_array(rs_big, ompi_tpu_torch.SUM)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
     rt.finalize()
     del os.environ["OTPU_MCA_coll_ring_priority"]
 
-    log(f"main path: init + 5 allreduce_array + reduce_local in {wall:.3f} s "
-        f"(host clock, includes the first-call builds); launches {launched}")
+    log(f"main path: 2 x init, 5 allreduce_array, 2 bcast_array, "
+        f"2 allgather_array, 4 reduce_scatter_array, reduce_local in "
+        f"{wall:.3f} s (host clock, includes the first-call builds); "
+        f"launches {launched}")
     for name in KERNELS:
         require(launched[name] > 0, f"{name} was not launched on the main path")
+    require(k1_rs > 0, "reduce_scatter_array PROD did not launch K1")
 
     require(torch.equal(s_builtin, torch.sum(big, 0)), "builtin SUM")
     same_bits(p_prod, reduce.reduce_stack_plain("PROD", big), "PROD (K1)")
@@ -215,10 +337,23 @@ def main_path(gen) -> dict:
     same_bits(inout, inout_plain, "reduce_local SUM (K2)")
     check_sum(s_fused, mid, rc.all_reduce_fused_plain(mid, N, "sum"),
               "ring SUM 4 MB/rank (K3)")
-    check_sum(s_seg, big, rc.all_reduce_seg_plain(big, N, "sum", 512 * 1024 // 4),
+    check_sum(s_seg, big, rc.all_reduce_seg_plain(big, N, "sum", SEG),
               "ring SUM 16 MB/rank (K4)")
-    log("main path results: bit-exact with the plain versions; ring SUM "
-        "within 2(n-1)·2^-24·Σ|x| of torch.sum")
+    row3 = rc.bcast_plain(big, N, 3)
+    same_bytes(b_builtin, row3, "builtin bcast root 3")
+    same_bytes(g_builtin, big, "builtin allgather")
+    require(torch.equal(rs_builtin, torch.sum(rs_mid, 0)),
+            "builtin reduce_scatter SUM")
+    same_bits(rs_prod, reduce.reduce_stack_plain("PROD", rs_mid),
+              "builtin reduce_scatter PROD (K1)")
+    same_bytes(b_ring, row3, "ring bcast root 3 (K12)")
+    same_bytes(g_ring, big, "ring allgather (K10)")
+    check_sum(rs_fused, rs_mid, rc.reduce_scatter_plain(rs_mid, N, "sum"),
+              "ring reduce_scatter SUM 4 MB/rank (K5)")
+    check_sum(rs_seg, rs_big, rc.reduce_scatter_plain(rs_big, N, "sum"),
+              "ring reduce_scatter SUM 16 MB/rank (K6)")
+    log("main path results: bit-exact with the plain versions (copies byte "
+        "for byte); ring SUM within 2(n-1)·2^-24·Σ|x| of torch.sum")
     return launched
 
 
@@ -226,13 +361,16 @@ def main_path(gen) -> dict:
 
 def time_ms(fn) -> float:
     """Median device time of single calls with a cold L2: a 256 MB zero
-    fill runs before each call, which also keeps the card busy while the
-    host enqueues the call, so host overhead is not timed."""
+    fill runs before each call.  The card spins first while the host
+    enqueues every timed call: a wrapper's host dispatch can take longer
+    than the fill, and would otherwise land between a call's events."""
     flush = torch.empty(256 * MB // 4, device="cuda")
     for _ in range(WARMUP):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     for s, e in zip(starts, ends):
         flush.zero_()
         s.record()
@@ -240,6 +378,19 @@ def time_ms(fn) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def host_us(fn) -> float:
+    """Host time per call (µs) to enqueue ``fn``, while the card spins, so
+    that no device time is in it."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    per_call = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    return per_call
 
 
 def measure(gen, launched: dict, err: dict) -> list:
@@ -250,7 +401,9 @@ def measure(gen, launched: dict, err: dict) -> list:
     mid = operands(torch.float32, (N, 4 * MB // 4), gen)
     a = operands(torch.float32, (16 * MB // 4,), gen)
     b = operands(torch.float32, (16 * MB // 4,), gen)
-    seg = 512 * 1024 // 4
+    rs_mid = rs_operands(4 * MB, gen)
+    rs_big = rs_operands(16 * MB, gen)
+    seg = SEG
     cases = {
         # name: (kernel, plain, library, inputs+output bytes, what)
         "reduce_stack": (lambda: reduce.reduce_stack("PROD", big),
@@ -269,8 +422,26 @@ def measure(gen, launched: dict, err: dict) -> list:
                            lambda: rc.all_reduce_seg_plain(big, N, "sum", seg),
                            lambda: torch.sum(big, 0),
                            (N + 1) * 16 * MB, "SUM f32, 8 ranks x 16 MB"),
+        "reduce_scatter_fused": (
+            lambda: rc.reduce_scatter(rs_mid, N, "sum", "fused"),
+            lambda: rc.reduce_scatter_plain(rs_mid, N, "sum"),
+            lambda: torch.sum(rs_mid, 0),
+            (N + 1) * 4 * MB, "SUM f32, (8, 8, 131072): 8 ranks x 4 MB"),
+        "reduce_scatter_seg": (
+            lambda: rc.reduce_scatter(rs_big, N, "sum", "seg", seg),
+            lambda: rc.reduce_scatter_plain(rs_big, N, "sum"),
+            lambda: torch.sum(rs_big, 0),
+            (N + 1) * 16 * MB, "SUM f32, (8, 8, 524288): 8 ranks x 16 MB"),
+        "all_gather": (lambda: rc.all_gather(big, N),
+                       lambda: rc.all_gather_plain(big, N),
+                       lambda: big.clone(),
+                       2 * N * 16 * MB, "f32, 8 ranks x 16 MB"),
+        "bcast": (lambda: rc.bcast(big, N, 3),
+                  lambda: rc.bcast_plain(big, N, 3),
+                  lambda: big[3].expand(N, -1).clone(),
+                  (N + 1) * 16 * MB, "f32, root 3, 8 ranks x 16 MB"),
     }
-    rows = []
+    rows, host = [], {}
     for name, (kernel, plain, library, nbytes, what) in cases.items():
         route, source, replaces = KERNELS[name]
         ms = time_ms(kernel)
@@ -284,13 +455,19 @@ def measure(gen, launched: dict, err: dict) -> list:
         }
         log(json.dumps({**row, "shape": what}))
         rows.append(row)
+        host[name] = {"kernel": host_us(kernel), "library": host_us(library)}
     # both accumulator regimes on both sides of the vmem_max_bytes
     # crossover (8 MB per rank), for the routing decision on this card
-    cross = {f"{mb} MB/rank": {v: time_ms(lambda x=x, v=v: rc.all_reduce(
-                 x, N, "sum", v, seg if v == "seg" else None))
-                 for v in ("fused", "seg")}
-             for mb, x in ((4, mid), (16, big))}
+    cross = {
+        coll: {f"{mb} MB/rank": {v: time_ms(lambda x=x, v=v: fn(
+                   x, N, "sum", v, seg if v == "seg" else None))
+                   for v in ("fused", "seg")}
+               for mb, x in inputs}
+        for coll, fn, inputs in (
+            ("all_reduce", rc.all_reduce, ((4, mid), (16, big))),
+            ("reduce_scatter", rc.reduce_scatter, ((4, rs_mid), (16, rs_big))))}
     log(json.dumps({"crossover_ms": cross}))
+    log(json.dumps({"host_us_per_call": host}))
     return rows
 
 

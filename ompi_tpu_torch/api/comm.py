@@ -1,7 +1,7 @@
 """Communicators: group + CID + per-comm collective vtable.
 
 Port of the part of ``ompi_tpu/api/comm.py`` that the device-buffer
-allreduce needs: a communicator owns its group, a context id and a per-comm
+collectives need: a communicator owns its group, a context id and a per-comm
 collective vtable ``c_coll`` filled by the priority vote of the coll
 components (``coll_base_comm_select.c``).  Every slot that no selected
 module fills raises ``MpiError(ERR_UNSUPPORTED_OPERATION)``; point-to-point,
@@ -17,7 +17,8 @@ from ompi_tpu_torch.api.group import Group
 
 #: collective function slots a coll module can fill (the device-buffer
 #: entry points of ``ompi_tpu/api/comm.py:COLL_FUNCTIONS`` ported so far)
-COLL_FUNCTIONS = ("allreduce_array",)
+COLL_FUNCTIONS = ("allreduce_array", "bcast_array", "allgather_array",
+                  "reduce_scatter_array", "psum_scatter_array")
 
 
 class Comm:
@@ -67,6 +68,18 @@ class Comm:
         if fn is None:
             return self._coll("allreduce_array")(self, x, op)  # raise path
         return fn(self, x, op)
+
+    def bcast_array(self, x, root: int = 0):
+        self._check_state()
+        return self._coll("bcast_array")(self, x, root)
+
+    def allgather_array(self, x):
+        self._check_state()
+        return self._coll("allgather_array")(self, x)
+
+    def reduce_scatter_array(self, x, op: op_mod.Op = op_mod.SUM):
+        self._check_state()
+        return self._coll("reduce_scatter_array")(self, x, op)
 
     def release_coll_modules(self) -> None:
         """Tear down per-comm coll module state (runtime finalize)."""

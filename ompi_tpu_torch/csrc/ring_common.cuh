@@ -1,15 +1,22 @@
-// Shared pieces of the ring all-reduce kernels (ring_fused.cu, ring_seg.cu):
+// Shared pieces of the ring reduction kernels (ring_fused.cu, ring_seg.cu):
 // the four ring folds, 16-byte packed loads and stores, the C ABI codes.
 //
 // Layout both kernels take: x is (n, size), row r is virtual rank r's payload.
-// The payload is cut into n ring blocks of `blk` elements (blk = rows*128, the
-// block of ompi_tpu/ops/pallas_collectives.py:_jit_all_reduce, a multiple of
-// 128), and block b of the result is
-//     fold(x[b-1], fold(x[b-2], ... fold(x[b+1], x[b])))
-// -- the order of the TPU ring's reduce-scatter (_rs_phase, align=0): the
-// partial of block b starts on rank b and each hop folds its own row into
-// the incoming partial, fold(own, incoming).  Kernels and plain versions keep
-// that order, so results are bit-identical with the reference.
+// The payload is cut into ring blocks of `blk` elements, and block b of the
+// result is
+//     fold(x[b+s-1], fold(x[b+s-2], ... fold(x[b+s+1], x[b+s])))
+// (ranks mod n) -- the order of the TPU ring's reduce-scatter phase
+// (ompi_tpu/ops/pallas_collectives.py:_rs_phase): the partial of block b
+// starts on rank b+s and each hop folds its own row into the incoming
+// partial, fold(own, incoming).  The start offset s is _rs_phase's align:
+//   s = 0 -- all-reduce (align=0, K3/K4): n blocks of blk = rows*128
+//            elements, the block of _jit_all_reduce, a multiple of 128;
+//   s = 1 -- owner-aligned reduce-scatter (align=-1, K5/K6): x is the
+//            (n, n, *S) input viewed as (n, n*blk), blk = prod(S), and
+//            block b of the result is rank b's output row.
+// Kernels and plain versions keep that order, so results are bit-identical
+// with the reference.  A 16-byte pack never straddles two blocks: the
+// wrapper takes the packed path only when blk is a multiple of the pack.
 #pragma once
 
 #include <cuda_fp16.h>

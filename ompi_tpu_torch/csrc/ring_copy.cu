@@ -1,0 +1,127 @@
+// K10: ring all-gather, and K12: pipelined ring bcast, of N virtual ranks
+// held as the rows of one tensor.  Both move bytes and compute nothing, so
+// both are written on bytes: one instantiation serves every dtype (bool and
+// bfloat16 included).
+//
+// K10 replaces the Pallas kernel pallas_collectives._build_all_gather
+// (ompi_tpu/ops/pallas_collectives.py:177): n-1 ring steps, each forwarding
+// the freshest block to the right neighbour, until every rank holds all n
+// blocks.  On one card the n ranks are the rows of x (n, *S) and the
+// replicated result is one new (n, *S) tensor, so the n-1 forwarding steps
+// deliver each row exactly once: a copy of x.
+//   Bound on an H100: device-memory bytes, 2*n*S (read x once, write the
+//   result once) / 3.35 TB/s.  Design: a grid-stride copy, 16 bytes a thread
+//   (uint4) when both pointers are 16-byte aligned, then the length's tail
+//   (< 16 bytes) byte by byte; byte by byte throughout otherwise.
+//
+// K12 replaces pallas_collectives._build_bcast (:1294), the "clamped
+// conveyor": root streams segments rightward and every hop forwards segment s
+// one wave after receiving it, until every rank holds root's buffer.  On one
+// card that delivers root's row x[root] into all n rows of a new (n, *S).
+// root is a runtime argument, as the TPU kernel's SMEM scalar is (:1317-1324),
+// so one build serves every root.
+//   Bound on an H100: device-memory bytes, (n+1)*S (read root's row once,
+//   write n rows) / 3.35 TB/s.  Design: each thread loads 16 bytes of
+//   x[root] once and stores them into all n output rows (row_bytes a
+//   multiple of 16 and both pointers aligned); byte by byte otherwise.
+#include "ring_common.cuh"
+
+namespace otpu {
+
+constexpr int kCopyThreads = 256;
+
+// a few blocks per SM, fewer when `units` (one per thread) need fewer
+inline unsigned copy_blocks(int64_t units) {
+  int64_t blocks = (units + kCopyThreads - 1) / kCopyThreads;
+  const int64_t cap = (int64_t)sm_count() * 8;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  return (unsigned)blocks;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kCopyThreads)
+all_gather_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
+                  int64_t nbytes) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t head = 0;
+  if constexpr (VEC) {
+    const int64_t nvec = nbytes / 16;
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    uint4* ov = reinterpret_cast<uint4*>(out);
+    for (int64_t v = tid; v < nvec; v += stride) ov[v] = __ldg(xv + v);
+    head = nvec * 16;
+  }
+  for (int64_t i = head + tid; i < nbytes; i += stride) out[i] = x[i];
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kCopyThreads)
+bcast_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
+             int64_t row_bytes, int n, int root) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const uint8_t* src = x + (int64_t)root * row_bytes;
+  if constexpr (VEC) {
+    const int64_t nvec = row_bytes / 16;
+    const uint4* sv = reinterpret_cast<const uint4*>(src);
+    uint4* ov = reinterpret_cast<uint4*>(out);
+    for (int64_t v = tid; v < nvec; v += stride) {
+      const uint4 u = __ldg(sv + v);
+#pragma unroll 8
+      for (int r = 0; r < n; ++r) ov[(int64_t)r * nvec + v] = u;
+    }
+  } else {
+    for (int64_t i = tid; i < row_bytes; i += stride) {
+      const uint8_t b = src[i];
+#pragma unroll 8
+      for (int r = 0; r < n; ++r) out[(int64_t)r * row_bytes + i] = b;
+    }
+  }
+}
+
+}  // namespace otpu
+
+// x, out: (n, *S) device pointers of nbytes bytes in all.  vec is 16 (both
+// pointers 16-byte aligned; the wrapper checks) or 1.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
+// vec).
+extern "C" int otpu_ring_all_gather(const void* x, void* out, long long nbytes,
+                                    int vec, void* stream) {
+  const auto* src = static_cast<const uint8_t*>(x);
+  auto* dst = static_cast<uint8_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 16) {
+    otpu::all_gather_kernel<true><<<otpu::copy_blocks(nbytes / 16), otpu::kCopyThreads,
+                                    0, s>>>(src, dst, nbytes);
+  } else if (vec == 1) {
+    otpu::all_gather_kernel<false><<<otpu::copy_blocks(nbytes), otpu::kCopyThreads,
+                                     0, s>>>(src, dst, nbytes);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, out: (n, row_bytes) device pointers; 0 <= root < n.  vec is 16
+// (row_bytes % 16 == 0 and both pointers 16-byte aligned; the wrapper
+// checks) or 1.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for another vec or a root out of range).
+extern "C" int otpu_ring_bcast(const void* x, void* out, long long row_bytes,
+                               int n, int root, int vec, void* stream) {
+  if (root < 0 || root >= n) return (int)cudaErrorInvalidValue;
+  const auto* src = static_cast<const uint8_t*>(x);
+  auto* dst = static_cast<uint8_t*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec == 16 && row_bytes % 16 == 0) {
+    otpu::bcast_kernel<true><<<otpu::copy_blocks(row_bytes / 16), otpu::kCopyThreads,
+                               0, s>>>(src, dst, row_bytes, n, root);
+  } else if (vec == 1) {
+    otpu::bcast_kernel<false><<<otpu::copy_blocks(row_bytes), otpu::kCopyThreads,
+                                0, s>>>(src, dst, row_bytes, n, root);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,23 +1,29 @@
-// K3: fused ring all-reduce of N virtual ranks held as the rows of one tensor.
+// K3: fused ring all-reduce, and K5: fused ring reduce-scatter, of N virtual
+// ranks held as the rows of one tensor.
 //
-// Replaces the Pallas kernel pallas_collectives._build_all_reduce with its
+// K3 replaces the Pallas kernel pallas_collectives._build_all_reduce with its
 // _rs_phase and _ag_phase (ompi_tpu/ops/pallas_collectives.py:361, :311,
 // :567), the `fused` variant of all_reduce: n-1 reduce-scatter steps folding
 // each incoming block into a VMEM accumulator, then n-1 all-gather steps.
+// K5 replaces pallas_collectives._build_reduce_scatter (:502), the same
+// reduce-scatter phase with align=-1, so that rank b ends owning block b.
 //
 // On one card the n ranks are rows of x (n, size).  The fold order of the TPU
 // ring is kept (see ring_common.cuh), so the result is bit-identical with the
-// reference; the all-gather phase moves no bytes here -- the result is one
-// (size,) tensor, written once.
+// reference; K3's all-gather phase moves no bytes here -- the result is one
+// (size,) tensor, written once.  K5 is the same kernel with start offset 1
+// over the (n, n, *S) input viewed as (n, n*prod(S)); its (n*prod(S),) output
+// is the (n, *S) result, row b for rank b.
 //
 // Bound on an H100: device-memory bytes.  The function reads n*size and
 // writes size elements and does one fold per element read (~0.25 flop/byte,
-// far below the ridge), so its least time is (n+1)*size*sizeof(T) / 3.35 TB/s.
+// far below the ridge), so its least time is (n+1)*size*sizeof(T) / 3.35 TB/s
+// -- for K5, (n+1)*P with P the per-rank payload n*prod(S)*sizeof(T).
 // Design: each thread owns VEC contiguous elements (16 bytes) of ring block b,
-// loads the n ranks' slices in ring order b, b+1, ..., b-1 with 16-byte loads
-// (the k loop is unrolled, so the loads are in flight together), folds in
-// registers -- the fused regime's on-chip accumulator -- and stores once.  A
-// grid-stride loop covers the payload with a few blocks per SM.
+// loads the n ranks' slices in ring order b+s, b+s+1, ..., b+s-1 with 16-byte
+// loads (the k loop is unrolled, so the loads are in flight together), folds
+// in registers -- the fused regime's on-chip accumulator -- and stores once.
+// A grid-stride loop covers the payload with a few blocks per SM.
 #include "ring_common.cuh"
 
 namespace otpu {
@@ -27,13 +33,14 @@ constexpr int kFusedThreads = 256;
 template <typename T, int OP, int VEC>
 __global__ void __launch_bounds__(kFusedThreads)
 ring_fused_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t size,
-                  int64_t blk, int n) {
+                  int64_t blk, int n, int start) {
   const int64_t nvec = size / VEC;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
        v += stride) {
     const int64_t e = v * VEC;
-    int r = (int)(e / blk);  // ring block b: its partial starts on rank b
+    // ring block b: its partial starts on rank b + start
+    int r = (int)((e / blk + start) % n);
     Pack<T, VEC> acc = load<T, VEC>(x + (int64_t)r * size + e);
 #pragma unroll 8
     for (int k = 1; k < n; ++k) {
@@ -47,29 +54,43 @@ ring_fused_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t size,
 template <typename T, int OP, int VEC>
 struct FusedLaunch {
   static void run(const void* x, void* out, int64_t size, int64_t blk, int n,
-                  cudaStream_t stream) {
+                  int start, cudaStream_t stream) {
     const int64_t nvec = size / VEC;
     int64_t blocks = (nvec + kFusedThreads - 1) / kFusedThreads;
     const int64_t cap = (int64_t)sm_count() * 8;
     if (blocks > cap) blocks = cap;
     if (blocks < 1) blocks = 1;
     ring_fused_kernel<T, OP, VEC><<<(unsigned)blocks, kFusedThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), size, blk, n);
+        static_cast<const T*>(x), static_cast<T*>(out), size, blk, n, start);
   }
 };
 
+inline int fused(const void* x, void* out, long long size, long long blk,
+                 int n, int dtype, int op, int vec, int start, void* stream) {
+  if (!dispatch<FusedLaunch>(dtype, op, vec, x, out, (int64_t)size,
+                             (int64_t)blk, n, start,
+                             static_cast<cudaStream_t>(stream)))
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace otpu
 
-// x: (n, size) device pointer, out: (size,).  size % vec == 0; with vec > 1
-// both pointers and the row pitch are 16-byte aligned (the wrapper checks).
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unknown dtype/op/vec code).
+// x: (n, size) device pointer, out: (size,).  size % vec == 0 and, with
+// vec > 1, blk % vec == 0 and both pointers and the row pitch are 16-byte
+// aligned (the wrapper checks).  Each returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unknown dtype/op/vec code).
+
+// K3: all-reduce, blocks of blk = rows*128 elements, start offset 0.
 extern "C" int otpu_ring_fused(const void* x, void* out, long long size,
                                long long blk, int n, int dtype, int op, int vec,
                                void* stream) {
-  if (!otpu::dispatch<otpu::FusedLaunch>(dtype, op, vec, x, out, (int64_t)size,
-                                         (int64_t)blk, n,
-                                         static_cast<cudaStream_t>(stream)))
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 0, stream);
+}
+
+// K5: reduce-scatter, x (n, n*blk) with blk = prod(S), start offset 1.
+extern "C" int otpu_ring_rs_fused(const void* x, void* out, long long size,
+                                  long long blk, int n, int dtype, int op,
+                                  int vec, void* stream) {
+  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 1, stream);
 }

@@ -1,19 +1,25 @@
-// K4: segmented ring all-reduce, accumulator in device memory.
+// K4: segmented ring all-reduce, and K6: segmented ring reduce-scatter,
+// accumulator in device memory.
 //
-// Replaces the Pallas kernel pallas_collectives._build_all_reduce_seg with
+// K4 replaces the Pallas kernel pallas_collectives._build_all_reduce_seg with
 // its _seg_rs_phase and _seg_fold_row (ompi_tpu/ops/pallas_collectives.py:674,
 // :642, :587), the `seg` variant of all_reduce that coll/pallas routes per-rank
 // payloads above vmem_max_bytes to: the (n, nseg, S, 128) accumulator lives in
-// HBM and every ring step streams its fold through a 2-slot VMEM window.
+// HBM and every ring step streams its fold through a 2-slot VMEM window.  K6
+// replaces pallas_collectives._build_reduce_scatter_seg (:744), the same
+// phase with align=-1 (start offset 1 here, see ring_common.cuh): step 0's
+// partial is x[b+1] and the peer of step k is rank b+2+k.  The tile partition
+// need not match the TPU's window-rounded blocks: no value depends on it.
 //
 // The regime is kept.  The accumulator lives in device memory (the wrapper
 // allocates it with torch.empty); each of the n-1 ring steps streams the
 // accumulator's rows and the peer rank's rows through a double-buffered
 // shared-memory window (cp.async: the next tile's loads are in flight while
 // this tile folds), folds them and writes them back.  Step 0 reads the
-// partial from x[b] itself and the last step writes `out`, so the
+// partial from x[b+s] itself and the last step writes `out`, so the
 // accumulator is only touched for n >= 3.  Fold order and ring blocks are
-// those of K3 (ring_common.cuh), so K3 and K4 give bit-identical results.
+// those of K3 (ring_common.cuh), so K3 and K4 give bit-identical results, as
+// do K5 and K6.
 //
 // Bound on an H100: device-memory bytes.  The function needs
 // (n+1)*size*sizeof(T) bytes, as K3; this regime moves 3*(n-1)*size*sizeof(T)
@@ -65,7 +71,7 @@ __device__ __forceinline__ Pack<T, VEC> load_shared(const T* p) {
 template <typename T, int OP, int VEC>
 __global__ void __launch_bounds__(kSegThreads)
 ring_seg_kernel(const T* __restrict__ x, T* acc, T* out, int64_t size,
-                int64_t blk, int n) {
+                int64_t blk, int n, int start) {
   // [slot][0: partial, 1: peer][tile]
   __shared__ __align__(16) T win[2][2][kSegThreads * VEC];
   const int64_t tile = (int64_t)kSegThreads * VEC;
@@ -73,17 +79,17 @@ ring_seg_kernel(const T* __restrict__ x, T* acc, T* out, int64_t size,
   const int lane = threadIdx.x * VEC;
 
   for (int k = 0; k < n - 1; ++k) {
-    // ring step k: block b's partial (x[b] at step 0, else acc) meets the
-    // row of rank b+1+k, and goes to acc (or out at the last step)
+    // ring step k: block b's partial (x[b+start] at step 0, else acc) meets
+    // the row of rank b+start+1+k, and goes to acc (or out at the last step)
     const T* part = (k == 0) ? x : acc;
     T* dst = (k == n - 2) ? out : acc;
     auto issue = [&](int64_t t, int slot) {
       const int64_t e = t * tile + lane;
       if (e < size) {
         const int b = (int)(e / blk);
-        const int peer = (b + 1 + k) % n;
+        const int peer = (b + start + 1 + k) % n;
         copy_async<T, VEC>(&win[slot][0][lane],
-                           part + (k == 0 ? (int64_t)b * size : 0) + e);
+                           part + (k == 0 ? (int64_t)((b + start) % n) * size : 0) + e);
         copy_async<T, VEC>(&win[slot][1][lane], x + (int64_t)peer * size + e);
       }
     };
@@ -113,7 +119,7 @@ ring_seg_kernel(const T* __restrict__ x, T* acc, T* out, int64_t size,
 template <typename T, int OP, int VEC>
 struct SegLaunch {
   static void run(const void* x, void* acc, void* out, int64_t size,
-                  int64_t blk, int n, cudaStream_t stream) {
+                  int64_t blk, int n, int start, cudaStream_t stream) {
     const int64_t tile = (int64_t)kSegThreads * VEC;
     int64_t blocks = (size + tile - 1) / tile;
     const int64_t cap = (int64_t)sm_count() * 8;
@@ -121,22 +127,37 @@ struct SegLaunch {
     if (blocks < 1) blocks = 1;
     ring_seg_kernel<T, OP, VEC><<<(unsigned)blocks, kSegThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<T*>(acc), static_cast<T*>(out),
-        size, blk, n);
+        size, blk, n, start);
   }
 };
 
+inline int seg(const void* x, void* acc, void* out, long long size,
+               long long blk, int n, int dtype, int op, int vec, int start,
+               void* stream) {
+  if (!dispatch<SegLaunch>(dtype, op, vec, x, acc, out, (int64_t)size,
+                           (int64_t)blk, n, start,
+                           static_cast<cudaStream_t>(stream)))
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace otpu
 
-// x: (n, size), acc and out: (size,) device pointers.  size % vec == 0; with
-// vec > 1 all pointers and the row pitch are 16-byte aligned (the wrapper
-// checks).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unknown dtype/op/vec code).
+// x: (n, size), acc and out: (size,) device pointers.  size % vec == 0 and,
+// with vec > 1, blk % vec == 0 and all pointers and the row pitch are 16-byte
+// aligned (the wrapper checks).  Each returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unknown dtype/op/vec code).
+
+// K4: all-reduce, blocks of blk = rows*128 elements, start offset 0.
 extern "C" int otpu_ring_seg(const void* x, void* acc, void* out,
                              long long size, long long blk, int n, int dtype,
                              int op, int vec, void* stream) {
-  if (!otpu::dispatch<otpu::SegLaunch>(dtype, op, vec, x, acc, out,
-                                       (int64_t)size, (int64_t)blk, n,
-                                       static_cast<cudaStream_t>(stream)))
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return otpu::seg(x, acc, out, size, blk, n, dtype, op, vec, 0, stream);
+}
+
+// K6: reduce-scatter, x (n, n*blk) with blk = prod(S), start offset 1.
+extern "C" int otpu_ring_rs_seg(const void* x, void* acc, void* out,
+                                long long size, long long blk, int n,
+                                int dtype, int op, int vec, void* stream) {
+  return otpu::seg(x, acc, out, size, blk, n, dtype, op, vec, 1, stream);
 }

@@ -1,20 +1,37 @@
-"""coll/builtin — device-buffer collectives as torch reductions over the rank axis.
+"""coll/builtin — device-buffer collectives as plain torch operations over the rank axis.
 
-Port of ``XlaCollModule`` (``ompi_tpu/mca/coll/xla.py:96-248``), the
-coll/xla component at priority 90.  Data model: the world of n virtual
-ranks is one tensor with a leading rank axis, ``x[i]`` being rank i's
-buffer, on the world's device.  The reference lowers SUM/MAX/MIN to
-``psum``/``pmax``/``pmin``; here they are plain torch reductions over the
-rank axis (``sum``/``amax``/``amin`` of dim 0) — the baseline the
-hand-written ring kernels are measured against.  Every other op gathers
-(free on one device) and folds the stack: one pass through the op
-framework's stack reduction (``cuda_vpu``'s ``reduce_stack``, kernel K1,
-on the card) or, when no component offers one, chained two-operand folds.
-The quantized branch of the reference is not ported yet.
+Port of ``XlaCollModule`` (``ompi_tpu/mca/coll/xla.py:96-248``,
+``:324-406``, ``:502-533``), the coll/xla component at priority 90.  Data
+model: the world of n virtual ranks is one tensor with a leading rank axis,
+``x[i]`` being rank i's buffer, on the world's device.  A replicated result
+is one tensor; a rank-sharded result has a leading rank axis.
 
-Reductions are cached per (op, shape, dtype, device) — the reference's
-per-(coll, op, shape, dtype) program cache — so a cache hit is one dict
-probe and the reduction.
+* ``allreduce_array`` — ``(n, *S)`` to ``(*S)``.  The reference lowers
+  SUM/MAX/MIN to ``psum``/``pmax``/``pmin``; here they are plain torch
+  reductions over the rank axis (``sum``/``amax``/``amin`` of dim 0) — the
+  baseline the hand-written ring kernels are measured against.  Every
+  other op gathers (free on one device) and folds the stack: one pass
+  through the op framework's stack reduction (``cuda_vpu``'s
+  ``reduce_stack``, kernel K1, on the card) or, when no component offers
+  one, chained two-operand folds.
+* ``reduce_scatter_array`` (and ``psum_scatter_array``, its SUM) —
+  ``(n, n, *S)`` to ``(n, *S)``.  The reference's gather, stack reduction
+  and ``dynamic_index_in_dim`` (or ``psum_scatter`` for SUM) is, on one
+  device, the same reduction applied to the ``(n, n, *S)`` stack.
+* ``bcast_array`` — a new ``(n, *S)`` of copies of ``x[root % n]``, and
+  ``allgather_array`` — a new ``(n, *S)`` equal to ``x``: plain torch
+  copies, as XLA computes them outside any Pallas kernel.  Both deliver the
+  bytes they were given.  The reference's bcast has two regimes: a
+  binomial tree below ``bcast_sa_min_bytes`` (256 KB per rank) and a masked
+  ``psum_scatter`` plus ``all_gather`` above, where ``(-0.0) + 0.0`` turns
+  root's negative zeros positive.  On one card both regimes are the same
+  copy, so that var is not registered (it would select nothing), and the
+  sign flip is not copied: MPI_Bcast delivers root's bytes.
+
+The quantized branches of the reference are not ported yet.  Reductions are
+cached per (coll, op, shape, dtype, device) — the reference's per-(coll, op,
+shape, dtype) program cache — so a cache hit is one dict probe and the
+reduction.
 """
 from __future__ import annotations
 
@@ -30,10 +47,9 @@ from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
 
 
-def _ar_key(x, op):
-    """Allreduce cache key — the hot-path inline form of the miss path's key;
-    the two MUST stay in sync."""
-    return ("allreduce", op.name, x.shape, x.dtype, x.device)
+def _key(coll, x, op):
+    """Reduction cache key; the shape in it stands for the checks passed."""
+    return (coll, op.name, x.shape, x.dtype, x.device)
 
 
 class BuiltinCollModule:
@@ -44,20 +60,26 @@ class BuiltinCollModule:
         self._lock = threading.Lock()
 
     # -- helpers ---------------------------------------------------------
-    def _check(self, comm, x) -> torch.Tensor:
-        """Validate and place a buffer (slow path, memoized by cache key)."""
+    def _check(self, comm, x, inner_n: bool = False) -> torch.Tensor:
+        """Validate and place a buffer (slow path, memoized by cache key);
+        ``inner_n`` also requires the ``(n, n, ...)`` layout."""
         if not isinstance(x, torch.Tensor):
-            return self.make_world_array(x)
-        if x.device != self.device:
+            x = self.make_world_array(x)
+        elif x.device != self.device:
             raise MpiError(
                 ErrorClass.ERR_BUFFER,
                 f"device collective on {self.device} got a tensor on "
                 f"{x.device}")
-        if x.dim() == 0 or x.shape[0] != self.n:
+        elif x.dim() == 0 or x.shape[0] != self.n:
             raise MpiError(
                 ErrorClass.ERR_BUFFER,
                 f"device collective needs leading rank axis {self.n}, "
                 f"got shape {tuple(x.shape)}")
+        if inner_n and (x.dim() < 2 or x.shape[1] != self.n):
+            raise MpiError(
+                ErrorClass.ERR_BUFFER,
+                f"this collective needs shape (n, n, ...), got "
+                f"{tuple(x.shape)}")
         return x
 
     def make_world_array(self, host_stack) -> torch.Tensor:
@@ -94,20 +116,38 @@ class BuiltinCollModule:
 
         return chained
 
-    # -- collective slots ------------------------------------------------
-    def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+    def _reduction(self, coll: str, comm, x, op: op_mod.Op,
+                   inner_n: bool = False):
+        """The rank-axis reduction of ``x`` under op, cached per key."""
         # steady-state fast path: one dict probe, then the reduction
         if isinstance(x, torch.Tensor):
-            fn = self._cache.get(_ar_key(x, op))
+            fn = self._cache.get(_key(coll, x, op))
             if fn is not None:
                 return fn(x)
-        x = self._check(comm, x)
-        key = _ar_key(x, op)
+        x = self._check(comm, x, inner_n)
+        key = _key(coll, x, op)
         fn = self._cache.get(key)
         if fn is None:
             with self._lock:
                 fn = self._cache.setdefault(key, self._reduce_fn(op, x.dtype))
         return fn(x)
+
+    # -- collective slots ------------------------------------------------
+    def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        return self._reduction("allreduce", comm, x, op)
+
+    def reduce_scatter_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        return self._reduction("reduce_scatter", comm, x, op, inner_n=True)
+
+    def psum_scatter_array(self, comm, x):
+        return self.reduce_scatter_array(comm, x, op_mod.SUM)
+
+    def bcast_array(self, comm, x, root: int = 0):
+        x = self._check(comm, x)
+        return x[int(root) % self.n].expand(x.shape).clone()
+
+    def allgather_array(self, comm, x):
+        return self._check(comm, x).clone()
 
 
 class BuiltinCollComponent(Component):
@@ -118,7 +158,7 @@ class BuiltinCollComponent(Component):
         self._prio = self.register_var(
             "priority", vtype=VarType.INT, default=90,
             help="Selection priority of coll/builtin (device collectives as "
-                 "torch reductions over the rank axis)")
+                 "plain torch operations over the rank axis)")
 
     def comm_query(self, comm):
         rte = comm.rte

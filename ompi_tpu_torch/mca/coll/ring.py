@@ -1,17 +1,23 @@
-"""coll/ring — hand-written ring all-reduce kernels for the device world.
+"""coll/ring — hand-written ring collective kernels for the device world.
 
 Port of ``PallasCollModule`` (``ompi_tpu/mca/coll/pallas_coll.py``), the
 coll/pallas component at priority 85: below coll/builtin's 90, so the torch
-reductions stay the default; ``--mca coll_ring_priority 95`` (or
-``OTPU_MCA_coll_ring_priority=95``) makes it own the slot.  Float SUM, MAX,
-MIN and PROD go to the ring kernels of ``ompi_tpu_torch/ops/
-ring_collectives.py``: per-rank payloads up to ``vmem_max_bytes`` to the
-fused kernel (K3), larger ones to the segmented kernel (K4, window of
-``seg_bytes``).  Every call it does not cover (other ops, non-float or
-bfloat16 payloads, sizes outside ``[min_bytes, max_bytes]``) is delegated
-to coll/builtin, the way the reference falls through to coll/xla.  The
-duplex (``bidirectional``) and bf16-wire (``wire16``) variants are not
-ported yet.
+operations stay the default; ``--mca coll_ring_priority 95`` (or
+``OTPU_MCA_coll_ring_priority=95``) makes it own the slots.  Its kernels are
+those of ``ompi_tpu_torch/ops/ring_collectives.py``:
+
+* ``allreduce_array`` and ``reduce_scatter_array`` (``psum_scatter_array``
+  is its SUM): float16/32/64 SUM, MAX, MIN and PROD.  Per-rank payloads up
+  to ``vmem_max_bytes`` go to the fused kernels (K3, K5), larger ones to the
+  segmented kernels (K4, K6, window of ``seg_bytes``).
+* ``allgather_array``: float16/32/64 payloads, to K10.
+* ``bcast_array``: any dtype (the kernel copies bytes), to K12.
+
+Every call it does not cover (other ops, other dtypes, sizes outside
+``[min_bytes, max_bytes]``, a reduce-scatter not shaped ``(n, n, ...)``) is
+delegated to coll/builtin, the way the reference falls through to coll/xla.
+The duplex (``bidirectional``) and bf16-wire (``wire16``) variants are not
+ported yet; with no var to ask for them, neither is ever routed.
 """
 from __future__ import annotations
 
@@ -86,10 +92,11 @@ class RingCollModule:
         return x.dtype in _RING_DTYPES and self._size_ok(x)
 
     def _route(self, x):
-        """Pick the accumulator regime from the per-rank payload size: fused
-        kernel up to ``vmem_max_bytes``, segmented (window of ``seg_bytes``)
-        above — the reference's selection between its linear and segmented
-        rings (``coll_base_allreduce.c:618``)."""
+        """Pick the accumulator regime of a ring reduction (all-reduce and
+        reduce-scatter alike) from the per-rank payload size ``x.nbytes //
+        n``: fused kernel up to ``vmem_max_bytes``, segmented (window of
+        ``seg_bytes``) above — the reference's selection between its linear
+        and segmented rings (``coll_base_allreduce.c:618``)."""
         per_rank = x.nbytes // max(1, self.n)
         if per_rank > self.vmem_max_bytes:
             return "seg", max(1, self.seg_bytes // x.element_size())
@@ -107,6 +114,39 @@ class RingCollModule:
         return rc.all_reduce(x.contiguous(), self.n, ring_op, variant=variant,
                              seg_elems=seg_elems)
 
+    def reduce_scatter_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        x = self._place(comm, x)
+        ring_op = _RING_OPS.get(op.name)
+        if (ring_op is None or not self._supported(x) or x.dim() < 2
+                or x.shape[1] != self.n):
+            # a malformed layout surfaces as coll/builtin's MpiError
+            return self._delegate("reduce_scatter_array", comm, x, op)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        variant, seg_elems = self._route(x)
+        return rc.reduce_scatter(x.contiguous(), self.n, ring_op,
+                                 variant=variant, seg_elems=seg_elems)
+
+    def psum_scatter_array(self, comm, x):
+        return self.reduce_scatter_array(comm, x, op_mod.SUM)
+
+    def allgather_array(self, comm, x):
+        x = self._place(comm, x)
+        if not self._supported(x):
+            return self._delegate("allgather_array", comm, x)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        return rc.all_gather(x.contiguous(), self.n)
+
+    def bcast_array(self, comm, x, root: int = 0):
+        x = self._place(comm, x)
+        # no arithmetic: any dtype qualifies, only the size gates
+        if not self._size_ok(x):
+            return self._delegate("bcast_array", comm, x, root)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        return rc.bcast(x.contiguous(), self.n, root)
+
 
 class RingCollComponent(Component):
     name = "ring"
@@ -116,7 +156,7 @@ class RingCollComponent(Component):
         self._prio = self.register_var(
             "priority", vtype=VarType.INT, default=85,
             help="Selection priority of coll/ring (hand-written ring "
-                 "all-reduce kernels); raise above coll/builtin's 90 to select")
+                 "collective kernels); raise above coll/builtin's 90 to select")
         self._min = self.register_var(
             "min_bytes", vtype=VarType.SIZE, default="0",
             help="Smallest per-rank payload routed to the ring kernels; "
@@ -127,14 +167,14 @@ class RingCollComponent(Component):
                  "bigger calls fall through to coll/builtin")
         self._vmem_max = self.register_var(
             "vmem_max_bytes", vtype=VarType.SIZE, default="8m",
-            help="Per-rank payload crossover from the fused ring kernel "
-                 "(accumulator on chip) to the segmented one (accumulator "
+            help="Per-rank payload crossover from the fused ring kernels "
+                 "(accumulator on chip) to the segmented ones (accumulator "
                  "in device memory); the default is the TPU's measured VMEM "
                  "ceiling, kept until card numbers move it")
         self._seg = self.register_var(
             "seg_bytes", vtype=VarType.SIZE, default="512k",
-            help="Window of the segmented ring kernel; it rounds the ring "
-                 "blocks up to whole windows")
+            help="Window of the segmented ring kernels; it rounds the "
+                 "all-reduce's ring blocks up to whole windows")
         self._axis = self.register_var(
             "axis_name", default="mpi",
             help="Name of the rank axis (dim 0 of the world tensor), kept "

@@ -1,4 +1,4 @@
-"""Ring all-reduce kernels for the card — port of ``ompi_tpu/ops/pallas_collectives.py``.
+"""Ring collective kernels for the card — port of ``ompi_tpu/ops/pallas_collectives.py``.
 
 The JAX package runs its explicit ring schedules as Pallas kernels over a
 1-D device mesh: every rank holds its ``(n, rows, 128)`` payload, ring
@@ -21,14 +21,33 @@ the accumulator regime.
   reference, which fixes the block partition and so the fold order; the
   card's window is a per-block shared-memory tile.
 
+``reduce_scatter(x, n, op, variant, seg_elems)`` — ``(n, n, *S)`` to
+``(n, *S)``, row b the reduction of block b over the ranks: the same two
+kernels with the partial of block b starting on rank b+1 (K5
+``otpu_ring_rs_fused``, replacing ``pc._build_reduce_scatter``, ``:502``;
+K6 ``otpu_ring_rs_seg``, replacing ``pc._build_reduce_scatter_seg``,
+``:744``).
+
+``all_gather(x, n)`` — ``(n, *S)`` to a new ``(n, *S)``: kernel K10
+(``csrc/ring_copy.cu``), replacing ``pc._build_all_gather`` (``:177``).
+
+``bcast(x, n, root)`` — ``(n, *S)`` to ``(n, *S)`` with every row equal to
+``x[root % n]``: kernel K12 (``csrc/ring_copy.cu``), replacing
+``pc._build_bcast`` (``:1294``); any dtype, the kernel copies bytes.
+
 The other variants of the reference (``bidi``, ``seg_bidi``, ``wire16``)
 are not ported yet and raise ``NotImplementedError``.
 
-Block b of the result is ``fold(x[b-1], fold(x[b-2], ... fold(x[b+1],
-x[b])))`` over blocks of ``rows*128`` elements (``_jit_all_reduce``,
-``pallas_collectives.py:1577-1620``), padded with ``_pad_value`` — the
-order of the TPU ring, kept by the kernels and the plain versions, so the
-port is bit-identical with the reference.  A CPU tensor goes to the plain
+Fold order: block b of a ring reduction is
+``fold(x[b+s-1], ... fold(x[b+s+1], x[b+s]))`` — the partial starts on
+rank b+s and every hop folds its own block into the incoming partial,
+``fold(own, partial)``.  The start offset s is the counterpart of
+``_rs_phase``'s ``align``: 0 for the all-reduce (``align=0``), 1 for the
+owner-aligned reduce-scatter (``align=-1``).  The all-reduce's blocks are
+``rows*128`` elements (``_jit_all_reduce``, ``pallas_collectives.py:1577-
+1620``), padded with ``_pad_value``; the reduce-scatter's are the payload
+``prod(S)`` itself.  Kernels and plain versions keep that order, so the port
+is bit-identical with the reference.  A CPU tensor goes to the plain
 version, a CUDA tensor to the kernel; ``launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -48,8 +67,13 @@ _OPCODE = {"sum": 0, "prod": 1, "max": 2, "min": 3}
 _DTCODE = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
 _NOT_PORTED = ("bidi", "seg_bidi", "wire16")
 
+#: ring-block start offset (``_rs_phase``'s align): all-reduce, reduce-scatter
+_AR_START, _RS_START = 0, 1
+
 #: kernel launches per wrapper (plain-version calls are not counted)
-launches = {"all_reduce_fused": 0, "all_reduce_seg": 0}
+launches = {"all_reduce_fused": 0, "all_reduce_seg": 0,
+            "reduce_scatter_fused": 0, "reduce_scatter_seg": 0,
+            "all_gather": 0, "bcast": 0}
 
 
 def _rows_for(elems: int) -> int:
@@ -78,44 +102,57 @@ def _pad_value(op: str, dtype: torch.dtype) -> float | int:
 
 def ring_block_elems(size: int, n: int, variant: str,
                      seg_elems: int | None = None) -> int:
-    """Elements per ring block for a payload of ``size`` elements."""
+    """Elements per all-reduce ring block for a payload of ``size``."""
     rows = _rows_for(-(-size // n))
     if variant == "seg":
         _, rows = _seg_rows(rows, seg_elems)
     return rows * 128
 
 
-def _check(x, n: int, op: str, variant: str) -> bool:
-    """Argument checks shared by kernels and plain versions; returns whether
-    the kernel runs (x lies on the card)."""
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ring all_reduce variant {variant!r} is not ported yet")
-    if variant not in ("fused", "seg"):
-        raise ValueError(f"unknown ring all_reduce variant {variant!r}")
-    if op not in _FOLDS:
-        raise ValueError(
-            f"unsupported ring reduction {op!r}: one of sum/max/min/prod")
+def _check_ranks(x, n: int, what: str) -> bool:
+    """Checks every wrapper shares: a contiguous tensor with a leading rank
+    axis of n on the card or the CPU; returns whether the kernel runs."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
     if x.dim() < 1 or x.shape[0] != n:
-        raise ValueError(f"ring all_reduce needs a leading rank axis of {n}, "
+        raise ValueError(f"ring {what} needs a leading rank axis of {n}, "
                          f"got shape {tuple(x.shape)}")
-    if x.dtype not in _DTCODE:
-        raise TypeError(f"ring all_reduce takes float16/32/64, got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("ring all_reduce needs a contiguous tensor")
+        raise ValueError(f"ring {what} needs a contiguous tensor")
     if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"ring all_reduce runs on cuda or cpu, got {x.device}")
+        raise ValueError(f"ring {what} runs on cuda or cpu, got {x.device}")
     return cudaenv.on_card(x)
+
+
+def _check(x, n: int, op: str, variant: str,
+           what: str = "all_reduce") -> bool:
+    """Checks of the ring reductions (kernels and plain versions alike);
+    a reduce-scatter also needs the ``(n, n, *S)`` layout."""
+    if variant in _NOT_PORTED:
+        raise NotImplementedError(
+            f"ring {what} variant {variant!r} is not ported yet")
+    if variant not in ("fused", "seg"):
+        raise ValueError(f"unknown ring {what} variant {variant!r}")
+    if op not in _FOLDS:
+        raise ValueError(
+            f"unsupported ring reduction {op!r}: one of sum/max/min/prod")
+    on_card = _check_ranks(x, n, what)
+    if what == "reduce_scatter" and (x.dim() < 2 or x.shape[1] != n):
+        raise ValueError(f"ring reduce_scatter needs shape ({n}, {n}, ...), "
+                         f"got {tuple(x.shape)}")
+    if x.dtype not in _DTCODE:
+        raise TypeError(f"ring {what} takes float16/32/64, got {x.dtype}")
+    return on_card
 
 
 # -- plain versions ------------------------------------------------------
 
-def _ring_plain(x: torch.Tensor, n: int, op: str, blk: int) -> torch.Tensor:
-    """The ring schedule on whole blocks: the partial of block b starts as
-    rank b's block and rank b+k folds its own block in, ``fold(own,
-    partial)``, for k = 1..n-1."""
+def _ring_plain(x: torch.Tensor, n: int, op: str, blk: int,
+                start: int = _AR_START) -> torch.Tensor:
+    """The ring schedule on whole blocks of ``blk`` elements of each rank's
+    row: the partial of block b starts as rank b+start's block and rank
+    b+start+k folds its own block in, ``fold(own, partial)``, for
+    k = 1..n-1.  Returns the folded row in the shape ``x.shape[1:]``."""
     size = x[0].numel()
     xp = torch.full((n, n * blk), _pad_value(op, x.dtype), dtype=x.dtype,
                     device=x.device)
@@ -123,9 +160,9 @@ def _ring_plain(x: torch.Tensor, n: int, op: str, blk: int) -> torch.Tensor:
     xb = xp.view(n, n, blk)                      # [rank, block, element]
     fold = _FOLDS[op]
     blocks = torch.arange(n, device=x.device)
-    acc = xb[blocks, blocks]
+    acc = xb[(blocks + start) % n, blocks]
     for k in range(1, n):
-        acc = fold(xb[(blocks + k) % n, blocks], acc)
+        acc = fold(xb[(blocks + start + k) % n, blocks], acc)
     return acc.reshape(-1)[:size].reshape(x.shape[1:])
 
 
@@ -142,14 +179,39 @@ def all_reduce_seg_plain(x: torch.Tensor, n: int, op: str,
                        ring_block_elems(x[0].numel(), n, "seg", seg_elems))
 
 
+def reduce_scatter_plain(x: torch.Tensor, n: int, op: str) -> torch.Tensor:
+    """Plain version of K5 and K6 alike, ``(n, n, *S)`` to ``(n, *S)``.
+
+    One version serves both regimes: the reference pads each block to
+    whole 128-lane rows (and the seg variant to whole windows) but slices
+    the padding off each block before it reaches the output, so the
+    partition never mixes blocks, and the only thing that fixes a value is
+    the rank its fold starts on (b+1).  ``seg_elems`` changes nothing."""
+    return _ring_plain(x, n, op, x[0, 0].numel(), _RS_START)
+
+
+def all_gather_plain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of K10: every rank ends with every rank's row."""
+    return x.clone()
+
+
+def bcast_plain(x: torch.Tensor, n: int, root: int) -> torch.Tensor:
+    """Plain version of K12: every row becomes root's row."""
+    return x[root % n].expand(x.shape).clone()
+
+
 # -- kernels -------------------------------------------------------------
 
-def _vec(x: torch.Tensor, *outs: torch.Tensor) -> int:
-    """16-byte vector width when every row and pointer is 16-byte aligned,
-    else 1 (element by element)."""
+def _vec(x: torch.Tensor, blk: int, *outs: torch.Tensor) -> int:
+    """16-byte vector width when every row, every ring block of ``blk``
+    elements and every pointer is 16-byte aligned, else 1 (element by
+    element): a pack that straddled two ring blocks would fold part of its
+    lanes in the other block's order."""
+    width = 16 // x.element_size()
     row_bytes = x[0].numel() * x.element_size()
-    if row_bytes % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, *outs)):
-        return 16 // x.element_size()
+    if (row_bytes % 16 == 0 and blk % width == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, *outs))):
+        return width
     return 1
 
 
@@ -159,35 +221,37 @@ def _launch(fn, *args) -> None:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
 
 
-def _kernel_fused(x: torch.Tensor, n: int, op: str, blk: int) -> torch.Tensor:
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _kernel_ring(x: torch.Tensor, n: int, op: str, blk: int, seg: bool,
+                 start: int) -> torch.Tensor:
+    """Launch K3/K5 (fused) or K4/K6 (seg) on ``x`` viewed as
+    ``(n, size)``; the output is ``x.shape[1:]``."""
     from ompi_tpu_torch.ops import _build
 
     size = x[0].numel()
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-    if size:
-        lib = _build.load("ring_fused")
-        with torch.cuda.device(x.device):
-            _launch(lib.otpu_ring_fused, x.data_ptr(), out.data_ptr(), size,
-                    blk, n, _DTCODE[x.dtype], _OPCODE[op], _vec(x, out),
-                    torch.cuda.current_stream(x.device).cuda_stream)
-        launches["all_reduce_fused"] += 1
-    return out
-
-
-def _kernel_seg(x: torch.Tensor, n: int, op: str, blk: int) -> torch.Tensor:
-    from ompi_tpu_torch.ops import _build
-
-    size = x[0].numel()
-    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-    if size:
-        acc = torch.empty(size, dtype=x.dtype, device=x.device)
-        lib = _build.load("ring_seg")
-        with torch.cuda.device(x.device):
-            _launch(lib.otpu_ring_seg, x.data_ptr(), acc.data_ptr(),
+    if not size:
+        return out
+    coll = "all_reduce" if start == _AR_START else "reduce_scatter"
+    entry = {(False, _AR_START): "otpu_ring_fused",
+             (True, _AR_START): "otpu_ring_seg",
+             (False, _RS_START): "otpu_ring_rs_fused",
+             (True, _RS_START): "otpu_ring_rs_seg"}[seg, start]
+    with torch.cuda.device(x.device):
+        if seg:
+            acc = torch.empty(size, dtype=x.dtype, device=x.device)
+            _launch(getattr(_build.load("ring_seg"), entry), x.data_ptr(),
+                    acc.data_ptr(), out.data_ptr(), size, blk, n,
+                    _DTCODE[x.dtype], _OPCODE[op], _vec(x, blk, acc, out),
+                    _stream(x))
+        else:
+            _launch(getattr(_build.load("ring_fused"), entry), x.data_ptr(),
                     out.data_ptr(), size, blk, n, _DTCODE[x.dtype],
-                    _OPCODE[op], _vec(x, acc, out),
-                    torch.cuda.current_stream(x.device).cuda_stream)
-        launches["all_reduce_seg"] += 1
+                    _OPCODE[op], _vec(x, blk, out), _stream(x))
+    launches[f"{coll}_{'seg' if seg else 'fused'}"] += 1
     return out
 
 
@@ -203,6 +267,70 @@ def all_reduce(x: torch.Tensor, n: int, op: str = "sum",
     blk = ring_block_elems(size, n, variant, seg_elems)
     if not on_card:
         return _ring_plain(x, n, op, blk)
-    if variant == "seg":
-        return _kernel_seg(x, n, op, blk)
-    return _kernel_fused(x, n, op, blk)
+    return _kernel_ring(x, n, op, blk, variant == "seg", _AR_START)
+
+
+def reduce_scatter(x: torch.Tensor, n: int, op: str = "sum",
+                   variant: str = "fused",
+                   seg_elems: int | None = None) -> torch.Tensor:
+    """``(n, n, *S)`` -> ``(n, *S)``: row b is block b reduced over the
+    ranks, its fold starting on rank b+1.  ``variant`` picks the
+    accumulator regime (K5 fused, K6 seg); ``seg_elems``, the reference's
+    VMEM window, is accepted for the same call shape but fixes no value
+    (see ``reduce_scatter_plain``)."""
+    on_card = _check(x, n, op, variant, "reduce_scatter")
+    if n == 1:
+        return x.reshape(x.shape[1:]).clone()
+    if not on_card:
+        return reduce_scatter_plain(x, n, op)
+    return _kernel_ring(x, n, op, x[0, 0].numel(), variant == "seg",
+                        _RS_START)
+
+
+def all_gather(x: torch.Tensor, n: int, variant: str = "ring") -> torch.Tensor:
+    """``(n, *S)`` -> ``(n, *S)`` replicated: a new tensor equal to ``x``
+    (``x`` itself for n == 1, as the reference returns it)."""
+    if variant == "bidi":
+        raise NotImplementedError(
+            "ring all_gather variant 'bidi' is not ported yet")
+    if variant != "ring":
+        raise ValueError(f"unknown ring all_gather variant {variant!r}")
+    on_card = _check_ranks(x, n, "all_gather")
+    if n == 1:
+        return x
+    if not on_card:
+        return all_gather_plain(x, n)
+    from ompi_tpu_torch.ops import _build
+
+    out = torch.empty_like(x)
+    nbytes = x.numel() * x.element_size()
+    if nbytes:
+        vec = 16 if x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
+        with torch.cuda.device(x.device):
+            _launch(_build.load("ring_copy").otpu_ring_all_gather,
+                    x.data_ptr(), out.data_ptr(), nbytes, vec, _stream(x))
+        launches["all_gather"] += 1
+    return out
+
+
+def bcast(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
+    """``(n, *S)`` -> ``(n, *S)``, every row a copy of ``x[root % n]``'s
+    bytes (``x`` itself for n == 1, as the reference returns it)."""
+    on_card = _check_ranks(x, n, "bcast")
+    if n == 1:
+        return x
+    root = int(root) % n
+    if not on_card:
+        return bcast_plain(x, n, root)
+    from ompi_tpu_torch.ops import _build
+
+    out = torch.empty_like(x)
+    row_bytes = x[0].numel() * x.element_size()
+    if row_bytes:
+        vec = 16 if (row_bytes % 16 == 0 and x.data_ptr() % 16 == 0
+                     and out.data_ptr() % 16 == 0) else 1
+        with torch.cuda.device(x.device):
+            _launch(_build.load("ring_copy").otpu_ring_bcast, x.data_ptr(),
+                    out.data_ptr(), row_bytes, n, root, vec, _stream(x))
+        launches["bcast"] += 1
+    return out
