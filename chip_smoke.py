@@ -18,8 +18,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    all-gather (CUDA C++) — 16 MB per rank float32, an odd int8 length and an
    unaligned pointer; K12 ring bcast (CUDA C++) — roots 0, 3 and 7 at 16 MB
    per rank float32 (root 3's row holding -0.0 and NaN), int32, an int8
-   payload of odd byte length, bool and bfloat16.  The copies (K10, K12) are
-   compared byte for byte.
+   payload of odd byte length, bool and bfloat16; K13 ring right permute
+   (CUDA C++) — 16 MB per rank float32, an odd float16 length, an unaligned
+   pointer; K14 all-to-all (CUDA C++) — ``(8, 8, 524288)`` float32 (16 MB per
+   rank), int8 blocks of odd byte length, bool; K15 ragged all-to-all (CUDA
+   C++) — the MoE dispatch slab below with its routing, then counts 0, R,
+   R + 5 and -3, an R of 1001 (not a whole number of chunk_rows), and the
+   slab as int32; K16 ragged all-gather (CUDA C++) — ``(8, 1280, 4096)``
+   float32 with the routing's counts, with counts 0 and R, and bfloat16.
+   The copies (K10, K12, K13–K16) are compared byte for byte, the ragged
+   ones over their valid rows.
 3. The main path, with every launch count set to 0 before and read after:
    ``ompi_tpu_torch.init()`` (8 virtual ranks on ``cuda:0``), then at
    default priorities ``COMM_WORLD.allreduce_array`` — SUM to coll/builtin,
@@ -30,20 +38,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``OTPU_MCA_coll_ring_priority=95``: allreduce SUM at 4 MB per rank (K3)
    and at 16 MB per rank, the headline cell (K4), ``bcast_array`` (K12) and
    ``allgather_array`` (K10) at 16 MB per rank, ``reduce_scatter_array``
-   SUM at 4 MB (K5) and 16 MB per rank (K6).  Each result is held against
-   the plain version (bit-exact) and, for SUM, against ``torch.sum(x, 0)``
-   (tolerance below).
+   SUM at 4 MB (K5) and 16 MB per rank (K6).  The exchange tier, both
+   ways: ``alltoall_array`` on ``(8, 8, 524288)`` float32 (K14),
+   ``alltoallv_array`` on the MoE dispatch slab (K15), ``allgatherv_array``
+   on ``(8, 1280, 4096)`` float32 (K16), ``ppermute_array`` with the +1
+   rotation at 16 MB per rank (K13) and with a general perm that leaves
+   rank 1 without a source (coll/builtin both ways: K13's count must not
+   move).  Each result is held against the plain version (bit-exact; the
+   ragged calls' views over their valid rows) and, for SUM, against
+   ``torch.sum(x, 0)`` (tolerance below).
+
+   The MoE dispatch slab is Mixtral-8x7B's expert layer at full width
+   (hidden 4096, 8 experts, top-2; the model card's published widths): 4096
+   tokens per rank route 8192 rows over the 8 experts, one expert a rank,
+   with skewed popularity (Zipf, exponent 0.7, sampled without replacement
+   by Gumbel top-2 from SEED); capacity factor 1.25 gives R = ceil(1.25 ·
+   4096 · 2 / 8) = 1280 rows per (rank, expert) pair, and each count is
+   clamped to R, as a capacity-factor MoE drops the overflow.  x is
+   ``(8, 8, 1280, 4096)`` float32: 160 MB per rank.
 4. Times: CUDA events around single calls, cold L2 (a 256 MB buffer is
    zeroed before each call), median of 25 after 3 warm-up calls, for each
    kernel, its plain version and one PyTorch library call computing the same
    function; the card spins first while the host enqueues every timed call,
    so host dispatch is never timed.  ``bound_ms`` is the bytes the function
    must move (inputs read once, output written once) over 3.35 TB/s, the
-   H100 SXM's memory rate.  The ``crossover_ms`` line times both
+   H100 SXM's memory rate; the ragged kernels count their valid rows only.
+   The ``crossover_ms`` line times both
    accumulator regimes of the all-reduce and of the reduce-scatter at 4 and
    16 MB per rank; the ``host_us_per_call`` line is the host's time to
    enqueue one call of each kernel's wrapper and of its library call
-   (200 calls while the card spins).
+   (200 calls while the card spins; K15's and K16's include the counts
+   table each call makes and sends to the card).
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
@@ -58,6 +83,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 MB = 1 << 20
@@ -86,8 +112,23 @@ KERNELS = {
                    "ompi_tpu/ops/pallas_collectives.py:177"),
     "bcast": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
               "ompi_tpu/ops/pallas_collectives.py:1294"),
+    "right_permute": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
+                      "ompi_tpu/ops/pallas_collectives.py:141"),
+    "all_to_all": ("cuda", "ompi_tpu_torch/csrc/exchange.cu",
+                   "ompi_tpu/ops/pallas_collectives.py:1050"),
+    "all_to_all_v": ("cuda", "ompi_tpu_torch/csrc/exchange.cu",
+                     "ompi_tpu/ops/pallas_collectives.py:1105"),
+    "all_gather_v": ("cuda", "ompi_tpu_torch/csrc/exchange.cu",
+                     "ompi_tpu/ops/pallas_collectives.py:1204"),
 }
 SEG = 512 * 1024 // 4      # seg_bytes (512k) in float32 elements
+
+# the MoE dispatch slab: Mixtral-8x7B's expert layer (hidden 4096, 8
+# experts, top-2), 4096 tokens per rank, capacity factor 1.25
+HIDDEN, EXPERTS, TOP_K, TOKENS = 4096, 8, 2, 4096
+CAPACITY = -(-5 * TOKENS * TOP_K // (4 * EXPERTS))    # ceil(1.25·T·k/E) = 1280
+ROT = tuple((i, (i + 1) % N) for i in range(N))       # the +1 rotation
+GENERAL = tuple((i, (i + 2) % N) for i in range(N - 1))   # rank 1: no source
 
 
 def log(msg: str) -> None:
@@ -135,6 +176,60 @@ def same_bytes(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
             f"{tuple(want.shape)} {want.dtype}")
     require(torch.equal(got.view(torch.uint8), want.view(torch.uint8)),
             f"{what}: bytes differ from the plain version")
+
+
+def valid_rows(out: torch.Tensor, counts) -> list:
+    """The valid rows of a ragged result, pair by pair: ``out[j, i,
+    :c[i, j]]`` for an (n, n) table, ``out[i, :c[i]]`` for an (n,) one, the
+    counts clamped to [0, R]."""
+    c = np.clip(np.asarray(counts), 0, out.shape[-2])
+    if c.ndim == 2:
+        return [out[j, i, :c[i, j]] for i in range(N) for j in range(N)]
+    return [out[i, :c[i]] for i in range(N)]
+
+
+def same_valid_bytes(got: torch.Tensor, want: torch.Tensor, counts,
+                     what: str) -> None:
+    """Byte-for-byte equality over the valid rows (the rest is
+    unspecified)."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{what}: {tuple(got.shape)} {got.dtype} vs "
+            f"{tuple(want.shape)} {want.dtype}")
+    for g, w in zip(valid_rows(got, counts), valid_rows(want, counts)):
+        require(torch.equal(g.view(torch.uint8), w.view(torch.uint8)),
+                f"{what}: bytes of the valid rows differ")
+
+
+def ragged_err(got: torch.Tensor, want: torch.Tensor, counts) -> float:
+    return max((max_abs_err(g, w) for g, w in
+                zip(valid_rows(got, counts), valid_rows(want, counts))
+                if g.numel()), default=0.0)
+
+
+def moe_counts() -> np.ndarray:
+    """(n, n) rows rank i sends expert j (on rank j): each rank routes
+    TOKENS tokens to TOP_K distinct experts, popularity skewed (Zipf,
+    exponent 0.7) and sampled without replacement by Gumbel top-k; each
+    count clamped to CAPACITY."""
+    rng = np.random.default_rng(SEED)
+    scores = (-0.7 * np.log(np.arange(1, EXPERTS + 1))
+              + rng.gumbel(size=(N, TOKENS, EXPERTS)))
+    top = np.argsort(-scores, axis=-1)[..., :TOP_K]
+    sent = np.stack([np.bincount(t.ravel(), minlength=EXPERTS) for t in top])
+    return np.minimum(sent, CAPACITY)
+
+
+def moe_slab(gen) -> torch.Tensor:
+    """The (8, 8, R, HIDDEN) float32 dispatch slab, 160 MB per rank."""
+    return operands(torch.float32, (N, N, CAPACITY, HIDDEN), gen)
+
+
+def permuted(x: torch.Tensor, perm) -> torch.Tensor:
+    """lax.ppermute's result: out[d] = x[s], zeros where no pair lands."""
+    want = torch.zeros_like(x)
+    for s, d in perm:
+        want[d] = x[s]
+    return want
 
 
 def rs_operands(per_rank: int, gen) -> torch.Tensor:
@@ -243,7 +338,64 @@ def check_kernels(gen) -> dict:
     err["bcast"] = 0.0
     log("bcast: roots 0/3/7 float32 16 MB per rank (-0.0, NaN in root 3's "
         "row), int32, int8 of odd length, bool, bfloat16: byte-exact")
+
+    same_bytes(rc.right_permute(x, N), rc.right_permute_plain(x, N),
+               "right_permute float32 16 MB/rank")
+    odd = operands(torch.float16, (N, 1001), gen)
+    same_bytes(rc.right_permute(odd, N), rc.right_permute_plain(odd, N),
+               "right_permute float16 1001/rank")
+    skew = operands(torch.float16, (N * 1001 + 1,), gen)[1:].view(N, 1001)
+    require(skew.data_ptr() % 16 != 0, "the skewed view is aligned")
+    same_bytes(rc.right_permute(skew, N), rc.right_permute_plain(skew, N),
+               "right_permute float16 unaligned")
+    err["right_permute"] = 0.0
+    log("right_permute: float32 16 MB per rank, float16 1001 per rank, an "
+        "unaligned float16 view: byte-exact")
     del x
+
+    for dtype, shape in ((torch.float32, (N, N, 524288)),
+                         (torch.int8, (N, N, 1001)), (torch.bool, (N, N, 37))):
+        a = operands(dtype, shape, gen)
+        same_bytes(rc.all_to_all(a, N), rc.all_to_all_plain(a, N),
+                   f"all_to_all {dtype} {shape}")
+    err["all_to_all"] = 0.0
+    log("all_to_all: (8, 8, 524288) float32 (16 MB per rank), int8 blocks of "
+        "1001 bytes, bool: byte-exact")
+    del a
+
+    moe, routed = moe_slab(gen), moe_counts()
+    edge = routed.copy()
+    edge[0, :4] = (0, CAPACITY, CAPACITY + 5, -3)
+    for what, x, table in (("MoE routing", moe, routed),
+                           ("counts 0/R/R+5/-3", moe, edge),
+                           ("int32 slab", moe.view(torch.int32), routed)):
+        same_valid_bytes(rc.all_to_all_v(x, table, N),
+                         rc.all_to_all_v_plain(x, table, N), table,
+                         f"all_to_all_v {what}")
+    del moe
+    odd_r = operands(torch.float32, (N, N, 1001, 128), gen)
+    table = np.minimum(routed, 1001)
+    same_valid_bytes(rc.all_to_all_v(odd_r, table, N),
+                     rc.all_to_all_v_plain(odd_r, table, N), table,
+                     "all_to_all_v R = 1001")
+    err["all_to_all_v"] = 0.0
+    log(f"all_to_all_v: the MoE slab (8, 8, {CAPACITY}, {HIDDEN}) float32 with "
+        f"its routing (valid share {routed.sum() / (N * N * CAPACITY):.3f}), "
+        "counts 0/R/R+5/-3, the slab as int32, R = 1001: byte-exact over the "
+        "valid rows")
+    del odd_r
+
+    y = operands(torch.float32, (N, CAPACITY, HIDDEN), gen)
+    for what, x, table in (("routing", y, routed[0]),
+                           ("counts 0 and R", y, [0, CAPACITY] * (N // 2)),
+                           ("bfloat16", y.bfloat16(), routed[1])):
+        same_valid_bytes(rc.all_gather_v(x, table, N),
+                         rc.all_gather_v_plain(x, table, N), table,
+                         f"all_gather_v {what}")
+    err["all_gather_v"] = 0.0
+    log(f"all_gather_v: (8, {CAPACITY}, {HIDDEN}) float32 with ragged counts, "
+        "counts 0 and R, bfloat16: byte-exact over the valid rows")
+    del y
     torch.cuda.synchronize()
     return err
 
@@ -283,7 +435,13 @@ def main_path(gen) -> dict:
     inout_plain = reduce.combine2_plain("SUM", inbuf, inout)
     rs_mid = rs_operands(4 * MB, gen)                            # 4 MB/rank
     rs_big = rs_operands(16 * MB, gen)                           # 16 MB/rank
-    new_slots = ("bcast_array", "allgather_array", "reduce_scatter_array")
+    a2a = operands(torch.float32, (N, N, 524288), gen)            # 16 MB/rank
+    moe, routed = moe_slab(gen), moe_counts()
+    agv = operands(torch.float32, (N, CAPACITY, HIDDEN), gen)
+    agv_counts = routed[0]
+    new_slots = ("bcast_array", "allgather_array", "reduce_scatter_array",
+                 "alltoall_array", "alltoallv_array", "allgatherv_array",
+                 "ppermute_array")
     torch.cuda.synchronize()
 
     reset_counts()
@@ -304,6 +462,8 @@ def main_path(gen) -> dict:
     rs_prod = world.reduce_scatter_array(rs_mid, ompi_tpu_torch.PROD)
     k1_rs = reduce.launches["reduce_stack"] - k1_before
     ompi_tpu_torch.reduce_local(inbuf, inout, ompi_tpu_torch.SUM)
+    exchange = {"builtin": exchange_calls(world, big, a2a, moe, routed, agv,
+                                          agv_counts)}
     rt.finalize()
 
     os.environ["OTPU_MCA_coll_ring_priority"] = "95"
@@ -317,6 +477,8 @@ def main_path(gen) -> dict:
     g_ring = world.allgather_array(big)
     rs_fused = world.reduce_scatter_array(rs_mid, ompi_tpu_torch.SUM)
     rs_seg = world.reduce_scatter_array(rs_big, ompi_tpu_torch.SUM)
+    exchange["ring"] = exchange_calls(world, big, a2a, moe, routed, agv,
+                                      agv_counts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
@@ -324,9 +486,10 @@ def main_path(gen) -> dict:
     del os.environ["OTPU_MCA_coll_ring_priority"]
 
     log(f"main path: 2 x init, 5 allreduce_array, 2 bcast_array, "
-        f"2 allgather_array, 4 reduce_scatter_array, reduce_local in "
-        f"{wall:.3f} s (host clock, includes the first-call builds); "
-        f"launches {launched}")
+        f"2 allgather_array, 4 reduce_scatter_array, reduce_local, 2 x "
+        f"(alltoall_array, alltoallv_array, allgatherv_array, 2 "
+        f"ppermute_array) in {wall:.3f} s (host clock, includes the "
+        f"first-call builds); launches {launched}")
     for name in KERNELS:
         require(launched[name] > 0, f"{name} was not launched on the main path")
     require(k1_rs > 0, "reduce_scatter_array PROD did not launch K1")
@@ -352,9 +515,47 @@ def main_path(gen) -> dict:
               "ring reduce_scatter SUM 4 MB/rank (K5)")
     check_sum(rs_seg, rs_big, rc.reduce_scatter_plain(rs_big, N, "sum"),
               "ring reduce_scatter SUM 16 MB/rank (K6)")
+    require(exchange["ring"]["k13_general"] == 0,
+            "the general perm launched K13 (it must go to coll/builtin)")
+    plain = {"alltoall": rc.all_to_all_plain(a2a, N),
+             "rotation": rc.right_permute_plain(big, N),
+             "general": permuted(big, GENERAL)}
+    require(not bool(plain["general"][1].any()), "rank 1 received data")
+    want_v = rc.all_to_all_v_plain(moe, routed, N)
+    for module, got in exchange.items():
+        for name, want in plain.items():
+            same_bytes(got[name], want, f"{module} {name}")
+        for i in range(N):
+            require(got["allgatherv"][i].shape[0] == agv_counts[i],
+                    f"{module} allgatherv view {i}")
+            same_bytes(got["allgatherv"][i], agv[i, :agv_counts[i]],
+                       f"{module} allgatherv view {i}")
+            for j in range(N):
+                require(got["alltoallv"][i][j].shape[0] == routed[j, i],
+                        f"{module} alltoallv view ({i}, {j})")
+                same_bytes(got["alltoallv"][i][j], want_v[i, j, :routed[j, i]],
+                           f"{module} alltoallv view ({i}, {j})")
     log("main path results: bit-exact with the plain versions (copies byte "
-        "for byte); ring SUM within 2(n-1)·2^-24·Σ|x| of torch.sum")
+        "for byte, the ragged calls' views over their valid rows); ring SUM "
+        "within 2(n-1)·2^-24·Σ|x| of torch.sum; the general perm's rank 1 "
+        "holds zeros and left K13's count unchanged")
     return launched
+
+
+def exchange_calls(world, big, a2a, moe, routed, agv, agv_counts) -> dict:
+    """The exchange tier through ``world``: alltoall, alltoallv (the MoE
+    dispatch), allgatherv and ppermute with the rotation and with GENERAL;
+    ``k13_general`` is what the general perm added to K13's count."""
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    got = {"alltoall": world.alltoall_array(a2a),
+           "alltoallv": world.alltoallv_array(moe, routed),
+           "allgatherv": world.allgatherv_array(agv, agv_counts),
+           "rotation": world.ppermute_array(big, ROT)}
+    before = rc.launches["right_permute"]
+    got["general"] = world.ppermute_array(big, GENERAL)
+    got["k13_general"] = rc.launches["right_permute"] - before
+    return got
 
 
 # -- phase 4: times ------------------------------------------------------
@@ -403,9 +604,14 @@ def measure(gen, launched: dict, err: dict) -> list:
     b = operands(torch.float32, (16 * MB // 4,), gen)
     rs_mid = rs_operands(4 * MB, gen)
     rs_big = rs_operands(16 * MB, gen)
+    a2a = operands(torch.float32, (N, N, 524288), gen)
+    moe, routed = moe_slab(gen), moe_counts()
+    agv = operands(torch.float32, (N, CAPACITY, HIDDEN), gen)
+    row = HIDDEN * 4
     seg = SEG
     cases = {
-        # name: (kernel, plain, library, inputs+output bytes, what)
+        # name: (kernel, plain, library, inputs+output bytes, what[, counts
+        # of a ragged kernel, whose error is taken over its valid rows])
         "reduce_stack": (lambda: reduce.reduce_stack("PROD", big),
                          lambda: reduce.reduce_stack_plain("PROD", big),
                          lambda: torch.prod(big, 0),
@@ -440,15 +646,39 @@ def measure(gen, launched: dict, err: dict) -> list:
                   lambda: rc.bcast_plain(big, N, 3),
                   lambda: big[3].expand(N, -1).clone(),
                   (N + 1) * 16 * MB, "f32, root 3, 8 ranks x 16 MB"),
+        "right_permute": (lambda: rc.right_permute(big, N),
+                          lambda: rc.right_permute_plain(big, N),
+                          lambda: torch.roll(big, 1, 0),
+                          2 * N * 16 * MB, "f32, 8 ranks x 16 MB"),
+        "all_to_all": (lambda: rc.all_to_all(a2a, N),
+                       lambda: rc.all_to_all_plain(a2a, N),
+                       lambda: a2a.transpose(0, 1).contiguous(),
+                       2 * N * 16 * MB, "f32, (8, 8, 524288): 8 ranks x 16 MB"),
+        "all_to_all_v": (lambda: rc.all_to_all_v(moe, routed, N),
+                         lambda: rc.all_to_all_v_plain(moe, routed, N),
+                         lambda: moe.transpose(0, 1).contiguous(),
+                         2 * int(routed.sum()) * row,
+                         f"f32 MoE dispatch (8, 8, {CAPACITY}, {HIDDEN}), "
+                         f"{int(routed.sum())} of {N * N * CAPACITY} rows valid",
+                         routed),
+        "all_gather_v": (lambda: rc.all_gather_v(agv, routed[0], N),
+                         lambda: rc.all_gather_v_plain(agv, routed[0], N),
+                         lambda: agv.clone(),
+                         2 * int(routed[0].sum()) * row,
+                         f"f32 (8, {CAPACITY}, {HIDDEN}), "
+                         f"{int(routed[0].sum())} of {N * CAPACITY} rows valid",
+                         routed[0]),
     }
     rows, host = [], {}
-    for name, (kernel, plain, library, nbytes, what) in cases.items():
+    for name, (kernel, plain, library, nbytes, what, *ragged) in cases.items():
         route, source, replaces = KERNELS[name]
         ms = time_ms(kernel)
+        got_err = (ragged_err(kernel(), plain(), ragged[0]) if ragged
+                   else max_abs_err(kernel(), plain()))
         row = {
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launched[name],
-            "max_abs_err": max(err[name], max_abs_err(kernel(), plain())),
+            "max_abs_err": max(err[name], got_err),
             "ms": ms, "plain_ms": time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": time_ms(library),

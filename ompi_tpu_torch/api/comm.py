@@ -18,7 +18,9 @@ from ompi_tpu_torch.api.group import Group
 #: collective function slots a coll module can fill (the device-buffer
 #: entry points of ``ompi_tpu/api/comm.py:COLL_FUNCTIONS`` ported so far)
 COLL_FUNCTIONS = ("allreduce_array", "bcast_array", "allgather_array",
-                  "reduce_scatter_array", "psum_scatter_array")
+                  "reduce_scatter_array", "psum_scatter_array",
+                  "alltoall_array", "alltoallv_array", "allgatherv_array",
+                  "ppermute_array")
 
 
 class Comm:
@@ -80,6 +82,22 @@ class Comm:
     def reduce_scatter_array(self, x, op: op_mod.Op = op_mod.SUM):
         self._check_state()
         return self._coll("reduce_scatter_array")(self, x, op)
+
+    def allgatherv_array(self, x, counts):
+        self._check_state()
+        return self._coll("allgatherv_array")(self, x, counts)
+
+    def alltoallv_array(self, x, counts):
+        self._check_state()
+        return self._coll("alltoallv_array")(self, x, counts)
+
+    def alltoall_array(self, x):
+        self._check_state()
+        return self._coll("alltoall_array")(self, x)
+
+    def ppermute_array(self, x, perm):
+        self._check_state()
+        return self._coll("ppermute_array")(self, x, perm)
 
     def release_coll_modules(self) -> None:
         """Tear down per-comm coll module state (runtime finalize)."""

@@ -1,7 +1,7 @@
-// K10: ring all-gather, and K12: pipelined ring bcast, of N virtual ranks
-// held as the rows of one tensor.  Both move bytes and compute nothing, so
-// both are written on bytes: one instantiation serves every dtype (bool and
-// bfloat16 included).
+// K10: ring all-gather, K12: pipelined ring bcast, and K13: ring right
+// permute, of N virtual ranks held as the rows of one tensor.  All three move
+// bytes and compute nothing, so all are written on bytes: one instantiation
+// serves every dtype (bool and bfloat16 included).
 //
 // K10 replaces the Pallas kernel pallas_collectives._build_all_gather
 // (ompi_tpu/ops/pallas_collectives.py:177): n-1 ring steps, each forwarding
@@ -24,7 +24,16 @@
 //   write n rows) / 3.35 TB/s.  Design: each thread loads 16 bytes of
 //   x[root] once and stores them into all n output rows (row_bytes a
 //   multiple of 16 and both pointers aligned); byte by byte otherwise.
-#include "ring_common.cuh"
+//
+// K13 replaces pallas_collectives._build_right_permute (:141): every rank
+// sends its (1, *S) payload to its right neighbour by one remote DMA, the
+// pipeline-parallel activation handoff.  On one card that is out[(i+1) % n]
+// = x[i] for x (n, *S): a rotated copy.
+//   Bound on an H100: device-memory bytes, 2*n*S / 3.35 TB/s.  Design: the
+//   pair copy of pair_copy.cuh with pair i = rank i's row and its slot
+//   rotated by one (16 bytes a thread when the row length and both pointers
+//   are 16-byte aligned, byte by byte otherwise).
+#include "pair_copy.cuh"
 
 namespace otpu {
 
@@ -124,4 +133,16 @@ extern "C" int otpu_ring_bcast(const void* x, void* out, long long row_bytes,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// x, out: (n, row_bytes) device pointers.  vec is 16 (row_bytes % 16 == 0
+// and both pointers 16-byte aligned; the wrapper checks) or 1.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
+// vec).
+extern "C" int otpu_ring_right_permute(const void* x, void* out, long long row_bytes,
+                                       int n, int vec, void* stream) {
+  if (vec == 16 && row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
+  const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
+                         nullptr, row_bytes, 0, n, n};
+  return otpu::launch_pair_copy<otpu::SLOT_ROTATE>(a, vec, stream);
 }

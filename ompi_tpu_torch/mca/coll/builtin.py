@@ -27,6 +27,16 @@ is one tensor; a rank-sharded result has a leading rank axis.
   root's negative zeros positive.  On one card both regimes are the same
   copy, so that var is not registered (it would select nothing), and the
   sign flip is not copied: MPI_Bcast delivers root's bytes.
+* The exchange tier (``xla.py:438-451``, ``:535-573``): ``alltoall_array``
+  — ``(n, n, *S)``, ``out[j, i] = x[i, j]``, a transpose copy;
+  ``alltoallv_array`` — the padded exchange, returned as the reference's
+  list of views ``out[i][j] = full[i, j, :counts[j][i]]``;
+  ``allgatherv_array`` — ``allgather_array`` and the views ``full[i,
+  :counts[i]]``; ``ppermute_array`` — ``lax.ppermute``: ``out[d] = x[s]``
+  for each pair, zeros on a rank that is no destination.  A counts table of
+  the wrong shape raises ``MpiError(ERR_BUFFER)`` (coll/xla raises an
+  ``IndexError`` or ``TypeError`` there, or slices a larger table); a perm
+  that repeats a rank raises ``ValueError``, as ``lax.ppermute`` does.
 
 The quantized branches of the reference are not ported yet.  Reductions are
 cached per (coll, op, shape, dtype, device) — the reference's per-(coll, op,
@@ -45,6 +55,32 @@ from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.base import cudaenv
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
+
+
+def counts_table(counts, shape: tuple, what: str) -> np.ndarray:
+    """A ragged collective's counts as a host array of ``shape`` (one copy
+    back from the card if they lie there: the views need host ints); any
+    other shape raises ``MpiError(ERR_BUFFER)``."""
+    if isinstance(counts, torch.Tensor):
+        counts = counts.detach().cpu().numpy()
+    table = np.asarray(counts)
+    if table.shape != shape:
+        raise MpiError(ErrorClass.ERR_BUFFER,
+                       f"{what} needs counts of shape {shape}, got "
+                       f"{table.shape}")
+    return table
+
+
+def ragged_views(full, counts: np.ndarray) -> list:
+    """The ragged collectives' return contract (``xla.py:451``, ``:560``):
+    views of ``full`` sliced to the counts -- ``full[i, j, :counts[j, i]]``,
+    what rank i received from rank j, for an (n, n) table, and ``full[i,
+    :counts[i]]`` for an (n,) one."""
+    n = len(counts)
+    if counts.ndim == 2:
+        return [[full[i, j, :int(counts[j, i])] for j in range(n)]
+                for i in range(n)]
+    return [full[i, :int(counts[i])] for i in range(n)]
 
 
 def _key(coll, x, op):
@@ -148,6 +184,47 @@ class BuiltinCollModule:
 
     def allgather_array(self, comm, x):
         return self._check(comm, x).clone()
+
+    def allgatherv_array(self, comm, x, counts):
+        counts = counts_table(counts, (self.n,), "allgatherv")
+        return ragged_views(self.allgather_array(comm, x), counts)
+
+    def alltoall_array(self, comm, x):
+        return self._check(comm, x, inner_n=True).transpose(0, 1).contiguous()
+
+    def alltoallv_array(self, comm, x, counts):
+        counts = counts_table(counts, (self.n, self.n), "alltoallv")
+        return ragged_views(self.alltoall_array(comm, x), counts)
+
+    def _perm_index(self, perm: tuple, device):
+        """(sources, destinations) of ``perm`` as index tensors on
+        ``device``, ordered by destination; cached per perm."""
+        key = ("ppermute", perm, device)
+        idx = self._cache.get(key)
+        if idx is None:
+            srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+            if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts):
+                raise ValueError("ppermute sources and destinations must be "
+                                 f"unique, got {perm}")
+            if not all(0 <= r < self.n for r in srcs + dsts):
+                raise ValueError(f"ppermute ranks must lie in [0, {self.n}), "
+                                 f"got {perm}")
+            order = sorted(perm, key=lambda pair: pair[1])
+            idx = tuple(torch.tensor([pair[k] for pair in order],
+                                     dtype=torch.int64, device=device)
+                        for k in (0, 1))
+            with self._lock:
+                idx = self._cache.setdefault(key, idx)
+        return idx
+
+    def ppermute_array(self, comm, x, perm):
+        x = self._check(comm, x)
+        perm = tuple((int(s), int(d)) for s, d in perm)
+        src, dst = self._perm_index(perm, x.device)
+        if len(perm) == self.n:             # every rank receives
+            return x.index_select(0, src)
+        out = torch.zeros_like(x)
+        return out.index_copy_(0, dst, x.index_select(0, src))
 
 
 class BuiltinCollComponent(Component):

@@ -12,10 +12,20 @@ those of ``ompi_tpu_torch/ops/ring_collectives.py``:
   segmented kernels (K4, K6, window of ``seg_bytes``).
 * ``allgather_array``: float16/32/64 payloads, to K10.
 * ``bcast_array``: any dtype (the kernel copies bytes), to K12.
+* ``alltoall_array``: any dtype shaped ``(n, n, ...)``, to K14.
+* ``alltoallv_array``: any dtype shaped ``(n, n, R, W)`` with ``W % 128 ==
+  0``, to K15; ``allgatherv_array``: any dtype shaped ``(n, R, W)``, the
+  same width rule, to K16.  Both return the reference's views sliced to the
+  counts, and a counts table of the wrong shape raises
+  ``MpiError(ERR_BUFFER)``.  The 128-lane width is a TPU rule the card does
+  not need; it is kept so that both packages route the same calls.
+* ``ppermute_array``: the exact ``+1`` rotation ``((0, 1), (1, 2), ...,
+  (n-1, 0))``, pairs in that order, on a float16/32/64 payload, to K13.
 
 Every call it does not cover (other ops, other dtypes, sizes outside
-``[min_bytes, max_bytes]``, a reduce-scatter not shaped ``(n, n, ...)``) is
-delegated to coll/builtin, the way the reference falls through to coll/xla.
+``[min_bytes, max_bytes]``, a reduce-scatter or alltoall not shaped ``(n,
+n, ...)``, a ragged payload of another layout, any other perm) is delegated
+to coll/builtin, the way the reference falls through to coll/xla.
 The duplex (``bidirectional``) and bf16-wire (``wire16``) variants are not
 ported yet; with no var to ask for them, neither is ever routed.
 """
@@ -27,6 +37,7 @@ from ompi_tpu_torch.api import op as op_mod
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
+from ompi_tpu_torch.mca.coll.builtin import counts_table, ragged_views
 
 #: MPI op name -> ring-kernel fold name (ompi_tpu_torch/ops/ring_collectives)
 _RING_OPS = {"SUM": "sum", "MAX": "max", "MIN": "min", "PROD": "prod"}
@@ -146,6 +157,54 @@ class RingCollModule:
         from ompi_tpu_torch.ops import ring_collectives as rc
 
         return rc.bcast(x.contiguous(), self.n, root)
+
+    def _exchange_ok(self, x, ndim: int | None = None) -> bool:
+        """The exchange tier's gate: the size, the leading rank axis, and
+        for the ragged pair ``ndim`` dims with a width of whole 128 lanes
+        (``pallas_coll.py:190-191``, ``:205-207``, ``:236-237``)."""
+        if not self._size_ok(x) or x.dim() < 1 or x.shape[0] != self.n:
+            return False
+        return ndim is None or (x.dim() == ndim and x.shape[-1] % 128 == 0)
+
+    def alltoall_array(self, comm, x):
+        x = self._place(comm, x)
+        # no arithmetic: any dtype; a malformed layout surfaces as
+        # coll/builtin's MpiError
+        if not self._exchange_ok(x) or x.dim() < 2 or x.shape[1] != self.n:
+            return self._delegate("alltoall_array", comm, x)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        return rc.all_to_all(x.contiguous(), self.n)
+
+    def alltoallv_array(self, comm, x, counts):
+        x = self._place(comm, x)
+        if not self._exchange_ok(x, 4) or x.shape[1] != self.n:
+            return self._delegate("alltoallv_array", comm, x, counts)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        counts = counts_table(counts, (self.n, self.n), "alltoallv")
+        return ragged_views(rc.all_to_all_v(x.contiguous(), counts, self.n),
+                            counts)
+
+    def allgatherv_array(self, comm, x, counts):
+        x = self._place(comm, x)
+        if not self._exchange_ok(x, 3):
+            return self._delegate("allgatherv_array", comm, x, counts)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        counts = counts_table(counts, (self.n,), "allgatherv")
+        return ragged_views(rc.all_gather_v(x.contiguous(), counts, self.n),
+                            counts)
+
+    def ppermute_array(self, comm, x, perm):
+        perm = tuple((int(s), int(d)) for s, d in perm)
+        rot = tuple((i, (i + 1) % self.n) for i in range(self.n))
+        x = self._place(comm, x)
+        if perm != rot or not self._supported(x) or x.shape[0] != self.n:
+            return self._delegate("ppermute_array", comm, x, perm)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        return rc.right_permute(x.contiguous(), self.n)
 
 
 class RingCollComponent(Component):

@@ -35,6 +35,25 @@ K6 ``otpu_ring_rs_seg``, replacing ``pc._build_reduce_scatter_seg``,
 ``x[root % n]``: kernel K12 (``csrc/ring_copy.cu``), replacing
 ``pc._build_bcast`` (``:1294``); any dtype, the kernel copies bytes.
 
+The exchange tier moves bytes too, on any dtype (``csrc/pair_copy.cuh``):
+
+* ``right_permute(x, n)`` — ``out[(i+1) % n] = x[i]``: kernel K13
+  (``csrc/ring_copy.cu``), replacing ``pc._build_right_permute`` (``:141``).
+* ``all_to_all(x, n)`` — ``(n, n, *S)``, ``out[j, i] = x[i, j]``: kernel K14
+  (``csrc/exchange.cu``), replacing ``pc._build_all_to_all`` (``:1050``).
+* ``all_to_all_v(x, counts, n)`` — ``(n, n, R, W)`` with an ``(n, n)`` counts
+  table, ``out[j, i, :c] = x[i, j, :c]``: kernel K15 (``csrc/exchange.cu``),
+  replacing ``pc._build_all_to_all_v`` (``:1105``).
+* ``all_gather_v(x, counts, n)`` — ``(n, R, W)`` with ``(n,)`` counts,
+  ``out[i, :c_i] = x[i, :c_i]``: kernel K16 (``csrc/exchange.cu``),
+  replacing ``pc._build_all_gather_v`` (``:1204``).
+
+The ragged two clamp their counts to ``[0, R]`` (on the card an unclamped
+count would copy past the slot) and leave the rows past each count
+unspecified, as the reference does: the output is not zeroed.  Their counts
+are a runtime operand of the kernel, a small int32 device tensor made per
+call, so a new routing rebuilds nothing.
+
 The other variants of the reference (``bidi``, ``seg_bidi``, ``wire16``)
 are not ported yet and raise ``NotImplementedError``.
 
@@ -73,7 +92,8 @@ _AR_START, _RS_START = 0, 1
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches = {"all_reduce_fused": 0, "all_reduce_seg": 0,
             "reduce_scatter_fused": 0, "reduce_scatter_seg": 0,
-            "all_gather": 0, "bcast": 0}
+            "all_gather": 0, "bcast": 0, "right_permute": 0,
+            "all_to_all": 0, "all_to_all_v": 0, "all_gather_v": 0}
 
 
 def _rows_for(elems: int) -> int:
@@ -313,6 +333,33 @@ def all_gather(x: torch.Tensor, n: int, variant: str = "ring") -> torch.Tensor:
     return out
 
 
+def _byte_vec(unit_bytes: int, *tensors: torch.Tensor) -> int:
+    """16 (bytes a thread) when ``unit_bytes`` -- the row, block or slot at
+    each multiple of which a copy starts -- and every pointer are 16-byte
+    aligned, else 1."""
+    if unit_bytes % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return 16
+    return 1
+
+
+def _copy(lib: str, entry: str, key: str, x: torch.Tensor, unit_bytes: int,
+          *args) -> torch.Tensor:
+    """A new tensor like ``x`` written by the byte-copy kernel ``entry`` of
+    library ``lib``, called as ``entry(x, out, *args, vec, stream)`` with the
+    vector width that ``unit_bytes`` allows; an empty unit launches
+    nothing."""
+    from ompi_tpu_torch.ops import _build
+
+    out = torch.empty_like(x)
+    if unit_bytes:
+        with torch.cuda.device(x.device):
+            _launch(getattr(_build.load(lib), entry), x.data_ptr(),
+                    out.data_ptr(), *args, _byte_vec(unit_bytes, x, out),
+                    _stream(x))
+        launches[key] += 1
+    return out
+
+
 def bcast(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
     """``(n, *S)`` -> ``(n, *S)``, every row a copy of ``x[root % n]``'s
     bytes (``x`` itself for n == 1, as the reference returns it)."""
@@ -322,15 +369,153 @@ def bcast(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
     root = int(root) % n
     if not on_card:
         return bcast_plain(x, n, root)
-    from ompi_tpu_torch.ops import _build
-
-    out = torch.empty_like(x)
     row_bytes = x[0].numel() * x.element_size()
-    if row_bytes:
-        vec = 16 if (row_bytes % 16 == 0 and x.data_ptr() % 16 == 0
-                     and out.data_ptr() % 16 == 0) else 1
-        with torch.cuda.device(x.device):
-            _launch(_build.load("ring_copy").otpu_ring_bcast, x.data_ptr(),
-                    out.data_ptr(), row_bytes, n, root, vec, _stream(x))
-        launches["bcast"] += 1
+    return _copy("ring_copy", "otpu_ring_bcast", "bcast", x, row_bytes,
+                 row_bytes, n, root)
+
+
+# -- the exchange tier (K13-K16) --------------------------------------------
+
+def right_permute_plain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of K13: row i moves to row i+1 (mod n)."""
+    return torch.roll(x, 1, 0)
+
+
+def all_to_all_plain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of K14: ``out[j, i] = x[i, j]``."""
+    return x.transpose(0, 1).contiguous()
+
+
+def _ragged_counts(counts, shape: tuple, rows: int, what: str) -> torch.Tensor:
+    """``counts`` as an int32 tensor clamped to ``[0, rows]`` -- the
+    reference's clip, without which a count past R would copy past its slot
+    on the card -- on the device it came on (the CPU unless it is a
+    tensor).  A table of another shape raises ``ValueError``."""
+    if isinstance(counts, torch.Tensor):
+        table = counts.detach()
+    else:
+        table = torch.as_tensor(np.asarray(counts, dtype=np.int64))
+    table = table.clamp(0, rows).to(torch.int32)
+    if tuple(table.shape) != shape:
+        raise ValueError(f"ring {what} needs {shape} counts, got "
+                         f"{tuple(table.shape)}")
+    return table
+
+
+def all_to_all_v_plain(x: torch.Tensor, counts, n: int) -> torch.Tensor:
+    """Plain version of K15: the n*n pairs one by one, ``c`` rows each
+    (counts clamped); rows past a count are left as ``torch.empty`` gives
+    them."""
+    c = _ragged_counts(counts, (n, n), x.shape[2], "all_to_all_v").tolist()
+    out = torch.empty_like(x)
+    for i in range(n):
+        for j in range(n):
+            out[j, i, :c[i][j]] = x[i, j, :c[i][j]]
     return out
+
+
+def all_gather_v_plain(x: torch.Tensor, counts, n: int) -> torch.Tensor:
+    """Plain version of K16: the n blocks one by one, ``c_i`` rows each."""
+    c = _ragged_counts(counts, (n,), x.shape[1], "all_gather_v").tolist()
+    out = torch.empty_like(x)
+    for i in range(n):
+        out[i, :c[i]] = x[i, :c[i]]
+    return out
+
+
+def _check_ragged(x, n: int, ndim: int, what: str, layout: str) -> bool:
+    """The ragged wrappers' shape checks: ``ndim`` dims (the second of
+    a2av also n) and a row width W that is a whole number of 128 lanes."""
+    on_card = _check_ranks(x, n, what)
+    if x.dim() != ndim or (ndim == 4 and x.shape[1] != n):
+        raise ValueError(f"ring {what} needs a {layout} tensor, got "
+                         f"{tuple(x.shape)}")
+    if x.shape[-1] % 128:
+        raise ValueError(f"ring {what} row width must be a multiple of 128 "
+                         f"lanes, got {x.shape[-1]} (pad the feature dim)")
+    return on_card
+
+
+def _ragged(entry: str, key: str, x: torch.Tensor,
+            table: torch.Tensor) -> torch.Tensor:
+    """Launch K15 or K16 on ``x`` with the clamped ``table``, which reaches
+    the card as an int32 tensor without a host synchronisation (from pinned
+    memory, unless it lies on the card already)."""
+    if table.device != x.device:
+        table = table.pin_memory().to(x.device, non_blocking=True)
+    table = table.contiguous()
+    row_bytes = x.shape[-1] * x.element_size()
+    slot_bytes = x.shape[-2] * row_bytes
+    return _copy("exchange", entry, key, x, slot_bytes, table.data_ptr(),
+                 slot_bytes, row_bytes, x.shape[0])
+
+
+def right_permute(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``(n, *S)`` -> ``(n, *S)`` with ``out[(i+1) % n] = x[i]``, any dtype
+    (``x`` itself for n == 1, as the reference returns it)."""
+    on_card = _check_ranks(x, n, "right_permute")
+    if n == 1:
+        return x
+    if not on_card:
+        return right_permute_plain(x, n)
+    row_bytes = x[0].numel() * x.element_size()
+    return _copy("ring_copy", "otpu_ring_right_permute", "right_permute", x,
+                 row_bytes, row_bytes, n)
+
+
+def all_to_all(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``(n, n, *S)`` -> ``(n, n, *S)`` with ``out[j, i] = x[i, j]``, any
+    dtype (``x`` itself for n == 1); another layout raises ``ValueError``."""
+    on_card = _check_ranks(x, n, "all_to_all")
+    if x.dim() < 2 or x.shape[1] != n:
+        raise ValueError(f"ring all_to_all needs a ({n}, {n}, *S) tensor, "
+                         f"got {tuple(x.shape)}")
+    if n == 1:
+        return x
+    if not on_card:
+        return all_to_all_plain(x, n)
+    blk_bytes = x[0, 0].numel() * x.element_size()
+    return _copy("exchange", "otpu_all_to_all", "all_to_all", x, blk_bytes,
+                 blk_bytes, n)
+
+
+def all_to_all_v(x: torch.Tensor, counts, n: int,
+                 chunk_rows: int = 8) -> torch.Tensor:
+    """``(n, n, R, W)`` -> ``(n, n, R, W)`` with ``out[j, i, :c] =
+    x[i, j, :c]``, ``c = clamp(counts[i, j], 0, R)``; rows past ``c`` are
+    unspecified.  Any dtype; W must be a multiple of 128 and ``counts`` an
+    ``(n, n)`` table (a list, array or tensor), else ``ValueError``.  ``x``
+    itself for n == 1, R == 0 or W == 0.
+
+    ``chunk_rows`` is accepted for the reference's call shape but fixes no
+    value: the reference pads R to whole chunks of (chunk_rows, W) DMAs and
+    slices the padding off again, and the card copies each pair's rows
+    exactly."""
+    on_card = _check_ragged(x, n, 4, "all_to_all_v", f"({n}, {n}, R, W)")
+    if n == 1:
+        return x
+    table = _ragged_counts(counts, (n, n), x.shape[2], "all_to_all_v")
+    if x.shape[2] == 0 or x.shape[3] == 0:
+        return x
+    if not on_card:
+        return all_to_all_v_plain(x, table, n)
+    return _ragged("otpu_all_to_all_v", "all_to_all_v", x, table)
+
+
+def all_gather_v(x: torch.Tensor, counts, n: int,
+                 chunk_rows: int = 8) -> torch.Tensor:
+    """``(n, R, W)`` -> ``(n, R, W)`` replicated with ``out[i, :c_i] =
+    x[i, :c_i]``, ``c_i = clamp(counts[i], 0, R)``; rows past ``c_i`` are
+    unspecified.  Any dtype; W must be a multiple of 128 and ``counts`` of
+    length n, else ``ValueError``.  ``x`` itself for n == 1, R == 0 or
+    W == 0.  ``chunk_rows`` is accepted but fixes no value (see
+    ``all_to_all_v``)."""
+    on_card = _check_ragged(x, n, 3, "all_gather_v", f"({n}, R, W)")
+    if n == 1:
+        return x
+    table = _ragged_counts(counts, (n,), x.shape[1], "all_gather_v")
+    if x.shape[1] == 0 or x.shape[2] == 0:
+        return x
+    if not on_card:
+        return all_gather_v_plain(x, table, n)
+    return _ragged("otpu_all_gather_v", "all_gather_v", x, table)

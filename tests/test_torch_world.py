@@ -161,7 +161,7 @@ def test_unfilled_slots_raise(torch_world):
     from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 
     with pytest.raises(MpiError) as e:
-        torch_world._coll("alltoall_array")
+        torch_world._coll("scan_array")
     assert e.value.error_class is ErrorClass.ERR_UNSUPPORTED_OPERATION
 
 
