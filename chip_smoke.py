@@ -27,7 +27,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    slab as int32; K16 ragged all-gather (CUDA C++) — ``(8, 1280, 4096)``
    float32 with the routing's counts, with counts 0 and R, and bfloat16.
    The copies (K10, K12, K13–K16) are compared byte for byte, the ragged
-   ones over their valid rows.
+   ones over their valid rows.  The int8 codec (Triton): K17
+   ``encode_int8``, K19 ``decode_int8`` and K18 ``dequant_accumulate`` at
+   k = 2 and 8, on 8 × 16 MB float32 and on 8 × 70001 elements, each holding
+   an all-zero block, a block of exact .5 ties, a NaN block and a ±inf block
+   (bit for bit; NaN compared as NaN at the same places).  The bf16 wire
+   (CUDA C++): K7 ``all_reduce`` wire16 with sum/max/min/prod at 4 MB per
+   rank and 23 and 1000 elements per rank, K5's wire16 form on ``(8, 8,
+   131072)`` and ragged blocks ``S = (23,)`` and ``(5, 200)``.
 3. The main path, with every launch count set to 0 before and read after:
    ``ompi_tpu_torch.init()`` (8 virtual ranks on ``cuda:0``), then at
    default priorities ``COMM_WORLD.allreduce_array`` — SUM to coll/builtin,
@@ -44,9 +51,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    on ``(8, 1280, 4096)`` float32 (K16), ``ppermute_array`` with the +1
    rotation at 16 MB per rank (K13) and with a general perm that leaves
    rank 1 without a source (coll/builtin both ways: K13's count must not
-   move).  Each result is held against the plain version (bit-exact; the
-   ragged calls' views over their valid rows) and, for SUM, against
-   ``torch.sum(x, 0)`` (tolerance below).
+   move).  The compressed collectives: in the first init, ``COMM_WORLD.dup()``
+   with the accuracy budget 0.01 (info key ``otpu_quant_budget``) runs
+   allreduce SUM and allgather at 16 MB per rank through coll/builtin's
+   int8 codec (K17 twice, K18 once, K19 once, exactly); a dup with budget
+   0.005 (bf16 codec, plain torch) and MAX on the 0.01 dup launch no codec
+   kernel; a third init adds ``OTPU_MCA_coll_ring_wire16=1`` to the raised
+   ring: allreduce SUM at 4 MB per rank (K7 once), at 16 MB per rank (K4,
+   no K7) and reduce_scatter SUM at 4 MB per rank (K5's wire16 form once).
+   Each result is held against the plain version (bit-exact; the ragged
+   calls' views over their valid rows) and, for SUM, against
+   ``torch.sum(x, 0)`` (tolerance below; the codecs within their band of
+   ``torch.sum(x.double(), 0)`` relative to its largest magnitude, the
+   wire within n·2^-8·Σ|x_i|).
 
    The MoE dispatch slab is Mixtral-8x7B's expert layer at full width
    (hidden 4096, 8 experts, top-2; the model card's published widths): 4096
@@ -63,6 +80,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    so host dispatch is never timed.  ``bound_ms`` is the bytes the function
    must move (inputs read once, output written once) over 3.35 TB/s, the
    H100 SXM's memory rate; the ragged kernels count their valid rows only.
+   K7 and K5's wire16 form are timed
+   beside K3 and K5 on the same inputs (the same bytes), and the
+   ``codec_path_ms`` line times the whole int8 allreduce (K17 then K18) and
+   the bf16 codec's plain torch beside ``torch.sum`` at 8 × 16 MB.
    The ``crossover_ms`` line times both
    accumulator regimes of the all-reduce and of the reduce-scatter at 4 and
    16 MB per rank; the ``host_us_per_call`` line is the host's time to
@@ -120,6 +141,16 @@ KERNELS = {
                      "ompi_tpu/ops/pallas_collectives.py:1105"),
     "all_gather_v": ("cuda", "ompi_tpu_torch/csrc/exchange.cu",
                      "ompi_tpu/ops/pallas_collectives.py:1204"),
+    "encode_int8": ("triton", "ompi_tpu_torch/ops/quant.py",
+                    "ompi_tpu/ops/pallas_quant.py:77"),
+    "dequant_accumulate": ("triton", "ompi_tpu_torch/ops/quant.py",
+                           "ompi_tpu/ops/pallas_quant.py:106"),
+    "decode_int8": ("triton", "ompi_tpu_torch/ops/quant.py",
+                    "ompi_tpu/ops/pallas_quant.py:139"),
+    "all_reduce_wire16": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
+                          "ompi_tpu/ops/pallas_collectives.py:425"),
+    "reduce_scatter_wire16": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
+                              "ompi_tpu/ops/pallas_collectives.py:502"),
 }
 SEG = 512 * 1024 // 4      # seg_bytes (512k) in float32 elements
 
@@ -140,16 +171,18 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def counts():
-    from ompi_tpu_torch.ops import reduce, ring_collectives
+def launch_tables() -> tuple:
+    from ompi_tpu_torch.ops import quant, reduce, ring_collectives
 
-    return {**reduce.launches, **ring_collectives.launches}
+    return reduce.launches, ring_collectives.launches, quant.launches
+
+
+def counts():
+    return {k: v for table in launch_tables() for k, v in table.items()}
 
 
 def reset_counts() -> None:
-    from ompi_tpu_torch.ops import reduce, ring_collectives
-
-    for table in (reduce.launches, ring_collectives.launches):
+    for table in launch_tables():
         for k in table:
             table[k] = 0
 
@@ -167,6 +200,21 @@ def same_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
     require(torch.equal(got, want),
             f"{what}: kernel differs from plain version, max abs err "
             f"{max_abs_err(got, want)}")
+
+
+def same_bits_nan(got: torch.Tensor, want: torch.Tensor, what: str) -> bool:
+    """Bit for bit outside NaN, and NaN at the same places (a NaN's payload
+    carries no value); returns whether the NaN bits agree as well."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{what}: {tuple(got.shape)} {got.dtype} vs "
+            f"{tuple(want.shape)} {want.dtype}")
+    if not got.is_floating_point():
+        same_bits(got, want, what)
+        return True
+    nan = torch.isnan(want)
+    require(torch.equal(torch.isnan(got), nan), f"{what}: NaN at other places")
+    same_bits(got[~nan], want[~nan], what)
+    return torch.equal(got[nan].view(torch.int32), want[nan].view(torch.int32))
 
 
 def same_bytes(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
@@ -396,8 +444,78 @@ def check_kernels(gen) -> dict:
     log(f"all_gather_v: (8, {CAPACITY}, {HIDDEN}) float32 with ragged counts, "
         "counts 0 and R, bfloat16: byte-exact over the valid rows")
     del y
+    check_codec_kernels(gen, err)
+    check_wire16_kernels(gen, err)
     torch.cuda.synchronize()
     return err
+
+
+def codec_operands(k: int, size: int, gen) -> torch.Tensor:
+    """(k, size) float32 on the card: normal values, and on ranks 0-3 an
+    all-zero block, a block of exact .5 ties (amax 127, so 127/amax is 1),
+    a block holding NaN and one holding +inf and -inf."""
+    x = torch.randn((k, size), device="cuda", generator=gen)
+    ties = torch.arange(128, device="cuda", dtype=torch.float32) - 63.5
+    ties[0] = 127.0
+    x[0, :128] = 0.0
+    x[1 % k, 128:256] = ties
+    x[2 % k, 256 + 17] = float("nan")
+    x[3 % k, 384 + 3], x[3 % k, 384 + 90] = float("inf"), float("-inf")
+    return x
+
+
+def check_codec_kernels(gen, err: dict) -> None:
+    """K17, K18 and K19 against their plain versions, bit for bit (NaN as
+    NaN), with the special blocks of ``codec_operands``."""
+    from ompi_tpu_torch.ops import quant as qo
+
+    nan_bits = True
+    for size in (16 * MB // 4, 70001):
+        x = codec_operands(N, size, gen)
+        q, s = qo.encode_int8(x)
+        pq, ps = qo.encode_int8_plain(x)
+        same_bits(q, pq, f"encode_int8 q, 8 x {size}")
+        nan_bits &= same_bits_nan(s, ps, f"encode_int8 s, 8 x {size}")
+        require(bool(torch.isnan(s[2, 2])) and bool(torch.isinf(s[3, 3]))
+                and not bool(q[2, 2].any() or q[3, 3].any() or q[0, 0].any()),
+                "encode_int8: the NaN, inf and zero blocks")
+        require(q[1, 1, 60:68].tolist() == [-4, -2, -2, 0, 0, 2, 2, 4],
+                "encode_int8: .5 ties are not rounded to even")
+        nan_bits &= same_bits_nan(qo.decode_int8(q, s),
+                                  qo.decode_int8_plain(q, s),
+                                  f"decode_int8, 8 x {size}")
+        for k in (2, 8):
+            nan_bits &= same_bits_nan(
+                qo.dequant_accumulate(q[:k], s[:k]),
+                qo.dequant_accumulate_plain(q[:k], s[:k]),
+                f"dequant_accumulate k={k}, {size}")
+        del x, q, s, pq, ps
+    err["encode_int8"] = err["dequant_accumulate"] = err["decode_int8"] = 0.0
+    log("encode_int8/decode_int8/dequant_accumulate (k = 2, 8): 8 x 16 MB and "
+        "8 x 70001 float32 with zero, .5-tie, NaN and inf blocks: bit-exact "
+        f"(NaN at the same places; NaN bits {'equal' if nan_bits else 'differ'})")
+
+
+def check_wire16_kernels(gen, err: dict) -> None:
+    """K7 and K5's wire16 form against their plain versions, bit for bit."""
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    for per in (4 * MB // 4, 23, 1000):
+        x = operands(torch.float32, (N, per), gen)
+        for op in ("sum", "max", "min", "prod"):
+            same_bits(rc.all_reduce(x, N, op, "wire16"),
+                      rc.all_reduce_wire16_plain(x, N, op),
+                      f"all_reduce wire16 {op} 8 x {per}")
+    for payload in ((131072,), (23,), (5, 200)):
+        x = operands(torch.float32, (N, N, *payload), gen)
+        for op in ("sum", "max"):
+            same_bits(rc.reduce_scatter(x, N, op, "wire16"),
+                      rc.reduce_scatter_wire16_plain(x, N, op),
+                      f"reduce_scatter wire16 {op} S={payload}")
+    err["all_reduce_wire16"] = err["reduce_scatter_wire16"] = 0.0
+    log("all_reduce wire16 (K7): sum/max/min/prod at 4 MB, 23 and 1000 "
+        "elements per rank; reduce_scatter wire16: sum/max on (8, 8, 131072), "
+        "S = (23,) and (5, 200): bit-exact")
 
 
 # -- phase 3: the main path ---------------------------------------------
@@ -464,6 +582,7 @@ def main_path(gen) -> dict:
     ompi_tpu_torch.reduce_local(inbuf, inout, ompi_tpu_torch.SUM)
     exchange = {"builtin": exchange_calls(world, big, a2a, moe, routed, agv,
                                           agv_counts)}
+    codec = codec_calls(world, big)
     rt.finalize()
 
     os.environ["OTPU_MCA_coll_ring_priority"] = "95"
@@ -479,14 +598,20 @@ def main_path(gen) -> dict:
     rs_seg = world.reduce_scatter_array(rs_big, ompi_tpu_torch.SUM)
     exchange["ring"] = exchange_calls(world, big, a2a, moe, routed, agv,
                                       agv_counts)
+    rt.finalize()
+
+    os.environ["OTPU_MCA_coll_ring_wire16"] = "1"
+    world = ompi_tpu_torch.init()
+    wire = wire16_calls(world, mid, big, rs_mid)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
     rt.finalize()
     del os.environ["OTPU_MCA_coll_ring_priority"]
+    del os.environ["OTPU_MCA_coll_ring_wire16"]
 
-    log(f"main path: 2 x init, 5 allreduce_array, 2 bcast_array, "
-        f"2 allgather_array, 4 reduce_scatter_array, reduce_local, 2 x "
+    log(f"main path: 3 x init, 2 x dup, 10 allreduce_array, 2 bcast_array, "
+        f"4 allgather_array, 5 reduce_scatter_array, reduce_local, 2 x "
         f"(alltoall_array, alltoallv_array, allgatherv_array, 2 "
         f"ppermute_array) in {wall:.3f} s (host clock, includes the "
         f"first-call builds); launches {launched}")
@@ -539,7 +664,114 @@ def main_path(gen) -> dict:
         "for byte, the ragged calls' views over their valid rows); ring SUM "
         "within 2(n-1)·2^-24·Σ|x| of torch.sum; the general perm's rank 1 "
         "holds zeros and left K13's count unchanged")
+    check_codec_results(codec, big)
+    check_wire16_results(wire, mid, big, rs_mid)
     return launched
+
+
+def launch_delta(fn) -> tuple:
+    """(fn's result, what it added to each launch count)."""
+    before = counts()
+    out = fn()
+    return out, {k: v - before[k] for k, v in counts().items() if v != before[k]}
+
+
+def codec_calls(world, big) -> dict:
+    """The compressed collectives through coll/builtin on dups of
+    ``world`` with a budget: their results and their launch deltas."""
+    import ompi_tpu_torch
+
+    int8 = world.dup()
+    int8.info.set("otpu_quant_budget", "0.01")
+    bf16 = world.dup_with_info(int8.get_info())
+    bf16.info.set("otpu_quant_budget", "0.005")
+    got = {}
+    for name, fn in (
+            ("int8_allreduce", lambda: int8.allreduce_array(big)),
+            ("int8_allgather", lambda: int8.allgather_array(big)),
+            ("bf16_allreduce", lambda: bf16.allreduce_array(big)),
+            ("bf16_allgather", lambda: bf16.allgather_array(big)),
+            ("max", lambda: int8.allreduce_array(big, ompi_tpu_torch.MAX))):
+        got[name] = launch_delta(fn)
+    return got
+
+
+def wire16_calls(world, mid, big, rs_mid) -> dict:
+    import ompi_tpu_torch
+
+    require(world.c_coll["allreduce_array"].__self__.wire16,
+            "OTPU_MCA_coll_ring_wire16=1 did not reach coll/ring")
+    return {"ar_mid": launch_delta(lambda: world.allreduce_array(mid)),
+            "ar_big": launch_delta(lambda: world.allreduce_array(big)),
+            "rs_mid": launch_delta(lambda: world.reduce_scatter_array(
+                rs_mid, ompi_tpu_torch.SUM))}
+
+
+def codec_band(out, x, codec: str, what: str) -> float:
+    """Max |out - exact| over max |exact|, exact = the float64 sum; fails
+    above the codec's band."""
+    from ompi_tpu_torch.mca.coll.quant import CODEC_BANDS
+
+    exact = torch.sum(x.double(), 0)
+    rel = float((out.double() - exact).abs().max() / exact.abs().max())
+    require(rel <= CODEC_BANDS[codec], f"{what}: relative error {rel} above "
+            f"the {codec} band {CODEC_BANDS[codec]}")
+    return rel
+
+
+def check_codec_results(codec: dict, big) -> None:
+    from ompi_tpu_torch.ops import quant as qo
+
+    want = {"int8_allreduce": {"encode_int8": 1, "dequant_accumulate": 1},
+            "int8_allgather": {"encode_int8": 1, "decode_int8": 1},
+            "bf16_allreduce": {}, "bf16_allgather": {}, "max": {}}
+    for name, (_, delta) in codec.items():
+        require(delta == want[name], f"{name}: launches {delta}, want "
+                f"{want[name]}")
+    q, s = qo.encode_int8_plain(big)
+    same_bits(codec["int8_allreduce"][0],
+              qo.dequant_accumulate_plain(q, s).reshape(big.shape[1:]),
+              "int8 allreduce (K17, K18)")
+    same_bits(codec["int8_allgather"][0],
+              qo.decode_int8_plain(q, s).reshape(big.shape),
+              "int8 allgather (K17, K19)")
+    wire = big.to(torch.bfloat16).to(torch.float32)
+    same_bits(codec["bf16_allreduce"][0], wire.sum(0), "bf16 allreduce")
+    same_bits(codec["bf16_allgather"][0], wire, "bf16 allgather")
+    require(torch.equal(codec["max"][0], torch.amax(big, 0)),
+            "MAX on the budgeted comm is not exact")
+    rel8 = codec_band(codec["int8_allreduce"][0], big, "int8", "int8 allreduce")
+    rel16 = codec_band(codec["bf16_allreduce"][0], big, "bf16", "bf16 allreduce")
+    log(f"codec path: budget 0.01 -> int8 (K17 x2, K18, K19 exactly), "
+        f"budget 0.005 -> bf16 and MAX launched no codec kernel; bit-exact "
+        f"with the plain versions; relative error vs the float64 sum: int8 "
+        f"{rel8:.3e} (band {1 / 127:.3e}), bf16 {rel16:.3e} (band "
+        f"{2 ** -8:.3e})")
+
+
+def check_wire16_results(wire: dict, mid, big, rs_mid) -> None:
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    want = {"ar_mid": {"all_reduce_wire16": 1},
+            "ar_big": {"all_reduce_seg": 1},
+            "rs_mid": {"reduce_scatter_wire16": 1}}
+    for name, (_, delta) in wire.items():
+        require(delta == want[name], f"wire16 {name}: launches {delta}, want "
+                f"{want[name]}")
+    same_bits(wire["ar_mid"][0], rc.all_reduce_wire16_plain(mid, N, "sum"),
+              "wire16 allreduce 4 MB/rank (K7)")
+    check_sum(wire["ar_big"][0], big, rc.all_reduce_seg_plain(big, N, "sum", SEG),
+              "wire16 on, allreduce 16 MB/rank (K4)")
+    same_bits(wire["rs_mid"][0], rc.reduce_scatter_wire16_plain(rs_mid, N, "sum"),
+              "wire16 reduce_scatter 4 MB/rank (K5w)")
+    for out, x, what in ((wire["ar_mid"][0], mid, "K7"),
+                         (wire["rs_mid"][0], rs_mid, "K5w")):
+        bound = N * 2.0 ** -8 * x.abs().sum(0)
+        bad = ((out - torch.sum(x, 0)).abs() > bound).sum().item()
+        require(bad == 0, f"{what}: {bad} elements outside n·2^-8·Σ|x|")
+    log("wire16 path: 4 MB/rank allreduce -> K7, 16 MB/rank -> K4 (no K7), "
+        "4 MB/rank reduce_scatter -> K5w, each once; bit-exact with the plain "
+        "versions and within n·2^-8·Σ|x| of torch.sum")
 
 
 def exchange_calls(world, big, a2a, moe, routed, agv, agv_counts) -> dict:
@@ -595,6 +827,7 @@ def host_us(fn) -> float:
 
 
 def measure(gen, launched: dict, err: dict) -> list:
+    from ompi_tpu_torch.ops import quant as qo
     from ompi_tpu_torch.ops import reduce
     from ompi_tpu_torch.ops import ring_collectives as rc
 
@@ -609,6 +842,8 @@ def measure(gen, launched: dict, err: dict) -> list:
     agv = operands(torch.float32, (N, CAPACITY, HIDDEN), gen)
     row = HIDDEN * 4
     seg = SEG
+    q, s = qo.encode_int8(big)                  # (8, 32768, 128), (8, 32768)
+    q_bytes, s_bytes = q.numel(), s.numel() * 4
     cases = {
         # name: (kernel, plain, library, inputs+output bytes, what[, counts
         # of a ragged kernel, whose error is taken over its valid rows])
@@ -668,24 +903,57 @@ def measure(gen, launched: dict, err: dict) -> list:
                          f"f32 (8, {CAPACITY}, {HIDDEN}), "
                          f"{int(routed[0].sum())} of {N * CAPACITY} rows valid",
                          routed[0]),
+        # no one PyTorch call computes the encode or the dequant-accumulate
+        "encode_int8": (lambda: qo.encode_int8(big),
+                        lambda: qo.encode_int8_plain(big), None,
+                        N * 16 * MB + q_bytes + s_bytes,
+                        "f32 8 x 16 MB -> int8 (8, 32768, 128) + f32 scales"),
+        "dequant_accumulate": (lambda: qo.dequant_accumulate(q, s),
+                               lambda: qo.dequant_accumulate_plain(q, s), None,
+                               q_bytes + s_bytes + 16 * MB,
+                               "k = 8, int8 (8, 32768, 128) -> f32 16 MB"),
+        "decode_int8": (lambda: qo.decode_int8(q, s),
+                        lambda: qo.decode_int8_plain(q, s),
+                        lambda: torch.mul(q, s[..., None]),
+                        q_bytes + s_bytes + N * 16 * MB,
+                        "int8 (8, 32768, 128) -> f32 8 x 16 MB"),
+        # no library call rounds each hop to bf16: K3 and K5 on the same
+        # inputs (the same bytes) are timed beside them instead
+        "all_reduce_wire16": (lambda: rc.all_reduce(mid, N, "sum", "wire16"),
+                              lambda: rc.all_reduce_wire16_plain(mid, N, "sum"),
+                              None, (N + 1) * 4 * MB,
+                              "SUM f32, 8 ranks x 4 MB, bf16 wire"),
+        "reduce_scatter_wire16": (
+            lambda: rc.reduce_scatter(rs_mid, N, "sum", "wire16"),
+            lambda: rc.reduce_scatter_wire16_plain(rs_mid, N, "sum"), None,
+            (N + 1) * 4 * MB, "SUM f32, (8, 8, 131072): 8 ranks x 4 MB, bf16 wire"),
     }
+    beside = {"all_reduce_wire16": lambda: rc.all_reduce(mid, N, "sum", "fused"),
+              "reduce_scatter_wire16": lambda: rc.reduce_scatter(rs_mid, N, "sum",
+                                                                 "fused")}
     rows, host = [], {}
     for name, (kernel, plain, library, nbytes, what, *ragged) in cases.items():
         route, source, replaces = KERNELS[name]
         ms = time_ms(kernel)
         got_err = (ragged_err(kernel(), plain(), ragged[0]) if ragged
-                   else max_abs_err(kernel(), plain()))
+                   else max(max_abs_err(g, w) for g, w in
+                            zip(outputs(kernel()), outputs(plain()))))
         row = {
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launched[name],
             "max_abs_err": max(err[name], got_err),
             "ms": ms, "plain_ms": time_ms(plain),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": time_ms(library),
+            "library_ms": time_ms(library) if library else None,
         }
-        log(json.dumps({**row, "shape": what}))
+        extra = {"shape": what}
+        if name in beside:
+            extra["beside_ms"] = {"fused (K3/K5)": time_ms(beside[name])}
+        log(json.dumps({**row, **extra}))
         rows.append(row)
-        host[name] = {"kernel": host_us(kernel), "library": host_us(library)}
+        host[name] = {"kernel": host_us(kernel)}
+        if library:
+            host[name]["library"] = host_us(library)
     # both accumulator regimes on both sides of the vmem_max_bytes
     # crossover (8 MB per rank), for the routing decision on this card
     cross = {
@@ -697,8 +965,25 @@ def measure(gen, launched: dict, err: dict) -> list:
             ("all_reduce", rc.all_reduce, ((4, mid), (16, big))),
             ("reduce_scatter", rc.reduce_scatter, ((4, rs_mid), (16, rs_big))))}
     log(json.dumps({"crossover_ms": cross}))
+    # the whole int8 allreduce against the exact sum: on one card no link
+    # carries the encoded bytes, so the codec is a pass more, not a saving
+    codec_bytes = N * 16 * MB + 2 * (q_bytes + s_bytes) + 16 * MB
+    log(json.dumps({"codec_path_ms": {
+        "int8 allreduce (K17 + K18)": time_ms(
+            lambda: qo.dequant_accumulate(*qo.encode_int8(big))),
+        "bf16 allreduce (plain torch)": time_ms(
+            lambda: big.to(torch.bfloat16).to(torch.float32).sum(0)),
+        "torch.sum": time_ms(lambda: torch.sum(big, 0)),
+        "int8 bound": codec_bytes / HBM_BYTES_PER_S * 1e3,
+        "torch.sum bound": (N + 1) * 16 * MB / HBM_BYTES_PER_S * 1e3,
+        "shape": "f32 8 ranks x 16 MB"}}))
     log(json.dumps({"host_us_per_call": host}))
     return rows
+
+
+def outputs(result) -> tuple:
+    """A kernel's outputs as a tuple (the encode returns two)."""
+    return result if isinstance(result, tuple) else (result,)
 
 
 def main() -> int:

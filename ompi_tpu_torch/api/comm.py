@@ -3,9 +3,11 @@
 Port of the part of ``ompi_tpu/api/comm.py`` that the device-buffer
 collectives need: a communicator owns its group, a context id and a per-comm
 collective vtable ``c_coll`` filled by the priority vote of the coll
-components (``coll_base_comm_select.c``).  Every slot that no selected
-module fills raises ``MpiError(ERR_UNSUPPORTED_OPERATION)``; point-to-point,
-communicator construction and fault tolerance are not ported yet.
+components (``coll_base_comm_select.c``), and its info hints (an ``Info``;
+the ``otpu_quant_budget`` key arms coll/quant).  Every slot that no
+selected module fills raises ``MpiError(ERR_UNSUPPORTED_OPERATION)``.  Of
+communicator construction only ``dup`` and ``dup_with_info`` are ported;
+point-to-point and fault tolerance are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any
 from ompi_tpu_torch.api import op as op_mod
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError, RevokedError
 from ompi_tpu_torch.api.group import Group
+from ompi_tpu_torch.api.info import Info
 
 #: collective function slots a coll module can fill (the device-buffer
 #: entry points of ``ompi_tpu/api/comm.py:COLL_FUNCTIONS`` ported so far)
@@ -31,7 +34,7 @@ class Comm:
         self.name = name or f"comm#{cid}"
         self.c_coll: dict[str, Any] = {}
         self.coll_modules: list = []
-        self.info: dict[str, str] = {}
+        self.info = Info()
         self.revoked = False
         self.freed = False
         self._rank = group.rank_of(rte.my_world_rank) if rte else 0
@@ -58,6 +61,36 @@ class Comm:
                 ErrorClass.ERR_UNSUPPORTED_OPERATION,
                 f"no coll component provides '{name}' on {self.name}")
         return fn
+
+    def set_info(self, info: Info) -> None:
+        """``MPI_Comm_set_info``: replace the comm's info hints."""
+        self.info = info.dup()
+
+    def get_info(self) -> Info:
+        """``MPI_Comm_get_info``."""
+        return self.info.dup()
+
+    def dup(self) -> "Comm":
+        """``MPI_Comm_dup`` in the device world: the same group and rte, the
+        next free context id, the info hints copied, and a coll selection
+        of its own (``comm_dup`` + ``coll_base_comm_select``)."""
+        self._check_state()
+        from ompi_tpu_torch.mca.coll.base import comm_select
+        from ompi_tpu_torch.runtime import init as rt
+
+        newcomm = Comm(self.group, rt.next_local_cid(), self.rte,
+                       name=f"{self.name}~dup")
+        newcomm.info = self.info.dup()
+        rt.register_comm(newcomm)
+        comm_select(newcomm)
+        return newcomm
+
+    def dup_with_info(self, info: Info) -> "Comm":
+        """``MPI_Comm_dup_with_info``: dup, with the new comm's hints
+        REPLACED by ``info`` instead of inherited."""
+        newcomm = self.dup()
+        newcomm.info = info.dup()
+        return newcomm
 
     # device-array collectives (tensors with a leading rank axis) ----------
     def allreduce_array(self, x, op: op_mod.Op = op_mod.SUM):

@@ -1,5 +1,6 @@
 // Shared pieces of the ring reduction kernels (ring_fused.cu, ring_seg.cu):
-// the four ring folds, 16-byte packed loads and stores, the C ABI codes.
+// the four ring folds, the bf16 wire rounding, 16-byte packed loads and
+// stores, the C ABI codes.
 //
 // Layout both kernels take: x is (n, size), row r is virtual rank r's payload.
 // The payload is cut into ring blocks of `blk` elements, and block b of the
@@ -79,6 +80,23 @@ __device__ __forceinline__ void store(T* p, const Pack<T, VEC>& r) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) p[i] = r.v[i];
   }
+}
+
+// The bf16 wire of K7 and K5's wire16 form: v rounded to bfloat16 (to
+// nearest, ties to even) and widened back to float; every NaN becomes the
+// quiet NaN 0x7FC00000.  Written on the bits, as the plain version
+// (ring_collectives.bf16_round) is, so both give the same NaN.
+__device__ __forceinline__ float bf16_round(float v) {
+  if (v != v) return __uint_as_float(0x7FC00000u);
+  unsigned u = __float_as_uint(v);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+
+template <int VEC>
+__device__ __forceinline__ void wire_round(Pack<float, VEC>& p) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) p.v[i] = bf16_round(p.v[i]);
 }
 
 // acc = fold(own, acc), element by element

@@ -1,5 +1,6 @@
 // K3: fused ring all-reduce, and K5: fused ring reduce-scatter, of N virtual
-// ranks held as the rows of one tensor.
+// ranks held as the rows of one tensor; K7 and K5's wire16 form: the same
+// two with the bf16 wire.
 //
 // K3 replaces the Pallas kernel pallas_collectives._build_all_reduce with its
 // _rs_phase and _ag_phase (ompi_tpu/ops/pallas_collectives.py:361, :311,
@@ -7,6 +8,14 @@
 // each incoming block into a VMEM accumulator, then n-1 all-gather steps.
 // K5 replaces pallas_collectives._build_reduce_scatter (:502), the same
 // reduce-scatter phase with align=-1, so that rank b ends owning block b.
+// K7 replaces pallas_collectives._build_all_reduce_wire16 (:425), and K5's
+// wire16 form _build_reduce_scatter(wire16=True) (:554): float32 only, the
+// outgoing partial of every hop is cast to bf16 (half the link bytes on the
+// TPU) and folded back at float32 -- p = fold(own, f32(bf16(p))) -- and K7
+// rounds the finished block to bf16 once more, so every rank returns the
+// same bits (:463-469); the reduce-scatter's owner keeps its float32 partial
+// (:511-515).  The TPU kernel writes K7's result as bf16 and its wrapper
+// upcasts it (:1606); here it is written as the same values in float32.
 //
 // On one card the n ranks are rows of x (n, size).  The fold order of the TPU
 // ring is kept (see ring_common.cuh), so the result is bit-identical with the
@@ -17,20 +26,30 @@
 //
 // Bound on an H100: device-memory bytes.  The function reads n*size and
 // writes size elements and does one fold per element read (~0.25 flop/byte,
-// far below the ridge), so its least time is (n+1)*size*sizeof(T) / 3.35 TB/s
-// -- for K5, (n+1)*P with P the per-rank payload n*prod(S)*sizeof(T).
+// far below the ridge; the wire rounding adds a few integer operations per
+// fold, still far below it), so its least time is (n+1)*size*sizeof(T) /
+// 3.35 TB/s -- for K5, (n+1)*P with P the per-rank payload
+// n*prod(S)*sizeof(T).  On one card no link carries the partials, so the
+// bf16 wire saves nothing: K7 moves K3's bytes and is kept for its numbers.
 // Design: each thread owns VEC contiguous elements (16 bytes) of ring block b,
 // loads the n ranks' slices in ring order b+s, b+s+1, ..., b+s-1 with 16-byte
 // loads (the k loop is unrolled, so the loads are in flight together), folds
 // in registers -- the fused regime's on-chip accumulator -- and stores once.
-// A grid-stride loop covers the payload with a few blocks per SM.
+// The wire is a compile-time mode: the rounding sits between the folds in
+// registers and costs no memory traffic.  A grid-stride loop covers the
+// payload with a few blocks per SM.
+#include <type_traits>
+
 #include "ring_common.cuh"
 
 namespace otpu {
 
 constexpr int kFusedThreads = 256;
 
-template <typename T, int OP, int VEC>
+// wire modes: none (K3, K5); bf16 partials (K5w); bf16 partials and result (K7)
+enum { kWireOff = 0, kWireHops = 1, kWireHopsAndResult = 2 };
+
+template <typename T, int OP, int VEC, int WIRE>
 __global__ void __launch_bounds__(kFusedThreads)
 ring_fused_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t size,
                   int64_t blk, int n, int start) {
@@ -45,30 +64,45 @@ ring_fused_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t size,
 #pragma unroll 8
     for (int k = 1; k < n; ++k) {
       r = (r + 1 == n) ? 0 : r + 1;
+      if constexpr (WIRE != kWireOff) wire_round(acc);  // the hop's bf16 bytes
       fold_into<OP>(acc, load<T, VEC>(x + (int64_t)r * size + e));
     }
+    if constexpr (WIRE == kWireHopsAndResult) wire_round(acc);
     store<T, VEC>(out + e, acc);
   }
 }
 
 template <typename T, int OP, int VEC>
 struct FusedLaunch {
-  static void run(const void* x, void* out, int64_t size, int64_t blk, int n,
-                  int start, cudaStream_t stream) {
+  template <int WIRE>
+  static void go(const void* x, void* out, int64_t size, int64_t blk, int n,
+                 int start, cudaStream_t stream) {
     const int64_t nvec = size / VEC;
     int64_t blocks = (nvec + kFusedThreads - 1) / kFusedThreads;
     const int64_t cap = (int64_t)sm_count() * 8;
     if (blocks > cap) blocks = cap;
     if (blocks < 1) blocks = 1;
-    ring_fused_kernel<T, OP, VEC><<<(unsigned)blocks, kFusedThreads, 0, stream>>>(
+    ring_fused_kernel<T, OP, VEC, WIRE><<<(unsigned)blocks, kFusedThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<T*>(out), size, blk, n, start);
+  }
+
+  static void run(const void* x, void* out, int64_t size, int64_t blk, int n,
+                  int start, int wire, cudaStream_t stream) {
+    if constexpr (std::is_same_v<T, float>) {
+      if (wire == kWireHops) return go<kWireHops>(x, out, size, blk, n, start, stream);
+      if (wire == kWireHopsAndResult)
+        return go<kWireHopsAndResult>(x, out, size, blk, n, start, stream);
+    }
+    go<kWireOff>(x, out, size, blk, n, start, stream);
   }
 };
 
 inline int fused(const void* x, void* out, long long size, long long blk,
-                 int n, int dtype, int op, int vec, int start, void* stream) {
+                 int n, int dtype, int op, int vec, int start, int wire,
+                 void* stream) {
+  if (wire != kWireOff && dtype != DT_F32) return (int)cudaErrorInvalidValue;
   if (!dispatch<FusedLaunch>(dtype, op, vec, x, out, (int64_t)size,
-                             (int64_t)blk, n, start,
+                             (int64_t)blk, n, start, wire,
                              static_cast<cudaStream_t>(stream)))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -79,18 +113,37 @@ inline int fused(const void* x, void* out, long long size, long long blk,
 // x: (n, size) device pointer, out: (size,).  size % vec == 0 and, with
 // vec > 1, blk % vec == 0 and both pointers and the row pitch are 16-byte
 // aligned (the wrapper checks).  Each returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unknown dtype/op/vec code).
+// launch (cudaErrorInvalidValue for an unknown dtype/op/vec code, or a wire16
+// entry called on another dtype than float32).
 
 // K3: all-reduce, blocks of blk = rows*128 elements, start offset 0.
 extern "C" int otpu_ring_fused(const void* x, void* out, long long size,
                                long long blk, int n, int dtype, int op, int vec,
                                void* stream) {
-  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 0, stream);
+  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 0, otpu::kWireOff,
+                     stream);
 }
 
 // K5: reduce-scatter, x (n, n*blk) with blk = prod(S), start offset 1.
 extern "C" int otpu_ring_rs_fused(const void* x, void* out, long long size,
                                   long long blk, int n, int dtype, int op,
                                   int vec, void* stream) {
-  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 1, stream);
+  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 1, otpu::kWireOff,
+                     stream);
+}
+
+// K7: K3 on float32 with the bf16 wire and the result rounded once.
+extern "C" int otpu_ring_wire16(const void* x, void* out, long long size,
+                                long long blk, int n, int dtype, int op,
+                                int vec, void* stream) {
+  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 0,
+                     otpu::kWireHopsAndResult, stream);
+}
+
+// K5's wire16 form: K5 on float32 with the bf16 wire, the result unrounded.
+extern "C" int otpu_ring_rs_wire16(const void* x, void* out, long long size,
+                                   long long blk, int n, int dtype, int op,
+                                   int vec, void* stream) {
+  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 1, otpu::kWireHops,
+                     stream);
 }

@@ -38,10 +38,24 @@ is one tensor; a rank-sharded result has a leading rank axis.
   ``IndexError`` or ``TypeError`` there, or slices a larger table); a perm
   that repeats a rank raises ``ValueError``, as ``lax.ppermute`` does.
 
-The quantized branches of the reference are not ported yet.  Reductions are
-cached per (coll, op, shape, dtype, device) — the reference's per-(coll, op,
-shape, dtype) program cache — so a cache hit is one dict probe and the
-reduction.
+The quantized branches (``xla.py:225-279``, ``:384-436``): on a comm whose
+info carries the accuracy budget (``coll/quant``'s ``BUDGET_KEY``, probed
+first, before the cached fast path), a float32 ``allreduce_array`` SUM and
+an ``allgather_array`` of at least ``otpu_coll_quant_min_bytes`` — the
+bytes of the whole ``(n, *S)`` tensor, as ``xla.py:233`` and ``:391``
+count them — go through the codec ``quant.pick`` chooses (commutative ops
+only; MAX, MIN, PROD and the bitwise ops stay exact).  int8: every rank's
+row is block-encoded (K17) and the n encoded rows, which on one card are
+the gathered payloads themselves, are folded by K18 (allreduce) or decoded
+by K19 (allgather).  bf16: a cast to bfloat16 and back, then for the
+allreduce a float32 ``sum`` over the ranks — plain torch, as XLA computes
+that codec outside any Pallas kernel.
+
+Reductions are cached per (coll, op, shape, dtype, device) — the
+reference's per-(coll, op, shape, dtype) program cache — so a cache hit is
+one dict probe and the reduction; the quantized programs per
+``("allreduce_quant", codec, op, shape, dtype, device)`` and
+``("allgather_quant", codec, shape, dtype, device)``.
 """
 from __future__ import annotations
 
@@ -55,6 +69,7 @@ from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.base import cudaenv
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
+from ompi_tpu_torch.mca.coll import quant as quant_mod
 
 
 def counts_table(counts, shape: tuple, what: str) -> np.ndarray:
@@ -86,6 +101,42 @@ def ragged_views(full, counts: np.ndarray) -> list:
 def _key(coll, x, op):
     """Reduction cache key; the shape in it stands for the checks passed."""
     return (coll, op.name, x.shape, x.dtype, x.device)
+
+
+def _bf16_wire(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 codec: each element cast to bfloat16 and back."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _quant_allreduce_fn(codec: str):
+    """``(n, *S)`` -> ``(*S)``, the reduction through ``codec``."""
+    from ompi_tpu_torch.ops import quant as q_ops
+
+    if codec == "bf16":
+        return lambda t: _bf16_wire(t).sum(0, dtype=torch.float32)
+
+    def int8(t):
+        q, s = q_ops.encode_int8(t.contiguous())          # K17
+        size = t[0].numel()
+        out = q_ops.dequant_accumulate(q, s)               # K18
+        return out.reshape(-1)[:size].reshape(t.shape[1:])
+
+    return int8
+
+
+def _quant_allgather_fn(codec: str):
+    """``(n, *S)`` -> ``(n, *S)``, every row through ``codec``."""
+    from ompi_tpu_torch.ops import quant as q_ops
+
+    if codec == "bf16":
+        return _bf16_wire
+
+    def int8(t):
+        q, s = q_ops.encode_int8(t.contiguous())          # K17
+        dec = q_ops.decode_int8(q, s)                      # K19
+        return dec.reshape(t.shape[0], -1)[:, :t[0].numel()].reshape(t.shape)
+
+    return int8
 
 
 class BuiltinCollModule:
@@ -152,6 +203,13 @@ class BuiltinCollModule:
 
         return chained
 
+    def _cached(self, key, make):
+        fn = self._cache.get(key)
+        if fn is None:
+            with self._lock:
+                fn = self._cache.setdefault(key, make())
+        return fn
+
     def _reduction(self, coll: str, comm, x, op: op_mod.Op,
                    inner_n: bool = False):
         """The rank-axis reduction of ``x`` under op, cached per key."""
@@ -161,15 +219,24 @@ class BuiltinCollModule:
             if fn is not None:
                 return fn(x)
         x = self._check(comm, x, inner_n)
-        key = _key(coll, x, op)
-        fn = self._cache.get(key)
-        if fn is None:
-            with self._lock:
-                fn = self._cache.setdefault(key, self._reduce_fn(op, x.dtype))
-        return fn(x)
+        return self._cached(_key(coll, x, op),
+                            lambda: self._reduce_fn(op, x.dtype))(x)
 
     # -- collective slots ------------------------------------------------
     def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        # coll/quant tier: an EXPLICIT per-comm accuracy budget (the info
+        # key) routes eligible (dtype, size) cells onto the codec; comms
+        # that never declared a budget pay one dict probe
+        if quant_mod.BUDGET_KEY in comm.info and op.torch_reduce == "sum":
+            codec = quant_mod.pick(comm, "allreduce",
+                                   getattr(x, "dtype", None),
+                                   int(getattr(x, "nbytes", 0)), op)
+            if codec is not None:
+                x = self._check(comm, x)
+                return self._cached(
+                    ("allreduce_quant", codec, op.name, x.shape, x.dtype,
+                     x.device),
+                    lambda: _quant_allreduce_fn(codec))(x)
         return self._reduction("allreduce", comm, x, op)
 
     def reduce_scatter_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
@@ -183,6 +250,16 @@ class BuiltinCollModule:
         return x[int(root) % self.n].expand(x.shape).clone()
 
     def allgather_array(self, comm, x):
+        # coll/quant tier: the same explicit-budget gate as allreduce
+        if quant_mod.BUDGET_KEY in comm.info:
+            codec = quant_mod.pick(comm, "allgather",
+                                   getattr(x, "dtype", None),
+                                   int(getattr(x, "nbytes", 0)))
+            if codec is not None:
+                x = self._check(comm, x)
+                return self._cached(
+                    ("allgather_quant", codec, x.shape, x.dtype, x.device),
+                    lambda: _quant_allgather_fn(codec))(x)
         return self._check(comm, x).clone()
 
     def allgatherv_array(self, comm, x, counts):

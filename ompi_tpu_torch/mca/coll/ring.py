@@ -9,7 +9,11 @@ those of ``ompi_tpu_torch/ops/ring_collectives.py``:
 * ``allreduce_array`` and ``reduce_scatter_array`` (``psum_scatter_array``
   is its SUM): float16/32/64 SUM, MAX, MIN and PROD.  Per-rank payloads up
   to ``vmem_max_bytes`` go to the fused kernels (K3, K5), larger ones to the
-  segmented kernels (K4, K6, window of ``seg_bytes``).
+  segmented kernels (K4, K6, window of ``seg_bytes``).  With ``wire16`` on
+  (default off: it changes the numbers), a float32 SUM in the fused regime
+  takes the bf16-wire kernels instead (K7, K5's wire16 form); the segmented
+  regime has no wire16 kernel, as in the reference
+  (``pallas_coll.py:123-146``).
 * ``allgather_array``: float16/32/64 payloads, to K10.
 * ``bcast_array``: any dtype (the kernel copies bytes), to K12.
 * ``alltoall_array``: any dtype shaped ``(n, n, ...)``, to K14.
@@ -26,8 +30,11 @@ Every call it does not cover (other ops, other dtypes, sizes outside
 ``[min_bytes, max_bytes]``, a reduce-scatter or alltoall not shaped ``(n,
 n, ...)``, a ragged payload of another layout, any other perm) is delegated
 to coll/builtin, the way the reference falls through to coll/xla.
-The duplex (``bidirectional``) and bf16-wire (``wire16``) variants are not
-ported yet; with no var to ask for them, neither is ever routed.
+The duplex (``bidirectional``) variants are not ported yet; with no var to
+ask for them, they are never routed.  coll/ring never reads a comm's
+accuracy budget, as coll/pallas does not: a call it serves is exact (or
+wire16) on a budgeted comm too, and only the calls it delegates reach
+coll/builtin's quantized branches.
 """
 from __future__ import annotations
 
@@ -57,7 +64,7 @@ _INTERPRET_MAX_BYTES = 16 << 20
 class RingCollModule:
     def __init__(self, comm, device: torch.device, n: int, axis_name: str,
                  max_bytes: int, vmem_max_bytes: int, seg_bytes: int,
-                 min_bytes: int = 0) -> None:
+                 min_bytes: int = 0, wire16: bool = False) -> None:
         self.device = device
         self.n = n
         self.axis = axis_name
@@ -65,6 +72,7 @@ class RingCollModule:
         self.min_bytes = min_bytes
         self.vmem_max_bytes = vmem_max_bytes
         self.seg_bytes = seg_bytes
+        self.wire16 = wire16
         self._fallback = None   # resolved at comm_enable
 
     def comm_enable(self, comm) -> None:
@@ -113,6 +121,17 @@ class RingCollModule:
             return "seg", max(1, self.seg_bytes // x.element_size())
         return "fused", None
 
+    def _variant(self, x, ring_op: str):
+        """The one routing rule of both ring reductions (the reference's
+        ``_allreduce_variant`` and ``_reduce_scatter_variant``, the same
+        rule once bidi is left out): ``_route``'s regime, and the opt-in
+        bf16 wire for a float32 SUM in the fused regime."""
+        variant, seg_elems = self._route(x)
+        if (self.wire16 and ring_op == "sum" and x.dtype == torch.float32
+                and variant == "fused"):
+            variant = "wire16"
+        return variant, seg_elems
+
     # -- collective slots ------------------------------------------------
     def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
         x = self._place(comm, x)
@@ -121,7 +140,7 @@ class RingCollModule:
             return self._delegate("allreduce_array", comm, x, op)
         from ompi_tpu_torch.ops import ring_collectives as rc
 
-        variant, seg_elems = self._route(x)
+        variant, seg_elems = self._variant(x, ring_op)
         return rc.all_reduce(x.contiguous(), self.n, ring_op, variant=variant,
                              seg_elems=seg_elems)
 
@@ -134,7 +153,7 @@ class RingCollModule:
             return self._delegate("reduce_scatter_array", comm, x, op)
         from ompi_tpu_torch.ops import ring_collectives as rc
 
-        variant, seg_elems = self._route(x)
+        variant, seg_elems = self._variant(x, ring_op)
         return rc.reduce_scatter(x.contiguous(), self.n, ring_op,
                                  variant=variant, seg_elems=seg_elems)
 
@@ -234,6 +253,13 @@ class RingCollComponent(Component):
             "seg_bytes", vtype=VarType.SIZE, default="512k",
             help="Window of the segmented ring kernels; it rounds the "
                  "all-reduce's ring blocks up to whole windows")
+        self._wire16 = self.register_var(
+            "wire16", vtype=VarType.BOOL, default=False,
+            help="Opt-in bf16 wire for float32 SUM allreduce and "
+                 "reduce_scatter in the fused regime: float32 accumulation, "
+                 "each hop's partial rounded to bf16 (the reference's "
+                 "halved link bytes; on one card no link carries them).  "
+                 "Changes the numbers, so never on by default")
         self._axis = self.register_var(
             "axis_name", default="mpi",
             help="Name of the rank axis (dim 0 of the world tensor), kept "
@@ -248,7 +274,8 @@ class RingCollComponent(Component):
             int(self._max.value),
             vmem_max_bytes=int(self._vmem_max.value),
             seg_bytes=int(self._seg.value),
-            min_bytes=int(self._min.value))
+            min_bytes=int(self._min.value),
+            wire16=bool(self._wire16.value))
 
 
 COMPONENT = RingCollComponent()

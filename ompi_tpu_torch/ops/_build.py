@@ -32,7 +32,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIBRARIES = {
     "ring_fused": ("ring_fused.cu",
                    {"otpu_ring_fused": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
-                    "otpu_ring_rs_fused": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),
+                    "otpu_ring_rs_fused": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+                   "otpu_ring_wire16": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+                   "otpu_ring_rs_wire16": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),
     "ring_seg": ("ring_seg.cu",
                  {"otpu_ring_seg": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
                   "otpu_ring_rs_seg": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),

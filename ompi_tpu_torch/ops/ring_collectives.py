@@ -20,13 +20,25 @@ the accumulator regime.
   VMEM window) rounds the ring blocks up to whole windows, as in the
   reference, which fixes the block partition and so the fold order; the
   card's window is a per-block shared-memory tile.
+* ``'wire16'`` — kernel K7 (``csrc/ring_fused.cu``, ``otpu_ring_wire16``),
+  replacing ``pc._build_all_reduce_wire16`` (``:425``): K3's schedule on
+  float32 with the bf16 wire of the reference — the partial is rounded to
+  bfloat16 (nearest, ties to even) before every hop and folded in float32,
+  ``p = fold(x[r][blk], f32(bf16(p)))``, and the finished block is rounded
+  to bfloat16 once more (``pc:463-469``).  The reference's kernel writes
+  that bf16 result and its wrapper upcasts it (``pc:1606``); the card writes
+  the same values as float32 directly.
 
 ``reduce_scatter(x, n, op, variant, seg_elems)`` — ``(n, n, *S)`` to
-``(n, *S)``, row b the reduction of block b over the ranks: the same two
+``(n, *S)``, row b the reduction of block b over the ranks: the same
 kernels with the partial of block b starting on rank b+1 (K5
 ``otpu_ring_rs_fused``, replacing ``pc._build_reduce_scatter``, ``:502``;
 K6 ``otpu_ring_rs_seg``, replacing ``pc._build_reduce_scatter_seg``,
-``:744``).
+``:744``; K5's wire16 form ``otpu_ring_rs_wire16``, replacing
+``pc._build_reduce_scatter(wire16=True)``, ``:554``: the bf16 wire of K7
+and no final rounding, as the owner's float32 partial is the result,
+``pc:511-515``).  ``wire16`` takes float32 only and raises ``ValueError``
+otherwise, as the reference does (``pc:1527-1530``, ``:1601-1604``).
 
 ``all_gather(x, n)`` — ``(n, *S)`` to a new ``(n, *S)``: kernel K10
 (``csrc/ring_copy.cu``), replacing ``pc._build_all_gather`` (``:177``).
@@ -54,8 +66,8 @@ unspecified, as the reference does: the output is not zeroed.  Their counts
 are a runtime operand of the kernel, a small int32 device tensor made per
 call, so a new routing rebuilds nothing.
 
-The other variants of the reference (``bidi``, ``seg_bidi``, ``wire16``)
-are not ported yet and raise ``NotImplementedError``.
+The duplex variants of the reference (``bidi``, ``seg_bidi``) are not
+ported yet and raise ``NotImplementedError``.
 
 Fold order: block b of a ring reduction is
 ``fold(x[b+s-1], ... fold(x[b+s+1], x[b+s]))`` — the partial starts on
@@ -84,14 +96,17 @@ _FOLDS = {"sum": torch.add, "prod": torch.mul, "max": torch.maximum,
           "min": torch.minimum}
 _OPCODE = {"sum": 0, "prod": 1, "max": 2, "min": 3}
 _DTCODE = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
-_NOT_PORTED = ("bidi", "seg_bidi", "wire16")
+_NOT_PORTED = ("bidi", "seg_bidi")
+_VARIANTS = ("fused", "seg", "wire16")
 
 #: ring-block start offset (``_rs_phase``'s align): all-reduce, reduce-scatter
 _AR_START, _RS_START = 0, 1
 
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches = {"all_reduce_fused": 0, "all_reduce_seg": 0,
+            "all_reduce_wire16": 0,
             "reduce_scatter_fused": 0, "reduce_scatter_seg": 0,
+            "reduce_scatter_wire16": 0,
             "all_gather": 0, "bcast": 0, "right_permute": 0,
             "all_to_all": 0, "all_to_all_v": 0, "all_gather_v": 0}
 
@@ -151,7 +166,7 @@ def _check(x, n: int, op: str, variant: str,
     if variant in _NOT_PORTED:
         raise NotImplementedError(
             f"ring {what} variant {variant!r} is not ported yet")
-    if variant not in ("fused", "seg"):
+    if variant not in _VARIANTS:
         raise ValueError(f"unknown ring {what} variant {variant!r}")
     if op not in _FOLDS:
         raise ValueError(
@@ -160,6 +175,9 @@ def _check(x, n: int, op: str, variant: str,
     if what == "reduce_scatter" and (x.dim() < 2 or x.shape[1] != n):
         raise ValueError(f"ring reduce_scatter needs shape ({n}, {n}, ...), "
                          f"got {tuple(x.shape)}")
+    if variant == "wire16" and x.dtype != torch.float32:
+        raise ValueError("wire16 compresses float32 payloads to bf16 wire "
+                         f"bytes; got dtype {x.dtype}")
     if x.dtype not in _DTCODE:
         raise TypeError(f"ring {what} takes float16/32/64, got {x.dtype}")
     return on_card
@@ -167,12 +185,25 @@ def _check(x, n: int, op: str, variant: str,
 
 # -- plain versions ------------------------------------------------------
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16 -> float32, to nearest with ties to even, every NaN
+    made the quiet NaN 0x7FC00000: the bits of the card's wire
+    (``bf16_round`` in ``csrc/ring_common.cuh``).  Written on the bits, as
+    torch's own conversion gives NaN other payloads on other paths."""
+    u = t.view(torch.int32)
+    r = (u + (0x7FFF + ((u >> 16) & 1))) & -65536
+    return torch.where(torch.isnan(t), 0x7FC00000, r).view(torch.float32)
+
+
 def _ring_plain(x: torch.Tensor, n: int, op: str, blk: int,
-                start: int = _AR_START) -> torch.Tensor:
+                start: int = _AR_START, wire: bool = False,
+                round_out: bool = False) -> torch.Tensor:
     """The ring schedule on whole blocks of ``blk`` elements of each rank's
     row: the partial of block b starts as rank b+start's block and rank
     b+start+k folds its own block in, ``fold(own, partial)``, for
-    k = 1..n-1.  Returns the folded row in the shape ``x.shape[1:]``."""
+    k = 1..n-1.  ``wire``: the partial crosses each hop as bfloat16
+    (``bf16_round`` before each fold); ``round_out``: the result is rounded
+    so once more.  Returns the folded row in the shape ``x.shape[1:]``."""
     size = x[0].numel()
     xp = torch.full((n, n * blk), _pad_value(op, x.dtype), dtype=x.dtype,
                     device=x.device)
@@ -182,7 +213,11 @@ def _ring_plain(x: torch.Tensor, n: int, op: str, blk: int,
     blocks = torch.arange(n, device=x.device)
     acc = xb[(blocks + start) % n, blocks]
     for k in range(1, n):
+        if wire:
+            acc = bf16_round(acc)
         acc = fold(xb[(blocks + start + k) % n, blocks], acc)
+    if round_out:
+        acc = bf16_round(acc)
     return acc.reshape(-1)[:size].reshape(x.shape[1:])
 
 
@@ -197,6 +232,20 @@ def all_reduce_seg_plain(x: torch.Tensor, n: int, op: str,
     (where the accumulator lives changes no value)."""
     return _ring_plain(x, n, op,
                        ring_block_elems(x[0].numel(), n, "seg", seg_elems))
+
+
+def all_reduce_wire16_plain(x: torch.Tensor, n: int, op: str) -> torch.Tensor:
+    """Plain version of K7: K3's blocks with the bf16 wire and the result
+    rounded once."""
+    return _ring_plain(x, n, op, ring_block_elems(x[0].numel(), n, "fused"),
+                       wire=True, round_out=True)
+
+
+def reduce_scatter_wire16_plain(x: torch.Tensor, n: int,
+                                op: str) -> torch.Tensor:
+    """Plain version of K5's wire16 form: the bf16 wire, no final
+    rounding."""
+    return _ring_plain(x, n, op, x[0, 0].numel(), _RS_START, wire=True)
 
 
 def reduce_scatter_plain(x: torch.Tensor, n: int, op: str) -> torch.Tensor:
@@ -245,10 +294,19 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _kernel_ring(x: torch.Tensor, n: int, op: str, blk: int, seg: bool,
+#: C entry point per (variant, start offset)
+_ENTRIES = {("fused", _AR_START): "otpu_ring_fused",
+            ("seg", _AR_START): "otpu_ring_seg",
+            ("wire16", _AR_START): "otpu_ring_wire16",
+            ("fused", _RS_START): "otpu_ring_rs_fused",
+            ("seg", _RS_START): "otpu_ring_rs_seg",
+            ("wire16", _RS_START): "otpu_ring_rs_wire16"}
+
+
+def _kernel_ring(x: torch.Tensor, n: int, op: str, blk: int, variant: str,
                  start: int) -> torch.Tensor:
-    """Launch K3/K5 (fused) or K4/K6 (seg) on ``x`` viewed as
-    ``(n, size)``; the output is ``x.shape[1:]``."""
+    """Launch K3/K5 (fused), K4/K6 (seg) or K7/K5w (wire16) on ``x`` viewed
+    as ``(n, size)``; the output is ``x.shape[1:]``."""
     from ompi_tpu_torch.ops import _build
 
     size = x[0].numel()
@@ -256,12 +314,9 @@ def _kernel_ring(x: torch.Tensor, n: int, op: str, blk: int, seg: bool,
     if not size:
         return out
     coll = "all_reduce" if start == _AR_START else "reduce_scatter"
-    entry = {(False, _AR_START): "otpu_ring_fused",
-             (True, _AR_START): "otpu_ring_seg",
-             (False, _RS_START): "otpu_ring_rs_fused",
-             (True, _RS_START): "otpu_ring_rs_seg"}[seg, start]
+    entry = _ENTRIES[variant, start]
     with torch.cuda.device(x.device):
-        if seg:
+        if variant == "seg":
             acc = torch.empty(size, dtype=x.dtype, device=x.device)
             _launch(getattr(_build.load("ring_seg"), entry), x.data_ptr(),
                     acc.data_ptr(), out.data_ptr(), size, blk, n,
@@ -271,14 +326,16 @@ def _kernel_ring(x: torch.Tensor, n: int, op: str, blk: int, seg: bool,
             _launch(getattr(_build.load("ring_fused"), entry), x.data_ptr(),
                     out.data_ptr(), size, blk, n, _DTCODE[x.dtype],
                     _OPCODE[op], _vec(x, blk, out), _stream(x))
-    launches[f"{coll}_{'seg' if seg else 'fused'}"] += 1
+    launches[f"{coll}_{variant}"] += 1
     return out
 
 
 def all_reduce(x: torch.Tensor, n: int, op: str = "sum",
                variant: str = "fused",
                seg_elems: int | None = None) -> torch.Tensor:
-    """``(n, *S)`` -> ``(*S)``: the ring all-reduce of the n rank rows."""
+    """``(n, *S)`` -> ``(*S)``: the ring all-reduce of the n rank rows
+    (for n == 1 a copy of the one row, unrounded under wire16 as in the
+    reference)."""
     on_card = _check(x, n, op, variant)
     payload_shape = tuple(x.shape[1:])
     if n == 1:
@@ -286,8 +343,9 @@ def all_reduce(x: torch.Tensor, n: int, op: str = "sum",
     size = int(np.prod(payload_shape)) if payload_shape else 1
     blk = ring_block_elems(size, n, variant, seg_elems)
     if not on_card:
-        return _ring_plain(x, n, op, blk)
-    return _kernel_ring(x, n, op, blk, variant == "seg", _AR_START)
+        wire = variant == "wire16"
+        return _ring_plain(x, n, op, blk, wire=wire, round_out=wire)
+    return _kernel_ring(x, n, op, blk, variant, _AR_START)
 
 
 def reduce_scatter(x: torch.Tensor, n: int, op: str = "sum",
@@ -295,16 +353,17 @@ def reduce_scatter(x: torch.Tensor, n: int, op: str = "sum",
                    seg_elems: int | None = None) -> torch.Tensor:
     """``(n, n, *S)`` -> ``(n, *S)``: row b is block b reduced over the
     ranks, its fold starting on rank b+1.  ``variant`` picks the
-    accumulator regime (K5 fused, K6 seg); ``seg_elems``, the reference's
-    VMEM window, is accepted for the same call shape but fixes no value
-    (see ``reduce_scatter_plain``)."""
+    accumulator regime (K5 fused, K6 seg) or the bf16 wire (K5w, float32);
+    ``seg_elems``, the reference's VMEM window, is accepted for the same
+    call shape but fixes no value (see ``reduce_scatter_plain``)."""
     on_card = _check(x, n, op, variant, "reduce_scatter")
     if n == 1:
         return x.reshape(x.shape[1:]).clone()
     if not on_card:
+        if variant == "wire16":
+            return reduce_scatter_wire16_plain(x, n, op)
         return reduce_scatter_plain(x, n, op)
-    return _kernel_ring(x, n, op, x[0, 0].numel(), variant == "seg",
-                        _RS_START)
+    return _kernel_ring(x, n, op, x[0, 0].numel(), variant, _RS_START)
 
 
 def all_gather(x: torch.Tensor, n: int, variant: str = "ring") -> torch.Tensor:

@@ -2,15 +2,19 @@
 
 Port of the device-world boot of ``ompi_tpu/runtime/init.py``: apply
 ``--mca`` arguments, bring up the device world (N virtual ranks on one
-device), build COMM_WORLD and run its per-comm coll selection.  ``finalize``
-drops the world and closes the MCA frameworks, so the next ``init`` selects
-afresh.  Sessions, COMM_SELF, hooks, fault tolerance and monitoring are not
-ported yet.
+device), build COMM_WORLD and run its per-comm coll selection.  Context ids of the
+comms made afterwards (``Comm.dup``) come from a local counter: in the
+device world one process backs every rank, so a local find-and-set is the
+agreement (``next_local_cid``).  ``finalize`` releases the coll modules of
+every comm made since ``init``, drops the world and closes the MCA
+frameworks, so the next ``init`` selects afresh.  Sessions, COMM_SELF,
+hooks, fault tolerance and monitoring are not ported yet.
 """
 from __future__ import annotations
 
 import enum
 import threading
+import weakref
 from typing import Optional
 
 from ompi_tpu_torch.base import mca, var
@@ -28,6 +32,9 @@ _lock = threading.RLock()
 _state = State.NOT_INITIALIZED
 _world = None
 _rte = None
+#: live comms made since init (COMM_WORLD included): finalize releases them
+_comms: "weakref.WeakSet" = weakref.WeakSet()
+_next_cid = 1           # cid 0 is COMM_WORLD
 
 
 def initialized() -> bool:
@@ -40,6 +47,21 @@ def finalized() -> bool:
 
 def get_rte():
     return _rte
+
+
+def next_local_cid() -> int:
+    """The next free context id (``comm_cid.c``'s find-and-set, local)."""
+    global _next_cid
+    with _lock:
+        cid = _next_cid
+        _next_cid += 1
+        return cid
+
+
+def register_comm(comm) -> None:
+    """Record a comm so that finalize releases its coll modules."""
+    with _lock:
+        _comms.add(comm)
 
 
 def init(device=None, rte=None, argv: Optional[list] = None):
@@ -68,6 +90,7 @@ def init(device=None, rte=None, argv: Optional[list] = None):
 
             _world = Comm(Group(range(_rte.world_size)), cid=0, rte=_rte,
                           name="COMM_WORLD")
+            register_comm(_world)
             # per-comm coll selection (ompi_mpi_init.c:956)
             from ompi_tpu_torch.mca.coll.base import comm_select
 
@@ -88,17 +111,20 @@ def comm_world():
 
 
 def finalize() -> None:
-    global _state, _world, _rte
+    global _state, _world, _rte, _next_cid
     with _lock:
         if _state is not State.INIT_COMPLETED:
             return
         _state = State.FINALIZE_STARTED
         try:
-            _world.release_coll_modules()
+            for comm in list(_comms):
+                comm.release_coll_modules()
             if _rte is not None:
                 _rte.finalize()
             mca.close_all()
         finally:
+            _comms.clear()
+            _next_cid = 1
             _world = _rte = None
             var.mark_runtime_initialized(False)
             _state = State.FINALIZE_COMPLETED

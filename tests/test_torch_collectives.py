@@ -141,7 +141,7 @@ def test_not_ported_variants_raise():
     x = torch.ones(8, 8, 4)
     before = dict(rc.launches)
     with pytest.raises(NotImplementedError):
-        rc.reduce_scatter(x, 8, variant="wire16")
+        rc.reduce_scatter(x, 8, variant="seg_bidi")
     with pytest.raises(NotImplementedError):
         rc.all_gather(x, 8, variant="bidi")
     with pytest.raises(ValueError):

@@ -127,7 +127,7 @@ def test_wrapper_argument_checks():
         rc.all_reduce(x, 8, "band")
     with pytest.raises(ValueError):
         rc.all_reduce(x, 8, variant="tree")
-    for variant in ("bidi", "seg_bidi", "wire16"):
+    for variant in ("bidi", "seg_bidi"):
         with pytest.raises(NotImplementedError):
             rc.all_reduce(x, 8, variant=variant)
     assert rc.launches == before

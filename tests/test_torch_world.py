@@ -295,7 +295,7 @@ def test_components_come_from_the_port(torch_world):
 
     assert mca.MCA_PACKAGE == "ompi_tpu_torch.mca"
     coll = coll_framework()
-    assert sorted(coll.components) == ["builtin", "ring"]
+    assert sorted(coll.components) == ["builtin", "quant", "ring"]
     op_fw = op_base._framework()
     assert sorted(op_fw.components) == ["builtin", "cuda_vpu"]
     for comp in [*coll.components.values(), *op_fw.components.values()]:
