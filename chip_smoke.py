@@ -34,7 +34,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (bit for bit; NaN compared as NaN at the same places).  The bf16 wire
    (CUDA C++): K7 ``all_reduce`` wire16 with sum/max/min/prod at 4 MB per
    rank and 23 and 1000 elements per rank, K5's wire16 form on ``(8, 8,
-   131072)`` and ragged blocks ``S = (23,)`` and ``(5, 200)``.
+   131072)`` and ragged blocks ``S = (23,)`` and ``(5, 200)``.  K21, the
+   flash-attention block update (CUDA C++), within 1e-6 (float32) and 2^-7
+   (bfloat16) of the plain version's largest magnitude, NaN at the same
+   places: both dtypes at the training step's shape (32 rows, 256 x 256,
+   head dim 256), unbiased and with ring attention's per-rank causal bias,
+   from m = -inf and chained (a fully masked block leaves the state); a
+   fully masked row at m = -inf (NaN); a ragged sq = 200; the JAX bench's
+   shape ``(4, 8, 2048, 2048, 128)`` in bfloat16.
 3. The main path, with every launch count set to 0 before and read after:
    ``ompi_tpu_torch.init()`` (8 virtual ranks on ``cuda:0``), then at
    default priorities ``COMM_WORLD.allreduce_array`` — SUM to coll/builtin,
@@ -73,6 +80,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    4096 · 2 / 8) = 1280 rows per (rank, expert) pair, and each count is
    clamped to R, as a capacity-factor MoE drops the overflow.  x is
    ``(8, 8, 1280, 4096)`` float32: 160 MB per rank.
+
+   Then the training path, with the counts set to 0 before and read after:
+   ``parallel.dryrun.run_training_step`` at ``OTPU_MODEL_SCALE=64`` (the
+   JAX package's bench width: d 512, head dim 256, sequence 512; lr 1e-5),
+   two descending steps on the default mesh (dp=2, sp=2, tp=2) and two on
+   dp=1, pp=2, sp=2, tp=2; K21 exactly (M + pp - 1) x layers_local x sp
+   times a step (4 and 6), twice that under remat; the step with
+   ``use_flash=False`` within 1e-5 of the K21 step's loss and 1e-4 of each
+   leaf's update.
 4. Times: CUDA events around single calls, cold L2 (a 256 MB buffer is
    zeroed before each call), median of 25 after 3 warm-up calls, for each
    kernel, its plain version and one PyTorch library call computing the same
@@ -89,7 +105,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    16 MB per rank; the ``host_us_per_call`` line is the host's time to
    enqueue one call of each kernel's wrapper and of its library call
    (200 calls while the card spins; K15's and K16's include the counts
-   table each call makes and sends to the card).
+   table each call makes and sends to the card).  K21 is timed at the
+   step's shape (float32, its kernels-line row) and at the bench shape
+   (bfloat16, the ``flash_block_bench`` line, beside
+   ``scaled_dot_product_attention`` as a yardstick); its bound is the
+   larger of 4·rows·sq·skv·d operations over the peak of the input dtype
+   (67 TFLOP/s float32, 989 TFLOP/s bfloat16) and its bytes over 3.35
+   TB/s.  The ``step_ms`` line is the host time of one training step
+   ending in a sync (median and quartiles of 12 steps each), with K21 and
+   with ``use_flash=False`` in turns; ``step_profile`` traces one step of
+   each with ``torch.profiler`` (device time by kernel, idle share).
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
@@ -151,7 +176,11 @@ KERNELS = {
                           "ompi_tpu/ops/pallas_collectives.py:425"),
     "reduce_scatter_wire16": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                               "ompi_tpu/ops/pallas_collectives.py:502"),
+    "flash_block": ("cuda", "ompi_tpu_torch/csrc/flash_block.cu",
+                    "ompi_tpu/ops/flash_attention.py:135"),
 }
+#: the kernels of the training path; every other one is on the collectives'
+TRAINING_KERNELS = ("flash_block",)
 SEG = 512 * 1024 // 4      # seg_bytes (512k) in float32 elements
 
 # the MoE dispatch slab: Mixtral-8x7B's expert layer (hidden 4096, 8
@@ -172,9 +201,10 @@ def require(cond: bool, what: str) -> None:
 
 
 def launch_tables() -> tuple:
-    from ompi_tpu_torch.ops import quant, reduce, ring_collectives
+    from ompi_tpu_torch.ops import flash_attention, quant, reduce, ring_collectives
 
-    return reduce.launches, ring_collectives.launches, quant.launches
+    return (reduce.launches, ring_collectives.launches, quant.launches,
+            flash_attention.launches)
 
 
 def counts():
@@ -446,6 +476,7 @@ def check_kernels(gen) -> dict:
     del y
     check_codec_kernels(gen, err)
     check_wire16_kernels(gen, err)
+    check_flash_kernel(gen, err)
     torch.cuda.synchronize()
     return err
 
@@ -516,6 +547,141 @@ def check_wire16_kernels(gen, err: dict) -> None:
     log("all_reduce wire16 (K7): sum/max/min/prod at 4 MB, 23 and 1000 "
         "elements per rank; reduce_scatter wire16: sum/max on (8, 8, 131072), "
         "S = (23,) and (5, 200): bit-exact")
+
+
+#: K21's bands against its plain version, relative to the largest finite
+#: magnitude of each output (the tests' bands)
+FLASH_BANDS = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7}
+#: the step's per-rank layout at OTPU_MODEL_SCALE=64 on the default mesh:
+#: (dp, pp, sp, tp, b, h_local) = 32 rows, s_local 256, head dim 256
+STEP_LEAD, STEP_S, STEP_D = (2, 1, 2, 2, 2, 2), 256, 256
+#: the JAX package's bench shape of the flash block (bench.py:347):
+#: (b, h, sq, skv, d) in bfloat16
+BENCH_FLASH = (4, 8, 2048, 2048, 128)
+
+
+def flash_close(got: tuple, want: tuple, dtype, what: str) -> tuple:
+    """K21's (m, num, den) within its band of the plain version's: NaN at
+    the same places, infinities equal; returns the largest absolute error
+    over the finite values and the largest error relative to max |plain|
+    of its output (what the band holds)."""
+    worst = rel = 0.0
+    for g, w, name in zip(got, want, ("m", "num", "den")):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{what} {name}: {tuple(g.shape)} {g.dtype} vs "
+                f"{tuple(w.shape)} {w.dtype}")
+        g, w = g.float(), w.float()
+        require(torch.equal(torch.isnan(g), torch.isnan(w)),
+                f"{what} {name}: NaN at other places")
+        inf = torch.isinf(w)
+        require(torch.equal(g[inf], w[inf]), f"{what} {name}: infinities differ")
+        fin = torch.isfinite(w)
+        if not bool(fin.any()):
+            continue
+        err = (g[fin] - w[fin]).abs().max().item()
+        scale = w[fin].abs().max().item()
+        require(err <= FLASH_BANDS[dtype] * scale,
+                f"{what} {name}: {err / scale:.3e} of max |plain| above the "
+                f"band {FLASH_BANDS[dtype]:g}")
+        worst, rel = max(worst, err), max(rel, err / scale)
+    return worst, rel
+
+
+def flash_state(lead, sq, d, dtype, m_inf: bool, gen):
+    """(m, num, den): the first ring step's (-inf, 0, 0), or a running
+    state (den > 0)."""
+    if m_inf:
+        return (torch.full((*lead, sq), -float("inf"), device="cuda",
+                           dtype=dtype),
+                torch.zeros((*lead, sq, d), device="cuda", dtype=dtype),
+                torch.zeros((*lead, sq), device="cuda", dtype=dtype))
+    return (torch.randn((*lead, sq), device="cuda", generator=gen).to(dtype),
+            torch.randn((*lead, sq, d), device="cuda", generator=gen).to(dtype),
+            torch.rand((*lead, sq), device="cuda", generator=gen).to(dtype) + 1)
+
+
+def ring_bias(t: int, dtype) -> torch.Tensor:
+    """Ring attention's causal bias at step t on the step's mesh: one
+    (s_local, s_local) block per sp rank, prefix (1, 1, sp, 1) — step 0
+    the diagonal, step 1 fully masked on sp rank 0 and fully visible on
+    rank 1 (as ``parallel/model.py`` builds it)."""
+    sp = STEP_LEAD[2]
+    my = torch.arange(sp, device="cuda").reshape(1, 1, sp, 1, 1, 1)
+    rows = torch.arange(STEP_S, device="cuda")
+    src = torch.remainder(my - t + sp, sp)
+    keep = my * STEP_S + rows[:, None] >= src * STEP_S + rows[None, :]
+    return torch.where(keep, 0.0, -float("inf")).to(dtype)
+
+
+def check_flash_kernel(gen, err: dict) -> None:
+    """K21 against update_plain on the card: float32 and bfloat16, at the
+    step's shape unbiased and with the per-rank causal bias, from m = -inf
+    and chained; a fully masked block (K21 leaves the state as it was); a
+    fully masked row at m = -inf (NaN); a ragged sq = 200; the JAX bench's
+    shape in bfloat16.  Records (abs, rel) errors for the kernels-line row
+    (float32 at the step's shape) and for the bench line."""
+    from ompi_tpu_torch.ops import flash_attention as fa
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+    def worse(a, b):
+        return max(a[0], b[0]), max(a[1], b[1])
+
+    step, rest = (0.0, 0.0), (0.0, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = rnd(*STEP_LEAD, STEP_S, STEP_D, dtype=dtype)
+        kv = [rnd(*STEP_LEAD, STEP_S, STEP_D, dtype=dtype) for _ in range(4)]
+        for causal in (False, True):
+            state = flash_state(STEP_LEAD, STEP_S, STEP_D, dtype, True, gen)
+            for t in range(2):        # the two ring steps of sp = 2
+                bias = ring_bias(t, dtype) if causal else None
+                args = (q, kv[2 * t], kv[2 * t + 1], *state, bias)
+                got = fa.update(*args)
+                e = flash_close(got, fa.update_plain(*args), dtype,
+                                f"K21 step shape {dtype} causal={causal} "
+                                f"step {t}")
+                if dtype == torch.float32:
+                    step = worse(step, e)
+                else:
+                    rest = worse(rest, e)
+                if causal and t == 1:  # sp rank 0's second block: all masked
+                    require(all(torch.equal(g[:, :, 0], s[:, :, 0])
+                                for g, s in zip(got, state)),
+                            f"K21 {dtype}: a fully masked block moved the "
+                            f"state")
+                state = fa.update_plain(*args)
+        lead, sq = (2, 2), 64
+        q, k, v = (rnd(*lead, sq, 32, dtype=dtype) for _ in range(3))
+        masked = torch.zeros((sq, sq), device="cuda", dtype=dtype)
+        masked[:16] = -float("inf")                 # rows 0-15 see nothing
+        args = (q, k, v, *flash_state(lead, sq, 32, dtype, True, gen), masked)
+        got = fa.update(*args)
+        rest = worse(rest, flash_close(got, fa.update_plain(*args), dtype,
+                                       f"K21 masked {dtype}"))
+        require(bool(torch.isnan(got[1][..., :16, :]).all())
+                and not bool(torch.isnan(got[1][..., 16:, :]).any()),
+                "K21: a fully masked row at m = -inf must give NaN, others not")
+        q = rnd(2, 2, 200, 64, dtype=dtype)
+        k, v = (rnd(2, 2, 200, 64, dtype=dtype) for _ in range(2))
+        args = (q, k, v, *flash_state((2, 2), 200, 64, dtype, False, gen))
+        rest = worse(rest, flash_close(fa.update(*args), fa.update_plain(*args),
+                                       dtype, f"K21 ragged sq=200 {dtype}"))
+    b, h, sq, skv, d = BENCH_FLASH
+    q = rnd(b, h, sq, d, dtype=torch.bfloat16)
+    k, v = (rnd(b, h, skv, d, dtype=torch.bfloat16) for _ in range(2))
+    args = (q, k, v, *flash_state((b, h), sq, d, torch.bfloat16, True, gen))
+    bench = flash_close(fa.update(*args), fa.update_plain(*args),
+                        torch.bfloat16, "K21 bench shape")
+    err["flash_block"], err["flash_block_bench"] = step, bench
+    log("flash_block (K21): float32 and bfloat16 at the step's shape (32 "
+        "rows, 256 x 256, d 256) unbiased and per-rank causal, from m = -inf "
+        "and chained (a fully masked block leaves K21's state bit-equal), a "
+        "fully masked row at m = -inf (NaN at the same places), ragged sq = "
+        f"200, the bench shape {BENCH_FLASH} bfloat16: within 1e-6 (f32) / "
+        f"2^-7 (bf16) of max |plain|; (abs, rel) err float32 step shape "
+        f"{step[0]:.3e}, {step[1]:.3e}; bench {bench[0]:.3e}, "
+        f"{bench[1]:.3e}; other cases {rest[0]:.3e}, {rest[1]:.3e}")
 
 
 # -- phase 3: the main path ---------------------------------------------
@@ -616,7 +782,8 @@ def main_path(gen) -> dict:
         f"ppermute_array) in {wall:.3f} s (host clock, includes the "
         f"first-call builds); launches {launched}")
     for name in KERNELS:
-        require(launched[name] > 0, f"{name} was not launched on the main path")
+        if name not in TRAINING_KERNELS:
+            require(launched[name] > 0, f"{name} was not launched on the main path")
     require(k1_rs > 0, "reduce_scatter_array PROD did not launch K1")
 
     require(torch.equal(s_builtin, torch.sum(big, 0)), "builtin SUM")
@@ -667,6 +834,155 @@ def main_path(gen) -> dict:
     check_codec_results(codec, big)
     check_wire16_results(wire, mid, big, rs_mid)
     return launched
+
+
+#: the meshes of ``run_training_step`` on 8 ranks
+STEP_MESHES = {"default": dict(dp=2, pp=1, sp=2, tp=2),
+               "pp2": dict(dp=1, pp=2, sp=2, tp=2)}
+#: at OTPU_MODEL_SCALE=64 the reference's lr (1e-4) overshoots: the first
+#: loss is 1.07e6 (0.5·Σy² grows with the width, and so does its gradient)
+#: and the second step's is higher; 1e-5 descends
+STEP_LR = 1e-5
+
+
+def k21_per_step(sizes: dict) -> int:
+    """K21 launches of one step: one per ring step, (M + pp - 1)
+    pipeline steps x layers_local blocks x sp ring steps; the backward
+    recomputes through plain torch and launches none."""
+    from ompi_tpu_torch.parallel import train
+    from ompi_tpu_torch.parallel.mesh import MeshSpec
+
+    dims = train.model_dims(MeshSpec(**sizes))
+    return (dims["M"] + sizes["pp"] - 1) * dims["layers_local"] * sizes["sp"]
+
+
+def training_path() -> dict:
+    """The flagship training step at OTPU_MODEL_SCALE=64 on the card:
+    ``run_training_step`` (two descending steps on the default mesh, two on
+    the pp = 2 mesh) with every count set to 0 before and read after; then
+    the exact K21 count of one step on each mesh and under remat, and the
+    step with ``use_flash=False`` against the K21 step."""
+    from ompi_tpu_torch.base.var import registry
+    from ompi_tpu_torch.parallel import dryrun, train
+    from ompi_tpu_torch.parallel.mesh import MeshSpec
+
+    per_step = {name: k21_per_step(s) for name, s in STEP_MESHES.items()}
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = dryrun.run_training_step(lr=STEP_LR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    want = 2 * per_step["default"] + 2 * per_step["pp2"]
+    require(launched["flash_block"] == want,
+            f"training path launched K21 {launched['flash_block']} times, "
+            f"want {want}")
+    require(np.isfinite(loss), f"training loss {loss}")
+    scale = os.environ.get("OTPU_MODEL_SCALE", "1")
+    log(f"training path: run_training_step(lr={STEP_LR}) at "
+        f"OTPU_MODEL_SCALE={scale}, 2 steps "
+        f"on {STEP_MESHES['default']} and 2 on {STEP_MESHES['pp2']}, loss "
+        f"descending on both, in {wall:.3f} s (host clock, includes the "
+        f"first-step set-up); K21 launches {launched['flash_block']} = 2 x "
+        f"{per_step['default']} + 2 x {per_step['pp2']}")
+
+    for name, sizes in STEP_MESHES.items():
+        step, state, _ = dryrun.make_step_and_args(spec=MeshSpec(**sizes),
+                                                   lr=STEP_LR)
+        _, delta = launch_delta(lambda: step(*state))
+        require(delta == {"flash_block": per_step[name]},
+                f"one step on {name}: launches {delta}, want "
+                f"{per_step[name]} of K21")
+    remat = registry.lookup("otpu_parallel_remat")
+    remat.set(True)
+    try:
+        step, state, _ = dryrun.make_step_and_args(lr=STEP_LR)
+        _, delta = launch_delta(lambda: step(*state))
+    finally:
+        remat.set(False)
+    require(delta == {"flash_block": 2 * per_step["default"]},
+            f"one remat step: launches {delta}, want 2 x {per_step['default']}")
+
+    step, state, _ = dryrun.make_step_and_args(lr=STEP_LR)
+    plain_step, plain_state, _ = dryrun.make_step_and_args(use_flash=False,
+                                                           lr=STEP_LR)
+    (new, loss), (new_p, loss_p) = step(*state), plain_step(*plain_state)
+    rel_loss = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    require(rel_loss <= 1e-5, f"use_flash=False loss differs by {rel_loss:.3e}")
+    params = state[0]
+    worst = 0.0
+    for k in params:
+        upd, upd_p = params[k] - new[k], params[k] - new_p[k]
+        rel = ((upd - upd_p).abs().max() / upd_p.abs().max()).item()
+        worst = max(worst, rel)
+        require(rel <= 1e-4, f"use_flash=False update of {k} differs by {rel:.3e}")
+    log(f"training step with use_flash=False on the card: loss within "
+        f"{rel_loss:.3e} (band 1e-5), each leaf's update within {worst:.3e} "
+        f"of its largest magnitude (band 1e-4) of the K21 step; K21 per step "
+        f"{per_step['default']} (default mesh), {per_step['pp2']} (pp = 2), "
+        f"{2 * per_step['default']} under remat: exact")
+    variants = {"K21": (step, state),
+                "use_flash=False": (plain_step, plain_state)}
+    times = step_ms(variants)
+    log(json.dumps({"step_ms": {**times, "mesh": STEP_MESHES["default"],
+                                "scale": int(scale), "layers": 1}}))
+    log(json.dumps({"step_profile": {what: step_profile(*v)
+                                     for what, v in variants.items()}}))
+    return {"flash_block": launched["flash_block"], "step_ms": times}
+
+
+def step_ms(variants: dict, rounds: int = 4, steps: int = 3) -> dict:
+    """Host time (ms) of one training step ending in a sync, each variant
+    ``(step, state)`` in turns (a b, b a, ...): after two warm-up steps
+    each, ``rounds`` rounds of ``steps`` steps from the same state; the
+    median and the quartiles of each variant's samples."""
+    for step, state in variants.values():
+        for _ in range(2):
+            step(*state)
+    torch.cuda.synchronize()
+    samples = {what: [] for what in variants}
+    order = list(variants)
+    for r in range(rounds):
+        for what in order if r % 2 == 0 else order[::-1]:
+            step, state = variants[what]
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                step(*state)
+                torch.cuda.synchronize()
+                samples[what].append((time.perf_counter() - t0) * 1e3)
+    return {what: {"median": statistics.median(s),
+                   "quartiles": statistics.quantiles(s, n=4)[::2]}
+            for what, s in samples.items()}
+
+
+def step_profile(step, state, top: int = 8) -> dict:
+    """One training step (after a warm-up step) under ``torch.profiler``:
+    its host time (ms, profiler on), the device time of its kernels (ms;
+    one stream, so their sum is the busy time), the device's idle share of
+    the step, and the ``top`` kernels by device time with their counts.
+    A trace with no device time says so instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step(*state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    if not kernels:
+        return {"host_ms": wall, "device_ms": "not measured"}
+    kernels.sort(key=lambda k: -k[1])
+    return {"host_ms": wall, "device_ms": busy, "idle_share": 1 - busy / wall,
+            "kernel_launches": sum(n for _, _, n in kernels),
+            "top": [{"kernel": name[:80], "ms": ms, "count": n}
+                    for name, ms, n in kernels[:top]]}
 
 
 def launch_delta(fn) -> tuple:
@@ -981,6 +1297,66 @@ def measure(gen, launched: dict, err: dict) -> list:
     return rows
 
 
+#: peak rates of one H100 SXM (data sheet, dense): float32 on the CUDA
+#: cores (K21 uses no TF32) and bfloat16 on the tensor cores
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+
+def flash_row(gen, launches: int, err: tuple, lead, sq, skv, d,
+              dtype) -> tuple:
+    """K21's kernels-line row at one shape: its time, its plain version's,
+    and the bound, the larger of 4·B·sq·skv·d operations over the peak of
+    the input dtype and the bytes (q, k, v, num, m, den read once; num, m,
+    den written once) over the memory rate.  No PyTorch call returns the
+    block update's carries, so library_ms is null.  ``err`` is the (abs,
+    rel) error of K21 at this shape and dtype; returns the row and the
+    relative error."""
+    from ompi_tpu_torch.ops import flash_attention as fa
+
+    q = torch.randn((*lead, sq, d), device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn((*lead, skv, d), device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    state = flash_state(lead, sq, d, dtype, False, gen)
+    rows = int(np.prod(lead))
+    ops = 4 * rows * sq * skv * d
+    nbytes = (rows * (sq + 2 * skv + 2 * sq) * d + 4 * rows * sq) * \
+        q.element_size()
+    by_ops, by_bytes = ops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    route, source, replaces = KERNELS["flash_block"]
+    kernel = lambda: fa.update(q, k, v, *state)
+    return {"name": "flash_block", "route": route, "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err[0],
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: fa.update_plain(q, k, v, *state)),
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": None}, err[1]
+
+
+def measure_flash(gen, launches: int, err: dict) -> dict:
+    """K21 at the step's shape (its kernels-line row) and at the JAX
+    bench's shape (a line of its own), with scaled_dot_product_attention
+    at the bench shape as a yardstick for a later redesign (it does not
+    return the carries, and the port never calls it)."""
+    row, rel = flash_row(gen, launches, err["flash_block"], STEP_LEAD,
+                         STEP_S, STEP_S, STEP_D, torch.float32)
+    log(json.dumps({**row, "max_rel_err": rel, "shape": f"float32 q "
+                    f"{(*STEP_LEAD, STEP_S, STEP_D)} (the step's, 32 rows), "
+                    "unbiased"}))
+    b, h, sq, skv, d = BENCH_FLASH
+    bench, rel = flash_row(gen, launches, err["flash_block_bench"], (b, h),
+                           sq, skv, d, torch.bfloat16)
+    q, k, v = (torch.randn((b, h, n, d), device="cuda", generator=gen,
+                           dtype=torch.bfloat16) for n in (sq, skv, skv))
+    sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v))
+    log(json.dumps({"flash_block_bench": {**bench, "max_rel_err": rel,
+                                          "shape": f"bfloat16 "
+                    f"(b, h, sq, skv, d) = {BENCH_FLASH}, unbiased"},
+                    "sdpa_ms_yardstick": sdpa}))
+    return row
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -1004,10 +1380,16 @@ def main() -> int:
     log(f"nvcc build of {', '.join(_build.LIBRARIES)}: "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # full float32 products in the plain versions (both are the defaults)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err = check_kernels(gen)
     launched = main_path(gen)
+    os.environ["OTPU_MODEL_SCALE"] = "64"
+    trained = training_path()
     rows = measure(gen, launched, err)
+    rows.append(measure_flash(gen, trained["flash_block"], err))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

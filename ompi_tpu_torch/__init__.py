@@ -7,8 +7,11 @@ device tier rebuilt on PyTorch: the device world is N virtual ranks held as
 the rows of one tensor on one NVIDIA card, device collectives are torch
 reductions (coll/builtin) or hand-written ring kernels (coll/ring, CUDA
 C++), and the op framework's folds are hand-written Triton kernels
-(op/cuda_vpu).  Each kernel has a plain PyTorch version that serves CPU
-tensors, so the whole port runs on the CPU for its tests.
+(op/cuda_vpu).  ``ompi_tpu_torch.parallel`` runs the reference's flagship
+training step (dp × pp × sp × tp) on the same virtual ranks, its ring
+attention's block update a hand-written CUDA C++ kernel.  Each kernel has a
+plain PyTorch version that serves CPU tensors, so the whole port runs on
+the CPU for its tests.
 
 The package imports torch and never jax, nor anything of ``ompi_tpu``.
 """

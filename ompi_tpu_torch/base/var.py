@@ -62,7 +62,15 @@ _TRUE = {"1", "true", "yes", "on", "enabled", "t", "y"}
 _FALSE = {"0", "false", "no", "off", "disabled", "f", "n"}
 
 
-def _convert(vtype: VarType, raw: Any) -> Any:
+def _convert(vtype: VarType, raw: Any, enum_values: Optional[dict] = None) -> Any:
+    if enum_values is not None:
+        if isinstance(raw, str) and raw in enum_values:
+            return raw
+        # allow setting by enum integer value
+        for k, v in enum_values.items():
+            if str(raw) == str(v):
+                return k
+        raise ValueError(f"invalid enum value {raw!r}; choices: {sorted(enum_values)}")
     if vtype is VarType.INT or vtype is VarType.UNSIGNED:
         val = int(str(raw), 0)
         if vtype is VarType.UNSIGNED and val < 0:
@@ -100,6 +108,7 @@ class Var:
     default: Any
     help: str = ""
     scope: VarScope = VarScope.LOCAL
+    enum_values: Optional[dict] = None   # {name: int} when enum-typed
     aliases: tuple = ()
     group: str = ""                # "<framework>" or "<framework>/<component>"
     _value: Any = None
@@ -125,7 +134,7 @@ class Var:
                 f"variable {self.name} is read-only after runtime init")
         if source < self._source:
             return False
-        self._value = _convert(self.vtype, raw)
+        self._value = _convert(self.vtype, raw, self.enum_values)
         self._source = source
         self._source_detail = detail
         if self.on_set is not None:
@@ -157,6 +166,7 @@ class VarRegistry:
         default: Any = None,
         help: str = "",
         scope: VarScope = VarScope.LOCAL,
+        enum_values: Optional[dict] = None,
         aliases: Iterable[str] = (),
         on_set: Optional[Callable[[Any], None]] = None,
     ) -> Var:
@@ -171,6 +181,7 @@ class VarRegistry:
                 default=default,
                 help=help,
                 scope=scope,
+                enum_values=enum_values,
                 aliases=tuple(aliases),
                 group="/".join(p for p in (framework, component) if p),
                 on_set=on_set,

@@ -46,6 +46,9 @@ LIBRARIES = {
                  {"otpu_all_to_all": [_P, _P, _LL, _I, _I, _P],
                   "otpu_all_to_all_v": [_P, _P, _P, _LL, _LL, _I, _I, _P],
                   "otpu_all_gather_v": [_P, _P, _P, _LL, _LL, _I, _I, _P]}),
+    "flash_block": ("flash_block.cu",
+                    {"otpu_flash_block": [_P] * 10 + [_LL, _I, _I, _I, _LL, _I, _I,
+                                                      _I, _I, _I, _P]}),
 }
 
 _lock = threading.Lock()
