@@ -41,7 +41,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    head dim 256), unbiased and with ring attention's per-rank causal bias,
    from m = -inf and chained (a fully masked block leaves the state); a
    fully masked row at m = -inf (NaN); a ragged sq = 200; the JAX bench's
-   shape ``(4, 8, 2048, 2048, 128)`` in bfloat16.
+   shape ``(4, 8, 2048, 2048, 128)`` in bfloat16.  The duplex ring (CUDA
+   C++): K8 ``all_reduce`` bidi at 4 MB per rank and K9 seg_bidi at 16 MB
+   per rank (float32, every op), both on 23, 407 and 999 elements per rank
+   in float16/32/64 with every op, from an aligned and an unaligned pointer;
+   K11 all-gather bidi on 16 MB per rank float32, an odd int8 length, an
+   unaligned view and n = 5 (byte for byte).  The torus schedules, each
+   phase one sub-ring launch of K3/K5, on grids (2, 4) and (4, 2) against
+   their plain composition: ``all_reduce_torus`` (float32 and float16, every
+   op), ``reduce_scatter_torus`` (sum, max) and ``all_gather_torus``.
 3. The main path, with every launch count set to 0 before and read after:
    ``ompi_tpu_torch.init()`` (8 virtual ranks on ``cuda:0``), then at
    default priorities ``COMM_WORLD.allreduce_array`` — SUM to coll/builtin,
@@ -65,7 +73,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    0.005 (bf16 codec, plain torch) and MAX on the 0.01 dup launch no codec
    kernel; a third init adds ``OTPU_MCA_coll_ring_wire16=1`` to the raised
    ring: allreduce SUM at 4 MB per rank (K7 once), at 16 MB per rank (K4,
-   no K7) and reduce_scatter SUM at 4 MB per rank (K5's wire16 form once).
+   no K7) and reduce_scatter SUM at 4 MB per rank (K5's wire16 form once); a
+   fourth init has the raised ring with
+   ``OTPU_MCA_coll_ring_bidirectional=1``: allreduce SUM at 4 MB per rank
+   (K8 once) and at 16 MB per rank (K9 once), reduce_scatter SUM at 4 and 16
+   MB per rank (K5, K6: no duplex kernel), allgather at 16 MB per rank (K11
+   once), and ``allreduce_array_init`` at 4 MB per rank (K8 once to bind it)
+   called twice (K8 twice, bit-equal to the one-shot call).
    Each result is held against the plain version (bit-exact; the ragged
    calls' views over their valid rows) and, for SUM, against
    ``torch.sum(x, 0)`` (tolerance below; the codecs within their band of
@@ -97,7 +111,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    must move (inputs read once, output written once) over 3.35 TB/s, the
    H100 SXM's memory rate; the ragged kernels count their valid rows only.
    K7 and K5's wire16 form are timed
-   beside K3 and K5 on the same inputs (the same bytes), and the
+   beside K3 and K5 on the same inputs (the same bytes), K8 and K9 beside
+   K3 and K4, the ``torus_ms`` line times the three torus functions at 8 ×
+   16 MB on the (2, 4) grid beside ``torch.sum`` and ``clone``, and the
    ``codec_path_ms`` line times the whole int8 allreduce (K17 then K18) and
    the bf16 codec's plain torch beside ``torch.sum`` at 8 × 16 MB.
    The ``crossover_ms`` line times both
@@ -178,6 +194,12 @@ KERNELS = {
                               "ompi_tpu/ops/pallas_collectives.py:502"),
     "flash_block": ("cuda", "ompi_tpu_torch/csrc/flash_block.cu",
                     "ompi_tpu/ops/flash_attention.py:135"),
+    "all_reduce_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
+                        "ompi_tpu/ops/pallas_collectives.py:961"),
+    "all_reduce_seg_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_seg.cu",
+                            "ompi_tpu/ops/pallas_collectives.py:850"),
+    "all_gather_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
+                        "ompi_tpu/ops/pallas_collectives.py:226"),
 }
 #: the kernels of the training path; every other one is on the collectives'
 TRAINING_KERNELS = ("flash_block",)
@@ -477,6 +499,8 @@ def check_kernels(gen) -> dict:
     check_codec_kernels(gen, err)
     check_wire16_kernels(gen, err)
     check_flash_kernel(gen, err)
+    check_duplex_kernels(gen, err)
+    check_torus(gen)
     torch.cuda.synchronize()
     return err
 
@@ -547,6 +571,77 @@ def check_wire16_kernels(gen, err: dict) -> None:
     log("all_reduce wire16 (K7): sum/max/min/prod at 4 MB, 23 and 1000 "
         "elements per rank; reduce_scatter wire16: sum/max on (8, 8, 131072), "
         "S = (23,) and (5, 200): bit-exact")
+
+
+def check_duplex_kernels(gen, err: dict) -> None:
+    """K8, K9 and K11 against their plain versions, bit for bit (K11 byte
+    for byte)."""
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    plain = {"bidi": rc.all_reduce_bidi_plain,
+             "seg_bidi": rc.all_reduce_seg_bidi_plain}
+    for variant, per_rank, seg in (("bidi", 4 * MB, None),
+                                   ("seg_bidi", 16 * MB, SEG)):
+        x = operands(torch.float32, (N, per_rank // 4), gen)
+        for op in ("sum", "max", "min", "prod"):
+            same_bits(rc.all_reduce(x, N, op, variant, seg),
+                      plain[variant](x, N, op, *([seg] if seg else [])),
+                      f"all_reduce {variant} {op} float32 {per_rank // MB} MB/rank")
+        del x
+    for dtype in (torch.float16, torch.float32, torch.float64):
+        for per in (23, 407, 999):
+            base = operands(dtype, (N * per + 1,), gen)
+            for x in (base[:-1].view(N, per), base[1:].view(N, per)):
+                for op in ("sum", "max", "min", "prod"):
+                    for variant, seg in (("bidi", None), ("seg_bidi", 32)):
+                        same_bits(rc.all_reduce(x, N, op, variant, seg),
+                                  plain[variant](x, N, op, *([seg] if seg else [])),
+                                  f"all_reduce {variant} {op} {dtype} 8 x {per} "
+                                  f"(pointer % 16 = {x.data_ptr() % 16})")
+    err["all_reduce_bidi"] = err["all_reduce_seg_bidi"] = 0.0
+    log("all_reduce bidi (K8) at 4 MB and seg_bidi (K9) at 16 MB per rank, "
+        "float32, every op; both on 23, 407 and 999 elements per rank, "
+        "float16/32/64, every op, aligned and unaligned: bit-exact")
+    x = operands(torch.float32, (N, 16 * MB // 4), gen)
+    odd = operands(torch.int8, (N * 1001 + 1,), gen)
+    five = operands(torch.float32, (5, 1001), gen)
+    for what, t, n in (("float32 16 MB/rank", x, N),
+                       ("int8 1001 B/rank", odd[:-1].view(N, 1001), N),
+                       ("int8 unaligned", odd[1:].view(N, 1001), N),
+                       ("n = 5 float32 1001/rank", five, 5)):
+        same_bytes(rc.all_gather(t, n, "bidi"), rc.all_gather_plain(t, n),
+                   f"all_gather bidi {what}")
+    err["all_gather_bidi"] = 0.0
+    log("all_gather bidi (K11): float32 16 MB per rank, int8 1001 B per rank "
+        "aligned and not, n = 5: byte-exact")
+
+
+def check_torus(gen) -> None:
+    """The torus schedules (a sub-ring launch of K5, then one of K3 or K5)
+    against their plain composition, bit for bit, on (2, 4) and (4, 2)."""
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    for n0, n1 in ((2, 4), (4, 2)):
+        for dtype, per in ((torch.float32, 1000), (torch.float16, 1000),
+                           (torch.float32, 4 * MB // 4)):
+            x = operands(dtype, (n0, n1, per), gen)
+            for op in ("sum", "max", "min", "prod"):
+                same_bits(rc.all_reduce_torus(x, n0, n1, op),
+                          rc.all_reduce_torus_plain(x, n0, n1, op),
+                          f"all_reduce_torus ({n0}, {n1}) {op} {dtype} {per}")
+            same_bytes(rc.all_gather_torus(x.view(N, per), n0, n1),
+                       x.view(N, per), f"all_gather_torus ({n0}, {n1})")
+        for dtype, per in ((torch.float32, 200), (torch.float16, 200),
+                           (torch.float32, 131072)):
+            y = operands(dtype, (N, N, per), gen)
+            for op in ("sum", "max"):
+                same_bits(rc.reduce_scatter_torus(y, n0, n1, op),
+                          rc.reduce_scatter_torus_plain(y, n0, n1, op),
+                          f"reduce_scatter_torus ({n0}, {n1}) {op} {dtype} {per}")
+    log("torus schedules on (2, 4) and (4, 2): all_reduce_torus (float32 and "
+        "float16 1000 per rank, float32 4 MB per rank, every op), "
+        "reduce_scatter_torus (200 and 131072 per block, sum and max), "
+        "all_gather_torus: bit-exact with the plain composition")
 
 
 #: K21's bands against its plain version, relative to the largest finite
@@ -769,18 +864,26 @@ def main_path(gen) -> dict:
     os.environ["OTPU_MCA_coll_ring_wire16"] = "1"
     world = ompi_tpu_torch.init()
     wire = wire16_calls(world, mid, big, rs_mid)
+    rt.finalize()
+
+    # an unset variable leaves a var as it was: wire16 is turned off by value
+    os.environ["OTPU_MCA_coll_ring_wire16"] = "0"
+    os.environ["OTPU_MCA_coll_ring_bidirectional"] = "1"
+    world = ompi_tpu_torch.init()
+    duplex = duplex_calls(world, mid, big, rs_mid, rs_big)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
     rt.finalize()
-    del os.environ["OTPU_MCA_coll_ring_priority"]
-    del os.environ["OTPU_MCA_coll_ring_wire16"]
+    for name in ("priority", "wire16", "bidirectional"):
+        del os.environ[f"OTPU_MCA_coll_ring_{name}"]
 
-    log(f"main path: 3 x init, 2 x dup, 10 allreduce_array, 2 bcast_array, "
-        f"4 allgather_array, 5 reduce_scatter_array, reduce_local, 2 x "
+    log(f"main path: 4 x init, 2 x dup, 12 allreduce_array, 2 bcast_array, "
+        f"5 allgather_array, 7 reduce_scatter_array, reduce_local, 2 x "
         f"(alltoall_array, alltoallv_array, allgatherv_array, 2 "
-        f"ppermute_array) in {wall:.3f} s (host clock, includes the "
-        f"first-call builds); launches {launched}")
+        f"ppermute_array), allreduce_array_init and 2 calls of its handle in "
+        f"{wall:.3f} s (host clock, includes the first-call builds); "
+        f"launches {launched}")
     for name in KERNELS:
         if name not in TRAINING_KERNELS:
             require(launched[name] > 0, f"{name} was not launched on the main path")
@@ -833,6 +936,7 @@ def main_path(gen) -> dict:
         "holds zeros and left K13's count unchanged")
     check_codec_results(codec, big)
     check_wire16_results(wire, mid, big, rs_mid)
+    check_duplex_results(duplex, mid, big, rs_mid, rs_big)
     return launched
 
 
@@ -1021,6 +1125,61 @@ def wire16_calls(world, mid, big, rs_mid) -> dict:
             "ar_big": launch_delta(lambda: world.allreduce_array(big)),
             "rs_mid": launch_delta(lambda: world.reduce_scatter_array(
                 rs_mid, ompi_tpu_torch.SUM))}
+
+
+def duplex_calls(world, mid, big, rs_mid, rs_big) -> dict:
+    """The raised ring with the duplex var: each call's result and launch
+    delta; ``init`` binds the persistent allreduce (one validating call),
+    ``persistent`` calls its handle twice."""
+    import ompi_tpu_torch
+
+    ring = world.c_coll["allreduce_array"].__self__
+    require(ring.bidirectional and not ring.wire16,
+            "OTPU_MCA_coll_ring_bidirectional=1 (wire16 off) did not reach "
+            "coll/ring")
+    got = {"ar_mid": launch_delta(lambda: world.allreduce_array(mid)),
+           "ar_big": launch_delta(lambda: world.allreduce_array(big)),
+           "rs_mid": launch_delta(lambda: world.reduce_scatter_array(
+               rs_mid, ompi_tpu_torch.SUM)),
+           "rs_big": launch_delta(lambda: world.reduce_scatter_array(
+               rs_big, ompi_tpu_torch.SUM)),
+           "ag": launch_delta(lambda: world.allgather_array(big)),
+           "init": launch_delta(lambda: world.allreduce_array_init(mid))}
+    handle = got["init"][0]
+    got["persistent"] = launch_delta(lambda: [handle(mid), handle(mid)])
+    return got
+
+
+def check_duplex_results(duplex: dict, mid, big, rs_mid, rs_big) -> None:
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    want = {"ar_mid": {"all_reduce_bidi": 1},
+            "ar_big": {"all_reduce_seg_bidi": 1},
+            "rs_mid": {"reduce_scatter_fused": 1},
+            "rs_big": {"reduce_scatter_seg": 1},
+            "ag": {"all_gather_bidi": 1},
+            "init": {"all_reduce_bidi": 1},
+            "persistent": {"all_reduce_bidi": 2}}
+    for name, (_, delta) in duplex.items():
+        require(delta == want[name], f"duplex {name}: launches {delta}, want "
+                f"{want[name]}")
+    check_sum(duplex["ar_mid"][0], mid, rc.all_reduce_bidi_plain(mid, N, "sum"),
+              "duplex allreduce 4 MB/rank (K8)")
+    check_sum(duplex["ar_big"][0], big,
+              rc.all_reduce_seg_bidi_plain(big, N, "sum", SEG),
+              "duplex allreduce 16 MB/rank (K9)")
+    for name, x in (("rs_mid", rs_mid), ("rs_big", rs_big)):
+        check_sum(duplex[name][0], x, rc.reduce_scatter_plain(x, N, "sum"),
+                  f"duplex on, reduce_scatter {name} (K5/K6)")
+    same_bytes(duplex["ag"][0], big, "duplex allgather 16 MB/rank (K11)")
+    for out in duplex["persistent"][0]:
+        same_bits(out, duplex["ar_mid"][0],
+                  "allreduce_array_init handle vs the one-shot call (K8)")
+    log("duplex path: 4 MB/rank allreduce -> K8, 16 MB/rank -> K9, "
+        "reduce_scatter -> K5/K6 (no duplex key), allgather -> K11, each "
+        "once; allreduce_array_init binds with one K8 and its two calls "
+        "launch K8 twice, bit-equal to the one-shot call; all bit-exact with "
+        "the plain versions and within 2(n-1)·2^-24·Σ|x| of torch.sum")
 
 
 def codec_band(out, x, codec: str, what: str) -> float:
@@ -1243,10 +1402,31 @@ def measure(gen, launched: dict, err: dict) -> list:
             lambda: rc.reduce_scatter(rs_mid, N, "sum", "wire16"),
             lambda: rc.reduce_scatter_wire16_plain(rs_mid, N, "sum"), None,
             (N + 1) * 4 * MB, "SUM f32, (8, 8, 131072): 8 ranks x 4 MB, bf16 wire"),
+        "all_reduce_bidi": (lambda: rc.all_reduce(mid, N, "sum", "bidi"),
+                            lambda: rc.all_reduce_bidi_plain(mid, N, "sum"),
+                            lambda: torch.sum(mid, 0), (N + 1) * 4 * MB,
+                            "SUM f32, 8 ranks x 4 MB, duplex blocks"),
+        "all_reduce_seg_bidi": (
+            lambda: rc.all_reduce(big, N, "sum", "seg_bidi", seg),
+            lambda: rc.all_reduce_seg_bidi_plain(big, N, "sum", seg),
+            lambda: torch.sum(big, 0), (N + 1) * 16 * MB,
+            "SUM f32, 8 ranks x 16 MB, duplex blocks, 512 KB window"),
+        "all_gather_bidi": (lambda: rc.all_gather(big, N, "bidi"),
+                            lambda: rc.all_gather_plain(big, N),
+                            lambda: big.clone(), 2 * N * 16 * MB,
+                            "f32, 8 ranks x 16 MB"),
     }
-    beside = {"all_reduce_wire16": lambda: rc.all_reduce(mid, N, "sum", "fused"),
-              "reduce_scatter_wire16": lambda: rc.reduce_scatter(rs_mid, N, "sum",
-                                                                 "fused")}
+    # the same bytes through the one-way kernel, on the same inputs
+    beside = {
+        "all_reduce_wire16": ("fused (K3/K5)",
+                              lambda: rc.all_reduce(mid, N, "sum", "fused")),
+        "reduce_scatter_wire16": ("fused (K3/K5)", lambda: rc.reduce_scatter(
+            rs_mid, N, "sum", "fused")),
+        "all_reduce_bidi": ("fused (K3)",
+                            lambda: rc.all_reduce(mid, N, "sum", "fused")),
+        "all_reduce_seg_bidi": ("seg (K4)", lambda: rc.all_reduce(
+            big, N, "sum", "seg", seg)),
+        "all_gather_bidi": ("ring (K10)", lambda: rc.all_gather(big, N))}
     rows, host = [], {}
     for name, (kernel, plain, library, nbytes, what, *ragged) in cases.items():
         route, source, replaces = KERNELS[name]
@@ -1264,7 +1444,8 @@ def measure(gen, launched: dict, err: dict) -> list:
         }
         extra = {"shape": what}
         if name in beside:
-            extra["beside_ms"] = {"fused (K3/K5)": time_ms(beside[name])}
+            label, fn = beside[name]
+            extra["beside_ms"] = {label: time_ms(fn)}
         log(json.dumps({**row, **extra}))
         rows.append(row)
         host[name] = {"kernel": host_us(kernel)}
@@ -1294,6 +1475,30 @@ def measure(gen, launched: dict, err: dict) -> list:
         "torch.sum bound": (N + 1) * 16 * MB / HBM_BYTES_PER_S * 1e3,
         "shape": "f32 8 ranks x 16 MB"}}))
     log(json.dumps({"host_us_per_call": host}))
+    # the torus schedules at 8 x 16 MB on the (2, 4) grid, each phase one
+    # sub-ring launch: against the library call of the same function
+    grid = big.view(2, 4, -1)
+    log(json.dumps({"torus_ms": {
+        "grid": [2, 4], "shape": "f32, 8 ranks x 16 MB",
+        "all_reduce_torus": time_ms(lambda: rc.all_reduce_torus(grid, 2, 4)),
+        "all_reduce_torus library (torch.sum over both axes)":
+            time_ms(lambda: grid.sum((0, 1))),
+        "all_reduce_torus bound": (N + 1) * 16 * MB / HBM_BYTES_PER_S * 1e3,
+        "reduce_scatter_torus": time_ms(
+            lambda: rc.reduce_scatter_torus(rs_big, 2, 4)),
+        "reduce_scatter_torus library (torch.sum)":
+            time_ms(lambda: torch.sum(rs_big, 0)),
+        "reduce_scatter_torus bound": (N + 1) * 16 * MB / HBM_BYTES_PER_S * 1e3,
+        "all_gather_torus": time_ms(lambda: rc.all_gather_torus(big, 2, 4)),
+        "all_gather_torus library (clone)": time_ms(lambda: big.clone()),
+        "all_gather_torus bound": 2 * N * 16 * MB / HBM_BYTES_PER_S * 1e3,
+        "launches per call": {
+            "all_reduce_torus": launch_delta(
+                lambda: rc.all_reduce_torus(grid, 2, 4))[1],
+            "reduce_scatter_torus": launch_delta(
+                lambda: rc.reduce_scatter_torus(rs_big, 2, 4))[1],
+            "all_gather_torus": launch_delta(
+                lambda: rc.all_gather_torus(big, 2, 4))[1]}}}))
     return rows
 
 

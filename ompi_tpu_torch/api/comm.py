@@ -7,7 +7,8 @@ components (``coll_base_comm_select.c``), and its info hints (an ``Info``;
 the ``otpu_quant_budget`` key arms coll/quant).  Every slot that no
 selected module fills raises ``MpiError(ERR_UNSUPPORTED_OPERATION)``.  Of
 communicator construction only ``dup`` and ``dup_with_info`` are ported;
-point-to-point and fault tolerance are not ported yet.
+the persistent collectives only on device buffers (``allreduce_array_init``,
+``coll_init``); point-to-point and fault tolerance are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ompi_tpu_torch.api.info import Info
 COLL_FUNCTIONS = ("allreduce_array", "bcast_array", "allgather_array",
                   "reduce_scatter_array", "psum_scatter_array",
                   "alltoall_array", "alltoallv_array", "allgatherv_array",
-                  "ppermute_array")
+                  "ppermute_array", "persistent_coll")
 
 
 class Comm:
@@ -131,6 +132,37 @@ class Comm:
     def ppermute_array(self, x, perm):
         self._check_state()
         return self._coll("ppermute_array")(self, x, perm)
+
+    # persistent collectives (MPI_Allreduce_init & friends) ----------------
+    def coll_init(self, coll: str, template=None, *args):
+        """Persistent collective (``ompi_tpu/api/comm.py:504-539``): a
+        restartable request (``start()``/``wait()``/``.result``) whose every
+        start re-runs the device collective bound at init on ``template``.
+        The host branch (no template, or no device provider) needs the host
+        tier, which is not ported yet: it raises
+        ``MpiError(ERR_UNSUPPORTED_OPERATION)``."""
+        self._check_state()
+        from ompi_tpu_torch.api.request import PersistentP2P
+
+        fn = self.c_coll.get("persistent_coll")
+        if fn is None or template is None:
+            raise MpiError(ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                           f"no persistent binding for '{coll}' on "
+                           f"{self.name}: host persistent collectives are "
+                           "not ported yet")
+        handle = fn(self, coll, template, *args)
+        return PersistentP2P(lambda: handle.start(template))
+
+    def allreduce_array_init(self, template, op: op_mod.Op = op_mod.SUM):
+        """The persistent device allreduce as a bare callable handle
+        (``h(x)``, ``h.start(x)``); ``coll_init`` wraps the same binding in
+        the request interface."""
+        fn = self.c_coll.get("persistent_coll")
+        if fn is None:
+            raise MpiError(ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                           "no device persistent-collective provider on "
+                           f"{self.name}")
+        return fn(self, "allreduce", template, op)
 
     def release_coll_modules(self) -> None:
         """Tear down per-comm coll module state (runtime finalize)."""

@@ -1,5 +1,6 @@
-// K10: ring all-gather, K12: pipelined ring bcast, and K13: ring right
-// permute, of N virtual ranks held as the rows of one tensor.  All three move
+// K10: ring all-gather, K11: the duplex ring all-gather, K12: pipelined ring
+// bcast, and K13: ring right permute, of N virtual ranks held as the rows of
+// one tensor.  All four move
 // bytes and compute nothing, so all are written on bytes: one instantiation
 // serves every dtype (bool and bfloat16 included).
 //
@@ -13,6 +14,17 @@
 //   result once) / 3.35 TB/s.  Design: a grid-stride copy, 16 bytes a thread
 //   (uint4) when both pointers are 16-byte aligned, then the length's tail
 //   (< 16 bytes) byte by byte; byte by byte throughout otherwise.
+//
+// K11 replaces pallas_collectives._build_all_gather_bidi (:226): every step
+// ships the freshest block both ways round the ring, rank my sending slot
+// my-k right and slot my+k left, so the n-1 remote blocks arrive in
+// ceil((n-1)/2) steps, each exactly once (n/2 by the right chain, the rest by
+// the left).  On one card every rank's copy of row p is the one row out[p],
+// so the chain that reaches it writes it once: n rows copied, each byte once.
+//   Bound on an H100: device-memory bytes, 2*n*S / 3.35 TB/s (as K10).
+//   Design: the pair copy of pair_copy.cuh with pair p = row p into slot p (16
+//   bytes a thread when the row length and both pointers are 16-byte
+//   aligned, byte by byte otherwise).
 //
 // K12 replaces pallas_collectives._build_bcast (:1294), the "clamped
 // conveyor": root streams segments rightward and every hop forwards segment s
@@ -145,4 +157,16 @@ extern "C" int otpu_ring_right_permute(const void* x, void* out, long long row_b
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
                          nullptr, row_bytes, 0, n, n};
   return otpu::launch_pair_copy<otpu::SLOT_ROTATE>(a, vec, stream);
+}
+
+// x, out: (n, row_bytes) device pointers.  vec is 16 (row_bytes % 16 == 0
+// and both pointers 16-byte aligned; the wrapper checks) or 1.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for another
+// vec).
+extern "C" int otpu_ring_all_gather_bidi(const void* x, void* out, long long row_bytes,
+                                         int n, int vec, void* stream) {
+  if (vec == 16 && row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
+  const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
+                         nullptr, row_bytes, 0, n, n};
+  return otpu::launch_pair_copy<otpu::SLOT_SAME>(a, vec, stream);
 }

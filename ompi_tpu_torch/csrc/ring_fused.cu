@@ -1,6 +1,7 @@
 // K3: fused ring all-reduce, and K5: fused ring reduce-scatter, of N virtual
 // ranks held as the rows of one tensor; K7 and K5's wire16 form: the same
-// two with the bf16 wire.
+// two with the bf16 wire; K8: the duplex all-reduce; and the sub-ring form of
+// K3 and K5 that the torus schedules run.
 //
 // K3 replaces the Pallas kernel pallas_collectives._build_all_reduce with its
 // _rs_phase and _ag_phase (ompi_tpu/ops/pallas_collectives.py:361, :311,
@@ -16,6 +17,14 @@
 // same bits (:463-469); the reduce-scatter's owner keeps its float32 partial
 // (:511-515).  The TPU kernel writes K7's result as bf16 and its wrapper
 // upcasts it (:1606); here it is written as the same values in float32.
+// K8 replaces pallas_collectives._build_all_reduce_bidi (:961): every ring
+// block is two halves of h = hrows*128 elements, the first reduced by a
+// clockwise ring and the second by a counter-clockwise one, both at once on
+// the TPU's duplex links (:987-1010).  Both partials start on rank b; the
+// clockwise one then meets ranks b+1, b+2, ..., the other b-1, b-2, ...
+// The torus schedules (:1833-2028) run K3 and K5 as sub-rings of an (n0, n1)
+// grid (sub=(n0, n1, j), :118-137): here one launch takes a whole phase,
+// every sub-ring of it, through a rank pitch and a period of the block index.
 //
 // On one card the n ranks are rows of x (n, size).  The fold order of the TPU
 // ring is kept (see ring_common.cuh), so the result is bit-identical with the
@@ -29,15 +38,17 @@
 // far below the ridge; the wire rounding adds a few integer operations per
 // fold, still far below it), so its least time is (n+1)*size*sizeof(T) /
 // 3.35 TB/s -- for K5, (n+1)*P with P the per-rank payload
-// n*prod(S)*sizeof(T).  On one card no link carries the partials, so the
-// bf16 wire saves nothing: K7 moves K3's bytes and is kept for its numbers.
+// n*prod(S)*sizeof(T); for K8 the same as K3.  On one card no link carries
+// the partials, so neither the bf16 wire nor the duplex split saves anything:
+// K7 and K8 move K3's bytes and are kept for their numbers.
 // Design: each thread owns VEC contiguous elements (16 bytes) of ring block b,
-// loads the n ranks' slices in ring order b+s, b+s+1, ..., b+s-1 with 16-byte
-// loads (the k loop is unrolled, so the loads are in flight together), folds
-// in registers -- the fused regime's on-chip accumulator -- and stores once.
-// The wire is a compile-time mode: the rounding sits between the folds in
-// registers and costs no memory traffic.  A grid-stride loop covers the
-// payload with a few blocks per SM.
+// loads the n ranks' slices in ring order b+s, b+s+1, ..., b+s-1 (K8's second
+// halves: b, b-1, ..., b+1) with 16-byte loads (the k loop is unrolled, so the
+// loads are in flight together), folds in registers -- the fused regime's
+// on-chip accumulator -- and stores once.  The wire and the walk are
+// compile-time modes: the rounding sits between the folds in registers and
+// costs no memory traffic, and the one-way ring's code is as it was.  A
+// grid-stride loop covers the payload with a few blocks per SM.
 #include <type_traits>
 
 #include "ring_common.cuh"
@@ -48,24 +59,36 @@ constexpr int kFusedThreads = 256;
 
 // wire modes: none (K3, K5); bf16 partials (K5w); bf16 partials and result (K7)
 enum { kWireOff = 0, kWireHops = 1, kWireHopsAndResult = 2 };
+// ring walks: one way (K3, K5, K7, K5w); duplex halves (K8); a batch of
+// sub-rings at a rank pitch (the torus schedules' K3 and K5)
+enum { kRing = 0, kDuplex = 1, kSubRings = 2 };
 
-template <typename T, int OP, int VEC, int WIRE>
+template <typename T, int OP, int VEC, int WIRE, int WALK>
 __global__ void __launch_bounds__(kFusedThreads)
 ring_fused_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t size,
-                  int64_t blk, int n, int start) {
+                  int64_t blk, int n, int start, int64_t period, int64_t pitch) {
   const int64_t nvec = size / VEC;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < nvec;
        v += stride) {
     const int64_t e = v * VEC;
     // ring block b: its partial starts on rank b + start
-    int r = (int)((e / blk + start) % n);
-    Pack<T, VEC> acc = load<T, VEC>(x + (int64_t)r * size + e);
+    const int64_t b = (WALK == kSubRings ? e % period : e) / blk;
+    int r = (int)((b + start) % n);
+    // a duplex block's second half walks left: each hop is r + (n - 1)
+    int step = 1;
+    if constexpr (WALK == kDuplex) step = (e - b * blk >= blk / 2) ? n - 1 : 1;
+    Pack<T, VEC> acc = load<T, VEC>(x + (int64_t)r * pitch + e);
 #pragma unroll 8
     for (int k = 1; k < n; ++k) {
-      r = (r + 1 == n) ? 0 : r + 1;
+      if constexpr (WALK == kDuplex) {
+        r += step;
+        if (r >= n) r -= n;
+      } else {
+        r = (r + 1 == n) ? 0 : r + 1;
+      }
       if constexpr (WIRE != kWireOff) wire_round(acc);  // the hop's bf16 bytes
-      fold_into<OP>(acc, load<T, VEC>(x + (int64_t)r * size + e));
+      fold_into<OP>(acc, load<T, VEC>(x + (int64_t)r * pitch + e));
     }
     if constexpr (WIRE == kWireHopsAndResult) wire_round(acc);
     store<T, VEC>(out + e, acc);
@@ -74,35 +97,47 @@ ring_fused_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t size,
 
 template <typename T, int OP, int VEC>
 struct FusedLaunch {
-  template <int WIRE>
+  template <int WIRE, int WALK>
   static void go(const void* x, void* out, int64_t size, int64_t blk, int n,
-                 int start, cudaStream_t stream) {
+                 int start, int64_t period, int64_t pitch, cudaStream_t stream) {
     const int64_t nvec = size / VEC;
     int64_t blocks = (nvec + kFusedThreads - 1) / kFusedThreads;
     const int64_t cap = (int64_t)sm_count() * 8;
     if (blocks > cap) blocks = cap;
     if (blocks < 1) blocks = 1;
-    ring_fused_kernel<T, OP, VEC, WIRE><<<(unsigned)blocks, kFusedThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), size, blk, n, start);
+    ring_fused_kernel<T, OP, VEC, WIRE, WALK><<<(unsigned)blocks, kFusedThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), size, blk, n, start,
+        period, pitch);
   }
 
   static void run(const void* x, void* out, int64_t size, int64_t blk, int n,
-                  int start, int wire, cudaStream_t stream) {
+                  int start, int wire, int walk, int64_t period, int64_t pitch,
+                  cudaStream_t stream) {
+    if (walk == kDuplex)
+      return go<kWireOff, kDuplex>(x, out, size, blk, n, start, period, pitch, stream);
+    if (walk == kSubRings)
+      return go<kWireOff, kSubRings>(x, out, size, blk, n, start, period, pitch, stream);
     if constexpr (std::is_same_v<T, float>) {
-      if (wire == kWireHops) return go<kWireHops>(x, out, size, blk, n, start, stream);
+      if (wire == kWireHops)
+        return go<kWireHops, kRing>(x, out, size, blk, n, start, period, pitch, stream);
       if (wire == kWireHopsAndResult)
-        return go<kWireHopsAndResult>(x, out, size, blk, n, start, stream);
+        return go<kWireHopsAndResult, kRing>(x, out, size, blk, n, start, period, pitch,
+                                             stream);
     }
-    go<kWireOff>(x, out, size, blk, n, start, stream);
+    go<kWireOff, kRing>(x, out, size, blk, n, start, period, pitch, stream);
   }
 };
 
 inline int fused(const void* x, void* out, long long size, long long blk,
                  int n, int dtype, int op, int vec, int start, int wire,
-                 void* stream) {
+                 int walk, long long period, long long pitch, void* stream) {
   if (wire != kWireOff && dtype != DT_F32) return (int)cudaErrorInvalidValue;
+  if (blk <= 0 || n < 1 || start < 0 || (walk == kDuplex && blk % 2) ||
+      (walk == kSubRings && period <= 0))
+    return (int)cudaErrorInvalidValue;
   if (!dispatch<FusedLaunch>(dtype, op, vec, x, out, (int64_t)size,
-                             (int64_t)blk, n, start, wire,
+                             (int64_t)blk, n, start, wire, walk,
+                             (int64_t)period, (int64_t)pitch,
                              static_cast<cudaStream_t>(stream)))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -113,15 +148,15 @@ inline int fused(const void* x, void* out, long long size, long long blk,
 // x: (n, size) device pointer, out: (size,).  size % vec == 0 and, with
 // vec > 1, blk % vec == 0 and both pointers and the row pitch are 16-byte
 // aligned (the wrapper checks).  Each returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unknown dtype/op/vec code, or a wire16
-// entry called on another dtype than float32).
+// launch (cudaErrorInvalidValue for an unknown dtype/op/vec code, a block of
+// no element, or a wire16 entry called on another dtype than float32).
 
 // K3: all-reduce, blocks of blk = rows*128 elements, start offset 0.
 extern "C" int otpu_ring_fused(const void* x, void* out, long long size,
                                long long blk, int n, int dtype, int op, int vec,
                                void* stream) {
   return otpu::fused(x, out, size, blk, n, dtype, op, vec, 0, otpu::kWireOff,
-                     stream);
+                     otpu::kRing, size, size, stream);
 }
 
 // K5: reduce-scatter, x (n, n*blk) with blk = prod(S), start offset 1.
@@ -129,7 +164,7 @@ extern "C" int otpu_ring_rs_fused(const void* x, void* out, long long size,
                                   long long blk, int n, int dtype, int op,
                                   int vec, void* stream) {
   return otpu::fused(x, out, size, blk, n, dtype, op, vec, 1, otpu::kWireOff,
-                     stream);
+                     otpu::kRing, size, size, stream);
 }
 
 // K7: K3 on float32 with the bf16 wire and the result rounded once.
@@ -137,7 +172,7 @@ extern "C" int otpu_ring_wire16(const void* x, void* out, long long size,
                                 long long blk, int n, int dtype, int op,
                                 int vec, void* stream) {
   return otpu::fused(x, out, size, blk, n, dtype, op, vec, 0,
-                     otpu::kWireHopsAndResult, stream);
+                     otpu::kWireHopsAndResult, otpu::kRing, size, size, stream);
 }
 
 // K5's wire16 form: K5 on float32 with the bf16 wire, the result unrounded.
@@ -145,5 +180,29 @@ extern "C" int otpu_ring_rs_wire16(const void* x, void* out, long long size,
                                    long long blk, int n, int dtype, int op,
                                    int vec, void* stream) {
   return otpu::fused(x, out, size, blk, n, dtype, op, vec, 1, otpu::kWireHops,
-                     stream);
+                     otpu::kRing, size, size, stream);
+}
+
+// K8: all-reduce over duplex blocks of blk = 2*hrows*128 elements, start
+// offset 0: the first half of each block walks right, the second left.  With
+// vec > 1, blk/2 % vec == 0 as well (the wrapper checks), so no pack straddles
+// the two halves.
+extern "C" int otpu_ring_bidi(const void* x, void* out, long long size,
+                              long long blk, int n, int dtype, int op, int vec,
+                              void* stream) {
+  return otpu::fused(x, out, size, blk, n, dtype, op, vec, 0, otpu::kWireOff,
+                     otpu::kDuplex, size, size, stream);
+}
+
+// K3 (start 0) or K5 (start 1) over a batch of sub-rings, one launch for a
+// whole phase of a torus schedule: out[t], t < total, folds x[r*pitch + t]
+// over the n ranks r of its ring, in the order of ring block
+// (t % period) / blk.  With vec > 1, total, blk, period and pitch are
+// multiples of vec and both pointers 16-byte aligned (the wrapper checks).
+extern "C" int otpu_ring_sub(const void* x, void* out, long long total,
+                             long long blk, long long period, long long pitch,
+                             int n, int start, int dtype, int op, int vec,
+                             void* stream) {
+  return otpu::fused(x, out, total, blk, n, dtype, op, vec, start, otpu::kWireOff,
+                     otpu::kSubRings, period, pitch, stream);
 }

@@ -56,6 +56,14 @@ reference's per-(coll, op, shape, dtype) program cache — so a cache hit is
 one dict probe and the reduction; the quantized programs per
 ``("allreduce_quant", codec, op, shape, dtype, device)`` and
 ``("allgather_quant", codec, shape, dtype, device)``.
+
+``persistent_coll`` (``xla.py:669-683``) runs the collective once on the
+template and returns a ``PersistentColl`` (``xla.py:60-93``) bound to the
+cached reduction, as the reference binds its cached program; a collective
+with no cached callable (the copies, and an allreduce on a comm with a
+budget, whose codec is picked per call) is bound to its slot.  The
+reference's handle also bumps the SPC device counters and opens a trace
+span per call: neither is ported yet.
 """
 from __future__ import annotations
 
@@ -137,6 +145,34 @@ def _quant_allgather_fn(codec: str):
         return dec.reshape(t.shape[0], -1)[:, :t[0].numel()].reshape(t.shape)
 
     return int8
+
+
+class PersistentColl:
+    """A bound device collective (``MPI_*_init`` analog): ``h(x)`` runs it,
+    ``h.start(x)`` returns a request born complete with the result (the
+    stream is the progress engine).  ``place`` puts a host stack on the
+    device, as the reference's jitted program does implicitly.  The
+    reference's ``nbytes`` feeds its SPC bump, which is not ported."""
+
+    __slots__ = ("fn", "coll", "_place")
+
+    def __init__(self, fn, coll: str, place) -> None:
+        self.fn = fn
+        self.coll = coll
+        self._place = place
+
+    def __call__(self, x):
+        return self.fn(self._place(x))
+
+    def start(self, x):
+        from ompi_tpu_torch.api.request import CompletedRequest
+
+        r = CompletedRequest()
+        r.result = self(x)
+        return r
+
+    def free(self) -> None:
+        self.fn = None
 
 
 class BuiltinCollModule:
@@ -302,6 +338,26 @@ class BuiltinCollModule:
             return x.index_select(0, src)
         out = torch.zeros_like(x)
         return out.index_copy_(0, dst, x.index_select(0, src))
+
+    def persistent_coll(self, comm, coll: str, template, *args):
+        """Bind ``coll`` for ``template``'s shape: run it once (checks the
+        buffer and caches the reduction), then hand back the cached
+        reduction, or the slot where nothing is cached for it."""
+        method = getattr(self, coll + "_array", None)
+        if method is None:
+            raise MpiError(ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                           f"no device collective '{coll}'")
+        template = self._check(comm, template)
+        method(comm, template, *args)
+        fn = None
+        if coll in ("allreduce", "reduce_scatter") and not (
+                coll == "allreduce" and quant_mod.BUDGET_KEY in comm.info):
+            op = args[0] if args else op_mod.SUM
+            fn = self._cache.get(_key(coll, template, op))
+        if fn is None:
+            def fn(x):
+                return method(comm, x, *args)
+        return PersistentColl(fn, coll, lambda x: self._check(comm, x))
 
 
 class BuiltinCollComponent(Component):

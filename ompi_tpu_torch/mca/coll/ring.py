@@ -9,12 +9,16 @@ those of ``ompi_tpu_torch/ops/ring_collectives.py``:
 * ``allreduce_array`` and ``reduce_scatter_array`` (``psum_scatter_array``
   is its SUM): float16/32/64 SUM, MAX, MIN and PROD.  Per-rank payloads up
   to ``vmem_max_bytes`` go to the fused kernels (K3, K5), larger ones to the
-  segmented kernels (K4, K6, window of ``seg_bytes``).  With ``wire16`` on
-  (default off: it changes the numbers), a float32 SUM in the fused regime
-  takes the bf16-wire kernels instead (K7, K5's wire16 form); the segmented
-  regime has no wire16 kernel, as in the reference
-  (``pallas_coll.py:123-146``).
-* ``allgather_array``: float16/32/64 payloads, to K10.
+  segmented kernels (K4, K6, window of ``seg_bytes``).  With
+  ``bidirectional`` on (default off: it changes the ring blocks, and so the
+  fold order), the allreduce takes the duplex kernels instead: K8 in the
+  fused regime, K9 in the segmented one; the reduce-scatter has no duplex
+  kernel and keeps K5/K6.  With ``wire16`` on (default off: it changes the
+  numbers), a float32 SUM whose regime is ``fused`` takes the bf16-wire
+  kernels instead (K7, K5's wire16 form): the segmented and duplex regimes
+  have no wire16 kernel, as in the reference (``pallas_coll.py:123-146``).
+* ``allgather_array``: float16/32/64 payloads, to K10, or K11 with
+  ``bidirectional`` on.
 * ``bcast_array``: any dtype (the kernel copies bytes), to K12.
 * ``alltoall_array``: any dtype shaped ``(n, n, ...)``, to K14.
 * ``alltoallv_array``: any dtype shaped ``(n, n, R, W)`` with ``W % 128 ==
@@ -30,8 +34,10 @@ Every call it does not cover (other ops, other dtypes, sizes outside
 ``[min_bytes, max_bytes]``, a reduce-scatter or alltoall not shaped ``(n,
 n, ...)``, a ragged payload of another layout, any other perm) is delegated
 to coll/builtin, the way the reference falls through to coll/xla.
-The duplex (``bidirectional``) variants are not ported yet; with no var to
-ask for them, they are never routed.  coll/ring never reads a comm's
+``persistent_coll`` (``Comm.allreduce_array_init``, ``Comm.coll_init``)
+binds allreduce and reduce_scatter through the same routing rules as the
+one-shot slots, allgather likewise, and bcast with its root baked in; every
+other binding goes to coll/builtin.  coll/ring never reads a comm's
 accuracy budget, as coll/pallas does not: a call it serves is exact (or
 wire16) on a budgeted comm too, and only the calls it delegates reach
 coll/builtin's quantized branches.
@@ -64,7 +70,8 @@ _INTERPRET_MAX_BYTES = 16 << 20
 class RingCollModule:
     def __init__(self, comm, device: torch.device, n: int, axis_name: str,
                  max_bytes: int, vmem_max_bytes: int, seg_bytes: int,
-                 min_bytes: int = 0, wire16: bool = False) -> None:
+                 min_bytes: int = 0, wire16: bool = False,
+                 bidirectional: bool = False) -> None:
         self.device = device
         self.n = n
         self.axis = axis_name
@@ -73,6 +80,7 @@ class RingCollModule:
         self.vmem_max_bytes = vmem_max_bytes
         self.seg_bytes = seg_bytes
         self.wire16 = wire16
+        self.bidirectional = bidirectional
         self._fallback = None   # resolved at comm_enable
 
     def comm_enable(self, comm) -> None:
@@ -111,26 +119,47 @@ class RingCollModule:
         return x.dtype in _RING_DTYPES and self._size_ok(x)
 
     def _route(self, x):
-        """Pick the accumulator regime of a ring reduction (all-reduce and
-        reduce-scatter alike) from the per-rank payload size ``x.nbytes //
-        n``: fused kernel up to ``vmem_max_bytes``, segmented (window of
-        ``seg_bytes``) above — the reference's selection between its linear
-        and segmented rings (``coll_base_allreduce.c:618``)."""
+        """Pick the accumulator regime of a ring reduction from the
+        per-rank payload size ``x.nbytes // n``: fused kernel up to
+        ``vmem_max_bytes``, segmented (window of ``seg_bytes``) above — the
+        reference's selection between its linear and segmented rings
+        (``coll_base_allreduce.c:618``) — each in its duplex form under
+        ``bidirectional`` (``pallas_coll.py:108-121``)."""
         per_rank = x.nbytes // max(1, self.n)
         if per_rank > self.vmem_max_bytes:
-            return "seg", max(1, self.seg_bytes // x.element_size())
+            seg_elems = max(1, self.seg_bytes // x.element_size())
+            return ("seg_bidi" if self.bidirectional else "seg"), seg_elems
+        if self.bidirectional:
+            return "bidi", None
         return "fused", None
 
-    def _variant(self, x, ring_op: str):
-        """The one routing rule of both ring reductions (the reference's
-        ``_allreduce_variant`` and ``_reduce_scatter_variant``, the same
-        rule once bidi is left out): ``_route``'s regime, and the opt-in
-        bf16 wire for a float32 SUM in the fused regime."""
-        variant, seg_elems = self._route(x)
+    def _with_wire16(self, x, ring_op: str, variant: str) -> str:
+        """The opt-in bf16 wire: a float32 SUM in the fused regime."""
         if (self.wire16 and ring_op == "sum" and x.dtype == torch.float32
                 and variant == "fused"):
-            variant = "wire16"
-        return variant, seg_elems
+            return "wire16"
+        return variant
+
+    def _allreduce_variant(self, x, ring_op: str):
+        """ONE routing rule for the one-shot and the persistent allreduce
+        (``pallas_coll.py:123-133``): a handle never diverges numerically
+        from the slot it mirrors."""
+        variant, seg_elems = self._route(x)
+        return self._with_wire16(x, ring_op, variant), seg_elems
+
+    def _reduce_scatter_variant(self, x, ring_op: str):
+        """The same for the reduce-scatter (``pallas_coll.py:135-146``),
+        which has no duplex kernel: ``bidi`` is the fused ring, ``seg_bidi``
+        the segmented one."""
+        variant, seg_elems = self._route(x)
+        if variant == "bidi":
+            variant, seg_elems = "fused", None
+        elif variant == "seg_bidi":
+            variant = "seg"
+        return self._with_wire16(x, ring_op, variant), seg_elems
+
+    def _allgather_variant(self) -> str:
+        return "bidi" if self.bidirectional else "ring"
 
     # -- collective slots ------------------------------------------------
     def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
@@ -140,7 +169,7 @@ class RingCollModule:
             return self._delegate("allreduce_array", comm, x, op)
         from ompi_tpu_torch.ops import ring_collectives as rc
 
-        variant, seg_elems = self._variant(x, ring_op)
+        variant, seg_elems = self._allreduce_variant(x, ring_op)
         return rc.all_reduce(x.contiguous(), self.n, ring_op, variant=variant,
                              seg_elems=seg_elems)
 
@@ -153,7 +182,7 @@ class RingCollModule:
             return self._delegate("reduce_scatter_array", comm, x, op)
         from ompi_tpu_torch.ops import ring_collectives as rc
 
-        variant, seg_elems = self._variant(x, ring_op)
+        variant, seg_elems = self._reduce_scatter_variant(x, ring_op)
         return rc.reduce_scatter(x.contiguous(), self.n, ring_op,
                                  variant=variant, seg_elems=seg_elems)
 
@@ -166,7 +195,8 @@ class RingCollModule:
             return self._delegate("allgather_array", comm, x)
         from ompi_tpu_torch.ops import ring_collectives as rc
 
-        return rc.all_gather(x.contiguous(), self.n)
+        return rc.all_gather(x.contiguous(), self.n,
+                             variant=self._allgather_variant())
 
     def bcast_array(self, comm, x, root: int = 0):
         x = self._place(comm, x)
@@ -225,6 +255,53 @@ class RingCollModule:
 
         return rc.right_permute(x.contiguous(), self.n)
 
+    def persistent_coll(self, comm, coll: str, template, *args):
+        """``MPI_*_init`` analog (``pallas_coll.py:253-310``): a handle bound
+        to the ring kernel the one-shot slot would take for ``template``,
+        through the same routing rules; what the ring does not serve binds
+        through coll/builtin.  The binding runs once now, to build and check
+        it, as the reference's does."""
+        from ompi_tpu_torch.mca.coll.builtin import PersistentColl
+
+        template = self._place(comm, template)
+        op = args[0] if args else op_mod.SUM
+        ring_op = _RING_OPS.get(getattr(op, "name", "SUM"))
+        reduction = (coll in ("allreduce", "reduce_scatter")
+                     and ring_op is not None and self._supported(template)
+                     and (coll == "allreduce" or (template.dim() >= 2 and
+                                                  template.shape[1] == self.n)))
+        if not (reduction or (coll == "bcast" and self._size_ok(template))
+                or (coll == "allgather" and self._supported(template))):
+            return self._delegate("persistent_coll", comm, coll, template,
+                                  *args)
+        from ompi_tpu_torch.ops import ring_collectives as rc
+
+        n = self.n
+        if coll == "allreduce":
+            variant, seg = self._allreduce_variant(template, ring_op)
+
+            def fn(x):
+                return rc.all_reduce(x.contiguous(), n, ring_op,
+                                     variant=variant, seg_elems=seg)
+        elif coll == "reduce_scatter":
+            variant, seg = self._reduce_scatter_variant(template, ring_op)
+
+            def fn(x):
+                return rc.reduce_scatter(x.contiguous(), n, ring_op,
+                                         variant=variant, seg_elems=seg)
+        elif coll == "allgather":
+            variant = self._allgather_variant()
+
+            def fn(x):
+                return rc.all_gather(x.contiguous(), n, variant=variant)
+        else:                       # bcast: the root is part of the binding
+            root = int(args[0]) % n if args else 0
+
+            def fn(x):
+                return rc.bcast(x.contiguous(), n, root)
+        fn(template)
+        return PersistentColl(fn, coll, lambda x: self._place(comm, x))
+
 
 class RingCollComponent(Component):
     name = "ring"
@@ -253,6 +330,15 @@ class RingCollComponent(Component):
             "seg_bytes", vtype=VarType.SIZE, default="512k",
             help="Window of the segmented ring kernels; it rounds the "
                  "all-reduce's ring blocks up to whole windows")
+        self._bidi = self.register_var(
+            "bidirectional", vtype=VarType.BOOL, default=False,
+            help="Use the bidirectional (duplex) ring schedules: the "
+                 "all-reduce sends half of each ring block each way round "
+                 "the ring (bidi in the fused regime, seg_bidi above "
+                 "vmem_max_bytes), and the allgather ships blocks both ways "
+                 "in ceil((n-1)/2) steps instead of n-1.  On one card no "
+                 "link carries them: it changes the ring blocks (and so the "
+                 "fold order), not the bytes moved")
         self._wire16 = self.register_var(
             "wire16", vtype=VarType.BOOL, default=False,
             help="Opt-in bf16 wire for float32 SUM allreduce and "
@@ -275,7 +361,8 @@ class RingCollComponent(Component):
             vmem_max_bytes=int(self._vmem_max.value),
             seg_bytes=int(self._seg.value),
             min_bytes=int(self._min.value),
-            wire16=bool(self._wire16.value))
+            wire16=bool(self._wire16.value),
+            bidirectional=bool(self._bidi.value))
 
 
 COMPONENT = RingCollComponent()

@@ -34,14 +34,19 @@ LIBRARIES = {
                    {"otpu_ring_fused": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
                     "otpu_ring_rs_fused": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
                    "otpu_ring_wire16": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
-                   "otpu_ring_rs_wire16": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),
+                   "otpu_ring_rs_wire16": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+                   "otpu_ring_bidi": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+                   "otpu_ring_sub": [_P, _P, _LL, _LL, _LL, _LL, _I, _I, _I, _I,
+                                     _I, _P]}),
     "ring_seg": ("ring_seg.cu",
                  {"otpu_ring_seg": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
-                  "otpu_ring_rs_seg": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),
+                  "otpu_ring_rs_seg": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+                  "otpu_ring_seg_bidi": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),
     "ring_copy": ("ring_copy.cu",
                   {"otpu_ring_all_gather": [_P, _P, _LL, _I, _P],
                    "otpu_ring_bcast": [_P, _P, _LL, _I, _I, _I, _P],
-                   "otpu_ring_right_permute": [_P, _P, _LL, _I, _I, _P]}),
+                   "otpu_ring_right_permute": [_P, _P, _LL, _I, _I, _P],
+                   "otpu_ring_all_gather_bidi": [_P, _P, _LL, _I, _I, _P]}),
     "exchange": ("exchange.cu",
                  {"otpu_all_to_all": [_P, _P, _LL, _I, _I, _P],
                   "otpu_all_to_all_v": [_P, _P, _P, _LL, _LL, _I, _I, _P],

@@ -40,8 +40,50 @@ and no final rounding, as the owner's float32 partial is the result,
 ``pc:511-515``).  ``wire16`` takes float32 only and raises ``ValueError``
 otherwise, as the reference does (``pc:1527-1530``, ``:1601-1604``).
 
-``all_gather(x, n)`` — ``(n, *S)`` to a new ``(n, *S)``: kernel K10
-(``csrc/ring_copy.cu``), replacing ``pc._build_all_gather`` (``:177``).
+The duplex variants of ``all_reduce`` split every ring block into two halves
+of ``h = hrows*128`` elements: the first (``dir 0``) walks the ring
+clockwise, the second (``dir 1``) counter-clockwise, as the reference's two
+mirrored rings do (``pc:987-1010``, ``:876-909``):
+
+* ``'bidi'`` — kernel K8 (``csrc/ring_fused.cu``, ``otpu_ring_bidi``),
+  replacing ``pc._build_all_reduce_bidi`` (``:961``): blocks of ``2*hrows*128``
+  elements, ``hrows = ceil(rows/2)`` (``pc:1594-1599``), the accumulator in
+  registers as K3's.
+* ``'seg_bidi'`` — kernel K9 (``csrc/ring_seg.cu``, ``otpu_ring_seg_bidi``),
+  replacing ``pc._build_all_reduce_seg_bidi`` (``:850``) and its
+  ``_bidi_done_and_ag`` (``:804``): ``hrows`` first rounded up to whole
+  windows (``pc:1586-1593``), so its blocks, and with them its values, can
+  differ from ``bidi``'s for the same payload; the accumulator in device
+  memory as K4's.
+
+``reduce_scatter`` has no duplex kernel: ``bidi`` is its ``fused`` and
+``seg_bidi`` its ``seg`` (the values are the reference's, which builds the
+one-way ring for both).
+
+``all_gather(x, n, variant)`` — ``(n, *S)`` to a new ``(n, *S)``: ``'ring'``
+is kernel K10 (``csrc/ring_copy.cu``), replacing ``pc._build_all_gather``
+(``:177``); ``'bidi'`` is kernel K11 (``otpu_ring_all_gather_bidi``),
+replacing ``pc._build_all_gather_bidi`` (``:226``), and for n <= 2 the
+one-way ring, as in the reference (``pc:1438-1439``).
+
+The torus schedules (``pc:1833-2028``) ride sub-rings of an ``(n0, n1)``
+grid of ranks, rank ``p = i0*n1 + i1``; ``n0``, ``n1`` are the reference's
+``mesh.shape[axes[0]]``, ``mesh.shape[axes[1]]``, and a degenerate axis
+(length 1) is the 1-D ring:
+
+* ``all_reduce_torus(x, n0, n1, op)`` — ``(n0, n1, *S)`` to ``(*S)``: K5's
+  schedule over the column rings (blocks of ``rows0*128``), then K3's over
+  the row rings on the scattered blocks (``rows1*128``); the closing
+  all-gather moves no bytes on one card.
+* ``reduce_scatter_torus(x, n0, n1, op)`` — ``(N, N, *S)`` to ``(N, *S)``:
+  K5 over the columns on super-blocks of ``n1`` blocks, then K5 over the
+  rows.
+* ``all_gather_torus(x, n0, n1)`` — ``(N, *S)``: a copy (K10).
+
+On the card each phase is one launch of K3/K5 over all its sub-rings at
+once (``otpu_ring_sub``): a rank pitch and a batch over the grid, no
+transposed copies; the counts go to ``all_reduce_fused`` and
+``reduce_scatter_fused``.
 
 ``bcast(x, n, root)`` — ``(n, *S)`` to ``(n, *S)`` with every row equal to
 ``x[root % n]``: kernel K12 (``csrc/ring_copy.cu``), replacing
@@ -66,15 +108,14 @@ unspecified, as the reference does: the output is not zeroed.  Their counts
 are a runtime operand of the kernel, a small int32 device tensor made per
 call, so a new routing rebuilds nothing.
 
-The duplex variants of the reference (``bidi``, ``seg_bidi``) are not
-ported yet and raise ``NotImplementedError``.
-
 Fold order: block b of a ring reduction is
 ``fold(x[b+s-1], ... fold(x[b+s+1], x[b+s]))`` — the partial starts on
 rank b+s and every hop folds its own block into the incoming partial,
 ``fold(own, partial)``.  The start offset s is the counterpart of
 ``_rs_phase``'s ``align``: 0 for the all-reduce (``align=0``), 1 for the
-owner-aligned reduce-scatter (``align=-1``).  The all-reduce's blocks are
+owner-aligned reduce-scatter (``align=-1``).  A counter-clockwise half
+starts on rank b+s too and walks left: ``fold(x[b+s+1], ...
+fold(x[b+s-1], x[b+s]))``.  The all-reduce's blocks are
 ``rows*128`` elements (``_jit_all_reduce``, ``pallas_collectives.py:1577-
 1620``), padded with ``_pad_value``; the reduce-scatter's are the payload
 ``prod(S)`` itself.  Kernels and plain versions keep that order, so the port
@@ -96,18 +137,25 @@ _FOLDS = {"sum": torch.add, "prod": torch.mul, "max": torch.maximum,
           "min": torch.minimum}
 _OPCODE = {"sum": 0, "prod": 1, "max": 2, "min": 3}
 _DTCODE = {torch.float16: 0, torch.float32: 1, torch.float64: 2}
-_NOT_PORTED = ("bidi", "seg_bidi")
-_VARIANTS = ("fused", "seg", "wire16")
+_VARIANTS = ("fused", "seg", "wire16", "bidi", "seg_bidi")
+_BIDI = ("bidi", "seg_bidi")
+#: the reduce-scatter's kernel for each duplex variant (it has none of its own)
+_RS_ONE_WAY = {"bidi": "fused", "seg_bidi": "seg"}
 
 #: ring-block start offset (``_rs_phase``'s align): all-reduce, reduce-scatter
 _AR_START, _RS_START = 0, 1
+#: ring walk of each part of a block: one way, or a clockwise and a
+#: counter-clockwise half
+_ONE_WAY, _DUPLEX = (1,), (1, -1)
 
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches = {"all_reduce_fused": 0, "all_reduce_seg": 0,
             "all_reduce_wire16": 0,
+            "all_reduce_bidi": 0, "all_reduce_seg_bidi": 0,
             "reduce_scatter_fused": 0, "reduce_scatter_seg": 0,
             "reduce_scatter_wire16": 0,
-            "all_gather": 0, "bcast": 0, "right_permute": 0,
+            "all_gather": 0, "all_gather_bidi": 0, "bcast": 0,
+            "right_permute": 0,
             "all_to_all": 0, "all_to_all_v": 0, "all_gather_v": 0}
 
 
@@ -137,10 +185,16 @@ def _pad_value(op: str, dtype: torch.dtype) -> float | int:
 
 def ring_block_elems(size: int, n: int, variant: str,
                      seg_elems: int | None = None) -> int:
-    """Elements per all-reduce ring block for a payload of ``size``."""
+    """Elements per all-reduce ring block for a payload of ``size``; a duplex
+    block is two halves of ``hrows`` rows (window-rounded for seg_bidi)."""
     rows = _rows_for(-(-size // n))
     if variant == "seg":
         _, rows = _seg_rows(rows, seg_elems)
+    elif variant in _BIDI:
+        hrows = -(-rows // 2)
+        if variant == "seg_bidi":
+            _, hrows = _seg_rows(hrows, seg_elems)
+        rows = 2 * hrows
     return rows * 128
 
 
@@ -163,9 +217,6 @@ def _check(x, n: int, op: str, variant: str,
            what: str = "all_reduce") -> bool:
     """Checks of the ring reductions (kernels and plain versions alike);
     a reduce-scatter also needs the ``(n, n, *S)`` layout."""
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ring {what} variant {variant!r} is not ported yet")
     if variant not in _VARIANTS:
         raise ValueError(f"unknown ring {what} variant {variant!r}")
     if op not in _FOLDS:
@@ -195,27 +246,42 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(t), 0x7FC00000, r).view(torch.float32)
 
 
+def _ring_fold(xb: torch.Tensor, op: str, start: int,
+               walks: tuple = _ONE_WAY, wire: bool = False) -> torch.Tensor:
+    """The ring schedule on ``xb`` = ``[rank, block, part, *rest]`` (n ranks,
+    n blocks, one part per entry of ``walks``): the partial of part d of
+    block b starts as rank b+start's and rank b+start+k*walks[d] folds its
+    own in, ``fold(own, partial)``, for k = 1..n-1.  ``rest`` may hold a
+    batch of sub-rings.  ``wire``: the partial crosses each hop as bfloat16
+    (``bf16_round`` before each fold).  Returns ``[block, part, *rest]``."""
+    n = xb.shape[0]
+    fold = _FOLDS[op]
+    b = torch.arange(n, device=xb.device)[:, None]
+    d = torch.arange(len(walks), device=xb.device)[None, :]
+    step = torch.tensor(walks, device=xb.device)[None, :]
+    acc = xb[(b + start) % n, b, d]
+    for k in range(1, n):
+        if wire:
+            acc = bf16_round(acc)
+        acc = fold(xb[(b + start + k * step) % n, b, d], acc)
+    return acc
+
+
 def _ring_plain(x: torch.Tensor, n: int, op: str, blk: int,
                 start: int = _AR_START, wire: bool = False,
-                round_out: bool = False) -> torch.Tensor:
-    """The ring schedule on whole blocks of ``blk`` elements of each rank's
-    row: the partial of block b starts as rank b+start's block and rank
-    b+start+k folds its own block in, ``fold(own, partial)``, for
-    k = 1..n-1.  ``wire``: the partial crosses each hop as bfloat16
-    (``bf16_round`` before each fold); ``round_out``: the result is rounded
-    so once more.  Returns the folded row in the shape ``x.shape[1:]``."""
+                round_out: bool = False,
+                walks: tuple = _ONE_WAY) -> torch.Tensor:
+    """The ring schedule (``_ring_fold``) on whole blocks of ``blk``
+    elements of each rank's row, padded with the op's neutral element; a
+    duplex block (``walks=_DUPLEX``) is its two halves.  ``round_out``: the
+    result is rounded to bfloat16 once more.  Returns the folded row in the
+    shape ``x.shape[1:]``."""
     size = x[0].numel()
     xp = torch.full((n, n * blk), _pad_value(op, x.dtype), dtype=x.dtype,
                     device=x.device)
     xp[:, :size] = x.reshape(n, size)
-    xb = xp.view(n, n, blk)                      # [rank, block, element]
-    fold = _FOLDS[op]
-    blocks = torch.arange(n, device=x.device)
-    acc = xb[(blocks + start) % n, blocks]
-    for k in range(1, n):
-        if wire:
-            acc = bf16_round(acc)
-        acc = fold(xb[(blocks + start + k) % n, blocks], acc)
+    acc = _ring_fold(xp.view(n, n, len(walks), blk // len(walks)), op, start,
+                     walks, wire)
     if round_out:
         acc = bf16_round(acc)
     return acc.reshape(-1)[:size].reshape(x.shape[1:])
@@ -232,6 +298,20 @@ def all_reduce_seg_plain(x: torch.Tensor, n: int, op: str,
     (where the accumulator lives changes no value)."""
     return _ring_plain(x, n, op,
                        ring_block_elems(x[0].numel(), n, "seg", seg_elems))
+
+
+def all_reduce_bidi_plain(x: torch.Tensor, n: int, op: str) -> torch.Tensor:
+    """Plain version of K8: duplex blocks, the clockwise half walking
+    right and the counter-clockwise half left from the same start rank."""
+    return _ring_plain(x, n, op, ring_block_elems(x[0].numel(), n, "bidi"),
+                       walks=_DUPLEX)
+
+
+def all_reduce_seg_bidi_plain(x: torch.Tensor, n: int, op: str,
+                              seg_elems: int | None = None) -> torch.Tensor:
+    """Plain version of K9: K8's folds over the window-rounded halves."""
+    return _ring_plain(x, n, op, ring_block_elems(x[0].numel(), n, "seg_bidi",
+                                                  seg_elems), walks=_DUPLEX)
 
 
 def all_reduce_wire16_plain(x: torch.Tensor, n: int, op: str) -> torch.Tensor:
@@ -260,7 +340,8 @@ def reduce_scatter_plain(x: torch.Tensor, n: int, op: str) -> torch.Tensor:
 
 
 def all_gather_plain(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Plain version of K10: every rank ends with every rank's row."""
+    """Plain version of K10 and K11: every rank ends with every rank's row,
+    whichever way round the ring it came."""
     return x.clone()
 
 
@@ -298,6 +379,8 @@ def _stream(x: torch.Tensor) -> int:
 _ENTRIES = {("fused", _AR_START): "otpu_ring_fused",
             ("seg", _AR_START): "otpu_ring_seg",
             ("wire16", _AR_START): "otpu_ring_wire16",
+            ("bidi", _AR_START): "otpu_ring_bidi",
+            ("seg_bidi", _AR_START): "otpu_ring_seg_bidi",
             ("fused", _RS_START): "otpu_ring_rs_fused",
             ("seg", _RS_START): "otpu_ring_rs_seg",
             ("wire16", _RS_START): "otpu_ring_rs_wire16"}
@@ -305,8 +388,9 @@ _ENTRIES = {("fused", _AR_START): "otpu_ring_fused",
 
 def _kernel_ring(x: torch.Tensor, n: int, op: str, blk: int, variant: str,
                  start: int) -> torch.Tensor:
-    """Launch K3/K5 (fused), K4/K6 (seg) or K7/K5w (wire16) on ``x`` viewed
-    as ``(n, size)``; the output is ``x.shape[1:]``."""
+    """Launch K3/K5 (fused), K4/K6 (seg), K7/K5w (wire16), K8 (bidi) or K9
+    (seg_bidi) on ``x`` viewed as ``(n, size)``; the output is
+    ``x.shape[1:]``."""
     from ompi_tpu_torch.ops import _build
 
     size = x[0].numel()
@@ -315,17 +399,19 @@ def _kernel_ring(x: torch.Tensor, n: int, op: str, blk: int, variant: str,
         return out
     coll = "all_reduce" if start == _AR_START else "reduce_scatter"
     entry = _ENTRIES[variant, start]
+    # a 16-byte pack must not straddle a duplex half either
+    pack_blk = blk // 2 if variant in _BIDI else blk
     with torch.cuda.device(x.device):
-        if variant == "seg":
+        if variant in ("seg", "seg_bidi"):
             acc = torch.empty(size, dtype=x.dtype, device=x.device)
             _launch(getattr(_build.load("ring_seg"), entry), x.data_ptr(),
                     acc.data_ptr(), out.data_ptr(), size, blk, n,
-                    _DTCODE[x.dtype], _OPCODE[op], _vec(x, blk, acc, out),
+                    _DTCODE[x.dtype], _OPCODE[op], _vec(x, pack_blk, acc, out),
                     _stream(x))
         else:
             _launch(getattr(_build.load("ring_fused"), entry), x.data_ptr(),
                     out.data_ptr(), size, blk, n, _DTCODE[x.dtype],
-                    _OPCODE[op], _vec(x, blk, out), _stream(x))
+                    _OPCODE[op], _vec(x, pack_blk, out), _stream(x))
     launches[f"{coll}_{variant}"] += 1
     return out
 
@@ -344,7 +430,8 @@ def all_reduce(x: torch.Tensor, n: int, op: str = "sum",
     blk = ring_block_elems(size, n, variant, seg_elems)
     if not on_card:
         wire = variant == "wire16"
-        return _ring_plain(x, n, op, blk, wire=wire, round_out=wire)
+        return _ring_plain(x, n, op, blk, wire=wire, round_out=wire,
+                           walks=_DUPLEX if variant in _BIDI else _ONE_WAY)
     return _kernel_ring(x, n, op, blk, variant, _AR_START)
 
 
@@ -353,10 +440,12 @@ def reduce_scatter(x: torch.Tensor, n: int, op: str = "sum",
                    seg_elems: int | None = None) -> torch.Tensor:
     """``(n, n, *S)`` -> ``(n, *S)``: row b is block b reduced over the
     ranks, its fold starting on rank b+1.  ``variant`` picks the
-    accumulator regime (K5 fused, K6 seg) or the bf16 wire (K5w, float32);
-    ``seg_elems``, the reference's VMEM window, is accepted for the same
-    call shape but fixes no value (see ``reduce_scatter_plain``)."""
+    accumulator regime (K5 fused, K6 seg; ``bidi`` and ``seg_bidi`` are
+    those two, as no duplex reduce-scatter exists) or the bf16 wire (K5w,
+    float32); ``seg_elems``, the reference's VMEM window, is accepted for
+    the same call shape but fixes no value (see ``reduce_scatter_plain``)."""
     on_card = _check(x, n, op, variant, "reduce_scatter")
+    variant = _RS_ONE_WAY.get(variant, variant)
     if n == 1:
         return x.reshape(x.shape[1:]).clone()
     if not on_card:
@@ -368,17 +457,19 @@ def reduce_scatter(x: torch.Tensor, n: int, op: str = "sum",
 
 def all_gather(x: torch.Tensor, n: int, variant: str = "ring") -> torch.Tensor:
     """``(n, *S)`` -> ``(n, *S)`` replicated: a new tensor equal to ``x``
-    (``x`` itself for n == 1, as the reference returns it)."""
-    if variant == "bidi":
-        raise NotImplementedError(
-            "ring all_gather variant 'bidi' is not ported yet")
-    if variant != "ring":
+    (``x`` itself for n == 1, as the reference returns it).  ``'bidi'`` is
+    K11, or K10 for n <= 2, where no two chains pair up."""
+    if variant not in ("ring", "bidi"):
         raise ValueError(f"unknown ring all_gather variant {variant!r}")
     on_card = _check_ranks(x, n, "all_gather")
     if n == 1:
         return x
     if not on_card:
         return all_gather_plain(x, n)
+    if variant == "bidi" and n > 2:
+        row_bytes = x[0].numel() * x.element_size()
+        return _copy("ring_copy", "otpu_ring_all_gather_bidi",
+                     "all_gather_bidi", x, row_bytes, row_bytes, n)
     from ompi_tpu_torch.ops import _build
 
     out = torch.empty_like(x)
@@ -431,6 +522,156 @@ def bcast(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
     row_bytes = x[0].numel() * x.element_size()
     return _copy("ring_copy", "otpu_ring_bcast", "bcast", x, row_bytes,
                  row_bytes, n, root)
+
+
+# -- the torus schedules (sub-rings of an (n0, n1) grid) ----------------------
+
+def _torus_blocks(size: int, n0: int, n1: int) -> tuple[int, int]:
+    """(blk0, blk1): the all-reduce torus's column-ring blocks, ``rows0*128``
+    elements, and its row-ring blocks over one of them, ``rows1*128``
+    (``pc:1841-1844``)."""
+    blk0 = _rows_for(-(-size // n0)) * 128
+    return blk0, _rows_for(-(-blk0 // n1)) * 128
+
+
+def all_reduce_torus_plain(x: torch.Tensor, n0: int, n1: int,
+                           op: str) -> torch.Tensor:
+    """Plain version of ``all_reduce_torus`` on ``(n0, n1, *S)``, n0, n1 >= 2:
+    the padded column-ring reduce-scatter (start i0+1), then the padded
+    row-ring all-reduce of each scattered block (start at its block)."""
+    size = x[0, 0].numel()
+    blk0, blk1 = _torus_blocks(size, n0, n1)
+    pad = _pad_value(op, x.dtype)
+    xp = torch.full((n0, n1, n0 * blk0), pad, dtype=x.dtype, device=x.device)
+    xp[..., :size] = x.reshape(n0, n1, size)
+    # column rings: [rank i0, block, part, batch i1, element]
+    part = _ring_fold(xp.view(n0, n1, n0, 1, blk0).permute(0, 2, 3, 1, 4), op,
+                      _RS_START)[:, 0]                 # [i0, i1, blk0]
+    pp = torch.full((n1, n0, n1 * blk1), pad, dtype=x.dtype, device=x.device)
+    pp[..., :blk0] = part.transpose(0, 1)
+    # row rings: [rank i1, block, part, batch i0, element]
+    red = _ring_fold(pp.view(n1, n0, n1, 1, blk1).permute(0, 2, 3, 1, 4), op,
+                     _AR_START)[:, 0]                  # [block, i0, blk1]
+    red = red.transpose(0, 1).reshape(n0, n1 * blk1)[:, :blk0]
+    return red.reshape(-1)[:size].reshape(x.shape[2:])
+
+
+def reduce_scatter_torus_plain(x: torch.Tensor, n0: int, n1: int,
+                               op: str) -> torch.Tensor:
+    """Plain version of ``reduce_scatter_torus`` on ``(N, N, *S)``, n0, n1 >=
+    2: the column rings reduce-scatter super-blocks of n1 blocks (start
+    i0+1), then the row rings the blocks of each (start i1+1); rank p = i0*n1
+    + i1 ends with block p.  No padding: the folds are elementwise."""
+    size = x[0, 0].numel()
+    xv = x.reshape(n0, n1, n0, n1, size)      # [i0', i1', I0, I1, element]
+    # column rings: [rank i0', block I0, part, batch i1', I1, element]
+    p1 = _ring_fold(xv.permute(0, 2, 1, 3, 4).unsqueeze(2), op,
+                    _RS_START)[:, 0]           # [i0, i1', I1, element]
+    # row rings: [rank i1', block I1, part, batch i0, element]
+    p2 = _ring_fold(p1.permute(1, 2, 0, 3).unsqueeze(2), op,
+                    _RS_START)[:, 0]           # [i1, i0, element]
+    return p2.transpose(0, 1).reshape(x.shape[1:])
+
+
+def _sub_vec(x: torch.Tensor, out: torch.Tensor, *units: int) -> int:
+    """16-byte vector width of a sub-ring launch when every unit (total,
+    block, period, rank pitch, in elements) holds whole packs and both
+    pointers are 16-byte aligned, else 1."""
+    width = 16 // x.element_size()
+    if (all(u % width == 0 for u in units) and x.data_ptr() % 16 == 0
+            and out.data_ptr() % 16 == 0):
+        return width
+    return 1
+
+
+def _sub_ring(x: torch.Tensor, out: torch.Tensor, op: str, n: int,
+              start: int, blk: int, period: int, rpitch: int) -> None:
+    """One launch of K3/K5 over a batch of sub-rings (``otpu_ring_sub``):
+    element t of ``out`` folds ``x[r*rpitch + t]`` over the n ranks of its
+    ring, in the order of block ``(t % period) // blk`` from ``start``."""
+    from ompi_tpu_torch.ops import _build
+
+    total = out.numel()
+    if not total:
+        return
+    with torch.cuda.device(x.device):
+        _launch(_build.load("ring_fused").otpu_ring_sub, x.data_ptr(),
+                out.data_ptr(), total, blk, period, rpitch, n, start,
+                _DTCODE[x.dtype], _OPCODE[op],
+                _sub_vec(x, out, total, blk, period, rpitch), _stream(x))
+    launches["all_reduce_fused" if start == _AR_START
+             else "reduce_scatter_fused"] += 1
+
+
+def _check_torus(x, n0: int, n1: int, op: str, lead: tuple,
+                 what: str) -> bool:
+    """The torus reductions' checks: axis lengths, the op, leading dims
+    ``lead``, then those of every ring wrapper; returns whether the kernels
+    run."""
+    if n0 < 1 or n1 < 1:
+        raise ValueError(f"{what} needs axis lengths >= 1, got ({n0}, {n1})")
+    if op not in _FOLDS:
+        raise ValueError(
+            f"unsupported ring reduction {op!r}: one of sum/max/min/prod")
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(x).__name__}")
+    if tuple(x.shape[:len(lead)]) != lead:
+        raise ValueError(f"{what} needs a tensor of shape {lead} + S, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTCODE:
+        raise TypeError(f"{what} takes float16/32/64, got {x.dtype}")
+    return _check_ranks(x, lead[0], what)
+
+
+def all_reduce_torus(x: torch.Tensor, n0: int, n1: int,
+                     op: str = "sum") -> torch.Tensor:
+    """``(n0, n1, *S)`` -> ``(*S)``: the torus all-reduce (``pc:1880``).  A
+    degenerate axis is the fused 1-D ring over the n0*n1 ranks."""
+    on_card = _check_torus(x, n0, n1, op, (n0, n1), "all_reduce_torus")
+    payload = tuple(x.shape[2:])
+    if n0 == 1 or n1 == 1:
+        return all_reduce(x.reshape((n0 * n1,) + payload), n0 * n1, op)
+    if not on_card:
+        return all_reduce_torus_plain(x, n0, n1, op)
+    size = x[0, 0].numel()
+    blk0, blk1 = _torus_blocks(size, n0, n1)
+    part = torch.empty((n1, size), dtype=x.dtype, device=x.device)
+    # column rings: rank (i0, i1) at (i0*n1 + i1)*size, ring of i1 at pitch
+    # n1*size; part[i1] holds each column's scattered blocks
+    _sub_ring(x, part, op, n0, _RS_START, blk0, size, n1 * size)
+    out = torch.empty(payload, dtype=x.dtype, device=x.device)
+    # row rings: rank i1 of row i0 holds part[i1, i0*blk0 : (i0+1)*blk0]
+    _sub_ring(part, out, op, n1, _AR_START, blk1, blk0, size)
+    return out
+
+
+def reduce_scatter_torus(x: torch.Tensor, n0: int, n1: int,
+                         op: str = "sum") -> torch.Tensor:
+    """``(N, N, *S)`` -> ``(N, *S)``, N = n0*n1: the torus reduce-scatter
+    (``pc:1961``), rank p's row the reduction of block p.  A degenerate axis
+    is the fused 1-D ring."""
+    n = n0 * n1
+    on_card = _check_torus(x, n0, n1, op, (n, n), "reduce_scatter_torus")
+    if n0 == 1 or n1 == 1:
+        return reduce_scatter(x, n, op)
+    if not on_card:
+        return reduce_scatter_torus_plain(x, n0, n1, op)
+    size = x[0, 0].numel()
+    part = torch.empty((n1, n * size), dtype=x.dtype, device=x.device)
+    # column rings over super-blocks of n1 blocks: rank (i0, i1) at
+    # (i0*n1 + i1)*n*size, ring of i1 at pitch n1*n*size
+    _sub_ring(x, part, op, n0, _RS_START, n1 * size, n * size, n1 * n * size)
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    # row rings: rank i1 of row i0 holds super-block i0 of part[i1]
+    _sub_ring(part, out, op, n1, _RS_START, size, n1 * size, n * size)
+    return out
+
+
+def all_gather_torus(x: torch.Tensor, n0: int, n1: int) -> torch.Tensor:
+    """``(N, *S)`` -> ``(N, *S)`` replicated (``pc:2016``): the row rings'
+    blocks already lie in their rows, so only the column gather copies
+    (K10 on the card)."""
+    return all_gather(x, n0 * n1)
 
 
 # -- the exchange tier (K13-K16) --------------------------------------------

@@ -137,15 +137,21 @@ def test_vec_needs_whole_packs_per_ring_block():
     assert rc._vec(torch.zeros(8, 23), 128) == 1     # row pitch 92 bytes
 
 
-def test_not_ported_variants_raise():
-    x = torch.ones(8, 8, 4)
+def test_not_ported_variants_raise(mesh):
+    """The duplex variants, once not ported, now match the reference: a
+    reduce-scatter asked for seg_bidi is the one-way ring (the reference
+    builds the fused one, the port the segmented one: the same values), and
+    the duplex all-gather delivers x; an unknown variant still raises."""
+    x = _payload((8, 8, 4), "sum", seed=5)
+    t = torch.from_numpy(x)
     before = dict(rc.launches)
-    with pytest.raises(NotImplementedError):
-        rc.reduce_scatter(x, 8, variant="seg_bidi")
-    with pytest.raises(NotImplementedError):
-        rc.all_gather(x, 8, variant="bidi")
+    _assert_bits_equal(rc.reduce_scatter(t, 8, variant="seg_bidi"),
+                       _run(pc.reduce_scatter, x, mesh, "x",
+                            variant="seg_bidi"))
+    _assert_bits_equal(rc.all_gather(t, 8, variant="bidi"),
+                       _run(pc.all_gather, x, mesh, "x", variant="bidi"))
     with pytest.raises(ValueError):
-        rc.all_gather(x, 8, variant="tree")
+        rc.all_gather(t, 8, variant="tree")
     assert rc.launches == before
 
 

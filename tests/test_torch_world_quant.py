@@ -308,11 +308,13 @@ def test_wire16_routes_the_headline_size_to_seg(ring_worlds):
     _, tw = ring_worlds
     ring = _module(tw, "RingCollModule")
     big = torch.zeros(1, 1).expand(N, (16 << 20) // 4)
-    assert ring._variant(big, "sum")[0] == "seg"
     mid = torch.zeros(1, 1).expand(N, (4 << 20) // 4)
-    assert ring._variant(mid, "sum")[0] == "wire16"
-    assert ring._variant(mid, "max")[0] == "fused"
-    assert ring._variant(mid.double(), "sum")[0] == "fused"
+    # the allreduce's rule and the reduce-scatter's agree without bidi
+    for rule in (ring._allreduce_variant, ring._reduce_scatter_variant):
+        assert rule(big, "sum")[0] == "seg"
+        assert rule(mid, "sum")[0] == "wire16"
+        assert rule(mid, "max")[0] == "fused"
+        assert rule(mid.double(), "sum")[0] == "fused"
 
 
 def test_ring_serves_a_budgeted_comm_exactly(ring_worlds, monkeypatch):
