@@ -49,7 +49,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    unaligned view and n = 5 (byte for byte).  The torus schedules, each
    phase one sub-ring launch of K3/K5, on grids (2, 4) and (4, 2) against
    their plain composition: ``all_reduce_torus`` (float32 and float16, every
-   op), ``reduce_scatter_torus`` (sum, max) and ``all_gather_torus``.
+   op), ``reduce_scatter_torus`` (sum, max) and ``all_gather_torus``.  K20,
+   the collective matmul (CUDA C++), both forms (``matmul_allreduce``,
+   ``matmul_reduce_scatter``) at Mixtral-8x7B's expert down projection
+   (``w2``, 14336 → 4096, split over the 8 ranks along its hidden units,
+   on the capacity buffer of 8 × 1280 rows: a ``(8, 10240, 1792)``, b
+   ``(8, 1792, 4096)``), at M = 10237 (a padded last block) and at a
+   ``(8, 1001, 37)``, b ``(8, 37, 203)`` (K/n and N off the multiples of 8),
+   float32 and bfloat16: bit for bit on integer inputs in [-4, 4], within 1e-5
+   (float32) and 2^-7 (bfloat16) of the largest Σ|a||b| on normal ones, and
+   bfloat16 within (n + 1)·2^-8 of max|C| (half an ulp for each of the n
+   partials' roundings and of the folds').
 3. The main path, with every launch count set to 0 before and read after:
    ``ompi_tpu_torch.init()`` (8 virtual ranks on ``cuda:0``), then at
    default priorities ``COMM_WORLD.allreduce_array`` — SUM to coll/builtin,
@@ -103,6 +113,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    times a step (4 and 6), twice that under remat; the step with
    ``use_flash=False`` within 1e-5 of the K21 step's loss and 1e-4 of each
    leaf's update.
+
+   Then the MoE path, with the counts set to 0 before and read after: a
+   world with coll/ring raised; ``parallel.moe.expert_ffn_fused`` on K20's
+   Mixtral shape in float32 through coll/tuned's device cell (K20's
+   all-reduce form once); with ``otpu_coll_tuned_fused_cells`` forcing
+   ``matmul_reduce_scatter``, ``expert_ffn_fused`` again (its unfused
+   einsum: no K20) and that cell itself (K20's reduce-scatter form once);
+   ``dispatch_tokens`` on the MoE dispatch slab (K15 once) and on a dup
+   with ``otpu_quant_budget`` 0.02 (the int8 packing, an int32 slab ``(8,
+   8, 1280, 1152)``, K15 once); ``run_moe_training_step`` on (dp=2, ep=4)
+   (descending, bit-stable across two builds, within 1e-5 of a CPU run).
+   The counts must be exactly those; K20 within its band of the plain
+   version, the dispatch byte-exact (int8: bit-exact with the plain
+   exchange of the packed slab, within half a step of each row's max).
 4. Times: CUDA events around single calls, cold L2 (a 256 MB buffer is
    zeroed before each call), median of 25 after 3 warm-up calls, for each
    kernel, its plain version and one PyTorch library call computing the same
@@ -131,6 +155,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ending in a sync (median and quartiles of 12 steps each), with K21 and
    with ``use_flash=False`` in turns; ``step_profile`` traces one step of
    each with ``torch.profiler`` (device time by kernel, idle share).
+   K20's rows (float32, the MoE path's dtype, in the kernels line; bfloat16
+   in a ``fused_matmul_bf16`` line, each row with its phase-2 band) at
+   the Mixtral shape, beside
+   ``torch.einsum("nmk,nko->mo")``, median of 25 calls or of 5 where one
+   call takes over 50 ms; bound by operations, 2·M·K·N over the peak of
+   the dtype.
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
@@ -139,6 +169,7 @@ before printing anything.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -200,15 +231,32 @@ KERNELS = {
                             "ompi_tpu/ops/pallas_collectives.py:850"),
     "all_gather_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
                         "ompi_tpu/ops/pallas_collectives.py:226"),
+    "matmul_allreduce": ("cuda", "ompi_tpu_torch/csrc/fused_matmul.cu",
+                         "ompi_tpu/ops/pallas_overlap.py:57"),
+    "matmul_reduce_scatter": ("cuda", "ompi_tpu_torch/csrc/fused_matmul.cu",
+                              "ompi_tpu/ops/pallas_overlap.py:57"),
 }
-#: the kernels of the training path; every other one is on the collectives'
+#: the kernels of the training path and of the MoE path; every other one
+#: is on the collectives'
 TRAINING_KERNELS = ("flash_block",)
+MOE_KERNELS = ("matmul_allreduce", "matmul_reduce_scatter")
 SEG = 512 * 1024 // 4      # seg_bytes (512k) in float32 elements
 
 # the MoE dispatch slab: Mixtral-8x7B's expert layer (hidden 4096, 8
 # experts, top-2), 4096 tokens per rank, capacity factor 1.25
 HIDDEN, EXPERTS, TOP_K, TOKENS = 4096, 8, 2, 4096
 CAPACITY = -(-5 * TOKENS * TOP_K // (4 * EXPERTS))    # ceil(1.25·T·k/E) = 1280
+# K20 at Mixtral-8x7B's expert down projection: w2 (14336 -> 4096) split
+# over the 8 ranks along its hidden units, applied to the expert's capacity
+# buffer of 8 source ranks x CAPACITY rows: a (8, 10240, 1792), b (8, 1792,
+# 4096); and 3 rows fewer, so the last block is padded
+FFN = 14336
+K20_M, K20_K = N * CAPACITY, FFN // N
+K20_BANDS = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# bfloat16 also within the schedule's roundings: each of the n partials and
+# each fold rounds once, half an ulp (2^-8 relative) of at most max|C| each
+K20_BF16_FOLD_BAND = (N + 1) * 2.0 ** -8
+MOE_BUDGET = "0.02"
 ROT = tuple((i, (i + 1) % N) for i in range(N))       # the +1 rotation
 GENERAL = tuple((i, (i + 2) % N) for i in range(N - 1))   # rank 1: no source
 
@@ -223,10 +271,11 @@ def require(cond: bool, what: str) -> None:
 
 
 def launch_tables() -> tuple:
-    from ompi_tpu_torch.ops import flash_attention, quant, reduce, ring_collectives
+    from ompi_tpu_torch.ops import (flash_attention, overlap, quant, reduce,
+                                    ring_collectives)
 
     return (reduce.launches, ring_collectives.launches, quant.launches,
-            flash_attention.launches)
+            flash_attention.launches, overlap.launches)
 
 
 def counts():
@@ -501,6 +550,7 @@ def check_kernels(gen) -> dict:
     check_flash_kernel(gen, err)
     check_duplex_kernels(gen, err)
     check_torus(gen)
+    check_fused_matmul(gen, err)
     torch.cuda.synchronize()
     return err
 
@@ -642,6 +692,96 @@ def check_torus(gen) -> None:
         "float16 1000 per rank, float32 4 MB per rank, every op), "
         "reduce_scatter_torus (200 and 131072 per block, sum and max), "
         "all_gather_torus: bit-exact with the plain composition")
+
+
+def k20_operands(dtype, m: int, kind: str, gen) -> tuple:
+    """a (8, m, 1792) and b (8, 1792, 4096) on the card: integers in [-4, 4]
+    (every float32 partial exact, |partial| <= 1792·16; past 256, so the
+    bfloat16 partials and folds round), or normal values."""
+    if kind == "int":
+        a = torch.randint(-4, 5, (N, m, K20_K), device="cuda", generator=gen)
+        b = torch.randint(-4, 5, (N, K20_K, HIDDEN), device="cuda", generator=gen)
+    else:
+        a = torch.randn((N, m, K20_K), device="cuda", generator=gen)
+        b = torch.randn((N, K20_K, HIDDEN), device="cuda", generator=gen)
+    return a.to(dtype), b.to(dtype)
+
+
+def k20_scale(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest Σ|a||b| of an output element: the bands' unit."""
+    return torch.einsum("nmk,nko->mo", a.abs().float(),
+                        b.abs().float()).max().item()
+
+
+def k20_band(want: torch.Tensor, scale: float) -> float:
+    """K20's band around ``want``: K20_BANDS[dtype]·scale, and in bfloat16
+    no more than K20_BF16_FOLD_BAND·max|want|."""
+    band = K20_BANDS[want.dtype] * scale
+    if want.dtype == torch.bfloat16:
+        band = min(band, K20_BF16_FOLD_BAND * want.float().abs().max().item())
+    return band
+
+
+def check_k20_band(got, want, scale: float, what: str) -> tuple:
+    """``got`` within :func:`k20_band` of ``want``, finite; returns the max
+    abs error and the band."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{what}: {tuple(got.shape)} {got.dtype} vs "
+            f"{tuple(want.shape)} {want.dtype}")
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    e, band = max_abs_err(got, want), k20_band(want, scale)
+    require(e <= band, f"{what}: max abs err {e} above the band {band}")
+    return e, band
+
+
+def check_fused_matmul(gen, err: dict) -> None:
+    """K20 (both forms) against its plain version at the Mixtral expert
+    shape and at M = 10237 (a padded last block), float32 and bfloat16:
+    bit for bit on integer-valued inputs, on normal ones within 1e-5
+    (float32) and 2^-7 (bfloat16) of the largest Σ|a||b|, and bfloat16
+    within (n + 1)·2^-8 of max|C| as well.  ``err`` gets each form's max
+    abs error and, for bfloat16, its band (``<key>_band``)."""
+    from ompi_tpu_torch.ops import overlap
+
+    forms = {"matmul_allreduce": (overlap.matmul_allreduce,
+                                  overlap.matmul_allreduce_plain),
+             "matmul_reduce_scatter": (overlap.matmul_reduce_scatter,
+                                       overlap.matmul_reduce_scatter_plain)}
+    rel = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (K20_M, K20_M - 3):
+            for kind in ("int", "random"):
+                a, b = k20_operands(dtype, m, kind, gen)
+                scale = k20_scale(a, b) if kind == "random" else 0.0
+                for name, (kernel, plain) in forms.items():
+                    got, want = kernel(a, b, N), plain(a, b, N)
+                    what = f"{name} {dtype} M={m} {kind}"
+                    if kind == "int":
+                        same_bits(got, want, what)
+                        continue
+                    e, band = check_k20_band(got, want, scale, what)
+                    key = name if dtype == torch.float32 else f"{name}_bf16"
+                    err[key] = max(err.get(key, 0.0), e)
+                    rel[key] = max(rel.get(key, 0.0), e / band)
+                    if dtype == torch.bfloat16:
+                        err[f"{key}_band"] = min(
+                            err.get(f"{key}_band", math.inf), band)
+                    del got, want
+                del a, b
+    # K/n and N off the multiples of 8: the bfloat16 kernel's element loads
+    for dtype in (torch.float32, torch.bfloat16):
+        ints = [torch.randint(-4, 5, shape, device="cuda", generator=gen).to(dtype)
+                for shape in ((N, 1001, 37), (N, 37, 203))]
+        for name, (kernel, plain) in forms.items():
+            same_bits(kernel(*ints, N), plain(*ints, N),
+                      f"{name} {dtype} (8, 1001, 37) x (8, 37, 203)")
+    log(f"K20 matmul_allreduce/matmul_reduce_scatter: a (8, {K20_M}, {K20_K}) "
+        f"and (8, {K20_M - 3}, {K20_K}), b (8, {K20_K}, {HIDDEN}), and a (8, "
+        "1001, 37), b (8, 37, 203), float32 and "
+        "bfloat16: bit-exact on integer inputs; on normal inputs max abs err "
+        "over its band (float32: 1e-5 x the largest Σ|a||b|; bfloat16: the "
+        f"smaller of 2^-7 x that and {N + 1} x 2^-8 x max|C|) "
+        + json.dumps(rel))
 
 
 #: K21's bands against its plain version, relative to the largest finite
@@ -885,7 +1025,7 @@ def main_path(gen) -> dict:
         f"{wall:.3f} s (host clock, includes the first-call builds); "
         f"launches {launched}")
     for name in KERNELS:
-        if name not in TRAINING_KERNELS:
+        if name not in TRAINING_KERNELS + MOE_KERNELS:
             require(launched[name] > 0, f"{name} was not launched on the main path")
     require(k1_rs > 0, "reduce_scatter_array PROD did not launch K1")
 
@@ -1033,6 +1173,114 @@ def training_path() -> dict:
     log(json.dumps({"step_profile": {what: step_profile(*v)
                                      for what, v in variants.items()}}))
     return {"flash_block": launched["flash_block"], "step_ms": times}
+
+
+def moe_path(gen) -> dict:
+    """The MoE device tier on the card, with every count set to 0 before
+    and read after: on a world with coll/ring raised, ``expert_ffn_fused``
+    at the Mixtral expert shape (float32) through coll/tuned's cell (K20's
+    all-reduce form once); with ``otpu_coll_tuned_fused_cells`` forcing the
+    reduce-scatter cell, ``expert_ffn_fused`` takes its unfused einsum (no
+    K20) and that cell itself (K20's reduce-scatter form once);
+    ``dispatch_tokens`` on the MoE dispatch slab without a budget and on a
+    dup with ``otpu_quant_budget`` 0.02 (the int32 slab; K15 once each);
+    ``run_moe_training_step`` on (dp=2, ep=4).  Exact counts; results held
+    against the plain versions and, for the step, a CPU run."""
+    import ompi_tpu_torch
+    from ompi_tpu_torch.base.var import registry
+    from ompi_tpu_torch.mca.coll import tuned
+    from ompi_tpu_torch.ops import overlap
+    from ompi_tpu_torch.ops import ring_collectives as rc
+    from ompi_tpu_torch.parallel import moe
+    from ompi_tpu_torch.runtime import init as rt
+
+    a, b = k20_operands(torch.float32, K20_M, "random", gen)
+    x, routed = moe_slab(gen), moe_counts()
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    os.environ["OTPU_MCA_coll_ring_priority"] = "95"
+    world = ompi_tpu_torch.init()
+    require(owner(world, "alltoallv_array") == "RingCollModule",
+            "raised owner of alltoallv_array is not coll/ring")
+    fused, d_fused = launch_delta(lambda: moe.expert_ffn_fused(a, b))
+    var = registry.lookup("otpu_coll_tuned_fused_cells")
+    var.set("matmul_reduce_scatter")
+    try:
+        unfused, d_unfused = launch_delta(lambda: moe.expert_ffn_fused(a, b))
+        cell = tuned.device_cell("matmul_reduce_scatter")
+        rs, d_rs = launch_delta(lambda: cell(a, b, N))
+    finally:
+        var.set("")
+    (raw, codec_raw), d_raw = launch_delta(
+        lambda: moe.dispatch_tokens(world, x, routed))
+    budgeted = world.dup()
+    budgeted.info.set("otpu_quant_budget", MOE_BUDGET)
+    (packed, codec_packed), d_packed = launch_delta(
+        lambda: moe.dispatch_tokens(budgeted, x, routed))
+    losses = moe.run_moe_training_step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    rt.finalize()
+    del os.environ["OTPU_MCA_coll_ring_priority"]
+
+    log(f"MoE path: init (coll/ring raised), expert_ffn_fused twice, the "
+        f"reduce-scatter cell, dispatch_tokens twice, run_moe_training_step "
+        f"in {wall:.3f} s (host clock, includes the first-call set-up); "
+        f"launches {dict((k, v) for k, v in launched.items() if v)}")
+    require(d_fused == {"matmul_allreduce": 1},
+            f"expert_ffn_fused launched {d_fused}, want K20 (allreduce) once")
+    require(d_unfused == {}, f"forced to the reduce-scatter cell, "
+            f"expert_ffn_fused launched {d_unfused}, want nothing")
+    require(d_rs == {"matmul_reduce_scatter": 1},
+            f"the reduce-scatter cell launched {d_rs}, want K20 once")
+    require(d_raw == {"all_to_all_v": 1} and d_packed == {"all_to_all_v": 1},
+            f"dispatch_tokens launched {d_raw} and {d_packed}, want K15 once each")
+    require({k: v for k, v in launched.items() if v} ==
+            {"matmul_allreduce": 1, "matmul_reduce_scatter": 1,
+             "all_to_all_v": 2}, f"MoE path launches {launched}")
+
+    scale = k20_scale(a, b)
+    plain = overlap.matmul_allreduce_plain(a, b, N)
+    e_fused, _ = check_k20_band(fused, plain, scale,
+                                "expert_ffn_fused vs plain")
+    check_k20_band(unfused, plain, scale,
+                   "unfused einsum vs K20's plain version")
+    check_k20_band(rs, overlap.matmul_reduce_scatter_plain(a, b, N),
+                   scale, "reduce-scatter cell vs plain")
+    del plain
+    require(codec_raw is None and codec_packed == "int8",
+            f"codecs {codec_raw}, {codec_packed}")
+    want_raw = rc.all_to_all_v_plain(x, routed, N)
+    want_packed = moe.decode_dispatch_int8(rc.all_to_all_v_plain(
+        moe.encode_dispatch_int8(x), routed, N), HIDDEN)
+    worst = 0.0
+    for i in range(N):
+        for j in range(N):
+            c = int(routed[j, i])
+            same_bytes(raw[i][j], want_raw[i, j, :c], f"dispatch ({i}, {j})")
+            same_bits(packed[i][j], want_packed[i, j, :c],
+                      f"int8 dispatch ({i}, {j})")
+            if c:
+                amax = x[j, i, :c].abs().amax(-1, keepdim=True)
+                worst = max(worst, ((packed[i][j] - x[j, i, :c]).abs()
+                                    / amax).max().item())
+    require(worst <= 0.5 / 127 + 1e-6,
+            f"int8 dispatch error {worst} above half a step of the row max")
+    cpu = moe.run_moe_training_step(device="cpu")
+    rel = max(abs(g - c) / abs(c) for g, c in zip(losses, cpu))
+    require(rel <= 1e-5, f"MoE step on the card vs the CPU: {rel:.3e}")
+    log(f"MoE path results: expert_ffn_fused (K20) within {e_fused:.3e} "
+        f"(band {K20_BANDS[torch.float32]} x {scale:.1f}) of its plain "
+        "version, the unfused einsum and the reduce-scatter cell within the "
+        "band; dispatch_tokens byte-exact with the plain exchange over the "
+        "valid rows, the int8 path bit-exact with the plain exchange of the "
+        f"packed slab and within {worst:.3e} of each row's max; the MoE step "
+        f"{losses} (descending, bit-stable across two builds), within "
+        f"{rel:.3e} of the CPU run")
+    return launched
 
 
 def step_ms(variants: dict, rounds: int = 4, steps: int = 3) -> dict:
@@ -1267,16 +1515,16 @@ def exchange_calls(world, big, a2a, moe, routed, agv, agv_counts) -> dict:
 
 # -- phase 4: times ------------------------------------------------------
 
-def time_ms(fn) -> float:
-    """Median device time of single calls with a cold L2: a 256 MB zero
-    fill runs before each call.  The card spins first while the host
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median device time of ``reps`` single calls with a cold L2: a 256 MB
+    zero fill runs before each call.  The card spins first while the host
     enqueues every timed call: a wrapper's host dispatch can take longer
     than the fill, and would otherwise land between a call's events."""
     flush = torch.empty(256 * MB // 4, device="cuda")
     for _ in range(WARMUP):
         fn()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     torch.cuda.synchronize()
     torch.cuda._sleep(SPIN_CYCLES)
     for s, e in zip(starts, ends):
@@ -1562,6 +1810,64 @@ def measure_flash(gen, launches: int, err: dict) -> dict:
     return row
 
 
+def slow_ms(fn) -> float:
+    """``time_ms`` over 25 calls, or over 5 where one call takes above
+    50 ms (K20 and its yardsticks in float32)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time_ms(fn, 5 if time.perf_counter() - t0 > 0.05 else REPS)
+
+
+def k20_row(name: str, a: torch.Tensor, b: torch.Tensor, launches: int,
+            err: float) -> dict:
+    """K20's row at one shape: its time, its plain version's and
+    ``torch.einsum("nmk,nko->mo")``'s (the same product, the reduce-scatter's
+    unpadded), and the bound, the larger of 2·M·K·N operations over the
+    dtype's peak and the bytes (a, b read once, the output written once)
+    over the memory rate."""
+    from ompi_tpu_torch.ops import overlap
+
+    kernel, plain = getattr(overlap, name), getattr(overlap, f"{name}_plain")
+    m, k_loc = a.shape[1], a.shape[2]
+    out_rows = m if name == "matmul_allreduce" else N * -(-m // N)
+    ops = 2 * m * N * k_loc * HIDDEN
+    nbytes = (a.numel() + b.numel() + out_rows * HIDDEN) * a.element_size()
+    by_ops, by_bytes = ops / PEAK_FLOPS[a.dtype], nbytes / HBM_BYTES_PER_S
+    route, source, replaces = KERNELS[name]
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": slow_ms(lambda: kernel(a, b, N)),
+            "plain_ms": slow_ms(lambda: plain(a, b, N)),
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "library_ms": slow_ms(lambda: torch.einsum("nmk,nko->mo", a, b))}
+
+
+def measure_fused_matmul(gen, launched: dict, err: dict) -> list:
+    """K20's rows at the Mixtral expert shape: float32 (the MoE path's
+    dtype) in the kernels line, bfloat16 in a ``fused_matmul_bf16`` line."""
+    rows, bf16 = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = k20_operands(dtype, K20_M, "random", gen)
+        for name in MOE_KERNELS:
+            key = name if dtype == torch.float32 else f"{name}_bf16"
+            row = k20_row(name, a, b, launched[name], err[key])
+            shape = (f"{str(dtype)[6:]} a (8, {K20_M}, {K20_K}), b (8, "
+                     f"{K20_K}, {HIDDEN}): Mixtral-8x7B w2 over 8 ranks")
+            if dtype == torch.float32:
+                rows.append(row)
+                log(json.dumps({**row, "shape": shape}))
+            else:
+                bf16.append({**row, "band": err[f"{key}_band"],
+                             "shape": shape})
+        del a, b
+    log(json.dumps({"fused_matmul_bf16": bf16}))
+    return rows
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -1593,8 +1899,10 @@ def main() -> int:
     launched = main_path(gen)
     os.environ["OTPU_MODEL_SCALE"] = "64"
     trained = training_path()
+    moe_launched = moe_path(gen)
     rows = measure(gen, launched, err)
     rows.append(measure_flash(gen, trained["flash_block"], err))
+    rows += measure_fused_matmul(gen, moe_launched, err)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

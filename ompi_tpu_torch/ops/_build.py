@@ -54,6 +54,8 @@ LIBRARIES = {
     "flash_block": ("flash_block.cu",
                     {"otpu_flash_block": [_P] * 10 + [_LL, _I, _I, _I, _LL, _I, _I,
                                                       _I, _I, _I, _P]}),
+    "fused_matmul": ("fused_matmul.cu",
+                     {"otpu_fused_matmul": [_P, _P, _P] + [_I] * 9 + [_P]}),
 }
 
 _lock = threading.Lock()

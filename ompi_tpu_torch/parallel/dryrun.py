@@ -4,7 +4,10 @@ Port of ``ompi_tpu/parallel/dryrun.py``.  The ranks are the
 ``otpu_rte_virtual_ranks`` virtual ranks (default 8) on one device: the
 card unless the caller passes ``device="cpu"`` (with no card and no
 ``device`` it raises, as ``cudaenv.resolve_device`` does).
-``run_mp_training_step`` waits for the multi-process world.
+``run_tolerance_check`` is a copy of the reference's (numpy only), the
+band harness of the lossy tiers; ``parallel/moe.run_quant_dispatch_check``
+holds the int8 dispatch to it.  ``run_mp_training_step`` waits for the
+multi-process world.
 """
 from __future__ import annotations
 
@@ -110,3 +113,44 @@ def _one_descending_step(device, spec, ranks, lr) -> float:
     print(f"dryrun ok: mesh={spec.sizes()} loss {loss:.6f} -> "
           f"{float(loss2):.6f}")
     return loss
+
+
+def run_tolerance_check(coll, approx_fn, exact_fn=None,
+                        sizes=(1 << 10, 1 << 14), dtypes=("float32",),
+                        nranks=4, band=0.02, seed=0) -> dict:
+    """Tolerance-band twin of the bit-exactness checks: lossy collective
+    tiers (coll/quant) cannot promise bit-identical results, so this harness
+    pins them to a RELATIVE-ERROR BAND against the exact result instead.
+
+    For every (size, dtype) cell: seeded inputs ``(nranks, size)``,
+    ``exact_fn(stack)`` (default: the f64-accumulated sum, the allreduce
+    reference), ``approx_fn(stack)`` (the path under test), and the max
+    absolute deviation normalized by ``max(|exact|)``.  Returns
+    ``{"coll/size/dtype": rel_error}``; any cell outside the band raises a
+    report naming the failing (coll, size, dtype) cell."""
+    report: dict = {}
+    failures = []
+    for size in sizes:
+        for di, dtype in enumerate(dtypes):
+            rng = np.random.default_rng([int(seed), int(size), di])
+            stack = rng.standard_normal((nranks, int(size))).astype(dtype)
+            exact = np.asarray(
+                np.sum(stack.astype(np.float64), axis=0).astype(dtype)
+                if exact_fn is None else exact_fn(stack))
+            approx = np.asarray(approx_fn(stack))
+            denom = max(float(np.max(np.abs(exact))), 1e-12)
+            rel = float(np.max(np.abs(approx.astype(np.float64)
+                                      - exact.astype(np.float64)))
+                        / denom)
+            report[f"{coll}/{size}/{dtype}"] = rel
+            if not np.isfinite(rel) or rel > band:
+                failures.append((size, dtype, rel))
+    if failures:
+        cells = "; ".join(
+            f"({coll}, {size}, {dtype}) rel error {rel:.3e} > band "
+            f"{band:g}" for size, dtype, rel in failures)
+        raise RuntimeError(f"tolerance check FAILED: {cells}")
+    worst = max(report.values()) if report else 0.0
+    print(f"tolerance dryrun ok: {coll} {len(report)} cells, max rel "
+          f"error {worst:.3e} within band {band:g}")
+    return report

@@ -4,7 +4,9 @@ Copy of ``ompi_tpu/parallel/mesh.py``'s ``AXES``, ``MeshSpec`` and
 ``default_axis_sizes``.  The reference builds a ``jax.sharding.Mesh`` over
 devices; on one card the ranks are slices of one tensor, so ``make_mesh``
 returns the layout the port's per-rank tensors carry: every such tensor
-has the four mesh axes in front, ``(dp, pp, sp, tp, *local)``.
+has the mesh axes in front, ``(dp, pp, sp, tp, *local)``, and an
+expert-parallel spec (ep > 1) appends ``expert`` after them, ``(dp, pp, sp,
+tp, expert, *local)``, as the reference's mesh does (``mesh.py:80-83``).
 """
 from __future__ import annotations
 
@@ -17,8 +19,8 @@ from ompi_tpu_torch.base import cudaenv
 AXES = ("dp", "pp", "sp", "tp")
 
 #: the MoE axis name: appended after the dense axes only when the spec
-#: asks for expert parallelism (ep > 1); the expert-parallel trainer is not
-#: ported yet, so ``make_mesh`` refuses such a spec
+#: asks for expert parallelism (ep > 1), so every dense caller keeps the
+#: 4-axis mesh it always had
 EXPERT_AXIS = "expert"
 
 
@@ -71,15 +73,20 @@ def default_axis_sizes(n_devices: int) -> MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The axis layout of the per-rank tensors: ``shape[a]`` ranks along
-    axis ``a`` (in ``AXES`` order, the leading dims of every per-rank
+    axis ``a`` (in ``names`` order, the leading dims of every per-rank
     tensor), all on ``device``."""
 
     shape: dict
     device: torch.device
 
     @property
+    def names(self) -> tuple:
+        """The mesh axes: ``AXES``, then ``EXPERT_AXIS`` when ep > 1."""
+        return tuple(self.shape)
+
+    @property
     def dims(self) -> tuple:
-        return tuple(self.shape[a] for a in AXES)
+        return tuple(self.shape.values())
 
 
 def make_mesh(n_ranks: int, spec: MeshSpec = None, device=None):
@@ -92,8 +99,7 @@ def make_mesh(n_ranks: int, spec: MeshSpec = None, device=None):
     if spec.n != n_ranks:
         raise ValueError(f"mesh spec {spec} needs {spec.n} devices, "
                          f"got {n_ranks}")
-    if spec.ep > 1:
-        raise NotImplementedError(
-            "expert-parallel meshes (ep > 1) wait for the MoE trainer")
     shape = {a: getattr(spec, a) for a in AXES}
+    if spec.ep > 1:
+        shape[EXPERT_AXIS] = spec.ep
     return Mesh(shape, cudaenv.resolve_device(device)), spec

@@ -167,18 +167,19 @@ def shard(a, spec: tuple, mesh) -> torch.Tensor:
             at[ax] = len(shape)
             shape += [mesh.shape[ax], size // mesh.shape[ax]]
     t = t.reshape(shape)
-    split = [at[a] for a in AXES if a in at]
+    split = [at[a] for a in mesh.names if a in at]
     t = t.permute(split + [i for i in range(len(shape)) if i not in split])
     local = t.shape[len(split):]
-    t = t.reshape([mesh.shape[a] if a in at else 1 for a in AXES] + list(local))
+    t = t.reshape([mesh.shape[a] if a in at else 1 for a in mesh.names]
+                  + list(local))
     return t.to(mesh.device).expand(*mesh.dims, *local).contiguous()
 
 
-def gather(t: torch.Tensor, spec: tuple) -> np.ndarray:
-    """The global array of a per-rank tensor (rank 0's copy on the axes
-    it is replicated over)."""
-    t = t.detach()[tuple(slice(None) if a in spec else 0 for a in AXES)]
-    kept = [a for a in AXES if a in spec]
+def gather(t: torch.Tensor, spec: tuple, names: tuple = AXES) -> np.ndarray:
+    """The global array of a per-rank tensor over the mesh axes ``names``
+    (rank 0's copy on the axes it is replicated over)."""
+    t = t.detach()[tuple(slice(None) if a in spec else 0 for a in names)]
+    kept = [a for a in names if a in spec]
     perm, shape = [], []
     for dim, ax in enumerate(spec):
         size = t.shape[len(kept) + dim]

@@ -88,8 +88,8 @@ def test_make_mesh_checks_the_world_size():
     assert mesh.device == torch.device("cpu")
     with pytest.raises(ValueError, match="needs 8 devices, got 4"):
         make_mesh(4, MeshSpec(**DEFAULT))
-    with pytest.raises(NotImplementedError):
-        make_mesh(4, MeshSpec(ep=4))
+    ep_mesh, _ = make_mesh(4, MeshSpec(ep=4), device="cpu")
+    assert ep_mesh.names == AXES + ("expert",) and ep_mesh.dims == (1, 1, 1, 1, 4)
 
 
 # -- the collectives of a shard_map body ----------------------------------
