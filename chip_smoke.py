@@ -54,12 +54,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``matmul_reduce_scatter``) at Mixtral-8x7B's expert down projection
    (``w2``, 14336 → 4096, split over the 8 ranks along its hidden units,
    on the capacity buffer of 8 × 1280 rows: a ``(8, 10240, 1792)``, b
-   ``(8, 1792, 4096)``), at M = 10237 (a padded last block) and at a
-   ``(8, 1001, 37)``, b ``(8, 37, 203)`` (K/n and N off the multiples of 8),
-   float32 and bfloat16: bit for bit on integer inputs in [-4, 4], within 1e-5
+   ``(8, 1792, 4096)``), at M = 10237 (a padded last block), float32 and
+   bfloat16, and at the edge shapes (n, M, K/n, N) of ``K20_EDGES``: (8,
+   1001, 200, 520) (a 128-row tile crossing the block boundary on the TMA
+   path), n = 2 and n = 5, and (8, 1001, 37, 203) (K/n and N off the
+   multiples of 8): bit for bit on integer inputs in [-4, 4], within 1e-5
    (float32) and 2^-7 (bfloat16) of the largest Σ|a||b| on normal ones, and
    bfloat16 within (n + 1)·2^-8 of max|C| (half an ulp for each of the n
-   partials' roundings and of the folds').
+   partials' roundings and of the folds').  Each launch must take the body
+   its shape picks (``ops.overlap.bodies``): ffma for float32, wgmma for
+   bfloat16 at the Mixtral shapes and the first three edge shapes, mma_sync
+   at the last.
 3. The main path, with every launch count set to 0 before and read after:
    ``ompi_tpu_torch.init()`` (8 virtual ranks on ``cuda:0``), then at
    default priorities ``COMM_WORLD.allreduce_array`` — SUM to coll/builtin,
@@ -124,7 +129,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    with ``otpu_quant_budget`` 0.02 (the int8 packing, an int32 slab ``(8,
    8, 1280, 1152)``, K15 once); ``run_moe_training_step`` on (dp=2, ep=4)
    (descending, bit-stable across two builds, within 1e-5 of a CPU run).
-   The counts must be exactly those; K20 within its band of the plain
+   The counts must be exactly those, both K20 launches on the ffma body;
+   K20 within its band of the plain
    version, the dispatch byte-exact (int8: bit-exact with the plain
    exchange of the packed slab, within half a step of each row's max).
 4. Times: CUDA events around single calls, cold L2 (a 256 MB buffer is
@@ -140,9 +146,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    16 MB on the (2, 4) grid beside ``torch.sum`` and ``clone``, and the
    ``codec_path_ms`` line times the whole int8 allreduce (K17 then K18) and
    the bf16 codec's plain torch beside ``torch.sum`` at 8 × 16 MB.
-   The ``crossover_ms`` line times both
-   accumulator regimes of the all-reduce and of the reduce-scatter at 4 and
-   16 MB per rank; the ``host_us_per_call`` line is the host's time to
+   The ``host_us_per_call`` line is the host's time to
    enqueue one call of each kernel's wrapper and of its library call
    (200 calls while the card spins; K15's and K16's include the counts
    table each call makes and sends to the card).  K21 is timed at the
@@ -156,11 +160,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    with ``use_flash=False`` in turns; ``step_profile`` traces one step of
    each with ``torch.profiler`` (device time by kernel, idle share).
    K20's rows (float32, the MoE path's dtype, in the kernels line; bfloat16
-   in a ``fused_matmul_bf16`` line, each row with its phase-2 band) at
+   in a ``fused_matmul_bf16`` line, each row with its phase-2 band), at
    the Mixtral shape, beside
    ``torch.einsum("nmk,nko->mo")``, median of 25 calls or of 5 where one
    call takes over 50 ms; bound by operations, 2·M·K·N over the peak of
-   the dtype.
+   the dtype.  The ``earlier_ms`` line repeats, as constants from PERF.md's
+   table and not measured here, the times of K4, K6, K9 and K20 before
+   their redesign.
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
@@ -195,11 +201,11 @@ KERNELS = {
                  "ompi_tpu/ops/pallas_reduce.py:82"),
     "all_reduce_fused": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                          "ompi_tpu/ops/pallas_collectives.py:361"),
-    "all_reduce_seg": ("cuda", "ompi_tpu_torch/csrc/ring_seg.cu",
+    "all_reduce_seg": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                        "ompi_tpu/ops/pallas_collectives.py:674"),
     "reduce_scatter_fused": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                              "ompi_tpu/ops/pallas_collectives.py:502"),
-    "reduce_scatter_seg": ("cuda", "ompi_tpu_torch/csrc/ring_seg.cu",
+    "reduce_scatter_seg": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                            "ompi_tpu/ops/pallas_collectives.py:744"),
     "all_gather": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
                    "ompi_tpu/ops/pallas_collectives.py:177"),
@@ -227,7 +233,7 @@ KERNELS = {
                     "ompi_tpu/ops/flash_attention.py:135"),
     "all_reduce_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                         "ompi_tpu/ops/pallas_collectives.py:961"),
-    "all_reduce_seg_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_seg.cu",
+    "all_reduce_seg_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                             "ompi_tpu/ops/pallas_collectives.py:850"),
     "all_gather_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
                         "ompi_tpu/ops/pallas_collectives.py:226"),
@@ -257,6 +263,17 @@ K20_BANDS = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # each fold rounds once, half an ulp (2^-8 relative) of at most max|C| each
 K20_BF16_FOLD_BAND = (N + 1) * 2.0 ** -8
 MOE_BUDGET = "0.02"
+#: instructions counted in the built K20 library: wgmma, TMA loads, the
+#: mma.sync of the wmma body, and local-memory spill traffic
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL")
+#: the redesigned kernels' times before the redesign: constants from
+#: PERF.md's table (an H100 80GB HBM3 at 700 W), not measured by this script,
+#: printed on their own ``earlier_ms`` line; K4, K6, K9 at 8 x 16 MB float32,
+#: K20 at the Mixtral shape
+EARLIER_MS = {"all_reduce_seg": 0.0792, "reduce_scatter_seg": 0.0793,
+              "all_reduce_seg_bidi": 0.0812, "matmul_allreduce": 60.98,
+              "matmul_reduce_scatter": 60.98, "matmul_allreduce_bf16": 7.604,
+              "matmul_reduce_scatter_bf16": 7.605}
 ROT = tuple((i, (i + 1) % N) for i in range(N))       # the +1 rotation
 GENERAL = tuple((i, (i + 2) % N) for i in range(N - 1))   # rank 1: no source
 
@@ -713,25 +730,50 @@ def k20_scale(a: torch.Tensor, b: torch.Tensor) -> float:
                         b.abs().float()).max().item()
 
 
-def k20_band(want: torch.Tensor, scale: float) -> float:
-    """K20's band around ``want``: K20_BANDS[dtype]·scale, and in bfloat16
-    no more than K20_BF16_FOLD_BAND·max|want|."""
+def k20_band(want: torch.Tensor, scale: float, n: int = N) -> float:
+    """K20's band around ``want`` over n ranks: K20_BANDS[dtype]·scale, and
+    in bfloat16 no more than (n + 1)·2^-8·max|want| (K20_BF16_FOLD_BAND at
+    n = 8)."""
     band = K20_BANDS[want.dtype] * scale
     if want.dtype == torch.bfloat16:
-        band = min(band, K20_BF16_FOLD_BAND * want.float().abs().max().item())
+        fold = K20_BF16_FOLD_BAND * (n + 1) / (N + 1)
+        band = min(band, fold * want.float().abs().max().item())
     return band
 
 
-def check_k20_band(got, want, scale: float, what: str) -> tuple:
+def check_k20_band(got, want, scale: float, what: str, n: int = N) -> tuple:
     """``got`` within :func:`k20_band` of ``want``, finite; returns the max
     abs error and the band."""
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{what}: {tuple(got.shape)} {got.dtype} vs "
             f"{tuple(want.shape)} {want.dtype}")
     require(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
-    e, band = max_abs_err(got, want), k20_band(want, scale)
+    e, band = max_abs_err(got, want), k20_band(want, scale, n)
     require(e <= band, f"{what}: max abs err {e} above the band {band}")
     return e, band
+
+
+def body_delta(fn) -> tuple:
+    """(fn's result, what it added to each of K20's body counts)."""
+    from ompi_tpu_torch.ops import overlap
+
+    before = dict(overlap.bodies)
+    out = fn()
+    return out, {k: v - before[k] for k, v in overlap.bodies.items()
+                 if v != before[k]}
+
+
+def k20_body(dtype) -> str:
+    """The body K20 takes at the Mixtral shape."""
+    return "ffma" if dtype == torch.float32 else "wgmma"
+
+
+#: K20's edge shapes, (n, M, K/n, N) and the body bfloat16 takes there: a
+#: 128-row tile crossing the block boundary on the TMA path (m_blk 126, K/n
+#: not a multiple of the 64-deep k-tile, N not of the 256-wide tile), n = 2
+#: and n = 5, and K/n, N off the multiples of 8
+K20_EDGES = ((8, 1001, 200, 520, "wgmma"), (2, 777, 96, 264, "wgmma"),
+             (5, 1001, 200, 520, "wgmma"), (8, 1001, 37, 203, "mma_sync"))
 
 
 def check_fused_matmul(gen, err: dict) -> None:
@@ -739,8 +781,11 @@ def check_fused_matmul(gen, err: dict) -> None:
     shape and at M = 10237 (a padded last block), float32 and bfloat16:
     bit for bit on integer-valued inputs, on normal ones within 1e-5
     (float32) and 2^-7 (bfloat16) of the largest Σ|a||b|, and bfloat16
-    within (n + 1)·2^-8 of max|C| as well.  ``err`` gets each form's max
-    abs error and, for bfloat16, its band (``<key>_band``)."""
+    within (n + 1)·2^-8 of max|C| as well; every launch at those shapes
+    takes the ffma body (float32) or the wgmma body (bfloat16).  The same
+    at the edge shapes of ``K20_EDGES``, each on the body it names.
+    ``err`` gets each form's max abs error and, for bfloat16, its band
+    (``<key>_band``)."""
     from ompi_tpu_torch.ops import overlap
 
     forms = {"matmul_allreduce": (overlap.matmul_allreduce,
@@ -754,8 +799,11 @@ def check_fused_matmul(gen, err: dict) -> None:
                 a, b = k20_operands(dtype, m, kind, gen)
                 scale = k20_scale(a, b) if kind == "random" else 0.0
                 for name, (kernel, plain) in forms.items():
-                    got, want = kernel(a, b, N), plain(a, b, N)
+                    got, took = body_delta(lambda: kernel(a, b, N))
+                    want = plain(a, b, N)
                     what = f"{name} {dtype} M={m} {kind}"
+                    require(took == {k20_body(dtype): 1},
+                            f"{what}: bodies {took}, want {k20_body(dtype)}")
                     if kind == "int":
                         same_bits(got, want, what)
                         continue
@@ -768,20 +816,39 @@ def check_fused_matmul(gen, err: dict) -> None:
                             err.get(f"{key}_band", math.inf), band)
                     del got, want
                 del a, b
-    # K/n and N off the multiples of 8: the bfloat16 kernel's element loads
+    edge_rel = {}
     for dtype in (torch.float32, torch.bfloat16):
-        ints = [torch.randint(-4, 5, shape, device="cuda", generator=gen).to(dtype)
-                for shape in ((N, 1001, 37), (N, 37, 203))]
-        for name, (kernel, plain) in forms.items():
-            same_bits(kernel(*ints, N), plain(*ints, N),
-                      f"{name} {dtype} (8, 1001, 37) x (8, 37, 203)")
+        for n, m, k, nc, bf16_body in K20_EDGES:
+            body = "ffma" if dtype == torch.float32 else bf16_body
+            for kind in ("int", "random"):
+                if kind == "int":
+                    a, b = (torch.randint(-4, 5, shape, device="cuda",
+                                          generator=gen).to(dtype)
+                            for shape in ((n, m, k), (n, k, nc)))
+                else:
+                    a, b = (torch.randn(shape, device="cuda",
+                                        generator=gen).to(dtype)
+                            for shape in ((n, m, k), (n, k, nc)))
+                for name, (kernel, plain) in forms.items():
+                    got, took = body_delta(lambda: kernel(a, b, n))
+                    want = plain(a, b, n)
+                    what = (f"{name} {dtype} n={n} a ({n}, {m}, {k}) b ({n}, "
+                            f"{k}, {nc}) {kind}")
+                    require(took == {body: 1},
+                            f"{what}: bodies {took}, want {body}")
+                    if kind == "int":
+                        same_bits(got, want, what)
+                        continue
+                    e, band = check_k20_band(got, want, k20_scale(a, b), what, n)
+                    edge_rel[body] = max(edge_rel.get(body, 0.0), e / band)
     log(f"K20 matmul_allreduce/matmul_reduce_scatter: a (8, {K20_M}, {K20_K}) "
-        f"and (8, {K20_M - 3}, {K20_K}), b (8, {K20_K}, {HIDDEN}), and a (8, "
-        "1001, 37), b (8, 37, 203), float32 and "
-        "bfloat16: bit-exact on integer inputs; on normal inputs max abs err "
-        "over its band (float32: 1e-5 x the largest Σ|a||b|; bfloat16: the "
-        f"smaller of 2^-7 x that and {N + 1} x 2^-8 x max|C|) "
-        + json.dumps(rel))
+        f"and (8, {K20_M - 3}, {K20_K}), b (8, {K20_K}, {HIDDEN}), float32 "
+        "(ffma) and bfloat16 (wgmma): bit-exact on integer inputs; on normal "
+        "inputs max abs err over its band (float32: 1e-5 x the largest "
+        "Σ|a||b|; bfloat16: the smaller of 2^-7 x that and (n + 1) x 2^-8 x "
+        "max|C|) " + json.dumps(rel) + "; edge shapes (n, M, K/n, N) "
+        + ", ".join(f"{e[:4]} {e[4]}" for e in K20_EDGES)
+        + ": bit-exact on integers, by body " + json.dumps(edge_rel))
 
 
 #: K21's bands against its plain version, relative to the largest finite
@@ -1199,6 +1266,7 @@ def moe_path(gen) -> dict:
     torch.cuda.synchronize()
 
     reset_counts()
+    bodies_before = dict(overlap.bodies)
     t0 = time.perf_counter()
     os.environ["OTPU_MCA_coll_ring_priority"] = "95"
     world = ompi_tpu_torch.init()
@@ -1223,13 +1291,16 @@ def moe_path(gen) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = counts()
+    bodies = {k: v - bodies_before[k] for k, v in overlap.bodies.items()
+              if v != bodies_before[k]}
     rt.finalize()
     del os.environ["OTPU_MCA_coll_ring_priority"]
 
     log(f"MoE path: init (coll/ring raised), expert_ffn_fused twice, the "
         f"reduce-scatter cell, dispatch_tokens twice, run_moe_training_step "
         f"in {wall:.3f} s (host clock, includes the first-call set-up); "
-        f"launches {dict((k, v) for k, v in launched.items() if v)}")
+        f"launches {dict((k, v) for k, v in launched.items() if v)}; K20 "
+        f"bodies {bodies}")
     require(d_fused == {"matmul_allreduce": 1},
             f"expert_ffn_fused launched {d_fused}, want K20 (allreduce) once")
     require(d_unfused == {}, f"forced to the reduce-scatter cell, "
@@ -1241,6 +1312,8 @@ def moe_path(gen) -> dict:
     require({k: v for k, v in launched.items() if v} ==
             {"matmul_allreduce": 1, "matmul_reduce_scatter": 1,
              "all_to_all_v": 2}, f"MoE path launches {launched}")
+    require(bodies == {"ffma": 2},
+            f"MoE path K20 bodies {bodies}, want the ffma body twice")
 
     scale = k20_scale(a, b)
     plain = overlap.matmul_allreduce_plain(a, b, N)
@@ -1699,17 +1772,6 @@ def measure(gen, launched: dict, err: dict) -> list:
         host[name] = {"kernel": host_us(kernel)}
         if library:
             host[name]["library"] = host_us(library)
-    # both accumulator regimes on both sides of the vmem_max_bytes
-    # crossover (8 MB per rank), for the routing decision on this card
-    cross = {
-        coll: {f"{mb} MB/rank": {v: time_ms(lambda x=x, v=v: fn(
-                   x, N, "sum", v, seg if v == "seg" else None))
-                   for v in ("fused", "seg")}
-               for mb, x in inputs}
-        for coll, fn, inputs in (
-            ("all_reduce", rc.all_reduce, ((4, mid), (16, big))),
-            ("reduce_scatter", rc.reduce_scatter, ((4, rs_mid), (16, rs_big))))}
-    log(json.dumps({"crossover_ms": cross}))
     # the whole int8 allreduce against the exact sum: on one card no link
     # carries the encoded bytes, so the codec is a pass more, not a saving
     codec_bytes = N * 16 * MB + 2 * (q_bytes + s_bytes) + 16 * MB
@@ -1868,6 +1930,46 @@ def measure_fused_matmul(gen, launched: dict, err: dict) -> list:
     return rows
 
 
+def build_report() -> dict:
+    """What the nvcc build made of the redesigned kernels: each kernel's
+    registers, shared memory and spills from ``-Xptxas -v`` (the
+    ``build/<library>.log`` files), and the count of each instruction of
+    ``SASS_OPS`` in every K20 kernel, from ``cuobjdump -sass`` of the built
+    library (the tensor-core and TMA instructions of the wgmma body)."""
+    import re
+
+    from ompi_tpu_torch.ops import _build
+
+    report = {}
+    for lib in ("fused_matmul", "ring_fused"):
+        kernels, name = {}, None
+        for line in (_build.BUILD_DIR / f"{lib}.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+                kernels[name] = {}
+            elif name and "spill stores" in line:
+                kernels[name]["spills"] = line.strip()
+            elif name and "Used" in line:
+                kernels[name]["used"] = line.split(":", 1)[1].strip()
+        report[f"{lib} ptxas"] = kernels
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("fused_matmul"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    report["fused_matmul sass"] = counts
+    return report
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -1890,6 +1992,12 @@ def main() -> int:
     _build.build_all()
     log(f"nvcc build of {', '.join(_build.LIBRARIES)}: "
         f"{time.perf_counter() - t0:.1f} s")
+    report = build_report()
+    wgmma = [ops for name, ops in report["fused_matmul sass"].items()
+             if "wgmma" in name]
+    require(len(wgmma) == 1 and wgmma[0]["HGMMA"] > 0 and wgmma[0]["UTMALDG"] > 0,
+            f"the wgmma body issues no HGMMA or UTMALDG: {wgmma}")
+    log(json.dumps({"build_report": report}))
 
     # full float32 products in the plain versions (both are the defaults)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1903,6 +2011,8 @@ def main() -> int:
     rows = measure(gen, launched, err)
     rows.append(measure_flash(gen, trained["flash_block"], err))
     rows += measure_fused_matmul(gen, moe_launched, err)
+    log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
+                                             "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
-// Shared pieces of the ring reduction kernels (ring_fused.cu, ring_seg.cu):
-// the four ring folds, the bf16 wire rounding, 16-byte packed loads and
-// stores, the C ABI codes.
+// Shared pieces of the ring reduction kernel (ring_fused.cu): the four ring
+// folds, the bf16 wire rounding, 16-byte packed loads and stores, the C ABI
+// codes.
 //
-// Layout both kernels take: x is (n, size), row r is virtual rank r's payload.
+// Layout the kernel takes: x is (n, size), row r is virtual rank r's payload.
 // The payload is cut into ring blocks of `blk` elements, and block b of the
 // result is
 //     fold(x[b+s-1], fold(x[b+s-2], ... fold(x[b+s+1], x[b+s])))

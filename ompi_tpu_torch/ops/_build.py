@@ -37,11 +37,10 @@ LIBRARIES = {
                    "otpu_ring_rs_wire16": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
                    "otpu_ring_bidi": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
                    "otpu_ring_sub": [_P, _P, _LL, _LL, _LL, _LL, _I, _I, _I, _I,
-                                     _I, _P]}),
-    "ring_seg": ("ring_seg.cu",
-                 {"otpu_ring_seg": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
-                  "otpu_ring_rs_seg": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P],
-                  "otpu_ring_seg_bidi": [_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),
+                                     _I, _P],
+                   "otpu_ring_seg": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+                   "otpu_ring_rs_seg": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
+                   "otpu_ring_seg_bidi": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),
     "ring_copy": ("ring_copy.cu",
                   {"otpu_ring_all_gather": [_P, _P, _LL, _I, _P],
                    "otpu_ring_bcast": [_P, _P, _LL, _I, _I, _I, _P],
@@ -55,7 +54,7 @@ LIBRARIES = {
                     {"otpu_flash_block": [_P] * 10 + [_LL, _I, _I, _I, _LL, _I, _I,
                                                       _I, _I, _I, _P]}),
     "fused_matmul": ("fused_matmul.cu",
-                     {"otpu_fused_matmul": [_P, _P, _P] + [_I] * 9 + [_P]}),
+                     {"otpu_fused_matmul": [_P, _P, _P] + [_I] * 8 + [_P, _P]}),
 }
 
 _lock = threading.Lock()

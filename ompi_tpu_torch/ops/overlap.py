@@ -33,10 +33,17 @@ A CPU tensor goes to the plain version (``*_plain``: the whole schedule in
 torch), a CUDA tensor to the kernel (``csrc/fused_matmul.cu``), which takes
 float32 (FFMA, no TF32) and bfloat16 (tensor cores, float32 accumulators)
 and raises ``TypeError`` on any other dtype.  ``launches`` counts kernel
-launches.  Not copied: the TPU kernel stages all of ``a`` in VMEM and
-overlaps a remote DMA with each partial; one card has no link to overlap.
+launches per form; ``bodies`` counts them per body, as the C entry point
+reports the one it launched (it alone picks, by shape): ``ffma`` for
+float32, ``wgmma`` (TMA and ``wgmma`` in a persistent grid) for bfloat16
+where ``K/n`` and ``N`` are multiples of 8 and both operands 16-byte
+aligned, ``mma_sync`` (wmma) for the other bfloat16 shapes.  Not
+copied: the TPU kernel stages all of ``a`` in VMEM and overlaps a remote DMA
+with each partial; one card has no link to overlap.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -45,8 +52,12 @@ from ompi_tpu_torch.base import cudaenv
 
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches = {"matmul_allreduce": 0, "matmul_reduce_scatter": 0}
+#: the same launches per body of the kernel
+bodies = {"wgmma": 0, "mma_sync": 0, "ffma": 0}
 
 _DTCODE = {torch.float32: 0, torch.bfloat16: 1}
+#: body codes of the C entry point (``BODY_*`` in ``csrc/fused_matmul.cu``)
+_BODIES = ("ffma", "wgmma", "mma_sync")
 #: ring-block start offset: all-reduce (align 0), reduce-scatter (align -1)
 _AR_START, _RS_START = 0, 1
 
@@ -120,18 +131,16 @@ def _kernel(a: torch.Tensor, b: torch.Tensor, n: int, m_blk: int, start: int,
     if out.numel() == 0:
         return out
     a, b = a.contiguous(), b.contiguous()
-    # bfloat16 copies its tiles in 16-byte chunks where each chunk is all in
-    # or all out of the operands
-    vec = int(k % 8 == 0 and nc % 8 == 0 and a.data_ptr() % 16 == 0
-              and b.data_ptr() % 16 == 0)
+    body = ctypes.c_int(-1)
     with torch.cuda.device(a.device):
         err = _build.load("fused_matmul").otpu_fused_matmul(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, k, nc, m_blk,
-            start, out_rows, _DTCODE[a.dtype], vec,
+            start, out_rows, _DTCODE[a.dtype], ctypes.byref(body),
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"otpu_fused_matmul failed: CUDA error {err}")
     launches[key] += 1
+    bodies[_BODIES[body.value]] += 1
     return out
 
 

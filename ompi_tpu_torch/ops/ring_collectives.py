@@ -5,21 +5,24 @@ The JAX package runs its explicit ring schedules as Pallas kernels over a
 blocks travel rank to rank by remote DMA and each hop folds.  In the port the
 n virtual ranks are the rows of one tensor on one card (``x[i]`` is rank
 i's buffer), so the remote copies disappear and what stays is the
-arithmetic of the schedule: the ring-block partition, the fold order, and
-the accumulator regime.
+arithmetic of the schedule: the ring-block partition and the fold order.
+Every reduction below is one CUDA kernel (``csrc/ring_fused.cu``) in one
+pass over the payload with the accumulator in registers, each thread
+streaming its ranks' slices through a ring of shared-memory slots
+(``cp.async``); the variants differ in their C entry point, their ring
+blocks, the wire rounding and the walk.
 
 ``all_reduce(x, n, op, variant, seg_elems)`` — ``(n, *S)`` to ``(*S)``:
 
 * ``'fused'`` — kernel K3 (``csrc/ring_fused.cu``), replacing
   ``pc._build_all_reduce`` (``pallas_collectives.py:361``): the whole
   accumulator on chip (registers here, VMEM there).
-* ``'seg'`` — kernel K4 (``csrc/ring_seg.cu``), replacing
-  ``pc._build_all_reduce_seg`` (``pallas_collectives.py:674``): the
-  accumulator in device memory, each ring step streamed through a
-  double-buffered shared-memory window.  ``seg_elems`` (the TPU kernel's
-  VMEM window) rounds the ring blocks up to whole windows, as in the
-  reference, which fixes the block partition and so the fold order; the
-  card's window is a per-block shared-memory tile.
+* ``'seg'`` — kernel K4 (``csrc/ring_fused.cu``, ``otpu_ring_seg``),
+  replacing ``pc._build_all_reduce_seg`` (``pallas_collectives.py:674``),
+  whose accumulator lives in HBM with one pass over the payload per ring
+  step; on the card it is K3's one-pass body.  ``seg_elems`` (the TPU
+  kernel's VMEM window) rounds the ring blocks up to whole windows, as in
+  the reference, which fixes the block partition and so the fold order.
 * ``'wire16'`` — kernel K7 (``csrc/ring_fused.cu``, ``otpu_ring_wire16``),
   replacing ``pc._build_all_reduce_wire16`` (``:425``): K3's schedule on
   float32 with the bf16 wire of the reference — the partial is rounded to
@@ -49,12 +52,11 @@ mirrored rings do (``pc:987-1010``, ``:876-909``):
   replacing ``pc._build_all_reduce_bidi`` (``:961``): blocks of ``2*hrows*128``
   elements, ``hrows = ceil(rows/2)`` (``pc:1594-1599``), the accumulator in
   registers as K3's.
-* ``'seg_bidi'`` — kernel K9 (``csrc/ring_seg.cu``, ``otpu_ring_seg_bidi``),
+* ``'seg_bidi'`` — kernel K9 (``csrc/ring_fused.cu``, ``otpu_ring_seg_bidi``),
   replacing ``pc._build_all_reduce_seg_bidi`` (``:850``) and its
   ``_bidi_done_and_ag`` (``:804``): ``hrows`` first rounded up to whole
   windows (``pc:1586-1593``), so its blocks, and with them its values, can
-  differ from ``bidi``'s for the same payload; the accumulator in device
-  memory as K4's.
+  differ from ``bidi``'s for the same payload; K8's one-pass body.
 
 ``reduce_scatter`` has no duplex kernel: ``bidi`` is its ``fused`` and
 ``seg_bidi`` its ``seg`` (the values are the reference's, which builds the
@@ -402,16 +404,9 @@ def _kernel_ring(x: torch.Tensor, n: int, op: str, blk: int, variant: str,
     # a 16-byte pack must not straddle a duplex half either
     pack_blk = blk // 2 if variant in _BIDI else blk
     with torch.cuda.device(x.device):
-        if variant in ("seg", "seg_bidi"):
-            acc = torch.empty(size, dtype=x.dtype, device=x.device)
-            _launch(getattr(_build.load("ring_seg"), entry), x.data_ptr(),
-                    acc.data_ptr(), out.data_ptr(), size, blk, n,
-                    _DTCODE[x.dtype], _OPCODE[op], _vec(x, pack_blk, acc, out),
-                    _stream(x))
-        else:
-            _launch(getattr(_build.load("ring_fused"), entry), x.data_ptr(),
-                    out.data_ptr(), size, blk, n, _DTCODE[x.dtype],
-                    _OPCODE[op], _vec(x, pack_blk, out), _stream(x))
+        _launch(getattr(_build.load("ring_fused"), entry), x.data_ptr(),
+                out.data_ptr(), size, blk, n, _DTCODE[x.dtype], _OPCODE[op],
+                _vec(x, pack_blk, out), _stream(x))
     launches[f"{coll}_{variant}"] += 1
     return out
 

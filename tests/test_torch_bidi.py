@@ -287,3 +287,24 @@ def test_k11_matches_plain_on_card():
             x = torch.arange(n * per).reshape(n, per).to(dt)
             assert torch.equal(rc.all_gather(x.cuda(), n, "bidi").cpu(),
                                rc.all_gather_plain(x, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float16, torch.float32, torch.float64])
+@pytest.mark.parametrize("size", [23, 407, 999, "16MB"])
+def test_k9_single_pass_matches_plain_on_card(dt, size):
+    """K9 in one pass with the accumulator on chip against its plain version
+    on the card, bit for bit: every op, window-rounded and default halves,
+    from an aligned and an unaligned pointer (run on a machine with a card;
+    skipped here)."""
+    _card()
+    per = (16 << 20) // dt.itemsize if size == "16MB" else size
+    gen = torch.Generator(device="cuda").manual_seed(per)
+    base = 1.0 + 0.05 * torch.randn(8 * per + 1, device="cuda", generator=gen)
+    base = base.to(dt)
+    for x in (base[:-1].view(8, per), base[1:].view(8, per)):
+        for op in OPS:
+            for seg in (32, None):
+                assert torch.equal(rc.all_reduce(x, 8, op, "seg_bidi", seg),
+                                   rc.all_reduce_seg_bidi_plain(x, 8, op, seg)), \
+                    (dt, per, op, seg, x.data_ptr() % 16)

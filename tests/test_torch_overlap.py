@@ -229,3 +229,55 @@ def test_kernel_refuses_other_dtypes_on_card():
     b = torch.ones((N, 4, 8), dtype=torch.float16, device="cuda")
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         overlap.matmul_allreduce(a, b, N)
+
+
+#: (n, M, K/n, N, body of each dtype) of the redesigned bodies' edge cases:
+#: a 128-row tile crossing the block boundary on the TMA path (m_blk 126,
+#: K/n not a multiple of the 64-deep k-tile, N not of the 256-wide tile),
+#: n = 2 and n = 5, M = 10237 at the Mixtral widths (a padded last block),
+#: and K/n, N off the multiples of 8 (bfloat16's mma_sync body)
+EDGE_SHAPES = [(8, 1001, 200, 520, "wgmma"), (2, 777, 96, 264, "wgmma"),
+               (5, 1001, 200, 520, "wgmma"), (8, 10237, 1792, 4096, "wgmma"),
+               (8, 1001, 37, 203, "mma_sync")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, m, k, nc, bf16_body", EDGE_SHAPES)
+def test_bodies_match_plain_on_card(n, m, k, nc, bf16_body, dtype):
+    """K20's bodies on the card against the plain version, both forms:
+    bit-equal on integer inputs in [-4, 4], within the band on normal ones;
+    ``overlap.bodies`` shows which body each launch took (float32: ffma)
+    (run on a machine with a card; skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    body = "ffma" if dtype == torch.float32 else bf16_body
+    gen = torch.Generator(device="cuda").manual_seed(n * m + k)
+    for kind in ("int", "random"):
+        if kind == "int":
+            a = torch.randint(-4, 5, (n, m, k), generator=gen, device="cuda")
+            b = torch.randint(-4, 5, (n, k, nc), generator=gen, device="cuda")
+        else:
+            a = torch.randn((n, m, k), generator=gen, device="cuda")
+            b = torch.randn((n, k, nc), generator=gen, device="cuda")
+        a, b = a.to(dtype), b.to(dtype)
+        for form in sorted(FORMS):
+            plain = getattr(overlap, f"matmul_{form}_plain")
+            before = dict(overlap.bodies)
+            got, want = FORMS[form][1](a, b, n), plain(a, b, n)
+            torch.cuda.synchronize()
+            assert {key: overlap.bodies[key] - before[key]
+                    for key in before} == {key: int(key == body)
+                                           for key in before}
+            if kind == "int":
+                assert torch.equal(got, want), (form, kind)
+                continue
+            scale = torch.einsum("nmk,nko->mo", a.abs().float(),
+                                 b.abs().float()).max().item()
+            band = BANDS[str(dtype)[6:]] * scale
+            if dtype == torch.bfloat16:
+                band = min(band, (n + 1) * 2.0 ** -8
+                           * want.float().abs().max().item())
+            assert bool(torch.isfinite(got).all())
+            assert (got.float() - want.float()).abs().max().item() <= band, \
+                (form, kind)

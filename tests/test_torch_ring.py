@@ -148,3 +148,43 @@ def test_kernels_match_plain_on_card():
                     got = rc.all_reduce(x.cuda(), 8, op, variant, seg).cpu()
                     assert torch.equal(got, rc.all_reduce(x, 8, op, variant, seg)), \
                         (dt, size, op, variant)
+
+
+#: per-rank sizes of the single-pass cases: odd lengths, and 16 MB
+SEG_SIZES = (23, 407, 999, "16MB")
+
+
+def _card_operands(dt, per, seed):
+    """A (8 * per + 1,) tensor on the card: its first 8 * per elements (an
+    aligned view) and its last (a pointer 1 element off)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randn(8 * per + 1, device="cuda", generator=gen)
+    base = (1.0 + 0.05 * base).to(dt)   # products stay well-conditioned
+    return base[:-1].view(8, per), base[1:].view(8, per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float16, torch.float32, torch.float64])
+@pytest.mark.parametrize("size", SEG_SIZES)
+def test_single_pass_seg_matches_plain_on_card(dt, size):
+    """K4 (all_reduce seg) and K6 (reduce_scatter seg), one pass with the
+    accumulator on chip, against their plain versions on the card, bit for
+    bit: every op, aligned and unaligned (run on a machine with a card;
+    skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    per = (16 << 20) // dt.itemsize if size == "16MB" else size
+    for x in _card_operands(dt, per, per):
+        for op in OPS:
+            for seg in (32, None):
+                assert torch.equal(rc.all_reduce(x, 8, op, "seg", seg),
+                                   rc.all_reduce_seg_plain(x, 8, op, seg)), \
+                    (dt, per, op, seg, x.data_ptr() % 16)
+    # the reduce-scatter's blocks are the payload: (8, 8, per / 8) and ragged
+    rs_per = per // 8 if per % 8 == 0 else per
+    for x in _card_operands(dt, 8 * rs_per, per + 1):
+        y = x.reshape(8, 8, rs_per)
+        for op in OPS:
+            assert torch.equal(rc.reduce_scatter(y, 8, op, "seg"),
+                               rc.reduce_scatter_plain(y, 8, op)), \
+                (dt, rs_per, op, y.data_ptr() % 16)
