@@ -46,7 +46,13 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    per rank (float32, every op), both on 23, 407 and 999 elements per rank
    in float16/32/64 with every op, from an aligned and an unaligned pointer;
    K11 all-gather bidi on 16 MB per rank float32, an odd int8 length, an
-   unaligned view and n = 5 (byte for byte).  The torus schedules, each
+   unaligned view and n = 5 (byte for byte).  The byte mover that K10, K11
+   and K13–K16 launch (``csrc/pair_copy.cuh``) at the edges of its design
+   (``check_mover_edges``): payloads off 16 bytes, bool, n = 1, 2, 3, 5, 8,
+   an empty payload, a view at storage offset 1, totals of 1, 15, 16 and 17
+   bytes and one 16 KB slot ± 16 bytes (the bytes around the range
+   untouched), K13 and K14 at odd sizes, K15 and K16 with all-zero, all-R,
+   one-expert and ragged tables (byte for byte).  The torus schedules, each
    phase one sub-ring launch of K3/K5, on grids (2, 4) and (4, 2) against
    their plain composition: ``all_reduce_torus`` (float32 and float16, every
    op), ``reduce_scatter_torus`` (sum, max) and ``all_gather_torus``.  K20,
@@ -166,7 +172,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    call takes over 50 ms; bound by operations, 2·M·K·N over the peak of
    the dtype.  The ``earlier_ms`` line repeats, as constants from PERF.md's
    table and not measured here, the times of K4, K6, K9 and K20 before
-   their redesign.
+   their redesign, and of K10, K11, K13–K16 and the torus all-gather before
+   the byte mover.
+
+The ``build_report`` line (after the build) carries the registers, shared
+memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
+``ring_copy`` and ``exchange``, and SASS counts: ``HGMMA``/``UTMALDG`` of
+K20's bodies (the wgmma body must have both) and the bulk copies
+(``UBLKCP``) of the byte mover's kernels (each must have them, and no copy
+kernel may spill).
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
@@ -207,17 +221,17 @@ KERNELS = {
                              "ompi_tpu/ops/pallas_collectives.py:502"),
     "reduce_scatter_seg": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                            "ompi_tpu/ops/pallas_collectives.py:744"),
-    "all_gather": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
+    "all_gather": ("cuda", "ompi_tpu_torch/csrc/pair_copy.cuh",
                    "ompi_tpu/ops/pallas_collectives.py:177"),
     "bcast": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
               "ompi_tpu/ops/pallas_collectives.py:1294"),
-    "right_permute": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
+    "right_permute": ("cuda", "ompi_tpu_torch/csrc/pair_copy.cuh",
                       "ompi_tpu/ops/pallas_collectives.py:141"),
-    "all_to_all": ("cuda", "ompi_tpu_torch/csrc/exchange.cu",
+    "all_to_all": ("cuda", "ompi_tpu_torch/csrc/pair_copy.cuh",
                    "ompi_tpu/ops/pallas_collectives.py:1050"),
-    "all_to_all_v": ("cuda", "ompi_tpu_torch/csrc/exchange.cu",
+    "all_to_all_v": ("cuda", "ompi_tpu_torch/csrc/pair_copy.cuh",
                      "ompi_tpu/ops/pallas_collectives.py:1105"),
-    "all_gather_v": ("cuda", "ompi_tpu_torch/csrc/exchange.cu",
+    "all_gather_v": ("cuda", "ompi_tpu_torch/csrc/pair_copy.cuh",
                      "ompi_tpu/ops/pallas_collectives.py:1204"),
     "encode_int8": ("triton", "ompi_tpu_torch/ops/quant.py",
                     "ompi_tpu/ops/pallas_quant.py:77"),
@@ -235,7 +249,7 @@ KERNELS = {
                         "ompi_tpu/ops/pallas_collectives.py:961"),
     "all_reduce_seg_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_fused.cu",
                             "ompi_tpu/ops/pallas_collectives.py:850"),
-    "all_gather_bidi": ("cuda", "ompi_tpu_torch/csrc/ring_copy.cu",
+    "all_gather_bidi": ("cuda", "ompi_tpu_torch/csrc/pair_copy.cuh",
                         "ompi_tpu/ops/pallas_collectives.py:226"),
     "matmul_allreduce": ("cuda", "ompi_tpu_torch/csrc/fused_matmul.cu",
                          "ompi_tpu/ops/pallas_overlap.py:57"),
@@ -269,11 +283,20 @@ SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL")
 #: the redesigned kernels' times before the redesign: constants from
 #: PERF.md's table (an H100 80GB HBM3 at 700 W), not measured by this script,
 #: printed on their own ``earlier_ms`` line; K4, K6, K9 at 8 x 16 MB float32,
-#: K20 at the Mixtral shape
+#: K20 at the Mixtral shape; the byte mover's kernels at their rows' shapes
+#: and the torus all-gather, before the mover
 EARLIER_MS = {"all_reduce_seg": 0.0792, "reduce_scatter_seg": 0.0793,
               "all_reduce_seg_bidi": 0.0812, "matmul_allreduce": 60.98,
               "matmul_reduce_scatter": 60.98, "matmul_allreduce_bf16": 7.604,
-              "matmul_reduce_scatter_bf16": 7.605}
+              "matmul_reduce_scatter_bf16": 7.605, "all_gather": 0.0996,
+              "all_gather_bidi": 0.0995, "right_permute": 0.0990,
+              "all_to_all": 0.1006, "all_to_all_v": 0.6780,
+              "all_gather_v": 0.0922, "all_gather_torus": 0.0984}
+#: the byte mover (K10, K11, K13-K16): the SASS counted in its kernels, the
+#: bulk copies (``UBLKCP.S.G`` loads, ``UBLKCP.G.S`` stores) and local-memory
+#: spill traffic
+MOVER_SASS_OPS = ("UBLKCP", "STL", "LDL")
+MOVER_SLOT, MOVER_SPAN = 16384, 32768   # the mover's slot and span, bytes
 ROT = tuple((i, (i + 1) % N) for i in range(N))       # the +1 rotation
 GENERAL = tuple((i, (i + 2) % N) for i in range(N - 1))   # rank 1: no source
 
@@ -566,6 +589,7 @@ def check_kernels(gen) -> dict:
     check_wire16_kernels(gen, err)
     check_flash_kernel(gen, err)
     check_duplex_kernels(gen, err)
+    check_mover_edges(gen)
     check_torus(gen)
     check_fused_matmul(gen, err)
     torch.cuda.synchronize()
@@ -681,6 +705,90 @@ def check_duplex_kernels(gen, err: dict) -> None:
     err["all_gather_bidi"] = 0.0
     log("all_gather bidi (K11): float32 16 MB per rank, int8 1001 B per rank "
         "aligned and not, n = 5: byte-exact")
+
+
+def check_mover_edges(gen) -> None:
+    """The byte mover (K10, K11, K13-K16) at the edges of its design against
+    the plain versions, byte for byte (the ragged pair over its valid rows):
+    K10 and K11 on payloads off 16 bytes, bool, n = 1, 2, 3, 5, 8, an empty
+    payload and a stream of two spans a SM, each from a view at
+    storage offset 1 too (the byte path); K10's entry on totals of 1, 15,
+    16, 17 bytes, one slot and 16 bytes either side, aligned and at offset
+    1, the bytes either side of the range untouched; K13 and K14 at odd
+    sizes and 16-byte ones; K15 and K16 on the MoE slab with an all-zero
+    table, an all-R one and one routing every row to expert 3, and at R = 5
+    with a ragged table (counts 0, R, R + 3 and -1 forced in)."""
+    from ompi_tpu_torch.ops import _build
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    def offset_one(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, shape in ((torch.float16, (N, 1001)), (torch.bool, (N, 37)),
+                         (torch.float32, (1, 6)), (torch.int8, (2, 17)),
+                         (torch.float32, (3, 1001)), (torch.int8, (5, 3)),
+                         (torch.int8, (N, 2)), (torch.float32, (N, 0)),
+                         (torch.float32, (N, sms * MOVER_SPAN // 16 + 12))):
+        x = operands(dtype, shape, gen)
+        for t in (x, offset_one(x)):
+            for variant in ("ring", "bidi"):
+                same_bytes(rc.all_gather(t, shape[0], variant),
+                           rc.all_gather_plain(t, shape[0]),
+                           f"all_gather {variant} {dtype} {shape} at offset "
+                           f"{t.storage_offset()}")
+    entry = _build.load("ring_copy").otpu_ring_all_gather
+    stream = torch.cuda.current_stream().cuda_stream
+    for nbytes in (1, 15, 16, 17, MOVER_SLOT - 16, MOVER_SLOT, MOVER_SLOT + 16):
+        src = torch.randint(0, 256, (nbytes + 64,), dtype=torch.uint8,
+                            device="cuda", generator=gen)
+        for vec, at in ((16, 0), (1, 1)):
+            out = torch.full_like(src, 0xAB)
+            require(entry(src[at:].data_ptr(), out[at:].data_ptr(), nbytes, vec,
+                          stream) == 0, f"otpu_ring_all_gather {nbytes} B vec {vec}")
+            require(torch.equal(out[at:at + nbytes], src[at:at + nbytes])
+                    and bool((out[:at] == 0xAB).all())
+                    and bool((out[at + nbytes:] == 0xAB).all()),
+                    f"otpu_ring_all_gather {nbytes} B vec {vec}: bytes differ")
+    for dtype, n, per in ((torch.float16, N, 1001), (torch.int8, 3, 17),
+                          (torch.bool, 5, 3), (torch.float32, 2, 1),
+                          (torch.int8, N, 4099), (torch.float32, N, 1024),
+                          (torch.int8, 5, 48)):
+        x = operands(dtype, (n, per), gen)
+        same_bytes(rc.right_permute(x, n), rc.right_permute_plain(x, n),
+                   f"right_permute {dtype} ({n}, {per})")
+        y = operands(dtype, (n, n, per), gen)
+        same_bytes(rc.all_to_all(y, n), rc.all_to_all_plain(y, n),
+                   f"all_to_all {dtype} ({n}, {n}, {per})")
+    one = np.zeros((N, N), np.int64)
+    one[:, 3] = CAPACITY
+    moe = moe_slab(gen)
+    for what, table in (("all zero", np.zeros((N, N), np.int64)),
+                        ("all R", np.full((N, N), CAPACITY)), ("one expert", one)):
+        same_valid_bytes(rc.all_to_all_v(moe, table, N),
+                         rc.all_to_all_v_plain(moe, table, N), table,
+                         f"all_to_all_v MoE slab, {what}")
+        same_valid_bytes(rc.all_gather_v(moe[0], table[0], N),
+                         rc.all_gather_v_plain(moe[0], table[0], N), table[0],
+                         f"all_gather_v MoE slab, {what}")
+    del moe
+    small = operands(torch.float32, (N, N, 5, 128), gen)
+    table = np.random.default_rng(SEED).integers(-2, 9, (N, N))
+    table.flat[:4] = (0, 5, 8, -1)
+    same_valid_bytes(rc.all_to_all_v(small, table, N),
+                     rc.all_to_all_v_plain(small, table, N), table,
+                     "all_to_all_v R = 5, ragged")
+    same_valid_bytes(rc.all_gather_v(small[0], table[0], N),
+                     rc.all_gather_v_plain(small[0], table[0], N), table[0],
+                     "all_gather_v R = 5, ragged")
+    log("mover edges: K10/K11 on float16 (8, 1001), bool, n = 1, 2, 3, 5, 8, "
+        "an empty payload and a stream over every SM, aligned and at offset 1; "
+        "K10's entry on 1, 15, 16, 17 bytes and one slot +-16; K13/K14 at odd "
+        "and 16-byte sizes; K15/K16 with all-zero, all-R, one-expert and ragged "
+        "tables: byte-exact")
 
 
 def check_torus(gen) -> None:
@@ -1930,18 +2038,43 @@ def measure_fused_matmul(gen, launched: dict, err: dict) -> list:
     return rows
 
 
+def sass_counts(lib: str, ops: tuple, only: str = "") -> dict:
+    """The count of each instruction of ``ops`` in every kernel of the built
+    library ``lib`` (``cuobjdump -sass``) whose name holds ``only``."""
+    import re
+
+    from ompi_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if only in m.group(1) else None
+            if name:
+                counts[name] = dict.fromkeys(ops, 0)
+        elif name:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
+
+
 def build_report() -> dict:
     """What the nvcc build made of the redesigned kernels: each kernel's
     registers, shared memory and spills from ``-Xptxas -v`` (the
-    ``build/<library>.log`` files), and the count of each instruction of
-    ``SASS_OPS`` in every K20 kernel, from ``cuobjdump -sass`` of the built
-    library (the tensor-core and TMA instructions of the wgmma body)."""
+    ``build/<library>.log`` files), the count of each instruction of
+    ``SASS_OPS`` in every K20 kernel (the tensor-core and TMA instructions of
+    the wgmma body) and of ``MOVER_SASS_OPS`` in the byte mover's kernels
+    (its bulk copies), from ``cuobjdump -sass`` of the built libraries."""
     import re
 
     from ompi_tpu_torch.ops import _build
 
     report = {}
-    for lib in ("fused_matmul", "ring_fused"):
+    for lib in ("fused_matmul", "ring_fused", "ring_copy", "exchange"):
         kernels, name = {}, None
         for line in (_build.BUILD_DIR / f"{lib}.log").read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1953,20 +2086,9 @@ def build_report() -> dict:
             elif name and "Used" in line:
                 kernels[name]["used"] = line.split(":", 1)[1].strip()
         report[f"{lib} ptxas"] = kernels
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("fused_matmul"))],
-                          capture_output=True, text=True, check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            counts[name] = dict.fromkeys(SASS_OPS, 0)
-        elif name:
-            for op in SASS_OPS:
-                if re.search(rf"\b{op}\b", line):
-                    counts[name][op] += 1
-    report["fused_matmul sass"] = counts
+    report["fused_matmul sass"] = sass_counts("fused_matmul", SASS_OPS)
+    report["mover sass"] = {lib: sass_counts(lib, MOVER_SASS_OPS, "mover")
+                            for lib in ("ring_copy", "exchange")}
     return report
 
 
@@ -1997,6 +2119,18 @@ def main() -> int:
              if "wgmma" in name]
     require(len(wgmma) == 1 and wgmma[0]["HGMMA"] > 0 and wgmma[0]["UTMALDG"] > 0,
             f"the wgmma body issues no HGMMA or UTMALDG: {wgmma}")
+    movers = report["mover sass"]
+    bulk = [ops for kernels in movers.values() for name, ops in kernels.items()
+            if "mover_kernel" in name]
+    require(len(bulk) == 4 and all(ops["UBLKCP"] >= 2 for ops in bulk),
+            f"a mover kernel issues no bulk copy: {movers}")
+    require(not any(ops["STL"] or ops["LDL"] for kernels in movers.values()
+                    for ops in kernels.values())
+            and all(k["spills"].startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                           "0 bytes spill loads")
+                    for lib in ("ring_copy", "exchange")
+                    for k in report[f"{lib} ptxas"].values()),
+            f"a copy kernel spills: {movers}")
     log(json.dumps({"build_report": report}))
 
     # full float32 products in the plain versions (both are the defaults)

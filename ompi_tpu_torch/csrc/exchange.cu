@@ -22,18 +22,21 @@
 //
 // The TPU's chunking (chunk_rows) exists because Mosaic needs static DMA
 // shapes; the card has no such rule, so each pair moves exactly its count's
-// bytes.  Design: the pair copy of pair_copy.cuh, which reads the counts from
-// device memory at run time: K14 and K15 with pair p = (i, j) = (p / n, p % n)
-// landing in slot (j, i), K16 with pair i landing in slot i.
+// bytes.  Design: the byte mover of pair_copy.cuh (shared with K10, K11 and
+// K13), which reads the counts from device memory at run time and cuts the
+// valid bytes of all pairs into equal spans that the CTAs of a persistent
+// grid take in turn, so a skewed routing (K15's MoE dispatch) loads every SM
+// alike; each span moves through TMA bulk copies.  K14 and K15 run pair p =
+// (i, j) = (p / n, p % n) into slot (j, i), K16 pair i into slot i.
 #include "pair_copy.cuh"
 
 // x, out: (n, n, blk_bytes) device pointers.  vec is 16 (blk_bytes % 16 == 0
 // and both pointers 16-byte aligned; the wrapper checks) or 1.  Each entry
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// another vec).
+// another vec, or a vec 16 that the pointers or the slot pitch do not
+// allow).
 extern "C" int otpu_all_to_all(const void* x, void* out, long long blk_bytes, int n,
                                int vec, void* stream) {
-  if (vec == 16 && blk_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
                          nullptr, blk_bytes, 0, n, n * n};
   return otpu::launch_pair_copy<otpu::SLOT_TRANSPOSE>(a, vec, stream);
@@ -45,7 +48,6 @@ extern "C" int otpu_all_to_all(const void* x, void* out, long long blk_bytes, in
 extern "C" int otpu_all_to_all_v(const void* x, void* out, const void* counts,
                                  long long slot_bytes, long long row_bytes, int n,
                                  int vec, void* stream) {
-  if (vec == 16 && slot_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
                          static_cast<const int32_t*>(counts), slot_bytes, row_bytes,
                          n, n * n};
@@ -57,7 +59,6 @@ extern "C" int otpu_all_to_all_v(const void* x, void* out, const void* counts,
 extern "C" int otpu_all_gather_v(const void* x, void* out, const void* counts,
                                  long long slot_bytes, long long row_bytes, int n,
                                  int vec, void* stream) {
-  if (vec == 16 && slot_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
                          static_cast<const int32_t*>(counts), slot_bytes, row_bytes,
                          n, n};

@@ -1,8 +1,9 @@
 // K10: ring all-gather, K11: the duplex ring all-gather, K12: pipelined ring
 // bcast, and K13: ring right permute, of N virtual ranks held as the rows of
-// one tensor.  All four move
-// bytes and compute nothing, so all are written on bytes: one instantiation
-// serves every dtype (bool and bfloat16 included).
+// one tensor.  All four move bytes and compute nothing, so all are written on
+// bytes: one instantiation serves every dtype (bool and bfloat16 included).
+// K10, K11 and K13 launch the one byte mover of pair_copy.cuh (with K14-K16
+// of exchange.cu); K12 keeps a body of its own.
 //
 // K10 replaces the Pallas kernel pallas_collectives._build_all_gather
 // (ompi_tpu/ops/pallas_collectives.py:177): n-1 ring steps, each forwarding
@@ -11,20 +12,21 @@
 // replicated result is one new (n, *S) tensor, so the n-1 forwarding steps
 // deliver each row exactly once: a copy of x.
 //   Bound on an H100: device-memory bytes, 2*n*S (read x once, write the
-//   result once) / 3.35 TB/s.  Design: a grid-stride copy, 16 bytes a thread
-//   (uint4) when both pointers are 16-byte aligned, then the length's tail
-//   (< 16 bytes) byte by byte; byte by byte throughout otherwise.
+//   result once) / 3.35 TB/s.  Design: the mover with the whole tensor as
+//   one pair (any length; the aligned path when both pointers are 16-byte
+//   aligned): the CTAs of a persistent grid take equal spans of it in turn
+//   and move them with TMA bulk copies through shared memory.
 //
 // K11 replaces pallas_collectives._build_all_gather_bidi (:226): every step
 // ships the freshest block both ways round the ring, rank my sending slot
 // my-k right and slot my+k left, so the n-1 remote blocks arrive in
 // ceil((n-1)/2) steps, each exactly once (n/2 by the right chain, the rest by
 // the left).  On one card every rank's copy of row p is the one row out[p],
-// so the chain that reaches it writes it once: n rows copied, each byte once.
+// so the chain that reaches it writes it once: n rows copied, each byte once,
+// the same function as K10.
 //   Bound on an H100: device-memory bytes, 2*n*S / 3.35 TB/s (as K10).
-//   Design: the pair copy of pair_copy.cuh with pair p = row p into slot p (16
-//   bytes a thread when the row length and both pointers are 16-byte
-//   aligned, byte by byte otherwise).
+//   Design: the mover with pair p = row p into slot p (the aligned path when
+//   the row length and both pointers are 16-byte aligned).
 //
 // K12 replaces pallas_collectives._build_bcast (:1294), the "clamped
 // conveyor": root streams segments rightward and every hop forwards segment s
@@ -42,9 +44,7 @@
 // pipeline-parallel activation handoff.  On one card that is out[(i+1) % n]
 // = x[i] for x (n, *S): a rotated copy.
 //   Bound on an H100: device-memory bytes, 2*n*S / 3.35 TB/s.  Design: the
-//   pair copy of pair_copy.cuh with pair i = rank i's row and its slot
-//   rotated by one (16 bytes a thread when the row length and both pointers
-//   are 16-byte aligned, byte by byte otherwise).
+//   mover with pair i = rank i's row and its slot rotated by one.
 #include "pair_copy.cuh"
 
 namespace otpu {
@@ -58,23 +58,6 @@ inline unsigned copy_blocks(int64_t units) {
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   return (unsigned)blocks;
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(kCopyThreads)
-all_gather_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
-                  int64_t nbytes) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t head = 0;
-  if constexpr (VEC) {
-    const int64_t nvec = nbytes / 16;
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-    uint4* ov = reinterpret_cast<uint4*>(out);
-    for (int64_t v = tid; v < nvec; v += stride) ov[v] = __ldg(xv + v);
-    head = nvec * 16;
-  }
-  for (int64_t i = head + tid; i < nbytes; i += stride) out[i] = x[i];
 }
 
 template <bool VEC>
@@ -110,19 +93,9 @@ bcast_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
 // vec).
 extern "C" int otpu_ring_all_gather(const void* x, void* out, long long nbytes,
                                     int vec, void* stream) {
-  const auto* src = static_cast<const uint8_t*>(x);
-  auto* dst = static_cast<uint8_t*>(out);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 16) {
-    otpu::all_gather_kernel<true><<<otpu::copy_blocks(nbytes / 16), otpu::kCopyThreads,
-                                    0, s>>>(src, dst, nbytes);
-  } else if (vec == 1) {
-    otpu::all_gather_kernel<false><<<otpu::copy_blocks(nbytes), otpu::kCopyThreads,
-                                     0, s>>>(src, dst, nbytes);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
+                         nullptr, nbytes, 0, 1, 1};
+  return otpu::launch_pair_copy<otpu::SLOT_SAME>(a, vec, stream);
 }
 
 // x, out: (n, row_bytes) device pointers; 0 <= root < n.  vec is 16
@@ -150,10 +123,9 @@ extern "C" int otpu_ring_bcast(const void* x, void* out, long long row_bytes,
 // x, out: (n, row_bytes) device pointers.  vec is 16 (row_bytes % 16 == 0
 // and both pointers 16-byte aligned; the wrapper checks) or 1.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
-// vec).
+// vec, or a vec 16 that the pointers or row_bytes do not allow).
 extern "C" int otpu_ring_right_permute(const void* x, void* out, long long row_bytes,
                                        int n, int vec, void* stream) {
-  if (vec == 16 && row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
                          nullptr, row_bytes, 0, n, n};
   return otpu::launch_pair_copy<otpu::SLOT_ROTATE>(a, vec, stream);
@@ -162,10 +134,9 @@ extern "C" int otpu_ring_right_permute(const void* x, void* out, long long row_b
 // x, out: (n, row_bytes) device pointers.  vec is 16 (row_bytes % 16 == 0
 // and both pointers 16-byte aligned; the wrapper checks) or 1.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
-// vec).
+// vec, or a vec 16 that the pointers or row_bytes do not allow).
 extern "C" int otpu_ring_all_gather_bidi(const void* x, void* out, long long row_bytes,
                                          int n, int vec, void* stream) {
-  if (vec == 16 && row_bytes % 16 != 0) return (int)cudaErrorInvalidValue;
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
                          nullptr, row_bytes, 0, n, n};
   return otpu::launch_pair_copy<otpu::SLOT_SAME>(a, vec, stream);

@@ -66,7 +66,9 @@ one-way ring for both).
 is kernel K10 (``csrc/ring_copy.cu``), replacing ``pc._build_all_gather``
 (``:177``); ``'bidi'`` is kernel K11 (``otpu_ring_all_gather_bidi``),
 replacing ``pc._build_all_gather_bidi`` (``:226``), and for n <= 2 the
-one-way ring, as in the reference (``pc:1438-1439``).
+one-way ring, as in the reference (``pc:1438-1439``).  Both launch the byte
+mover of ``csrc/pair_copy.cuh`` (K10 as one pair of the whole tensor, K11 as
+n pairs), the body of the exchange tier below too.
 
 The torus schedules (``pc:1833-2028``) ride sub-rings of an ``(n0, n1)``
 grid of ranks, rank ``p = i0*n1 + i1``; ``n0``, ``n1`` are the reference's
@@ -91,7 +93,7 @@ transposed copies; the counts go to ``all_reduce_fused`` and
 ``x[root % n]``: kernel K12 (``csrc/ring_copy.cu``), replacing
 ``pc._build_bcast`` (``:1294``); any dtype, the kernel copies bytes.
 
-The exchange tier moves bytes too, on any dtype (``csrc/pair_copy.cuh``):
+The exchange tier moves bytes too, on any dtype, through the same mover:
 
 * ``right_permute(x, n)`` — ``out[(i+1) % n] = x[i]``: kernel K13
   (``csrc/ring_copy.cu``), replacing ``pc._build_right_permute`` (``:141``).
