@@ -41,7 +41,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    head dim 256), unbiased and with ring attention's per-rank causal bias,
    from m = -inf and chained (a fully masked block leaves the state); a
    fully masked row at m = -inf (NaN); a ragged sq = 200; the JAX bench's
-   shape ``(4, 8, 2048, 2048, 128)`` in bfloat16.  The duplex ring (CUDA
+   shape ``(4, 8, 2048, 2048, 128)`` in bfloat16; and at its edges
+   (``check_flash_edges``), in the second-pass form the C entry picks for
+   each shape: head dims 30, 32, 64, 66, 100, 128, 130, 200 and 256 at sq =
+   200 with 100 keys (the scores kept on chip) and 1055 (recomputed, the
+   last tile ragged), key counts 1, 31, 64, 255, 256, 257, 320, 321, 1024
+   and 1055 at d = 256, each with and without a per-rank causal bias, a
+   fully masked block chained (the state bit-equal) and a fully masked row
+   from m = -inf at 256 and 1055 keys, and q, k, v from storage offset 1
+   (the element path) at both.  The duplex ring (CUDA
    C++): K8 ``all_reduce`` bidi at 4 MB per rank and K9 seg_bidi at 16 MB
    per rank (float32, every op), both on 23, 407 and 999 elements per rank
    in float16/32/64 with every op, from an aligned and an unaligned pointer;
@@ -173,14 +181,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the dtype.  The ``earlier_ms`` line repeats, as constants from PERF.md's
    table and not measured here, the times of K4, K6, K9 and K20 before
    their redesign, and of K10, K11, K13–K16 and the torus all-gather before
-   the byte mover.
+   the byte mover.  The ``k1_compiled`` line gives K1's compiled kernel at
+   its row's shape: registers, spills, shared memory and persistent grid.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
 ``ring_copy`` and ``exchange``, and SASS counts: ``HGMMA``/``UTMALDG`` of
 K20's bodies (the wgmma body must have both) and the bulk copies
 (``UBLKCP``) of the byte mover's kernels (each must have them, and no copy
-kernel may spill).
+kernel may spill), and of K21 (``flash_block``): each of the eight
+``flash_block_kernel`` instances must have ``FFMA``, ``LDS.128`` and
+``LDGSTS`` (the ``cp.async`` copies) and no spills.
 
 Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
@@ -284,19 +295,26 @@ SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL")
 #: PERF.md's table (an H100 80GB HBM3 at 700 W), not measured by this script,
 #: printed on their own ``earlier_ms`` line; K4, K6, K9 at 8 x 16 MB float32,
 #: K20 at the Mixtral shape; the byte mover's kernels at their rows' shapes
-#: and the torus all-gather, before the mover
+#: and the torus all-gather, before the mover; K1 and K21 (the step's shape
+#: and the bench's) before their redesign
 EARLIER_MS = {"all_reduce_seg": 0.0792, "reduce_scatter_seg": 0.0793,
               "all_reduce_seg_bidi": 0.0812, "matmul_allreduce": 60.98,
               "matmul_reduce_scatter": 60.98, "matmul_allreduce_bf16": 7.604,
               "matmul_reduce_scatter_bf16": 7.605, "all_gather": 0.0996,
               "all_gather_bidi": 0.0995, "right_permute": 0.0990,
               "all_to_all": 0.1006, "all_to_all_v": 0.6780,
-              "all_gather_v": 0.0922, "all_gather_torus": 0.0984}
+              "all_gather_v": 0.0922, "all_gather_torus": 0.0984,
+              "reduce_stack": 0.0638, "flash_block": 0.2688,
+              "flash_block_bench": 6.2691}
 #: the byte mover (K10, K11, K13-K16): the SASS counted in its kernels, the
 #: bulk copies (``UBLKCP.S.G`` loads, ``UBLKCP.G.S`` stores) and local-memory
 #: spill traffic
 MOVER_SASS_OPS = ("UBLKCP", "STL", "LDL")
 MOVER_SLOT, MOVER_SPAN = 16384, 32768   # the mover's slot and span, bytes
+#: K21 (flash_block_kernel): the SASS counted in its instances, FFMA, the
+#: 16-byte shared-memory reads that feed them, the cp.async copies
+#: (``LDGSTS``) and local-memory spill traffic
+FLASH_SASS_OPS = ("FFMA", "LDS.128", "LDGSTS", "STL", "LDL")
 ROT = tuple((i, (i + 1) % N) for i in range(N))       # the +1 rotation
 GENERAL = tuple((i, (i + 2) % N) for i in range(N - 1))   # rank 1: no source
 
@@ -1083,6 +1101,7 @@ def check_flash_kernel(gen, err: dict) -> None:
     args = (q, k, v, *flash_state((b, h), sq, d, torch.bfloat16, True, gen))
     bench = flash_close(fa.update(*args), fa.update_plain(*args),
                         torch.bfloat16, "K21 bench shape")
+    rest = worse(rest, check_flash_edges(gen))
     err["flash_block"], err["flash_block_bench"] = step, bench
     log("flash_block (K21): float32 and bfloat16 at the step's shape (32 "
         "rows, 256 x 256, d 256) unbiased and per-rank causal, from m = -inf "
@@ -1092,6 +1111,95 @@ def check_flash_kernel(gen, err: dict) -> None:
         f"2^-7 (bf16) of max |plain|; (abs, rel) err float32 step shape "
         f"{step[0]:.3e}, {step[1]:.3e}; bench {bench[0]:.3e}, "
         f"{bench[1]:.3e}; other cases {rest[0]:.3e}, {rest[1]:.3e}")
+
+
+#: K21's edge shapes: head dims (off 4 elements: 30, 66, 130; off 16 bytes
+#: in bfloat16: 100, 200; one and two column groups) at sq = 200 with 100
+#: keys and with 1055; key counts at d = 256 around a 64-key tile, at and
+#: past the scores-on-chip cap (320 keys at d = 256 in float32) and past
+#: every cap.  Up to 320 keys the block's scores stay on chip at every d and
+#: dtype; at 1024 and more they fit at none (64 x skv floats alone are above
+#: the 227 KB a CTA may have), so q k^T is recomputed
+FLASH_EDGE_D = (30, 32, 64, 66, 100, 128, 130, 200, 256)
+FLASH_EDGE_SKV = (1, 31, 64, 255, 256, 257, 320, 321, 1024, 1055)
+FLASH_SCORES_SKV, FLASH_RECOMPUTE_SKV = 256, 1055
+
+
+def check_flash_edges(gen) -> tuple:
+    """K21 at its edges, float32 and bfloat16, with and without a per-rank
+    causal bias, in the second-pass form each shape takes; a fully masked
+    block chained (the state bit-equal) and a fully masked row from m =
+    -inf (NaN), and q, k, v from storage offset 1 (the element path), each
+    with the scores on chip and recomputed.  Returns the worst (abs, rel)
+    error."""
+    from ompi_tpu_torch.ops import flash_attention as fa
+
+    worst = (0.0, 0.0)
+
+    def run(args, what):
+        nonlocal worst
+        got = fa.update(*args)
+        e = flash_close(got, fa.update_plain(*args), args[0].dtype,
+                        f"K21 {what}")
+        worst = max(worst[0], e[0]), max(worst[1], e[1])
+        return got
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, device="cuda", generator=gen).to(dtype)
+
+    def causal(lead0, sq, skv, dtype):
+        keep = (torch.arange(sq, device="cuda")[:, None] + 4 *
+                torch.arange(lead0, device="cuda")[:, None, None]
+                >= torch.arange(skv, device="cuda")[None, :])
+        return torch.where(keep, 0.0, -float("inf")).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(d, 200, skv) for d in FLASH_EDGE_D
+                 for skv in (100, FLASH_RECOMPUTE_SKV)] + \
+                [(256, 64, skv) for skv in FLASH_EDGE_SKV]
+        for d, sq, skv in cases:
+            q = rnd(2, 2, sq, d, dtype=dtype)
+            k, v = (rnd(2, 2, skv, d, dtype=dtype) for _ in range(2))
+            state = flash_state((2, 2), sq, d, dtype, False, gen)
+            for bias in (None, causal(2, sq, skv, dtype)):
+                run((q, k, v, *state, bias), f"{dtype} d={d} sq={sq} "
+                    f"skv={skv} bias={bias is not None}")
+        d, sq = 256, 64
+        for skv in (FLASH_SCORES_SKV, FLASH_RECOMPUTE_SKV):
+            q = rnd(2, 2, sq, d, dtype=dtype)
+            k, v = (rnd(2, 2, skv, d, dtype=dtype) for _ in range(2))
+            masked = torch.full((sq, skv), -float("inf"), device="cuda",
+                                dtype=dtype)
+            half = torch.zeros((sq, skv), device="cuda", dtype=dtype)
+            half[:16] = -float("inf")
+            state = flash_state((2, 2), sq, d, dtype, False, gen)
+            got = run((q, k, v, *state, masked), f"{dtype} skv={skv} masked "
+                      "block")
+            require(all(torch.equal(g, w) for g, w in zip(got, state)),
+                    f"K21 {dtype} skv={skv}: a fully masked block moved the "
+                    "state")
+            got = run((q, k, v, *flash_state((2, 2), sq, d, dtype, True, gen),
+                       half), f"{dtype} skv={skv} masked rows")
+            require(bool(torch.isnan(got[1][..., :16, :]).all())
+                    and not bool(torch.isnan(got[1][..., 16:, :]).any()),
+                    f"K21 {dtype} skv={skv}: a fully masked row at m = -inf "
+                    "must give NaN, others not")
+        for d in (256, 100):
+            for skv in (FLASH_SCORES_SKV, FLASH_RECOMPUTE_SKV):
+                views = []
+                for n in (sq, skv, skv):
+                    buf = torch.randn(2 * 2 * n * d + 1, device="cuda",
+                                      generator=gen).to(dtype)
+                    views.append(buf[1:].view(2, 2, n, d))
+                state = flash_state((2, 2), sq, d, dtype, False, gen)
+                run((*views, *state, None), f"{dtype} d={d} skv={skv} "
+                    "offset 1")
+    log(f"flash_block (K21) edges: d {FLASH_EDGE_D} (sq 200, skv 100 and "
+        f"{FLASH_RECOMPUTE_SKV}), skv {FLASH_EDGE_SKV} (d 256), with and "
+        "without a per-rank causal bias; masked blocks and rows and offset-1 "
+        f"views at skv {FLASH_SCORES_SKV} and {FLASH_RECOMPUTE_SKV}: float32 "
+        "and bfloat16 within their bands")
+    return worst
 
 
 # -- phase 3: the main path ---------------------------------------------
@@ -1917,7 +2025,21 @@ def measure(gen, launched: dict, err: dict) -> list:
                 lambda: rc.reduce_scatter_torus(rs_big, 2, 4))[1],
             "all_gather_torus": launch_delta(
                 lambda: rc.all_gather_torus(big, 2, 4))[1]}}}))
+    log(json.dumps({"k1_compiled": stack_compiled(big)}))
     return rows
+
+
+def stack_compiled(big: torch.Tensor) -> dict:
+    """K1's compiled kernel at its row's shape (PROD f32, k = 8, 16 MB
+    slices): registers, spills, shared memory and the persistent grid."""
+    from ompi_tpu_torch.ops import reduce
+
+    kernel, grid = reduce._launch_stack("PROD", big, torch.empty_like(big[0]))
+    return {"n_regs": kernel.n_regs, "n_spills": kernel.n_spills,
+            "shared": kernel.metadata.shared, "grid": grid,
+            "setting": {"bytes": reduce.STACK_BYTES,
+                        "warps": reduce.STACK_WARPS,
+                        "stages": reduce.STACK_STAGES}}
 
 
 #: peak rates of one H100 SXM (data sheet, dense): float32 on the CUDA
@@ -2074,7 +2196,8 @@ def build_report() -> dict:
     from ompi_tpu_torch.ops import _build
 
     report = {}
-    for lib in ("fused_matmul", "ring_fused", "ring_copy", "exchange"):
+    for lib in ("fused_matmul", "ring_fused", "ring_copy", "exchange",
+                "flash_block"):
         kernels, name = {}, None
         for line in (_build.BUILD_DIR / f"{lib}.log").read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -2089,6 +2212,8 @@ def build_report() -> dict:
     report["fused_matmul sass"] = sass_counts("fused_matmul", SASS_OPS)
     report["mover sass"] = {lib: sass_counts(lib, MOVER_SASS_OPS, "mover")
                             for lib in ("ring_copy", "exchange")}
+    report["flash_block sass"] = sass_counts("flash_block", FLASH_SASS_OPS,
+                                             "flash_block_kernel")
     return report
 
 
@@ -2131,6 +2256,15 @@ def main() -> int:
                     for lib in ("ring_copy", "exchange")
                     for k in report[f"{lib} ptxas"].values()),
             f"a copy kernel spills: {movers}")
+    flash = report["flash_block sass"]
+    require(len(flash) == 8 and all(
+                ops["FFMA"] and ops["LDS.128"] and ops["LDGSTS"]
+                and not ops["STL"] and not ops["LDL"] for ops in flash.values())
+            and all(k["spills"].startswith("0 bytes stack frame, 0 bytes spill "
+                                           "stores, 0 bytes spill loads")
+                    for k in report["flash_block ptxas"].values()),
+            f"a flash_block_kernel instance lacks FFMA, LDS.128 or LDGSTS, or "
+            f"spills: {flash}")
     log(json.dumps({"build_report": report}))
 
     # full float32 products in the plain versions (both are the defaults)

@@ -38,7 +38,8 @@ CODECS = ("int8", "bf16")
 CODEC_BANDS = {"int8": 1.0 / 127.0, "bf16": 2.0 ** -8}
 
 #: collectives the quant tier implements (the reference's list; alltoallv's
-#: quantized path belongs to the MoE dispatch, not ported yet)
+#: quantized path is the MoE dispatch's int8 packing, which asks ``pick``
+#: for "alltoallv" in ``parallel/moe.py``'s ``dispatch_tokens``)
 QUANT_COLLS = ("allreduce", "allgather", "alltoallv")
 
 DEFAULT_MIN_BYTES = 64 << 10

@@ -40,9 +40,17 @@ Mosaic's tiling (``:152-155``); the port keeps them ``(*lead, sq)``.
 
 Bound on an H100: operations.  A call does 4·B·sq·skv·d operations (two
 products) on 4·B·(sq + skv)·d elements, ~sq·skv/(sq + skv) operations per
-element, far above the ridge at the step's and the bench's shapes.  The
-design (see the kernel source) is the simple right one: float32 FMAs on
-the CUDA cores, two passes over the K/V tiles; its time is in ``PERF.md``.
+element, far above the ridge at the step's and the bench's shapes.  So the
+kernel (see its source) is built to feed the FFMA pipes: float32 FMAs on
+the CUDA cores for both dtypes (no TF32, no tensor cores), Q, K and V
+brought to shared memory by 16-byte ``cp.async`` (K and V in units through
+two stages, one in flight while the other is computed), operands read
+16 bytes at a time into 4 × 4 score and 8 × 8 ``p v`` register tiles, and
+the block's scores kept on chip where 64 × skv of them fit (skv ≤ 320 at
+d = 256 in float32: the step's 256), so that the second pass does not
+recompute ``q kᵀ``; a larger skv (the bench's 2048) recomputes it.  Each
+sum still runs in ascending order with the reference's unfused ends.  What
+still bounds it is the FFMA issue rate; its times are in ``PERF.md``.
 """
 from __future__ import annotations
 
@@ -56,8 +64,8 @@ from ompi_tpu_torch.base import cudaenv
 launches = {"flash_block": 0}
 
 _DTCODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel keeps a 64 x d query tile and a 64 x d K/V tile in shared
-#: memory as float32: 148 KB at d = 256
+#: a thread of the kernel owns at most 8 of a query's output columns, two
+#: groups of 4 across a warp's 32 lanes: d up to 256
 MAX_HEAD_DIM = 256
 
 

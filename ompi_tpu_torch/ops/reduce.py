@@ -15,12 +15,18 @@ Two entry points, over operands of any shape:
 
 On the card both are bound by device-memory bytes, not arithmetic: one
 fold per element, nothing reused.  ``combine2`` moves 3·S bytes (two reads,
-one write); ``reduce_stack`` moves (k+1)·S.  The design does only what that
-bound asks for: each Triton program streams a 1-D block of elements, loads
-the k rows of the stack in a static loop (k loads in flight per thread) and
-writes once, with the ragged edge masked — no (rows, 128) padding, no
-intermediate in device memory.  The op is a ``tl.constexpr`` switch, so
-one source covers every op and dtype.
+one write); ``reduce_stack`` moves (k+1)·S.  Each writes once, with the
+ragged edge masked — no (rows, 128) padding, no intermediate in device
+memory — and the op is a ``tl.constexpr`` switch, so one source covers
+every op and dtype.  ``combine2`` streams one 1-D block per program.
+``reduce_stack`` has k rows to read per block, and a program that loads
+them only when it folds them leaves the memory idle between its blocks:
+it runs a persistent grid (as many programs as the SMs hold, from the
+compiled kernel's registers and shared memory) in which each program walks
+blocks grid-stride in a ``tl.range`` with ``num_stages``, so Triton
+pipelines the next block's k row loads behind this block's folds.  The fold
+runs left to right in ``reduce_stack_plain``'s order, so every op and dtype
+is bit-exact against it, MAX/MIN's NaN and ±0 rules included.
 
 A CPU tensor goes to the plain version of each kernel (``*_plain``), a CUDA
 tensor to the kernel; ``launches`` counts kernel launches.  Triton is
@@ -44,8 +50,13 @@ _OPCODE = {"SUM": 0, "PROD": 1, "MAX": 2, "MIN": 3, "BAND": 4, "BOR": 5,
 _KERNEL_DTYPES = (torch.float16, torch.bfloat16, torch.float32,
                   torch.float64, torch.int8, torch.uint8, torch.int16,
                   torch.int32, torch.int64, torch.bool)
-#: elements per Triton program
+#: elements per Triton program of ``combine2``
 BLOCK = 2048
+#: ``reduce_stack``'s setting: bytes of the k rows a block reads (so the
+#: block holds ``STACK_BYTES / (k · itemsize)`` elements, a power of two),
+#: warps per program, and the depth of the pipeline over a program's blocks
+#: (the fastest of three settings timed on an H100; PERF.md)
+STACK_BYTES, STACK_WARPS, STACK_STAGES = 32768, 4, 2
 
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches = {"combine2": 0, "reduce_stack": 0}
@@ -151,15 +162,38 @@ def reduce_stack(op_name: str, x: torch.Tensor) -> torch.Tensor:
         return x[0].clone()
     if not on_card:
         return reduce_stack_plain(op_name, x)
-    per = x[0].numel()
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-    if per:
-        _, _, k_stack = _kernels()
-        k_stack[(-(-per // BLOCK),)](
-            _lane(x), _lane(out), per,
-            K=k, OP=_OPCODE[op_name], BLOCK=BLOCK, num_warps=4)
+    if out.numel():
+        _launch_stack(op_name, x, out)
         launches["reduce_stack"] += 1
     return out
+
+
+def stack_block(k: int, itemsize: int) -> int:
+    """Elements per block of the stack fold: the largest power of two whose
+    k rows fit ``STACK_BYTES``, 128 at least."""
+    return max(128, 1 << (STACK_BYTES // (k * itemsize)).bit_length() - 1)
+
+
+def _launch_stack(op_name: str, x: torch.Tensor, out: torch.Tensor):
+    """One launch of the stack fold over a persistent grid; returns the
+    compiled kernel (its ``n_regs`` and ``n_spills``) and the grid."""
+    _, _, k_stack = _kernels()
+    per = out.numel()
+    block = stack_block(x.shape[0], x.element_size())
+    blocks = -(-per // block)
+    args = (_lane(x), _lane(out), per, blocks)
+    meta = dict(K=x.shape[0], OP=_OPCODE[op_name], BLOCK=block,
+                STAGES=STACK_STAGES, num_warps=STACK_WARPS,
+                num_stages=STACK_STAGES)
+    key = (x.device.index, x.dtype, x.shape[0], op_name, per % 16,
+           blocks % 16)
+    fits = _PER_SM.get(key)
+    if fits is None:
+        fits = _PER_SM[key] = _programs_per_sm(
+            k_stack.warmup(*args, **meta, grid=(1,)), STACK_WARPS, x.device)
+    grid = min(blocks, _sm_count(x.device.index) * fits)
+    return k_stack[(grid,)](*args, **meta), grid
 
 
 def device_fold(op_name: str, dtype):
@@ -171,6 +205,33 @@ def device_fold(op_name: str, dtype):
     if op_name not in _FOLDS or not _supported_dtype(op_name, dtype):
         return None
     return functools.partial(combine2, op_name)
+
+
+#: (device, dtype, k, op, alignment) -> programs of the stack fold an SM
+#: holds
+_PER_SM: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _programs_per_sm(kernel, num_warps: int, device) -> int:
+    """How many programs of the compiled ``kernel`` one SM holds at once,
+    from its registers and shared memory (Triton's persistent-kernel
+    recipe)."""
+    from triton.runtime import driver
+
+    props = driver.active.utils.get_device_properties(device.index)
+    kernel._init_handles()
+    threads = props["warpSize"] * num_warps
+    regs = -(-max(kernel.n_regs, 1) // 8) * 8       # allocated in 8s
+    fits = min(props["max_num_regs"] // (regs * threads), 2048 // threads)
+    if kernel.metadata.shared:                       # 1 KB reserved a block
+        fits = min(fits, (props["max_shared_mem"] + 1024)
+                   // (kernel.metadata.shared + 1024))
+    return max(fits, 1)
 
 
 # -- Triton kernels ------------------------------------------------------
@@ -223,16 +284,20 @@ def _combine2_src(a_ptr, b_ptr, o_ptr, n, OP: tl.constexpr,
              mask=mask)
 
 
-def _stack_src(x_ptr, o_ptr, per, K: tl.constexpr, OP: tl.constexpr,
-               BLOCK: tl.constexpr):
-    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < per
-    row = x_ptr
-    acc = tl.load(row + offs, mask=mask)
-    for _ in tl.static_range(1, K):
-        row += per
-        acc = _fold(acc, tl.load(row + offs, mask=mask), OP)
-    tl.store(o_ptr + offs, acc.to(o_ptr.dtype.element_ty), mask=mask)
+def _stack_src(x_ptr, o_ptr, per, blocks, K: tl.constexpr, OP: tl.constexpr,
+               BLOCK: tl.constexpr, STAGES: tl.constexpr):
+    # a persistent program: blocks pid, pid + programs, ...; STAGES deep,
+    # Triton pipelines the next blocks' loads behind this block's folds
+    for b in tl.range(tl.program_id(0), blocks, tl.num_programs(0),
+                      num_stages=STAGES):
+        offs = b.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < per
+        row = x_ptr
+        acc = tl.load(row + offs, mask=mask)
+        for _ in tl.static_range(1, K):
+            row += per
+            acc = _fold(acc, tl.load(row + offs, mask=mask), OP)
+        tl.store(o_ptr + offs, acc.to(o_ptr.dtype.element_ty), mask=mask)
 
 
 def _kernels():

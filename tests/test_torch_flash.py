@@ -100,6 +100,45 @@ def test_chained_updates_match_pallas(shape, dtype, causal):
             np.testing.assert_array_equal(cudaenv.to_numpy(g), w)
 
 
+# (b, h, sq, skv, d) at the card kernel's edges: head dims off 16 bytes, off
+# 4 elements (30, 66) and not powers of two, key counts of 1, one short of
+# and one past a 64-key tile, one past the scores-on-chip cap at d = 256
+# (320 keys) and a ragged last tile past every cap (1055).  At d = 200 and
+# 256, and over 1055 keys, XLA's and torch's float32 products on the CPU
+# already differ by 0.9e-6 to 1.05e-6 of max |want| (the order of sums of
+# 200 terms and more, either state), at the float32 band itself: those
+# shapes are held here in bfloat16, and in float32 on the card against the
+# plain version.
+EDGE_CASES = [(shape, dtype)
+              for shape in [(1, 2, 8, 1, 100), (1, 1, 64, 257, 64),
+                            (1, 1, 70, 255, 32), (1, 2, 200, 31, 100),
+                            (1, 2, 200, 31, 30), (1, 1, 64, 257, 66)]
+              for dtype in ("float32", "bfloat16")] + [
+    ((1, 2, 200, 31, 200), "bfloat16"), ((1, 1, 16, 321, 256), "bfloat16"),
+    ((1, 1, 70, 255, 130), "bfloat16"), ((1, 1, 16, 1055, 64), "bfloat16")]
+
+
+@pytest.mark.parametrize("shape, dtype", EDGE_CASES)
+def test_edge_shapes_match_pallas(shape, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at the
+    card kernel's edge shapes, from a running state, with a causal bias
+    whose first rows see a single key."""
+    dt = NP[dtype]
+    b, h, sq, skv, d = shape
+    q, (k, v, _, _) = _inputs(shape, dt, seed=sq * skv + d)
+    rng = np.random.default_rng(d)
+    m = rng.standard_normal((b, h, sq)).astype(dt)
+    num = rng.standard_normal((b, h, sq, d)).astype(dt)
+    den = (1.0 + np.abs(rng.standard_normal((b, h, sq)))).astype(dt)
+    bias = _causal(sq, skv, 0, dt)
+    for bb in (None, bias):
+        want = jfa._update_pallas(q, k, v, m, num, den, bb, interpret=True)
+        got = fa.update_plain(*map(_t, (q, k, v, m, num, den)),
+                              None if bb is None else _t(bb))
+        for g, w, what in zip(got, want, "m num den".split()):
+            _close(g, w, BANDS[dtype], f"{shape} bias={bb is not None} {what}")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fully_masked_row_from_minus_inf_is_nan(dtype):
     """A row with every key masked at m = -inf: c = exp(-inf + inf) is NaN
@@ -260,3 +299,112 @@ def test_kernel_matches_plain_on_card():
                 for g, w in zip(got, fa.update_plain(*card)):
                     _close(g.cpu(), cudaenv.to_numpy(w), BANDS[dtype],
                            f"K21 {dtype} {shape}")
+
+
+def _card_args(shape, dtype, seed, bias=True, m_inf=False):
+    """K21's operands on the card from a running state (or the first ring
+    step's), with a per-rank causal bias (one block per leading row b)."""
+    dt = NP[dtype]
+    b, h, sq, skv, d = shape
+    q, (k, v, _, _) = _inputs(shape, dt, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if m_inf:
+        m = np.full((b, h, sq), -np.inf, dt)
+        num, den = np.zeros((b, h, sq, d), dt), np.zeros((b, h, sq), dt)
+    else:
+        m = rng.standard_normal((b, h, sq)).astype(dt)
+        num = rng.standard_normal((b, h, sq, d)).astype(dt)
+        den = (1.0 + np.abs(rng.standard_normal((b, h, sq)))).astype(dt)
+    args = [_t(a).cuda() for a in (q, k, v, m, num, den)]
+    if bias:
+        args.append(_t(np.stack([_causal(sq, skv, 3 * r, dt)
+                                 for r in range(b)])).cuda())
+    else:
+        args.append(None)
+    return args
+
+
+def _held(got, args, dtype, what):
+    for g, w in zip(got, fa.update_plain(*args)):
+        _close(g.cpu(), cudaenv.to_numpy(w), BANDS[dtype], what)
+
+
+#: head dims of the card edges: off 4 elements (30, 66, 130: the element
+#: path and padded columns), off 16 bytes in bfloat16 (100, 200), powers of
+#: two, one and two column groups
+EDGE_D = (30, 32, 64, 66, 100, 128, 130, 200, 256)
+#: key counts at which the block's scores stay on chip (64 x skv floats fit
+#: beside Q and the stages: up to 320 at d = 256 in float32, more at smaller
+#: d or in bfloat16) and at which they cannot at any d or dtype (the 64 x skv
+#: floats alone, 270 KB at 1055 keys, are above the 227 KB a CTA may have),
+#: so the second pass recomputes q k^T, the last tile ragged
+SCORES_SKV, RECOMPUTE_SKV = 256, 1055
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 2, 200, skv, d) for d in EDGE_D
+                                   for skv in (100, RECOMPUTE_SKV)]
+                         + [(2, 2, 64, skv, 256)
+                            for skv in (1, 31, 64, 255, 256, 257, 320, 321,
+                                        1024, RECOMPUTE_SKV)])
+def test_kernel_edges_on_card(shape, dtype):
+    """K21 at its edges, unbiased and with a per-rank causal bias, in the
+    second-pass form its shape takes: the scores on chip up to 320 keys (at
+    d = 256 in float32), q k^T recomputed from 1024 keys at every d
+    (skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for bias in (False, True):
+        args = _card_args(shape, dtype, shape[3] + shape[4], bias)
+        got = fa.update(*args)
+        torch.cuda.synchronize()
+        _held(got, args, dtype, f"K21 {dtype} {shape} bias={bias}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("skv", [SCORES_SKV, RECOMPUTE_SKV])
+def test_kernel_masking_on_card(skv, dtype):
+    """A fully masked block chained from a running state leaves it
+    bit-equal; a fully masked row from m = -inf gives NaN and no other row
+    does, with the scores on chip and recomputed (skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    shape = (2, 2, 64, skv, 256)
+    args = _card_args(shape, dtype, 21, bias=False)
+    args[-1] = torch.full(shape[2:4], -math.inf, device="cuda",
+                          dtype=args[0].dtype)
+    got = fa.update(*args)
+    for g, w in zip(got, args[3:6]):
+        assert torch.equal(g, w)
+    args = _card_args(shape, dtype, 22, bias=False, m_inf=True)
+    mask = torch.zeros(shape[2:4], device="cuda", dtype=args[0].dtype)
+    mask[:16] = -math.inf
+    args[-1] = mask
+    got = fa.update(*args)
+    assert bool(torch.isnan(got[1][..., :16, :]).all())
+    assert not bool(torch.isnan(got[1][..., 16:, :]).any())
+    _held(got, args, dtype, f"K21 masked rows {dtype} skv={skv}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [100, 256])
+def test_kernel_misaligned_base_on_card(d, dtype):
+    """q, k, v as views at storage offset 1 (contiguous, not 16-byte
+    aligned): the kernel takes its element path, within the bands, with
+    the scores on chip and recomputed (skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for skv in (SCORES_SKV, RECOMPUTE_SKV):
+        args = _card_args((2, 2, 64, skv, d), dtype, 31, bias=True)
+        for i in range(3):
+            buf = torch.empty(args[i].numel() + 1, device="cuda",
+                              dtype=args[i].dtype)
+            view = buf[1:].view(args[i].shape)
+            view.copy_(args[i])
+            assert view.data_ptr() % 16 != 0
+            args[i] = view
+        got = fa.update(*args)
+        _held(got, args, dtype, f"K21 offset 1 {dtype} d={d} skv={skv}")

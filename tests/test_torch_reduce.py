@@ -198,3 +198,32 @@ def test_kernels_match_plain_on_card():
         assert torch.equal(got, reduce.combine2_plain(op, a, b)), (op, dname)
         got = reduce.reduce_stack(op, a.cuda()).cpu()
         assert torch.equal(got, reduce.reduce_stack_plain(op, a)), (op, dname)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 3, 8, 9])
+def test_stack_edges_on_card(k):
+    """K1 bit for bit against its plain version at every op and dtype of
+    CASES, at per = 1, 15, 16, 17, one block +- 1 and one more than the
+    persistent grid covers in one sweep (grid x block + 1), so that a
+    program takes a second block (skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # more blocks than the SMs hold programs (2048 threads an SM at most), so
+    # the probe's grid is the persistent one
+    most = reduce._sm_count(torch.cuda.current_device()) * (
+        2048 // (32 * reduce.STACK_WARPS))
+    for op, dname in CASES:
+        np_dt, t_dt = DTYPES[dname]
+        block = reduce.stack_block(k, torch.empty(0, dtype=t_dt).element_size())
+        probe = torch.zeros((k, most * block + 1), dtype=t_dt, device="cuda")
+        _, grid = reduce._launch_stack(op, probe, torch.empty_like(probe[0]))
+        del probe
+        for per in (1, 15, 16, 17, block - 1, block + 1, grid * block + 1):
+            x = cudaenv.make_world_array(_operands(np_dt, (k, per), per), "cpu")
+            got = reduce.reduce_stack(op, x.cuda()).cpu()
+            assert torch.equal(got, reduce.reduce_stack_plain(op, x)), \
+                (op, dname, k, per)
+        out = torch.empty(per, dtype=t_dt, device="cuda")
+        assert reduce._launch_stack(op, x.cuda(), out)[1] == grid, \
+            (op, dname, k)
