@@ -124,6 +124,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    clamped to R, as a capacity-factor MoE drops the overflow.  x is
    ``(8, 8, 1280, 4096)`` float32: 160 MB per rank.
 
+   Then the device-world communicator's path (``comm_path``), with the
+   counts set to 0 before and read after, on a world with coll/ring raised
+   (one-way, no wire16): coll/builtin's rooted and prefix slots at 8 x 16 MB
+   and 8 x 1 MB float32 per rank -- ``reduce_array`` SUM, PROD and MAX at
+   root 3 (its binomial tree launches K2 once a round, 3 a call, exactly),
+   ``gather_array``, ``scatter_array`` (an ``(8, 8, S)`` input),
+   ``scan_array`` and ``exscan_array`` -- and ``barrier``; sub-comms,
+   ``create`` over ranks 0, 2, 4, 6 and a split into sizes 3, 3 and 2, each
+   running allreduce (K3 at 4 MB per rank, K4 at 16 MB), reduce_scatter (K5,
+   K6), allgather (K10) and bcast (K12) once with its own n; a size-1 split
+   through coll/self_coll; ``world.allreduce`` of a tensor through
+   coll/conductor to K3 and K4.  After the counts are read, and so not
+   counted, the mover under CUDA graph capture (``check_captured_movers``,
+   the cases of ``tests/mover_capture.py``: K10, K11 and K15, a captured
+   launch replayed 1040 times, each replay started together with an eager
+   launch of its library, and two graphs captured 1024 launches apart
+   replayed together 16 times on two streams).  Results: reduce_array
+   bit-exact with its tree on K2's plain version, gather and scatter byte
+   for byte, scan within the cumsum band, the sub-comms bit-exact with the
+   plain versions on their member rows, the captured movers byte-exact,
+   and at 8 x 1 MB every new slot bit-exact with the same call on the CPU
+   lane (a second init with ``device="cpu"``).  The ``comm_slots_ms`` line
+   times each new slot at 8 x 16 MB (device ms beside its bound, the bytes
+   read and written over 3.35 TB/s, the nearest torch call, and host µs per
+   call of both, over 20 calls: 200 would fill the card's launch queue).
+
    Then the training path, with the counts set to 0 before and read after:
    ``parallel.dryrun.run_training_step`` at ``OTPU_MODEL_SCALE=64`` (the
    JAX package's bench width: d 512, head dim 256, sequence 512; lr 1e-5),
@@ -154,7 +180,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    so host dispatch is never timed.  ``bound_ms`` is the bytes the function
    must move (inputs read once, output written once) over 3.35 TB/s, the
    H100 SXM's memory rate; the ragged kernels count their valid rows only.
-   K7 and K5's wire16 form are timed
+   A collective kernel's ``launches`` is the sum of its counts in the main
+   path and in the communicator's path (the capture cases are not
+   counted).  K7 and K5's wire16 form
+   are timed
    beside K3 and K5 on the same inputs (the same bytes), K8 and K9 beside
    K3 and K4, the ``torus_ms`` line times the three torus functions at 8 ×
    16 MB on the (2, 4) grid beside ``torch.sum`` and ``clone``, and the
@@ -206,6 +235,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -766,7 +796,8 @@ def check_mover_edges(gen) -> None:
         for vec, at in ((16, 0), (1, 1)):
             out = torch.full_like(src, 0xAB)
             require(entry(src[at:].data_ptr(), out[at:].data_ptr(), nbytes, vec,
-                          stream) == 0, f"otpu_ring_all_gather {nbytes} B vec {vec}")
+                          None, stream) == 0,
+                    f"otpu_ring_all_gather {nbytes} B vec {vec}")
             require(torch.equal(out[at:at + nbytes], src[at:at + nbytes])
                     and bool((out[:at] == 0xAB).all())
                     and bool((out[at + nbytes:] == 0xAB).all()),
@@ -1363,6 +1394,293 @@ def main_path(gen) -> dict:
     return launched
 
 
+# -- phase 3b: the device-world communicator ------------------------------
+
+COMM_ROOT = 3
+#: the split of the sub-comm cases: sizes 3, 3 and 2
+SUB_SPLIT = [0, 0, 0, 1, 1, 1, 2, 2]
+#: rounds of the capture cases past the pool's 1024 slots, and paired replays
+CAPTURE_ROUNDS = 16
+CAPTURE_PAIRS = 16
+#: calls of a new slot in its host time: a scan launches ~20 kernels, and
+#: more calls than the card's launch queue holds (~1024 launches) would
+#: make the host wait for the card, so that the host time became its time
+HOST_SLOT_CALLS = 20
+
+
+def slot_calls(world, x, z) -> dict:
+    """The new device slots on the world: reduce_array (SUM, PROD, MAX at
+    root COMM_ROOT) on ``x``, gather_array, scan_array and exscan_array
+    on ``x`` and scatter_array on ``z``; each reduce's launch delta."""
+    import ompi_tpu_torch
+
+    got, deltas = {}, {}
+    for op in ("SUM", "PROD", "MAX"):
+        got[f"reduce_{op}"], deltas[op] = launch_delta(
+            lambda: world.reduce_array(x, getattr(ompi_tpu_torch, op),
+                                       COMM_ROOT))
+    got["gather"] = world.gather_array(x, COMM_ROOT)
+    got["scatter"] = world.scatter_array(z, COMM_ROOT)
+    got["scan"] = world.scan_array(x)
+    got["exscan"] = world.exscan_array(x)
+    return got, deltas
+
+
+def tree_plain(op: str, x: torch.Tensor, root: int) -> torch.Tensor:
+    """reduce_array's binomial tree with K2's plain version for the fold."""
+    from ompi_tpu_torch.mca.coll.builtin import tree_rounds
+    from ompi_tpu_torch.ops import reduce
+
+    n = x.shape[0]
+    buf = x.roll(-root, 0)
+    for k in tree_rounds(n):
+        m = buf.shape[0] - k
+        head = reduce.combine2_plain(op, buf[:m], buf[k:k + m])
+        buf = head if m == k else torch.cat([head, buf[m:k]])
+    out = torch.zeros_like(x)
+    out[root] = buf[0]
+    return out
+
+
+def check_slots(got: dict, x, z, what: str) -> None:
+    """The new slots' results on the card: reduce against the tree with
+    K2's plain version (bit for bit; SUM also within the torch.sum band,
+    MAX equal to amax), gather and scatter byte for byte, scan within the
+    cumsum band and exscan its shift, every row outside root's zero."""
+    others = torch.arange(N, device=x.device) != COMM_ROOT
+    for op in ("SUM", "PROD", "MAX"):
+        out = got[f"reduce_{op}"]
+        same_bits(out, tree_plain(op, x, COMM_ROOT), f"{what} reduce {op}")
+        require(not bool(out[others].any()), f"{what} reduce {op}: rows")
+        require(bool(torch.isfinite(out).all()), f"{what} reduce {op}: finite")
+    lib = torch.sum(x, 0)
+    require(bool(((got["reduce_SUM"][COMM_ROOT] - lib).abs()
+                  <= sum_tolerance(x)).all()), f"{what} reduce SUM band")
+    same_bits(got["reduce_MAX"][COMM_ROOT], x.amax(0), f"{what} reduce MAX")
+    gather = got["gather"]
+    require(tuple(gather.shape) == (N, *x.shape), f"{what} gather shape")
+    same_bytes(gather[COMM_ROOT], x, f"{what} gather root row")
+    require(not bool(gather[others].any()), f"{what} gather: rows")
+    same_bytes(got["scatter"], z[COMM_ROOT], f"{what} scatter")
+    band = 2 * (N - 1) * 2.0 ** -24 * x.abs().cumsum(0)
+    require(bool(((got["scan"] - torch.cumsum(x, 0)).abs() <= band).all()),
+            f"{what} scan: outside the cumsum band")
+    ex = got["exscan"]
+    require(not bool(ex[0].any()), f"{what} exscan row 0")
+    same_bits(ex[1:], got["scan"][:-1], f"{what} exscan")
+
+
+def subcomm_calls(world, gen) -> list:
+    """coll/ring raised: allreduce, reduce_scatter, allgather and bcast at 4
+    and 16 MB per rank on create([0, 2, 4, 6]) and on the split into sizes
+    3, 3 and 2, each launching its kernel once with the sub-comm's n and
+    bit-exact (copies byte for byte) with the plain version on the member
+    rows."""
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    subs = {"create [0, 2, 4, 6]": world.create(world.group.incl([0, 2, 4, 6]))}
+    for first in (0, 3, 6):
+        sub = world.as_rank(first).split(SUB_SPLIT)
+        subs[f"split {list(sub.group.world_ranks)}"] = sub
+    done = []
+    for name, sub in subs.items():
+        n = sub.size
+        require(owner(sub, "allreduce_array") == "RingCollModule",
+                f"{name}: ring not raised")
+        for mb, regime in ((4, "fused"), (16, "seg")):
+            x = operands(torch.float32, (n, mb * MB // 4), gen)
+            z = operands(torch.float32, (n, n, mb * MB // 4 // n), gen)
+            plain = {"allreduce": (rc.all_reduce_fused_plain(x, n, "sum")
+                                   if regime == "fused" else
+                                   rc.all_reduce_seg_plain(x, n, "sum", SEG)),
+                     "reduce_scatter": rc.reduce_scatter_plain(z, n, "sum"),
+                     "bcast": rc.bcast_plain(x, n, n - 1)}
+            for call, key, fn in (
+                    ("allreduce", f"all_reduce_{regime}",
+                     lambda: sub.allreduce_array(x)),
+                    ("reduce_scatter", f"reduce_scatter_{regime}",
+                     lambda: sub.reduce_scatter_array(z)),
+                    ("allgather", "all_gather", lambda: sub.allgather_array(x)),
+                    ("bcast", "bcast", lambda: sub.bcast_array(x, n - 1))):
+                out, d = launch_delta(fn)
+                what = f"{name} (n = {n}) {call} {mb} MB/rank"
+                require(d == {key: 1}, f"{what} launched {d}, want {key} once")
+                if call == "allgather":
+                    same_bytes(out, x, what)
+                elif call == "bcast":
+                    same_bytes(out, plain["bcast"], what)
+                else:
+                    same_bits(out, plain[call], what)
+                    require(bool(torch.isfinite(out).all()), f"{what}: finite")
+                done.append(f"{name} {call} {mb} MB: {key}")
+    return done
+
+
+def check_captured_movers(gen) -> dict:
+    """The mover's counter pair under CUDA graph capture, for K10, K11 and
+    K15, through ``tests/mover_capture.py`` (the ``cuda`` tests of
+    ``tests/test_torch_mover.py`` run the same cases with more launches):
+    (1) a captured launch replayed CAPTURE_ROUNDS times, each replay
+    started together with an eager launch of the same library, so that one
+    of them draws the slot the capture would have held; (2) two graphs
+    captured a pool's length of launches apart, replayed CAPTURE_PAIRS
+    times together on two streams.  Every result byte-exact, and the
+    capture drew no slot."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import mover_capture as mc
+
+    done = {}
+    for kernel in ("all_gather", "all_gather_bidi", "all_to_all_v"):
+        rounds = mc.TICKET_SLOTS + CAPTURE_ROUNDS
+        beside = mc.beside_eager(kernel, rounds, gen)
+        apart = mc.two_apart(kernel, CAPTURE_PAIRS, gen)
+        require(beside == (0, 0, 0) and apart == (0, 0),
+                f"{kernel} under capture: (wrong elements of the replays, of "
+                f"the eager launches, slots the capture drew) {beside}; wrong "
+                f"elements of two captures a pool apart {apart}")
+        done[kernel] = {"replays beside eager launches": rounds,
+                        "paired replays": 2 * CAPTURE_PAIRS}
+    return done
+
+
+def slot_rows(world, big, zbig) -> list:
+    """Times of the new slots at 8 x 16 MB float32 beside their bound (the
+    bytes read and written over 3.35 TB/s), the nearest torch call and the
+    host's time per call."""
+    import ompi_tpu_torch
+
+    nbytes = big.numel() * 4
+    root = COMM_ROOT
+    cases = {
+        "reduce_array SUM": (lambda: world.reduce_array(big, ompi_tpu_torch.SUM, root),
+                             "t.sum(0)", lambda: big.sum(0), 2 * nbytes),
+        "reduce_array PROD": (lambda: world.reduce_array(big, ompi_tpu_torch.PROD, root),
+                              "t.prod(0)", lambda: big.prod(0), 2 * nbytes),
+        "reduce_array MAX": (lambda: world.reduce_array(big, ompi_tpu_torch.MAX, root),
+                             "t.amax(0)", lambda: big.amax(0), 2 * nbytes),
+        "gather_array": (lambda: world.gather_array(big, root),
+                         "t.expand(n, *t.shape).clone()",
+                         lambda: big.expand(N, *big.shape).clone(),
+                         nbytes + N * nbytes),
+        # only root's row is read: (n, S/n) in, (n, S/n) out
+        "scatter_array": (lambda: world.scatter_array(zbig, root),
+                          "z[root].clone()", lambda: zbig[root].clone(),
+                          2 * zbig[root].numel() * 4),
+        "scan_array": (lambda: world.scan_array(big), "torch.cumsum(t, 0)",
+                       lambda: torch.cumsum(big, 0), 2 * nbytes),
+        "exscan_array": (lambda: world.exscan_array(big), "torch.cumsum(t, 0)",
+                         lambda: torch.cumsum(big, 0), 2 * nbytes),
+    }
+    rows = []
+    for name, (fn, lib_name, lib, moved) in cases.items():
+        rows.append({"slot": name, "ms": time_ms(fn),
+                     "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                     "torch_call": lib_name, "torch_ms": time_ms(lib),
+                     "host_us": host_us(fn, HOST_SLOT_CALLS),
+                     "torch_host_us": host_us(lib, HOST_SLOT_CALLS)})
+    return rows
+
+
+def comm_path(gen) -> tuple:
+    """The device-world communicator on the card, with every count set to 0
+    before and read after: a world with coll/ring raised (one-way, no
+    wire16); the new slots at 8 x 16 MB and 8 x 1 MB (reduce_array's tree
+    launches K2 once a round: 3 rounds a call); the sub-comms
+    (``subcomm_calls``); a size-1 split through coll/self_coll; the
+    conductor (``world.allreduce`` of a tensor reaches K3 and K4, and
+    ``world.scan`` of a tensor stays on the card).  Then, uncounted, the
+    mover under graph capture (``check_captured_movers``), and the same
+    slots on the CPU lane at 8 x 1 MB, bit for bit with the card's.
+    Returns (the launch counts, the slots' time rows)."""
+    import ompi_tpu_torch
+    from ompi_tpu_torch.ops import ring_collectives as rc
+    from ompi_tpu_torch.runtime import init as rt
+
+    big = operands(torch.float32, (N, 16 * MB // 4), gen)
+    zbig = operands(torch.float32, (N, N, 16 * MB // 4 // N), gen)
+    small = operands(torch.float32, (N, MB // 4), gen)
+    zsmall = operands(torch.float32, (N, N, MB // 4 // N), gen)
+    mid = operands(torch.float32, (N, 4 * MB // 4), gen)
+    torch.cuda.synchronize()
+
+    settings = {"priority": "95", "bidirectional": "0", "wire16": "0"}
+    for name, value in settings.items():
+        os.environ[f"OTPU_MCA_coll_ring_{name}"] = value
+    reset_counts()
+    t0 = time.perf_counter()
+    world = ompi_tpu_torch.init()
+    for slot in ("reduce_array", "gather_array", "scatter_array", "scan_array",
+                 "exscan_array", "barrier"):
+        require(owner(world, slot) == "BuiltinCollModule",
+                f"owner of {slot} is not coll/builtin")
+    require(owner(world, "allreduce") == "ConductorModule",
+            "owner of allreduce is not coll/conductor")
+    got, deltas = slot_calls(world, big, zbig)
+    got_small, deltas_small = slot_calls(world, small, zsmall)
+    world.barrier()
+    subs = subcomm_calls(world, gen)
+    one = world.split([0] + [1] * (N - 1))
+    require(one.size == 1 and owner(one, "allreduce") == "SelfCollModule",
+            "the size-1 split does not take coll/self_coll")
+    host_one = one.allreduce(np.arange(4.0))
+    one_row, d_one = launch_delta(lambda: one.allreduce_array(mid[:1]))
+    conducted = {}
+    for what, x, key in (("4 MB", mid, "all_reduce_fused"),
+                         ("16 MB", big, "all_reduce_seg")):
+        out, d = launch_delta(lambda: world.allreduce(x))
+        require(d == {key: 1}, f"world.allreduce(tensor) {what} launched {d}")
+        same_bits(out, rc.all_reduce_fused_plain(x, N, "sum") if key.endswith(
+            "fused") else rc.all_reduce_seg_plain(x, N, "sum", SEG),
+            f"world.allreduce(tensor) {what}")
+        conducted[what] = d
+    scanned = world.scan(small)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    captured = check_captured_movers(gen)
+    rows = slot_rows(world, big, zbig)
+    rt.finalize()
+
+    cpu = ompi_tpu_torch.init(device="cpu")
+    got_cpu, _ = slot_calls(cpu, small.cpu(), zsmall.cpu())
+    rt.finalize()
+    for name in settings:
+        del os.environ[f"OTPU_MCA_coll_ring_{name}"]
+
+    log(f"comm path: init (coll/ring raised), reduce_array x 6, gather_array, "
+        f"scatter_array, scan_array, exscan_array x 2 each, barrier, "
+        f"{len(subs)} sub-comm calls, a size-1 split, 2 x world.allreduce "
+        f"(tensor) in {wall:.3f} s (host clock); launches "
+        f"{dict((k, v) for k, v in launched.items() if v)}; then, uncounted, "
+        f"the mover under capture ({captured})")
+    for size, per_call in (("16 MB", deltas), ("1 MB", deltas_small)):
+        require(all(d == {"combine2": 3} for d in per_call.values()),
+                f"reduce_array's tree at {size} launched {per_call}, want K2 "
+                f"once a round (3)")
+    require(launched["combine2"] == 18, f"K2 launched {launched['combine2']}")
+    for key in ("all_reduce_fused", "all_reduce_seg", "reduce_scatter_fused",
+                "reduce_scatter_seg", "all_gather", "bcast"):
+        require(launched[key] > 0, f"{key} was not launched on the comm path")
+    require(d_one == {}, f"the size-1 comm's allreduce_array launched {d_one}")
+    same_bits(one_row, mid[0], "the size-1 comm's allreduce_array")
+    require(host_one.tolist() == [0.0, 1.0, 2.0, 3.0], "the size-1 allreduce")
+    check_slots(got, big, zbig, "8 x 16 MB")
+    check_slots(got_small, small, zsmall, "8 x 1 MB")
+    for name, want in got_cpu.items():
+        same_bits(got_small[name].cpu(), want, f"{name} card vs CPU lane, 8 x 1 MB")
+    require(scanned.device == small.device, "world.scan(tensor) left the card")
+    same_bits(scanned, got_small["scan"], "world.scan(tensor) vs scan_array")
+    log("comm path results: reduce_array bit-exact with its tree on K2's plain "
+        "version (SUM within the torch.sum band, MAX equal to amax), gather "
+        "and scatter byte for byte, scan within the cumsum band, exscan its "
+        "shift; at 8 x 1 MB every slot bit-exact with the CPU lane; "
+        f"sub-comms bit-exact with the plain versions ({len(subs)} calls); "
+        f"world.allreduce(tensor) {conducted}; world.scan(tensor) on the "
+        "card, equal to scan_array; the captured movers byte-exact")
+    log(json.dumps({"comm_slots_ms": rows}))
+    return launched, rows
+
+
 #: the meshes of ``run_training_step`` on 8 ranks
 STEP_MESHES = {"default": dict(dp=2, pp=1, sp=2, tp=2),
                "pp2": dict(dp=1, pp=2, sp=2, tp=2)}
@@ -1825,15 +2143,15 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def host_us(fn) -> float:
+def host_us(fn, calls: int = HOST_CALLS) -> float:
     """Host time per call (µs) to enqueue ``fn``, while the card spins, so
     that no device time is in it."""
     torch.cuda.synchronize()
     torch.cuda._sleep(SPIN_CYCLES)
     t0 = time.perf_counter()
-    for _ in range(HOST_CALLS):
+    for _ in range(calls):
         fn()
-    per_call = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    per_call = (time.perf_counter() - t0) / calls * 1e6
     torch.cuda.synchronize()
     return per_call
 
@@ -2273,6 +2591,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err = check_kernels(gen)
     launched = main_path(gen)
+    comm_launched, _ = comm_path(gen)
+    launched = {k: v + comm_launched.get(k, 0) for k, v in launched.items()}
     os.environ["OTPU_MODEL_SCALE"] = "64"
     trained = training_path()
     moe_launched = moe_path(gen)

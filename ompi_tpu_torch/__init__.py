@@ -26,6 +26,7 @@ _API = {
     "initialized": "ompi_tpu_torch.runtime.init",
     "finalized": "ompi_tpu_torch.runtime.init",
     "COMM_WORLD": "ompi_tpu_torch.runtime.init",
+    "COMM_SELF": "ompi_tpu_torch.runtime.init",
     "Comm": "ompi_tpu_torch.api.comm",
     "Group": "ompi_tpu_torch.api.group",
     "Op": "ompi_tpu_torch.api.op",
@@ -57,6 +58,8 @@ def __getattr__(name: str):
     mod = importlib.import_module(mod_name)
     if name == "COMM_WORLD":
         return mod.comm_world()
+    if name == "COMM_SELF":
+        return mod.comm_self()
     val = getattr(mod, name)
     globals()[name] = val
     return val

@@ -30,37 +30,47 @@
 // (i, j) = (p / n, p % n) into slot (j, i), K16 pair i into slot i.
 #include "pair_copy.cuh"
 
+// The slots of the round-robin pool this library has dealt so far, mod
+// 2^31 (pair_copy.cuh, tickets_dealt): a probe for the tests.
+extern "C" int otpu_exchange_tickets_dealt() {
+  return (int)(otpu::tickets_dealt().load(std::memory_order_relaxed) & 0x7fffffffu);
+}
+
 // x, out: (n, n, blk_bytes) device pointers.  vec is 16 (blk_bytes % 16 == 0
-// and both pointers 16-byte aligned; the wrapper checks) or 1.  Each entry
-// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// another vec, or a vec 16 that the pointers or the slot pitch do not
-// allow).
+// and both pointers 16-byte aligned; the wrapper checks) or 1.  counter:
+// nullptr, or 16 zeroed bytes of device memory that a launch captured into
+// a CUDA graph runs its span tickets on (pair_copy.cuh, launch_mover).
+// Each entry returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for another vec, or a vec 16 that the pointers or
+// the slot pitch do not allow; cudaErrorStreamCaptureUnsupported, launching
+// nothing, for a captured vec 16 launch without a counter).
 extern "C" int otpu_all_to_all(const void* x, void* out, long long blk_bytes, int n,
-                               int vec, void* stream) {
+                               int vec, void* counter, void* stream) {
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
-                         nullptr, blk_bytes, 0, n, n * n};
+                         nullptr, blk_bytes, 0, n, n * n, 0,
+                         static_cast<unsigned long long*>(counter)};
   return otpu::launch_pair_copy<otpu::SLOT_TRANSPOSE>(a, vec, stream);
 }
 
 // x, out: (n, n, R, W) device pointers with slot_bytes = R*W*itemsize and
 // row_bytes = W*itemsize; counts: (n, n) int32 device array (rows rank i
-// sends rank j at [i, j]).  vec as above (slot_bytes % 16 == 0).
+// sends rank j at [i, j]).  vec (slot_bytes % 16 == 0) and counter as above.
 extern "C" int otpu_all_to_all_v(const void* x, void* out, const void* counts,
                                  long long slot_bytes, long long row_bytes, int n,
-                                 int vec, void* stream) {
+                                 int vec, void* counter, void* stream) {
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
                          static_cast<const int32_t*>(counts), slot_bytes, row_bytes,
-                         n, n * n};
+                         n, n * n, 0, static_cast<unsigned long long*>(counter)};
   return otpu::launch_pair_copy<otpu::SLOT_TRANSPOSE>(a, vec, stream);
 }
 
 // x, out: (n, R, W) device pointers, slot_bytes and row_bytes as above;
-// counts: (n,) int32 device array.  vec as above.
+// counts: (n,) int32 device array.  vec and counter as above.
 extern "C" int otpu_all_gather_v(const void* x, void* out, const void* counts,
                                  long long slot_bytes, long long row_bytes, int n,
-                                 int vec, void* stream) {
+                                 int vec, void* counter, void* stream) {
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
                          static_cast<const int32_t*>(counts), slot_bytes, row_bytes,
-                         n, n};
+                         n, n, 0, static_cast<unsigned long long*>(counter)};
   return otpu::launch_pair_copy<otpu::SLOT_SAME>(a, vec, stream);
 }

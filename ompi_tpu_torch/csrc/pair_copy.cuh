@@ -80,7 +80,10 @@ struct PairCopy {
   int64_t row_bytes;      // bytes one count stands for (ragged only)
   int n;                  // ranks
   int pairs;              // 1 (K10), n (K11, K13, K16) or n*n (K14, K15)
-  int ticket;             // the aligned path's counter pair (set at launch)
+  int ticket;             // the aligned path's slot of g_tickets (set at launch)
+  // the aligned path's counter pair when the caller brings one (a launch
+  // that a CUDA graph captures), else nullptr and slot `ticket`
+  unsigned long long* counter;
 };
 
 template <int SLOT>
@@ -287,16 +290,27 @@ struct BulkRing {
 };
 
 // Span tickets.  A launch of the aligned path takes its spans in stream
-// order from a counter pair of its own (next span, CTAs done), slot
-// `ticket` of g_tickets, which the host deals round-robin, so that launches
-// on two streams never share one.  The last CTA to finish sets the pair
-// back to zero for the launch that takes the slot kTicketSlots later.
+// order from a counter pair of its own (next span, CTAs done).  An eager
+// launch takes slot `ticket` of g_tickets, which the host deals
+// round-robin, so that launches on two streams never share one; the last
+// CTA to finish sets the pair back to zero for the launch that takes the
+// slot kTicketSlots later.  A launch that a CUDA graph captures keeps its
+// arguments for every replay, so a slot it drew would be dealt again to
+// eager launches (and to other captures) while a replay runs: such a
+// launch runs on the pair the caller passes (`counter`), which belongs to
+// the graph.
 constexpr int kTicketSlots = 1024;
 __device__ unsigned long long g_tickets[kTicketSlots][2];
 
+// The slots this library has dealt (mod 2^32): one an eager launch of the
+// aligned path, none a launch on a caller's pair or a refused one.
+inline std::atomic<unsigned>& tickets_dealt() {
+  static std::atomic<unsigned> dealt{0};
+  return dealt;
+}
+
 inline int next_ticket() {
-  static std::atomic<unsigned> next{0};
-  return (int)(next.fetch_add(1, std::memory_order_relaxed) % kTicketSlots);
+  return (int)(tickets_dealt().fetch_add(1, std::memory_order_relaxed) % kTicketSlots);
 }
 
 // One thread of each CTA, after the CTA's last ticket
@@ -310,7 +324,7 @@ __device__ __forceinline__ void release_tickets(unsigned long long* ticket) {
 template <int SLOT, int SLOTS, int CHUNK, int POLICY, int64_t SPAN>
 __global__ void __launch_bounds__(32) mover_kernel(PairCopy a) {
   extern __shared__ __align__(128) uint8_t smem[];
-  unsigned long long* ticket = g_tickets[a.ticket];
+  unsigned long long* ticket = a.counter != nullptr ? a.counter : g_tickets[a.ticket];
   const int64_t total = stream_total<true>(a);
   const int64_t count = span_rounds<SPAN>(total) * gridDim.x;
   BulkRing<SLOTS, CHUNK, POLICY> ring(smem);
@@ -362,9 +376,19 @@ inline unsigned mover_grid(int64_t most, int per_sm) {
 // raised once per device and library: `static`, so that the flag is this
 // library's own (a template's local static is otherwise one object shared by
 // every library that instantiates it, and a second library's kernel would
-// launch without the limit raised).
+// launch without the limit raised).  Without a counter pair of the caller's
+// the launch draws a slot, unless the stream is capturing: then it launches
+// nothing and returns cudaErrorStreamCaptureUnsupported, and the caller
+// passes a pair that the graph owns.
 template <int SLOT, int SLOTS, int CHUNK, int POLICY, int64_t SPAN>
 static int launch_mover(PairCopy a, unsigned grid, cudaStream_t s) {
+  if (a.counter == nullptr) {
+    cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+    const cudaError_t err = cudaStreamIsCapturing(s, &capture);
+    if (err != cudaSuccess) return (int)err;
+    if (capture != cudaStreamCaptureStatusNone) return (int)cudaErrorStreamCaptureUnsupported;
+    a.ticket = next_ticket();
+  }
   auto* kernel = mover_kernel<SLOT, SLOTS, CHUNK, POLICY, SPAN>;
   constexpr int smem = BulkRing<SLOTS, CHUNK, POLICY>::kSmem;
   static bool raised[64] = {};
@@ -377,7 +401,6 @@ static int launch_mover(PairCopy a, unsigned grid, cudaStream_t s) {
     if (err != cudaSuccess) return (int)err;
     raised[dev] = true;
   }
-  a.ticket = next_ticket();
   kernel<<<grid, 32, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
@@ -385,7 +408,9 @@ static int launch_mover(PairCopy a, unsigned grid, cudaStream_t s) {
 // Launch the batch on `stream`: vec 16 (x, out and, for more than one
 // pair, pitch 16-byte aligned; the wrappers check) or 1.  Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for another
-// vec or a vec 16 the pointers or pitch do not allow.
+// vec or a vec 16 the pointers or pitch do not allow, and
+// cudaErrorStreamCaptureUnsupported, having launched nothing, for a vec 16
+// batch on a capturing stream without a.counter (see launch_mover).
 template <int SLOT>
 int launch_pair_copy(const PairCopy& a, int vec, void* stream) {
   if (vec != 16 && vec != 1) return (int)cudaErrorInvalidValue;

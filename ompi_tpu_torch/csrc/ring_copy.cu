@@ -87,14 +87,26 @@ bcast_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
 
 }  // namespace otpu
 
+// The mover's entries (K10, K11, K13) take `counter`: nullptr, or 16
+// zeroed bytes of device memory that a launch captured into a CUDA graph
+// runs its span tickets on (pair_copy.cuh, launch_mover).
+
+// The slots of the round-robin pool this library has dealt so far, mod
+// 2^31 (pair_copy.cuh, tickets_dealt): a probe for the tests.
+extern "C" int otpu_ring_copy_tickets_dealt() {
+  return (int)(otpu::tickets_dealt().load(std::memory_order_relaxed) & 0x7fffffffu);
+}
+
 // x, out: (n, *S) device pointers of nbytes bytes in all.  vec is 16 (both
 // pointers 16-byte aligned; the wrapper checks) or 1.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
-// vec).
+// vec; cudaErrorStreamCaptureUnsupported, launching nothing, for a captured
+// vec 16 launch without a counter).
 extern "C" int otpu_ring_all_gather(const void* x, void* out, long long nbytes,
-                                    int vec, void* stream) {
+                                    int vec, void* counter, void* stream) {
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
-                         nullptr, nbytes, 0, 1, 1};
+                         nullptr, nbytes, 0, 1, 1, 0,
+                         static_cast<unsigned long long*>(counter)};
   return otpu::launch_pair_copy<otpu::SLOT_SAME>(a, vec, stream);
 }
 
@@ -125,9 +137,10 @@ extern "C" int otpu_ring_bcast(const void* x, void* out, long long row_bytes,
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
 // vec, or a vec 16 that the pointers or row_bytes do not allow).
 extern "C" int otpu_ring_right_permute(const void* x, void* out, long long row_bytes,
-                                       int n, int vec, void* stream) {
+                                       int n, int vec, void* counter, void* stream) {
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
-                         nullptr, row_bytes, 0, n, n};
+                         nullptr, row_bytes, 0, n, n, 0,
+                         static_cast<unsigned long long*>(counter)};
   return otpu::launch_pair_copy<otpu::SLOT_ROTATE>(a, vec, stream);
 }
 
@@ -136,8 +149,9 @@ extern "C" int otpu_ring_right_permute(const void* x, void* out, long long row_b
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for another
 // vec, or a vec 16 that the pointers or row_bytes do not allow).
 extern "C" int otpu_ring_all_gather_bidi(const void* x, void* out, long long row_bytes,
-                                         int n, int vec, void* stream) {
+                                         int n, int vec, void* counter, void* stream) {
   const otpu::PairCopy a{static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out),
-                         nullptr, row_bytes, 0, n, n};
+                         nullptr, row_bytes, 0, n, n, 0,
+                         static_cast<unsigned long long*>(counter)};
   return otpu::launch_pair_copy<otpu::SLOT_SAME>(a, vec, stream);
 }

@@ -2,5 +2,7 @@
 
 Components compete per communicator by priority; each fills the slots of
 the per-comm vtable it implements.  Components: ``builtin`` (torch
-reductions over the rank axis) and ``ring`` (hand-written ring kernels).
+reductions over the rank axis), ``ring`` (hand-written ring kernels),
+``conductor`` (host-buffer collectives of the device world), ``self_coll``
+(size-1 comms), and the config homes ``quant`` and ``tuned``.
 """

@@ -38,6 +38,34 @@ is one tensor; a rank-sharded result has a leading rank axis.
   ``IndexError`` or ``TypeError`` there, or slices a larger table); a perm
   that repeats a rank raises ``ValueError``, as ``lax.ppermute`` does.
 
+The rooted and prefix collectives (``xla.py:281-322``, ``:453-500``,
+``:575-666``), plain torch over the rank axis as the reference computes
+them outside any Pallas kernel, each keeping the reference's contract:
+
+* ``reduce_array`` — ``(n, *S)`` to ``(n, *S)``: root's row holds the
+  reduction, the other rows zeros.  The fold runs along the reference's
+  binomial tree toward root, ``ceil(log2 n)`` rounds in which the ranks
+  ``rel`` in ``[k, min(2k, n))`` (``rel`` counted from root) fold into
+  ``rel - k``, as ``fold(receiver, sender)``: the same operands in the
+  same order, so float SUM is bit-exact.  The fold is the op framework's
+  for the tensor's dtype, one call per round over all of its pairs (K2,
+  ``combine2``, on the card; the reference's ``jax_fold(op, None)`` is
+  ``combine2`` on a TPU for SUM, PROD, MAX and MIN).
+* ``gather_array`` — ``(n, *S)`` to ``(n, n, *S)``: root's row holds every
+  rank's block, the other rows zeros.  ``scatter_array`` — ``(n, n, *S)``,
+  of which only root's row is read, to ``(n, *S)``: rank i gets block i.
+  Both deliver the bytes they were given.  The reference's trees paste each
+  block with an add (``buf + contrib``), which turns a -0.0 into +0.0; the
+  port does not copy the sign flip, as for bcast.
+* ``scan_array`` and ``exscan_array`` — ``(n, *S)`` to ``(n, *S)``: row i
+  folds rows 0..i (exscan: rows 0..i-1, row 0 zeros) with the op's plain
+  torch fold (``fusable``: no kernel), along ``lax.associative_scan``'s
+  combine tree (pairs, the recursion, then the even elements), not a
+  sequential scan, so float SUM is bit-exact.
+* ``barrier``/``device_barrier`` — an allreduce of ``(n, 1)`` zeros and a
+  synchronize of the current stream; ``reshard`` — the ``(n, *S)`` tensor
+  in row-per-rank layout (the conductor's device scatter).
+
 The quantized branches (``xla.py:225-279``, ``:384-436``): on a comm whose
 info carries the accuracy budget (``coll/quant``'s ``BUDGET_KEY``, probed
 first, before the cached fast path), a float32 ``allreduce_array`` SUM and
@@ -51,15 +79,15 @@ by K19 (allgather).  bf16: a cast to bfloat16 and back, then for the
 allreduce a float32 ``sum`` over the ranks — plain torch, as XLA computes
 that codec outside any Pallas kernel.
 
-Reductions are cached per (coll, op, shape, dtype, device) — the
-reference's per-(coll, op, shape, dtype) program cache — so a cache hit is
-one dict probe and the reduction; the quantized programs per
-``("allreduce_quant", codec, op, shape, dtype, device)`` and
+Reductions and the rooted and prefix collectives are cached under the
+reference's program-cache keys (``_keyfor``, ``xla.py:694-715``) with the
+device added, so a cache hit is one dict probe and the call; the quantized
+programs per ``("allreduce_quant", codec, op, shape, dtype, device)`` and
 ``("allgather_quant", codec, shape, dtype, device)``.
 
 ``persistent_coll`` (``xla.py:669-683``) runs the collective once on the
 template and returns a ``PersistentColl`` (``xla.py:60-93``) bound to the
-cached reduction, as the reference binds its cached program; a collective
+cached callable, as the reference binds its cached program; a collective
 with no cached callable (the copies, and an allreduce on a comm with a
 budget, whose codec is picked per call) is bound to its slot.  The
 reference's handle also bumps the SPC device counters and opens a trace
@@ -109,6 +137,57 @@ def ragged_views(full, counts: np.ndarray) -> list:
 def _key(coll, x, op):
     """Reduction cache key; the shape in it stands for the checks passed."""
     return (coll, op.name, x.shape, x.dtype, x.device)
+
+
+#: collectives whose callable is cached under ``_keyfor`` (and so bound by
+#: ``persistent_coll``)
+_KEYED = ("allreduce", "reduce_scatter", "reduce", "gather", "scatter",
+          "scan", "exscan")
+
+
+def _keyfor(coll: str, x, *args):
+    """The cache key of ``coll`` on ``x`` (``xla.py:694-715``, the device
+    added): the one source of keys for the slots and ``persistent_coll``."""
+    if coll in ("allreduce", "reduce_scatter", "scan", "exscan"):
+        return _key(coll, x, args[0] if args else op_mod.SUM)
+    if coll == "reduce":
+        op = args[0] if args else op_mod.SUM
+        root = args[1] if len(args) > 1 else 0
+        return (coll, op.name, int(root), x.shape, x.dtype, x.device)
+    return (coll, int(args[0]) if args else 0, x.shape, x.dtype, x.device)
+
+
+def tree_rounds(n: int) -> list:
+    """The strides of ``reduce_array``'s rounds: the largest power of two
+    below n, halving down to 1 (none for n == 1)."""
+    k = 1
+    while k < n:
+        k *= 2
+    rounds = []
+    k //= 2
+    while k >= 1:
+        rounds.append(k)
+        k //= 2
+    return rounds
+
+
+def associative_scan(fold, t: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of the rows of ``t`` with ``fold(earlier, later)``
+    along ``jax.lax.associative_scan``'s combine tree (jax 0.9,
+    ``lax/control_flow/loops.py``): fold adjacent pairs and scan the
+    result, which gives the odd rows; each even row from 2 on is the odd
+    row before it folded with its own; row 0 is itself.  The same operands
+    meet in the same order as there."""
+    m = t.shape[0]
+    if m < 2:
+        return t
+    odd = associative_scan(fold, fold(t[0:m - 1:2], t[1::2]))
+    out = torch.empty_like(t)
+    out[0] = t[0]
+    out[1::2] = odd
+    if m > 2:
+        out[2::2] = fold(odd if m % 2 else odd[:-1], t[2::2])
+    return out
 
 
 def _bf16_wire(t: torch.Tensor) -> torch.Tensor:
@@ -239,6 +318,63 @@ class BuiltinCollModule:
 
         return chained
 
+    def _reduce_tree_fn(self, op: op_mod.Op, root: int, dtype):
+        """``reduce_array``'s callable: the binomial tree toward root on the
+        rows taken in ``rel`` order, one fold a round over its pairs."""
+        fold = op_mod.torch_fold(op, dtype)
+        n, rounds = self.n, tree_rounds(self.n)
+        first = root % n
+
+        def tree(t):
+            t = t.contiguous()
+
+            def rel_rows(lo: int, count: int):
+                # rows rel lo.. of t: a view, or a copy where they wrap
+                start = (first + lo) % n
+                if start + count <= n:
+                    return t[start:start + count]
+                return torch.cat([t[start:], t[:start + count - n]])
+
+            rows, live = rel_rows, n
+            for k in rounds:
+                # senders rel [k, live) fold into rel [0, live - k); the
+                # first round reads its rows from t itself
+                m = live - k
+                head = fold(rows(0, m), rows(k, m))
+                buf = head if m == k else torch.cat([head, rows(m, k - m)])
+                rows, live = (lambda lo, count, b=buf: b[lo:lo + count]), k
+            out = torch.zeros_like(t)
+            if 0 <= root < n:
+                out[root] = rows(0, 1)[0]
+            return out
+
+        return tree
+
+    def _scan_fn(self, op: op_mod.Op, dtype, exclusive: bool):
+        fold = op_mod.torch_fold(op, dtype, fusable=True)
+
+        def scan(t):
+            s = associative_scan(fold, t)
+            if not exclusive:
+                return s.clone() if s is t else s
+            out = torch.zeros_like(t)
+            out[1:] = s[:-1]
+            return out
+
+        return scan
+
+    def _program(self, comm, coll: str, x, args: tuple, make,
+                 inner_n: bool = False):
+        """Run ``coll``'s callable on ``x``: one cache probe under
+        ``_keyfor``, else check and place ``x`` and make it with
+        ``make(x)``."""
+        if isinstance(x, torch.Tensor):
+            fn = self._cache.get(_keyfor(coll, x, *args))
+            if fn is not None:
+                return fn(x)
+        x = self._check(comm, x, inner_n)
+        return self._cached(_keyfor(coll, x, *args), lambda: make(x))(x)
+
     def _cached(self, key, make):
         fn = self._cache.get(key)
         if fn is None:
@@ -309,6 +445,56 @@ class BuiltinCollModule:
         counts = counts_table(counts, (self.n, self.n), "alltoallv")
         return ragged_views(self.alltoall_array(comm, x), counts)
 
+    def reduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM,
+                     root: int = 0):
+        root = int(root)
+        return self._program(comm, "reduce", x, (op, root),
+                             lambda t: self._reduce_tree_fn(op, root, t.dtype))
+
+    def gather_array(self, comm, x, root: int = 0):
+        root, n = int(root), self.n
+
+        def make(_):
+            def gather(t):
+                out = t.new_zeros((n,) + tuple(t.shape))
+                if 0 <= root < n:
+                    out[root] = t
+                return out
+            return gather
+
+        return self._program(comm, "gather", x, (root,), make)
+
+    def scatter_array(self, comm, x, root: int = 0):
+        root = int(root)
+        return self._program(comm, "scatter", x, (root,),
+                             lambda _: lambda t: t[root % self.n].clone(),
+                             inner_n=True)
+
+    def scan_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        return self._program(comm, "scan", x, (op,),
+                             lambda t: self._scan_fn(op, t.dtype, False))
+
+    def exscan_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        return self._program(comm, "exscan", x, (op,),
+                             lambda t: self._scan_fn(op, t.dtype, True))
+
+    def device_barrier(self, comm) -> None:
+        tok = self._cache.get("barrier_token")
+        if tok is None:
+            tok = self._cache.setdefault("barrier_token", torch.zeros(
+                (self.n, 1), dtype=torch.float32, device=self.device))
+        self._reduction("allreduce", comm, tok, op_mod.SUM)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def barrier(self, comm) -> None:
+        self.device_barrier(comm)
+
+    def reshard(self, x) -> torch.Tensor:
+        """The ``(n, *S)`` buffer in row-per-rank layout: on one device, the
+        placed, contiguous tensor."""
+        return self._check(None, x).contiguous()
+
     def _perm_index(self, perm: tuple, device):
         """(sources, destinations) of ``perm`` as index tensors on
         ``device``, ordered by destination; cached per perm."""
@@ -350,10 +536,9 @@ class BuiltinCollModule:
         template = self._check(comm, template)
         method(comm, template, *args)
         fn = None
-        if coll in ("allreduce", "reduce_scatter") and not (
+        if coll in _KEYED and not (
                 coll == "allreduce" and quant_mod.BUDGET_KEY in comm.info):
-            op = args[0] if args else op_mod.SUM
-            fn = self._cache.get(_key(coll, template, op))
+            fn = self._cache.get(_keyfor(coll, template, *args))
         if fn is None:
             def fn(x):
                 return method(comm, x, *args)

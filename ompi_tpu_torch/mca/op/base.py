@@ -25,15 +25,15 @@ def _framework() -> mca.Framework:
     return fw
 
 
-def _select(kind: str, op_name: str, dtype) -> Optional[Callable]:
-    key = (kind, op_name, str(dtype))
+def _select(kind: str, op_name: str, dtype, **kw) -> Optional[Callable]:
+    key = (kind, op_name, str(dtype), *kw.values())
     with _lock:
         if key in _cache:
             return _cache[key]
     best = None
     for comp in sorted(_framework().available, key=lambda c: -c.priority):
         query = getattr(comp, f"query_{kind}", None)
-        best = query(op_name, dtype) if query else None
+        best = query(op_name, dtype, **kw) if query else None
         if best is not None:
             break
     with _lock:
@@ -41,9 +41,14 @@ def _select(kind: str, op_name: str, dtype) -> Optional[Callable]:
     return best
 
 
-def select_fold(op_name: str, dtype) -> Optional[Callable]:
-    """Highest-priority two-operand fold for (op, dtype), or None."""
-    return _select("fold", op_name, dtype)
+def select_fold(op_name: str, dtype,
+                fusable: bool = False) -> Optional[Callable]:
+    """Highest-priority two-operand fold for (op, dtype), or None.
+
+    ``fusable=True`` asks for a fold built of plain torch ops (the
+    reference's "a fold XLA can fuse into surrounding computation", which
+    scans ask for): kernel components decline it."""
+    return _select("fold", op_name, dtype, fusable=fusable)
 
 
 def select_stack(op_name: str, dtype) -> Optional[Callable]:

@@ -38,7 +38,7 @@ class BuiltinOpComponent(mca.Component):
 
         op_base.reset_cache()
 
-    def query_fold(self, op_name: str, dtype):
+    def query_fold(self, op_name: str, dtype, fusable: bool = False):
         return _TABLE.get(op_name)
 
 

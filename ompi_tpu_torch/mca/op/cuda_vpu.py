@@ -52,7 +52,9 @@ class CudaVpuComponent(mca.Component):
 
         op_base.reset_cache()
 
-    def query_fold(self, op_name: str, dtype):
+    def query_fold(self, op_name: str, dtype, fusable: bool = False):
+        if fusable:
+            return None  # a kernel launch, not a fold of plain torch ops
         return reduce.device_fold(op_name, dtype)
 
     def query_stack(self, op_name: str, dtype):

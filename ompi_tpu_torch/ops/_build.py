@@ -41,15 +41,18 @@ LIBRARIES = {
                    "otpu_ring_seg": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
                    "otpu_ring_rs_seg": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P],
                    "otpu_ring_seg_bidi": [_P, _P, _LL, _LL, _I, _I, _I, _I, _P]}),
+    # the byte mover's entries end (..., vec, counter, stream)
     "ring_copy": ("ring_copy.cu",
-                  {"otpu_ring_all_gather": [_P, _P, _LL, _I, _P],
+                  {"otpu_ring_all_gather": [_P, _P, _LL, _I, _P, _P],
                    "otpu_ring_bcast": [_P, _P, _LL, _I, _I, _I, _P],
-                   "otpu_ring_right_permute": [_P, _P, _LL, _I, _I, _P],
-                   "otpu_ring_all_gather_bidi": [_P, _P, _LL, _I, _I, _P]}),
+                   "otpu_ring_right_permute": [_P, _P, _LL, _I, _I, _P, _P],
+                   "otpu_ring_all_gather_bidi": [_P, _P, _LL, _I, _I, _P, _P],
+                   "otpu_ring_copy_tickets_dealt": []}),
     "exchange": ("exchange.cu",
-                 {"otpu_all_to_all": [_P, _P, _LL, _I, _I, _P],
-                  "otpu_all_to_all_v": [_P, _P, _P, _LL, _LL, _I, _I, _P],
-                  "otpu_all_gather_v": [_P, _P, _P, _LL, _LL, _I, _I, _P]}),
+                 {"otpu_all_to_all": [_P, _P, _LL, _I, _I, _P, _P],
+                  "otpu_all_to_all_v": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P],
+                  "otpu_all_gather_v": [_P, _P, _P, _LL, _LL, _I, _I, _P, _P],
+                  "otpu_exchange_tickets_dealt": []}),
     "flash_block": ("flash_block.cu",
                     {"otpu_flash_block": [_P] * 10 + [_LL, _I, _I, _I, _LL, _I, _I,
                                                       _I, _I, _I, _P]}),

@@ -106,6 +106,12 @@ The exchange tier moves bytes too, on any dtype, through the same mover:
   ``out[i, :c_i] = x[i, :c_i]``: kernel K16 (``csrc/exchange.cu``),
   replacing ``pc._build_all_gather_v`` (``:1204``).
 
+Under CUDA graph capture: a launch of the mover on a capturing stream runs
+its span tickets on a counter pair of its own, 16 zeroed bytes allocated in
+the capture (``_launch_mover``), where an eager launch takes a slot of the
+library's round-robin pool.  The ragged two need their counts table on the
+card to be captured (a host table is staged through pinned memory).
+
 The ragged two clamp their counts to ``[0, R]`` (on the card an unclamped
 count would copy past the slot) and leave the rows past each count
 unspecified, as the reference does: the output is not zeroed.  Their counts
@@ -379,6 +385,29 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+#: what a mover entry returns, having launched nothing, for a launch on a
+#: capturing stream that brought no counter pair
+#: (``cudaErrorStreamCaptureUnsupported``)
+_NEEDS_COUNTER = 900
+
+
+def _launch_mover(fn, x: torch.Tensor, *args) -> None:
+    """Launch the byte-mover entry ``fn(*args, counter, stream)`` on
+    ``x``'s device.  An eager launch passes no counter pair: the kernel takes
+    a slot of the library's round-robin pool.  A launch that a CUDA graph
+    captures keeps its arguments for every replay, so the entry refuses it
+    without a pair of its own; the wrapper then passes 16 zeroed bytes
+    allocated in the capture, from the graph's private pool, whose zero
+    fill is captured too and runs before the launch in every replay."""
+    stream = _stream(x)
+    err = fn(*args, None, stream)
+    if err == _NEEDS_COUNTER:
+        counter = torch.zeros(2, dtype=torch.int64, device=x.device)
+        err = fn(*args, counter.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+
+
 #: C entry point per (variant, start offset)
 _ENTRIES = {("fused", _AR_START): "otpu_ring_fused",
             ("seg", _AR_START): "otpu_ring_seg",
@@ -474,8 +503,8 @@ def all_gather(x: torch.Tensor, n: int, variant: str = "ring") -> torch.Tensor:
     if nbytes:
         vec = 16 if x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
         with torch.cuda.device(x.device):
-            _launch(_build.load("ring_copy").otpu_ring_all_gather,
-                    x.data_ptr(), out.data_ptr(), nbytes, vec, _stream(x))
+            _launch_mover(_build.load("ring_copy").otpu_ring_all_gather, x,
+                          x.data_ptr(), out.data_ptr(), nbytes, vec)
         launches["all_gather"] += 1
     return out
 
@@ -491,18 +520,17 @@ def _byte_vec(unit_bytes: int, *tensors: torch.Tensor) -> int:
 
 def _copy(lib: str, entry: str, key: str, x: torch.Tensor, unit_bytes: int,
           *args) -> torch.Tensor:
-    """A new tensor like ``x`` written by the byte-copy kernel ``entry`` of
-    library ``lib``, called as ``entry(x, out, *args, vec, stream)`` with the
-    vector width that ``unit_bytes`` allows; an empty unit launches
-    nothing."""
+    """A new tensor like ``x`` written by the byte mover's entry ``entry``
+    of library ``lib``, called as ``entry(x, out, *args, vec, counter,
+    stream)`` through ``_launch_mover`` with the vector width that
+    ``unit_bytes`` allows; an empty unit launches nothing."""
     from ompi_tpu_torch.ops import _build
 
     out = torch.empty_like(x)
     if unit_bytes:
         with torch.cuda.device(x.device):
-            _launch(getattr(_build.load(lib), entry), x.data_ptr(),
-                    out.data_ptr(), *args, _byte_vec(unit_bytes, x, out),
-                    _stream(x))
+            _launch_mover(getattr(_build.load(lib), entry), x, x.data_ptr(),
+                          out.data_ptr(), *args, _byte_vec(unit_bytes, x, out))
         launches[key] += 1
     return out
 
@@ -516,9 +544,17 @@ def bcast(x: torch.Tensor, n: int, root: int = 0) -> torch.Tensor:
     root = int(root) % n
     if not on_card:
         return bcast_plain(x, n, root)
+    from ompi_tpu_torch.ops import _build
+
     row_bytes = x[0].numel() * x.element_size()
-    return _copy("ring_copy", "otpu_ring_bcast", "bcast", x, row_bytes,
-                 row_bytes, n, root)
+    out = torch.empty_like(x)
+    if row_bytes:
+        with torch.cuda.device(x.device):
+            _launch(_build.load("ring_copy").otpu_ring_bcast, x.data_ptr(),
+                    out.data_ptr(), row_bytes, n, root,
+                    _byte_vec(row_bytes, x, out), _stream(x))
+        launches["bcast"] += 1
+    return out
 
 
 # -- the torus schedules (sub-rings of an (n0, n1) grid) ----------------------

@@ -2,13 +2,18 @@
 
 Port of the device-world boot of ``ompi_tpu/runtime/init.py``: apply
 ``--mca`` arguments, bring up the device world (N virtual ranks on one
-device), build COMM_WORLD and run its per-comm coll selection.  Context ids of the
-comms made afterwards (``Comm.dup``) come from a local counter: in the
-device world one process backs every rank, so a local find-and-set is the
-agreement (``next_local_cid``).  ``finalize`` releases the coll modules of
-every comm made since ``init``, drops the world and closes the MCA
-frameworks, so the next ``init`` selects afresh.  Sessions, COMM_SELF,
-hooks, fault tolerance and monitoring are not ported yet.
+device), build COMM_WORLD (cid 0) and COMM_SELF (cid 1, the conductor's
+rank alone) and run their per-comm coll selection.  Context ids of the
+comms made afterwards (``dup``, ``split``, ``create``, ...) come from
+``next_local_cid``: in the device world one process backs every rank, so a
+local find-and-set is the agreement.  The reference keeps a bitmap of CIDs
+in which a freed CID stays set (``retire_cid``: never reused) and only
+multi-process agreements punch holes; in the device world its
+find-and-set therefore hands out 2, 3, 4, ... in order, which is what the
+port's counter does.  ``finalize`` releases the coll modules of every comm
+made since ``init``, drops the world and resets the CID space, and closes
+the MCA frameworks, so the next ``init`` selects afresh.  Sessions, hooks,
+fault tolerance and monitoring are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,10 +36,12 @@ class State(enum.IntEnum):
 _lock = threading.RLock()
 _state = State.NOT_INITIALIZED
 _world = None
+_self = None
 _rte = None
 #: live comms made since init (COMM_WORLD included): finalize releases them
 _comms: "weakref.WeakSet" = weakref.WeakSet()
-_next_cid = 1           # cid 0 is COMM_WORLD
+_FIRST_FREE_CID = 2     # cid 0 is COMM_WORLD, cid 1 COMM_SELF
+_next_cid = _FIRST_FREE_CID
 
 
 def initialized() -> bool:
@@ -58,6 +65,13 @@ def next_local_cid() -> int:
         return cid
 
 
+def retire_cid(cid: int) -> None:
+    """A freed CID is retired, never returned to the pool
+    (``ompi_tpu/runtime/init.py:111-119``): reuse would let a stale handle
+    or a revoked (cid, epoch) be taken for a new communicator.  The counter
+    never hands a CID out twice, so retiring records intent only."""
+
+
 def register_comm(comm) -> None:
     """Record a comm so that finalize releases its coll modules."""
     with _lock:
@@ -71,7 +85,7 @@ def init(device=None, rte=None, argv: Optional[list] = None):
     (``device="cpu"``: the CPU lane the tests run on).  With no card and no
     explicit device it raises; it never falls back to the CPU.
     """
-    global _state, _world, _rte
+    global _state, _world, _self, _rte
     with _lock:
         if _state is State.INIT_COMPLETED:
             return _world
@@ -90,13 +104,16 @@ def init(device=None, rte=None, argv: Optional[list] = None):
 
             _world = Comm(Group(range(_rte.world_size)), cid=0, rte=_rte,
                           name="COMM_WORLD")
-            register_comm(_world)
-            # per-comm coll selection (ompi_mpi_init.c:956)
+            _self = Comm(Group([_rte.my_world_rank]), cid=1, rte=_rte,
+                         name="COMM_SELF")
+            # per-comm coll selection (ompi_mpi_init.c:956,962)
             from ompi_tpu_torch.mca.coll.base import comm_select
 
-            comm_select(_world)
+            for comm in (_world, _self):
+                register_comm(comm)
+                comm_select(comm)
         except BaseException:
-            _world = _rte = None
+            _world = _self = _rte = None
             _state = State.NOT_INITIALIZED
             raise
         var.mark_runtime_initialized(True)
@@ -110,8 +127,14 @@ def comm_world():
     return _world
 
 
+def comm_self():
+    if _self is None:
+        init()
+    return _self
+
+
 def finalize() -> None:
-    global _state, _world, _rte, _next_cid
+    global _state, _world, _self, _rte, _next_cid
     with _lock:
         if _state is not State.INIT_COMPLETED:
             return
@@ -124,8 +147,8 @@ def finalize() -> None:
             mca.close_all()
         finally:
             _comms.clear()
-            _next_cid = 1
-            _world = _rte = None
+            _next_cid = _FIRST_FREE_CID
+            _world = _self = _rte = None
             var.mark_runtime_initialized(False)
             _state = State.FINALIZE_COMPLETED
 

@@ -82,3 +82,45 @@ def test_a_mismatch_is_found(edit, what):
     name = "otpu_ring_seg"
     bad = _mismatches(text, {name: edit(list(entries[name]))})
     assert len(bad) == 1 and what in bad[0], bad
+
+
+#: the byte mover's entries, each with a counter pointer before its stream
+MOVER_ENTRIES = {"otpu_ring_all_gather": "ring_copy",
+                 "otpu_ring_all_gather_bidi": "ring_copy",
+                 "otpu_ring_right_permute": "ring_copy",
+                 "otpu_all_to_all": "exchange",
+                 "otpu_all_to_all_v": "exchange",
+                 "otpu_all_gather_v": "exchange"}
+
+
+@pytest.mark.parametrize("entry", sorted(MOVER_ENTRIES))
+def test_a_mover_entry_bound_without_its_counter_is_found(entry):
+    """A mover entry ends ``(..., int vec, void* counter, void* stream)``:
+    bound as it was before the counter (the counter's pointer dropped),
+    or with the counter bound as an int, it is caught."""
+    source, entries = _build.LIBRARIES[MOVER_ENTRIES[entry]]
+    text = (_build.CSRC / source).read_text()
+    argtypes = list(entries[entry])
+    assert argtypes[-3:] == [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    assert _declarations(text)[entry][-2:] == ["void* counter", "void* stream"]
+    short = _mismatches(text, {entry: argtypes[:-2] + argtypes[-1:]})
+    assert len(short) == 1 and "parameters" in short[0], short
+    as_int = _mismatches(text, {entry: argtypes[:-2] + [ctypes.c_int,
+                                                        argtypes[-1]]})
+    assert len(as_int) == 1 and "bound as c_int" in as_int[0], as_int
+
+
+#: the mover libraries' probes of their round-robin pool, which take nothing
+PROBES = {"otpu_ring_copy_tickets_dealt": "ring_copy",
+          "otpu_exchange_tickets_dealt": "exchange"}
+
+
+@pytest.mark.parametrize("entry", sorted(PROBES))
+def test_a_pool_probe_bound_with_an_argument_is_found(entry):
+    """A probe ``int f()`` is bound with no argtypes; bound with one it is
+    caught."""
+    source, entries = _build.LIBRARIES[PROBES[entry]]
+    text = (_build.CSRC / source).read_text()
+    assert entries[entry] == [] and _declarations(text)[entry] == []
+    bad = _mismatches(text, {entry: [ctypes.c_int]})
+    assert len(bad) == 1 and "parameters" in bad[0], bad

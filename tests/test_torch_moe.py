@@ -493,17 +493,22 @@ def test_tuned_var_matches_reference(torch_world, jax_world):
 
 def test_tuned_leaves_every_slot_owner_unchanged(torch_world):
     """A config home: comm_query answers None, so no module joins the
-    comm and coll/builtin owns every slot at default priorities."""
+    comm: at default priorities coll/builtin owns every slot it fills (the
+    device slots) and coll/conductor the host slots."""
     from ompi_tpu_torch.api.comm import COLL_FUNCTIONS
     from ompi_tpu_torch.mca.coll.base import coll_framework
+    from ompi_tpu_torch.mca.coll.builtin import BuiltinCollModule
 
     assert "tuned" in coll_framework().components
     assert tuned.COMPONENT.comm_query(torch_world) is None
     assert [type(m).__name__ for m in torch_world.coll_modules] == \
-        ["RingCollModule", "BuiltinCollModule"]
+        ["ConductorModule", "RingCollModule", "BuiltinCollModule"]
     for slot in COLL_FUNCTIONS:
-        assert type(torch_world.c_coll[slot].__self__).__name__ == \
-            "BuiltinCollModule", slot
+        if slot not in torch_world.c_coll:
+            continue
+        want = ("BuiltinCollModule" if hasattr(BuiltinCollModule, slot)
+                else "ConductorModule")
+        assert type(torch_world.c_coll[slot].__self__).__name__ == want, slot
 
 
 def test_expert_ffn_fused_matches_unfused(torch_world):

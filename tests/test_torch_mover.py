@@ -21,11 +21,21 @@ for byte, the ragged pair over its valid rows.  The ``cuda`` cases (skipped
 here) hold the kernels against the plain versions on the card, byte for
 byte, and call the C entries directly to show that no byte past a pair's
 count is written.
+
+Under CUDA graph capture (``cuda`` cases): every mover entry given no
+counter pair on a capturing stream returns 900, draws no slot of its
+library's round-robin pool and launches nothing; a captured launch of K10
+or K15 runs its span tickets on a counter pair that the graph owns, so a
+replay started together with each of more eager launches than the pool has
+slots, and two graphs captured a pool's length of launches apart and
+replayed together on two streams, each stay byte-exact
+(``tests/mover_capture.py``).
 """
 import numpy as np
 import pytest
 import torch
 
+import mover_capture as mc
 from ompi_tpu.ops import pallas_collectives as pc
 from ompi_tpu_torch.ops import ring_collectives as rc
 
@@ -279,7 +289,8 @@ def test_mover_totals_on_card(nbytes):
     stream = torch.cuda.current_stream().cuda_stream
     for vec, at in ((16, 0), (1, 1)):
         out = torch.full((nbytes + 64,), 0xAB, dtype=torch.uint8, device="cuda")
-        assert fn(src[at:].data_ptr(), out[at:].data_ptr(), nbytes, vec, stream) == 0
+        assert fn(src[at:].data_ptr(), out[at:].data_ptr(), nbytes, vec, None,
+                  stream) == 0
         torch.cuda.synchronize()
         assert torch.equal(out[at:at + nbytes], src[at:at + nbytes]), (nbytes, vec)
         assert bool((out[:at] == 0xAB).all()) and bool((out[at + nbytes:] == 0xAB).all())
@@ -323,7 +334,7 @@ def test_ragged_tables_on_card(table):
         out = torch.full_like(src, float("nan"))
         table_d = torch.as_tensor(counts, dtype=torch.int32, device="cuda")
         assert _entry("exchange", entry)(src.data_ptr(), out.data_ptr(), table_d.data_ptr(),
-                                         ROWS * row, row, 8, 16, stream) == 0
+                                         ROWS * row, row, 8, 16, None, stream) == 0
         want = (rc.all_to_all_v_plain(src, counts, 8) if counts.ndim == 2
                 else rc.all_gather_v_plain(src, counts, 8))
         _valid_equal(out.cpu().numpy(), want.cpu().numpy(), counts)
@@ -334,3 +345,90 @@ def test_ragged_tables_on_card(table):
             tails = [out[i, c[i]:] for i in range(8)]
         assert all(bool(torch.isnan(t).all()) for t in tails), (entry, table)
 
+
+# -- under CUDA graph capture ------------------------------------------------
+
+#: rounds of each case: twice the pool and more, and 200 paired replays
+BESIDE_ROUNDS = 2 * mc.TICKET_SLOTS + 100
+APART_ROUNDS = 200
+#: what a mover entry returns, having launched nothing, on a capturing
+#: stream without a counter pair (cudaErrorStreamCaptureUnsupported)
+NEEDS_COUNTER = 900
+
+
+def _mover_call(entry: str):
+    """(library, x, out, the entry's arguments between ``out`` and ``vec``,
+    the counts tables they point to) on ``x`` (8, 8, 4, 256) int32 with
+    every count full."""
+    x = torch.arange(8 * 8 * 4 * 256, dtype=torch.int32, device="cuda")
+    x = x.view(8, 8, 4, 256)
+    out = torch.full_like(x, -1)
+    rank, block = x[0].numel() * 4, x[0, 0].numel() * 4
+    full = torch.full((8, 8), 4, dtype=torch.int32, device="cuda")
+    rows = torch.full((8,), 32, dtype=torch.int32, device="cuda")
+    args = {"otpu_ring_all_gather": ("ring_copy", (8 * rank,)),
+            "otpu_ring_all_gather_bidi": ("ring_copy", (rank, 8)),
+            "otpu_ring_right_permute": ("ring_copy", (rank, 8)),
+            "otpu_all_to_all": ("exchange", (block, 8)),
+            "otpu_all_to_all_v": ("exchange", (full.data_ptr(), block, 1024, 8)),
+            # (8, 32, 256) rows: slot 32 KB, 32 rows a rank
+            "otpu_all_gather_v": ("exchange", (rows.data_ptr(), rank, 1024,
+                                               8))}
+    lib, between = args[entry]
+    return lib, x, out, between, (full, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["otpu_ring_all_gather",
+                                   "otpu_ring_all_gather_bidi",
+                                   "otpu_ring_right_permute", "otpu_all_to_all",
+                                   "otpu_all_to_all_v", "otpu_all_gather_v"])
+def test_a_captured_launch_without_its_counter_is_refused_on_card(entry):
+    """On a capturing stream, an entry given no counter pair returns 900,
+    draws no slot of its library's pool and launches nothing: the replay
+    runs the rest of the capture and leaves ``out`` as it was.  The same
+    call made eagerly draws one slot and copies."""
+    _card()
+    lib, x, out, between, _counts = _mover_call(entry)
+    fn, dealt = _entry(lib, entry), _entry(lib, f"otpu_{lib}_tickets_dealt")
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    before = dealt()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        marker.add_(1)
+        err = fn(x.data_ptr(), out.data_ptr(), *between, 16, None,
+                 torch.cuda.current_stream().cuda_stream)
+    assert err == NEEDS_COUNTER and dealt() == before, (err, entry)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(marker) == 1.0 and bool((out == -1).all()), entry
+    assert fn(x.data_ptr(), out.data_ptr(), *between, 16, None,
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert dealt() == before + 1 and bool((out != -1).any()), entry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["all_gather", "all_to_all_v"])
+def test_captured_launch_beside_eager_launches_on_card(kernel):
+    """One captured launch replayed on stream A, BESIDE_ROUNDS times, each
+    replay started together with an eager launch of the same library on
+    stream B, each input bumped before its launch: the capture drew no
+    slot of the pool, and every replay and every eager result is
+    byte-exact."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(len(kernel))
+    assert mc.beside_eager(kernel, BESIDE_ROUNDS, gen) == (0, 0, 0), kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["all_gather", "all_to_all_v"])
+def test_two_captures_a_pool_apart_replayed_at_once_on_card(kernel):
+    """Two graphs whose captured launches are a pool's length of launches
+    apart, replayed APART_ROUNDS times, each pair of replays started
+    together on two streams, each on its own input bumped before each
+    replay: both byte-exact."""
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(len(kernel) + 1)
+    assert mc.two_apart(kernel, APART_ROUNDS, gen) == (0, 0), kernel

@@ -258,14 +258,15 @@ def test_persistent_copies_bind_their_slot(torch_world):
         h = w.c_coll["persistent_coll"](w, coll, host, *args)
         np.testing.assert_array_equal(_bits(_np(h(host))), _bits(want))
     with pytest.raises(MpiError) as e:
-        w.c_coll["persistent_coll"](w, "scan", host)
+        w.c_coll["persistent_coll"](w, "neighbor_allgather", host)
     assert e.value.error_class is ErrorClass.ERR_UNSUPPORTED_OPERATION
 
 
 def test_coll_init_request_lifecycle(torch_world):
     """``coll_init``: inactive until started, then each start re-runs the
     bound collective on the template and completes at once; the host
-    branch needs the host tier and raises."""
+    branch binds barrier through coll/conductor, and a collective it
+    cannot bind raises."""
     w = torch_world
     x = torch.from_numpy(_stack((8, 24), 3))
     req = w.coll_init("allreduce", x)
@@ -274,8 +275,14 @@ def test_coll_init_request_lifecycle(torch_world):
         req.start()
         req.wait()
         assert torch.equal(req.result, w.allreduce_array(x))
+    barrier = w.coll_init("barrier")
+    assert barrier.test()[0] and barrier.result is None
+    for _ in range(2):
+        barrier.start()
+        barrier.wait()
+        assert barrier.result is None
     with pytest.raises(MpiError) as e:
-        w.coll_init("barrier")
+        w.coll_init("neighbor_allgather")
     assert e.value.error_class is ErrorClass.ERR_UNSUPPORTED_OPERATION
 
 

@@ -114,10 +114,11 @@ def test_cpu_world_has_eight_virtual_ranks(torch_world):
     assert w.size == 8 and w.rank == 0
     assert w.rte.is_device_world and w.rte.device == torch.device("cpu")
     assert ompi_tpu_torch.COMM_WORLD is w
-    # the default selection: coll/builtin (90) owns the slot over coll/ring (85)
+    # the default selection: coll/builtin (90) owns the slot over coll/ring
+    # (85); coll/conductor (40) fills the host slots
     assert _owner(w) == "BuiltinCollModule"
     assert [type(m).__name__ for m in w.coll_modules] == \
-        ["RingCollModule", "BuiltinCollModule"]
+        ["ConductorModule", "RingCollModule", "BuiltinCollModule"]
 
 
 def test_virtual_ranks_var_sizes_the_world():
@@ -161,7 +162,7 @@ def test_unfilled_slots_raise(torch_world):
     from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 
     with pytest.raises(MpiError) as e:
-        torch_world._coll("scan_array")
+        torch_world._coll("partitioned_coll")
     assert e.value.error_class is ErrorClass.ERR_UNSUPPORTED_OPERATION
 
 
@@ -295,7 +296,8 @@ def test_components_come_from_the_port(torch_world):
 
     assert mca.MCA_PACKAGE == "ompi_tpu_torch.mca"
     coll = coll_framework()
-    assert sorted(coll.components) == ["builtin", "quant", "ring", "tuned"]
+    assert sorted(coll.components) == ["builtin", "conductor", "quant", "ring",
+                                       "self_coll", "tuned"]
     op_fw = op_base._framework()
     assert sorted(op_fw.components) == ["builtin", "cuda_vpu"]
     for comp in [*coll.components.values(), *op_fw.components.values()]:

@@ -234,12 +234,14 @@ def test_finalize_releases_every_comm(torch_world):
 
     d = torch_world.dup()
     dd = d.dup()
-    assert (d.cid, dd.cid) == (1, 2) and d.c_coll and dd.c_coll
+    # cid 0 is COMM_WORLD, cid 1 COMM_SELF
+    assert (d.cid, dd.cid) == (2, 3) and d.c_coll and dd.c_coll
+    me = rt.comm_self()
     rt.finalize()
-    for c in (torch_world, d, dd):
+    for c in (torch_world, me, d, dd):
         assert c.c_coll == {} and c.coll_modules == []
     w = ompi_tpu_torch.init(device="cpu")
-    assert w.dup().cid == 1                     # the counter starts afresh
+    assert w.dup().cid == 2                     # the counter starts afresh
 
 
 # -- coll/ring: wire16 and the budget ------------------------------------------
