@@ -212,6 +212,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    their redesign, and of K10, K11, K13–K16 and the torus all-gather before
    the byte mover.  The ``k1_compiled`` line gives K1's compiled kernel at
    its row's shape: registers, spills, shared memory and persistent grid.
+5. The host tier (no kernel runs here): in the device world,
+   ``as_rank(0).send`` of a 16 MB float32 tensor on the card to
+   ``as_rank(5).recv`` into numpy (bytes equal to ``t.cpu()``), with the
+   staging time (``torch_acc.to_host``, median of 11) and the host µs per
+   8-byte message; then three jobs of the port's tpurun (each must exit
+   0): ``-n 4`` of ``ompi_tpu_torch.examples.ring`` (rank 0's lines the
+   token countdown), a ``-n 2`` ping-pong over btl/sm (one-way latency at
+   8 B, eager; bandwidth at 4 MB, rendezvous), and a ``-n 4`` coll/basic
+   allreduce of a 16 MB float32 tensor a rank on the card, bit for bit
+   against a numpy fold in coll/basic's order on every rank.  All on one
+   ``{"host_tier": {...}}`` line that carries the card's name and power
+   limit.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -2535,6 +2547,207 @@ def build_report() -> dict:
     return report
 
 
+# -- phase 5: the host tier ----------------------------------------------
+
+#: a -n 2 ping-pong over btl/sm: one-way latency at 8 B (eager) and the
+#: bandwidth at 4 MB (above sm's 512 KB eager limit: RNDV), osu_latency's
+#: shape (warm-up rounds, then timed round trips, half a round trip each)
+PINGPONG = r"""
+import json, sys, time
+import numpy as np
+import ompi_tpu_torch
+from ompi_tpu_torch.api import request
+w = ompi_tpu_torch.init()
+peer = 1 - w.rank
+res = {}
+# how a wait idled: each poll that found nothing counts; polls past
+# _YIELD_AFTER yield the core, past _SLEEP_AFTER block in a select on the
+# doorbell (woken by the peer)
+idle = {"polls": 0, "yields": 0, "blocks": 0}
+backoff = request._idle_backoff
+
+
+def counted_backoff(spins):
+    idle["polls"] += 1
+    if spins >= request._SLEEP_AFTER:
+        idle["blocks"] += 1
+    elif spins >= request._YIELD_AFTER:
+        idle["yields"] += 1
+    backoff(spins)
+
+
+request._idle_backoff = counted_backoff
+per_round_trip = {}
+for size, rounds in ((8, 2000), (4 << 20, 40)):
+    a = np.full(size // 4, w.rank + 1, np.float32)
+    b = np.empty_like(a)
+    warm = rounds // 10
+    for i in range(warm + rounds):
+        if i == warm:
+            w.barrier()
+            t0 = time.perf_counter()
+            idle0 = dict(idle)
+        if w.rank == 0:
+            w.send(a, 1, 7)
+            w.recv(b, 1, 7)
+        else:
+            w.recv(b, 0, 7)
+            w.send(a, 0, 7)
+    one_way = (time.perf_counter() - t0) / rounds / 2
+    per_round_trip[size] = {k: (idle[k] - idle0[k]) / rounds for k in idle}
+    assert np.all(b == peer + 1), "ping-pong payload"
+    res[size] = one_way
+if w.rank == 0:
+    print(json.dumps({"latency_us_8B": res[8] * 1e6,
+                      "bandwidth_MBps_4MB": (4 << 20) / res[4 << 20] / 1e6,
+                      "one_way_ms_4MB": res[4 << 20] * 1e3,
+                      "rank0_idle_polls_per_round_trip_8B":
+                          per_round_trip[8]["polls"],
+                      "rank0_yields_per_round_trip_8B":
+                          per_round_trip[8]["yields"],
+                      "rank0_blocks_per_round_trip_8B":
+                          per_round_trip[8]["blocks"]}),
+          flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+#: a -n 4 coll/basic allreduce of 16 MB of float32 a rank, each rank's
+#: buffer a tensor on the card; every rank checks the result bit for bit
+#: against a numpy fold in coll/basic's order (root folds right to left:
+#: acc = x[n-1], then acc = x[i] + acc for i = n-2 .. 0)
+ALLREDUCE = r"""
+import json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+w = ompi_tpu_torch.init()
+n, r = w.size, w.rank
+assert w.rte.device.type == "cuda" and type(
+    w.c_coll["allreduce"].__self__).__name__ == "BasicCollModule"
+host = [np.random.default_rng(int(sys.argv[1]) + i).standard_normal(
+    4 << 20).astype(np.float32) for i in range(n)]
+x = torch.from_numpy(host[r]).to(w.rte.device)
+want = host[n - 1].copy()
+for i in range(n - 2, -1, -1):
+    np.add(host[i], want, out=want)
+times = []
+for _ in range(5):
+    w.barrier()
+    t0 = time.perf_counter()
+    got = w.allreduce(x)
+    times.append(time.perf_counter() - t0)
+ok = isinstance(got, np.ndarray) and got.tobytes() == want.tobytes()
+print(json.dumps({"rank": r, "bit_exact": ok,
+                  "ms": sorted(times)[len(times) // 2] * 1e3}), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+
+def tpurun(n: int, argv: list, timeout: int = 240) -> tuple:
+    """Run ``argv`` under the port's tpurun; (return code, {rank: lines},
+    wall seconds).  The job's own failure fails the phase."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.tools.tpurun",
+                        "-n", str(n), *argv], capture_output=True, text=True,
+                       timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = {}
+    for line in r.stdout.splitlines():
+        if line.startswith("["):
+            rank, _, rest = line.partition("] ")
+            lines.setdefault(int(rank[1:]), []).append(rest)
+    require(r.returncode == 0, f"tpurun -n {n} {argv} exited {r.returncode}:"
+            f"\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return lines, wall
+
+
+def job_result(lines: dict, rank: int) -> dict:
+    """The JSON object a rank printed last; other lines (a library's
+    warnings) are logged."""
+    objs = [x for x in lines.get(rank, []) if x.startswith("{")]
+    other = [x for x in lines.get(rank, []) if not x.startswith("{")]
+    if other:
+        log(f"rank {rank} also printed: {other[-5:]}")
+    require(bool(objs), f"rank {rank} printed no result: {lines.get(rank)}")
+    return json.loads(objs[-1])
+
+
+def host_tier(gen, smi: str) -> dict:
+    """The host tier on the card's machine: point-to-point in the device
+    world with a tensor on the card as the send buffer (staged through
+    ``torch_acc.to_host``), then three multi-process jobs of the port's
+    tpurun — the ring example, a ping-pong over btl/sm, and a coll/basic
+    allreduce of tensors on the card.  No kernel runs here."""
+    import tempfile
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mca.accelerator import torch_acc
+    from ompi_tpu_torch.runtime import init as rt
+
+    # glibc's allocator settings, which decide whether a freed 16 MB block
+    # goes back to the kernel (and its next use faults its pages in again)
+    out = {"card": smi, "malloc_env": {k: v for k, v in os.environ.items()
+                                       if k.startswith("MALLOC_")}}
+    world = ompi_tpu_torch.init()
+    t = operands(torch.float32, (16 * MB // 4,), gen)
+    want = t.cpu().numpy()
+    buf = np.empty(16 * MB // 4, np.float32)
+    world.as_rank(0).send(t, dest=5, tag=1)
+    st = world.as_rank(5).recv(buf, source=0, tag=1)
+    require(buf.tobytes() == want.tobytes() and st._nbytes == 16 * MB
+            and st.source == 0, "device world: 16 MB tensor send/recv bytes")
+
+    def med_ms(fn, reps: int = 11) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def send_recv():
+        world.as_rank(0).send(t, dest=5, tag=2)
+        world.as_rank(5).recv(buf, source=0, tag=2)
+
+    small, sbuf = np.arange(2, dtype=np.float32), np.empty(2, np.float32)
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS * 10):
+        world.as_rank(0).send(small, dest=5, tag=3)
+        world.as_rank(5).recv(sbuf, source=0, tag=3)
+    per_msg_us = (time.perf_counter() - t0) / (HOST_CALLS * 10) * 1e6
+    out["device_world"] = {
+        "send_16MB_bytes_equal": True,
+        "staging_ms_16MB": med_ms(lambda: torch_acc.to_host(t)),
+        "send_recv_ms_16MB": med_ms(send_recv),
+        "host_us_per_msg_8B": per_msg_us}
+    rt.finalize()
+
+    lines, wall = tpurun(4, [sys.executable, "-m",
+                             "ompi_tpu_torch.examples.ring"])
+    ring = [f"rank 0: token now {k}" for k in range(9, -1, -1)] + \
+        ["rank 0 exiting"]
+    require(lines.get(0) == ring, f"ring: rank 0 printed {lines.get(0)}")
+    require(all(lines.get(r) == [f"rank {r} exiting"] for r in (1, 2, 3)),
+            f"ring: ranks 1-3 printed {lines}")
+    out["ring_4"] = {"rank0_lines": len(ring), "wall_s": wall}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ping, coll = Path(tmp, "pingpong.py"), Path(tmp, "allreduce.py")
+        ping.write_text(PINGPONG)
+        coll.write_text(ALLREDUCE)
+        lines, wall = tpurun(2, [sys.executable, str(ping)])
+        out["pingpong_2"] = {**job_result(lines, 0), "wall_s": wall}
+        lines, wall = tpurun(4, [sys.executable, str(coll), str(SEED)])
+    ranks = [job_result(lines, r) for r in range(4)]
+    require(all(x["bit_exact"] for x in ranks),
+            f"coll/basic allreduce of card tensors not bit-exact: {ranks}")
+    out["allreduce_4_16MB"] = {"bit_exact": True,
+                               "ms_by_rank": [x["ms"] for x in ranks],
+                               "wall_s": wall}
+    log(json.dumps({"host_tier": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -2599,6 +2812,7 @@ def main() -> int:
     rows = measure(gen, launched, err)
     rows.append(measure_flash(gen, trained["flash_block"], err))
     rows += measure_fused_matmul(gen, moe_launched, err)
+    host_tier(gen, smi)
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))

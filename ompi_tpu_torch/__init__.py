@@ -7,7 +7,12 @@ device tier rebuilt on PyTorch: the device world is N virtual ranks held as
 the rows of one tensor on one NVIDIA card, device collectives are torch
 reductions (coll/builtin) or hand-written ring kernels (coll/ring, CUDA
 C++), and the op framework's folds are hand-written Triton kernels
-(op/cuda_vpu).  ``ompi_tpu_torch.parallel`` runs the reference's flagship
+(op/cuda_vpu).  Point-to-point runs through pml/ob1 over btl/self in the
+device world and over btl/sm between the processes that
+``python -m ompi_tpu_torch.tools.tpurun`` launches (one rank a process,
+the multi-process world, whose host collectives are coll/basic's); a
+tensor handed to either is staged to the host.
+``ompi_tpu_torch.parallel`` runs the reference's flagship
 training step (dp × pp × sp × tp) on the same virtual ranks, its ring
 attention's block update a hand-written CUDA C++ kernel.  Each kernel has a
 plain PyTorch version that serves CPU tensors, so the whole port runs on

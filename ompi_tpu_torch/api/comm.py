@@ -16,9 +16,20 @@ rank, so a CID is a local find-and-set): ``dup``, ``split``, ``create``,
 ``create_group``, ``compare``, ``free`` and ``as_rank``.  In the device
 world ``split`` and ``create`` return the new comm that holds the
 conductor's rank (world rank 0), or None where it holds none;
-``as_rank(i)`` acts as rank i.  Not ported yet: ``split_type`` and
-``create_from_group`` (the instance layer), topologies, error handlers,
-attributes, point-to-point and fault tolerance beyond ``agree``.
+``as_rank(i)`` acts as rank i.  In the multi-process world (``tpurun``)
+a CID is agreed over the comm (``_next_cid``, ``comm_cid.c:53``) and
+``split`` exchanges the (color, key) table with an allgather.
+
+Point-to-point (``ompi_tpu/api/comm.py:563-805``) dispatches to the
+selected pml module as ``MPI_Send`` does (``ompi/mpi/c/send.c:93`` →
+``MCA_PML_CALL``): the send modes, their persistent forms, ``sendrecv``,
+the probe family and the object forms.  A tensor given as a buffer is
+staged through ``torch_acc.to_host`` (the reference's ``np.asarray`` of a
+``jax.Array``); as a receive buffer it is read-only there, as
+``np.asarray`` of a ``jax.Array`` is, so the delivery raises ValueError.
+Not ported yet: ``split_type`` and ``create_from_group`` (the instance
+layer), the partitioned forms (``mca/part``), topologies, error handlers,
+attributes, intercommunicators and fault tolerance beyond ``agree``.
 """
 from __future__ import annotations
 
@@ -32,6 +43,8 @@ from ompi_tpu_torch.api.errors import ErrorClass, MpiError, RevokedError
 from ompi_tpu_torch.api.group import Group
 from ompi_tpu_torch.api.info import Info
 from ompi_tpu_torch.api.request import CompletedRequest, Request
+from ompi_tpu_torch.api.status import ANY_SOURCE, ANY_TAG, PROC_NULL, Status
+from ompi_tpu_torch.datatype import Datatype, from_numpy_dtype
 
 #: collective function slots a coll module can fill (the entry points of
 #: ``ompi_tpu/api/comm.py:COLL_FUNCTIONS`` ported so far)
@@ -47,6 +60,39 @@ COLL_FUNCTIONS = (
     "psum_scatter_array", "reduce_array", "gather_array", "scatter_array",
     "allgatherv_array", "alltoallv_array", "scan_array", "exscan_array",
     "persistent_coll", "device_barrier", "agree")
+
+_torch_acc = None
+
+
+def host_buffer(buf) -> np.ndarray:
+    """A buffer as numpy: a tensor goes through ``torch_acc.to_host`` (on
+    the card, a D2H copy) and comes back read-only, as ``np.asarray`` of a
+    ``jax.Array`` does in the reference (point-to-point and coll/basic)."""
+    if isinstance(buf, np.ndarray):
+        return buf
+    global _torch_acc
+    if _torch_acc is None:
+        from ompi_tpu_torch.mca.accelerator import torch_acc
+
+        _torch_acc = torch_acc
+    if _torch_acc.is_device_array(buf):
+        arr = _torch_acc.to_host(buf)
+        arr.flags.writeable = False
+        return arr
+    return np.asarray(buf)
+
+
+def as_buffer(buf) -> tuple[np.ndarray, int, Datatype]:
+    """Normalize a user buffer to (ndarray, count, datatype).
+
+    Accepts an ndarray or a tensor (count/type inferred), or an explicit
+    ``(buffer, count, Datatype)`` triple for derived layouts.
+    """
+    if isinstance(buf, tuple):
+        arr, count, dt = buf
+        return host_buffer(arr), count, dt
+    arr = host_buffer(buf)
+    return arr, arr.size, from_numpy_dtype(arr.dtype)
 
 
 class Comm:
@@ -66,6 +112,7 @@ class Comm:
         self.info = Info()
         self.revoked = False
         self.freed = False
+        self.pml = None           # selected pml module (set at creation)
         self._rank = group.rank_of(rte.my_world_rank) if rte else 0
 
     @property
@@ -98,12 +145,16 @@ class Comm:
     def set_name(self, name: str) -> None:
         self.name = name
 
-    def _check_state(self) -> None:
-        # NOTE: allreduce_array inlines this predicate on its fast path
+    def _check_state(self, peer: Optional[int] = None) -> None:
+        # NOTE: allreduce_array inlines the peer=None predicate on its
+        # fast path
         if self.freed:
             raise MpiError(ErrorClass.ERR_COMM, "communicator was freed")
         if self.revoked:
             raise RevokedError(f"{self.name} revoked")
+        if peer is not None and peer not in (ANY_SOURCE, PROC_NULL):
+            if not 0 <= peer < self.size:
+                raise MpiError(ErrorClass.ERR_RANK, f"invalid rank {peer}")
 
     def _coll(self, name: str):
         fn = self.c_coll.get(name)
@@ -154,17 +205,23 @@ class Comm:
         return Comm.UNEQUAL
 
     def split(self, color, key=0) -> Optional["Comm"]:
-        """``MPI_Comm_split`` in the device world: ``color`` and ``key`` are
-        scalars or ``(size,)`` arrays of per-rank values.  One CID per
-        distinct non-negative color, allocated in sorted color order; the
-        members of a color ordered by (key, rank).  Returns the new comm of
-        this (facade) rank's color, or None for a color < 0
-        (``MPI_UNDEFINED``)."""
+        """``MPI_Comm_split``.  Device world: ``color`` and ``key`` are
+        scalars or ``(size,)`` arrays of per-rank values.  Multi-process
+        world: each rank passes its own, and the table is exchanged with an
+        allgather over the parent.  One CID per distinct non-negative color,
+        allocated in sorted color order; the members of a color ordered by
+        (key, rank).  Returns the new comm of this (facade) rank's color,
+        or None for a color < 0 (``MPI_UNDEFINED``)."""
         self._check_state()
-        colors = np.broadcast_to(np.asarray(color, np.int64), (self.size,))
-        keys = np.broadcast_to(np.asarray(key, np.int64), (self.size,))
-        table = np.stack([colors, keys,
-                          np.arange(self.size, dtype=np.int64)], 1)
+        if self.rte is not None and self.rte.is_device_world:
+            colors = np.broadcast_to(np.asarray(color, np.int64),
+                                     (self.size,))
+            keys = np.broadcast_to(np.asarray(key, np.int64), (self.size,))
+            table = np.stack([colors, keys,
+                              np.arange(self.size, dtype=np.int64)], 1)
+        else:
+            mine = np.array([color, key, self.rank], dtype=np.int64)
+            table = np.asarray(self.allgather(mine)).reshape(self.size, 3)
         distinct = sorted({int(c) for c, _, _ in table if c >= 0})
         cids = {c: self._next_cid() for c in distinct}
         my_color = int(table[self.rank, 0])
@@ -190,37 +247,104 @@ class Comm:
         return newcomm
 
     def create_group(self, group: Group, tag: int = 0) -> Optional["Comm"]:
-        """``MPI_Comm_create_group``: non-collective over the parent; in the
-        device world the CID is the local next one."""
+        """``MPI_Comm_create_group``: non-collective over the parent; only
+        group members take part.  In the device world the CID is the local
+        next one; otherwise the members agree on it over parent p2p on a
+        reserved tag."""
         if group.rank_of(self.rte.my_world_rank) < 0:
             return None
-        newcomm = Comm(group, self._next_cid(), self.rte,
+        if self.rte is not None and self.rte.is_device_world:
+            from ompi_tpu_torch.runtime import init as rt
+
+            cid = rt.next_local_cid()
+        else:
+            cid = self._agree_cid_group(group, tag)
+        newcomm = Comm(group, cid, self.rte,
                        name=f"{self.name}~create_group")
         self._finish_create(newcomm)
         return newcomm
 
     def _next_cid(self) -> int:
-        """The next CID: one process backs every rank of the device world,
-        so a local find-and-set is the agreement (``comm_cid.c:53``)."""
+        """Agree on the next free CID across members (``comm_cid.c:53``).
+
+        One process backs every rank of the device world, so a local
+        find-and-set is the agreement there.  Otherwise multi-round, as the
+        reference: each member proposes its first locally-free id
+        (unreserved), the group takes the MAX, then a second allreduce
+        confirms the winner is free on every member; on a conflict,
+        re-propose above it."""
         from ompi_tpu_torch.runtime import init as rt
 
-        return rt.next_local_cid()
+        if self.rte is not None and self.rte.is_device_world:
+            return rt.next_local_cid()
+        floor = 0
+        while True:
+            local = rt.candidate_cid(floor)
+            agreed = int(np.asarray(self.allreduce(
+                np.array([local], dtype=np.int64), op_mod.MAX)).ravel()[0])
+            ok = 1 if rt.is_cid_free(agreed) else 0
+            all_ok = int(np.asarray(self.allreduce(
+                np.array([ok], dtype=np.int64), op_mod.MIN)).ravel()[0])
+            if all_ok:
+                rt.reserve_cid(agreed)
+                return agreed
+            floor = agreed + 1
 
-    @staticmethod
-    def _finish_create(newcomm: "Comm") -> None:
-        """Every new comm: registered for finalize, then coll selection."""
+    def _agree_cid_group(self, group: Group, tag: int) -> int:
+        """Multi-round CID agreement among group members via parent p2p
+        (``ompi_tpu/api/comm.py:_agree_cid_group``)."""
+        from ompi_tpu_torch.runtime import init as rt
+
+        members = [self.group.rank_of(w) for w in group.world_ranks]
+        leader = members[0]
+        t = -(1 << 20) - tag  # reserved internal tag space
+
+        def xchg(value: int, combine) -> int:
+            if self.rank == leader:
+                acc = value
+                got = np.zeros(1, dtype=np.int64)
+                for m in members[1:]:
+                    self.recv(got, m, t)
+                    acc = combine(acc, int(got[0]))
+                out = np.array([acc], dtype=np.int64)
+                for m in members[1:]:
+                    self.send(out, m, t)
+                return acc
+            self.send(np.array([value], dtype=np.int64), leader, t)
+            got = np.zeros(1, dtype=np.int64)
+            self.recv(got, leader, t)
+            return int(got[0])
+
+        floor = 0
+        while True:
+            agreed = xchg(rt.candidate_cid(floor), max)
+            all_ok = xchg(1 if rt.is_cid_free(agreed) else 0, min)
+            if all_ok:
+                rt.reserve_cid(agreed)
+                return agreed
+            floor = agreed + 1
+
+    def _finish_create(self, newcomm: "Comm") -> None:
+        """Every new comm (``_wire_new_comm``, ``comm.py:1095``): registered
+        for finalize, the parent's pml attached, then coll selection."""
         from ompi_tpu_torch.mca.coll.base import comm_select
         from ompi_tpu_torch.runtime import init as rt
 
         rt.register_comm(newcomm)
+        newcomm.pml = self.pml
+        if self.pml is not None:
+            self.pml.add_comm(newcomm)
         comm_select(newcomm)
 
     def free(self) -> None:
-        """``MPI_Comm_free``: release the coll modules and retire the CID
-        (never reused).  A second free is a no-op."""
+        """``MPI_Comm_free``: release the coll modules, drop the pml's
+        matching state and retire the CID (never reused).  A second free is
+        a no-op."""
         if self.freed:
             return
         self.release_coll_modules()
+        if self.pml is not None:
+            self.pml.del_comm(self)
         if self.cid > 1:
             from ompi_tpu_torch.runtime import init as rt
 
@@ -509,6 +633,192 @@ class Comm:
                            "no device persistent-collective provider on "
                            f"{self.name}")
         return fn(self, "allreduce", template, op)
+
+    # -- p2p dispatch (→ selected pml, like MCA_PML_CALL) ---------------
+    def send(self, buf, dest: int, tag: int = 0) -> None:
+        self._check_state(dest)
+        if dest == PROC_NULL:
+            return
+        self.pml.send(self, buf, dest, tag)
+
+    def recv(self, buf, source: int = ANY_SOURCE, tag: int = ANY_TAG) -> Status:
+        self._check_state(source)
+        if source == PROC_NULL:
+            return Status(source=PROC_NULL, tag=ANY_TAG)
+        return self.pml.recv(self, buf, source, tag)
+
+    def isend(self, buf, dest: int, tag: int = 0) -> Request:
+        self._check_state(dest)
+        if dest == PROC_NULL:
+            return CompletedRequest()
+        return self.pml.isend(self, buf, dest, tag)
+
+    def irecv(self, buf, source: int = ANY_SOURCE, tag: int = ANY_TAG) -> Request:
+        self._check_state(source)
+        if source == PROC_NULL:
+            return CompletedRequest(Status(source=PROC_NULL, tag=ANY_TAG))
+        return self.pml.irecv(self, buf, source, tag)
+
+    def ssend(self, buf, dest: int, tag: int = 0) -> None:
+        """``MPI_Ssend``: returns only after the receiver matched."""
+        self.issend(buf, dest, tag).wait()
+
+    def issend(self, buf, dest: int, tag: int = 0) -> Request:
+        self._check_state(dest)
+        if dest == PROC_NULL:
+            return CompletedRequest()
+        return self.pml.isend(self, buf, dest, tag, sync=True)
+
+    def rsend(self, buf, dest: int, tag: int = 0) -> None:
+        """``MPI_Rsend``: with a posted recv it behaves exactly like send
+        (MPI guarantees nothing extra), so it shares the standard path, as
+        pml/ob1 does."""
+        self.send(buf, dest, tag)
+
+    def irsend(self, buf, dest: int, tag: int = 0) -> Request:
+        return self.isend(buf, dest, tag)
+
+    def bsend(self, buf, dest: int, tag: int = 0) -> None:
+        """``MPI_Bsend``: copies into the attached buffer space and
+        returns; the user's buffer is reusable on return."""
+        self.ibsend(buf, dest, tag)   # ibsend is already locally complete
+
+    def ibsend(self, buf, dest: int, tag: int = 0) -> Request:
+        from ompi_tpu_torch.api import buffer as _bsend
+
+        self._check_state(dest)
+        if dest == PROC_NULL:
+            return CompletedRequest()
+        arr = np.ascontiguousarray(host_buffer(buf))
+        _bsend.claim(arr.nbytes)
+        try:
+            inner = self.pml.isend(self, arr.copy(), dest, tag)
+        except Exception:
+            _bsend.release(arr.nbytes)   # claim must not leak
+            raise
+        _bsend.track(inner, arr.nbytes)
+        # buffered semantics: the returned request is LOCALLY complete;
+        # only Buffer_detach waits for the real delivery (a
+        # rendezvous-size inner request must not leak to the caller, or a
+        # bsend-then-wait-then-recv pair would deadlock)
+        return CompletedRequest()
+
+    # -- persistent point-to-point (``MPI_Send_init``/``Recv_init``) ----
+    def send_init(self, buf, dest: int, tag: int = 0) -> Request:
+        from ompi_tpu_torch.api.request import PersistentP2P
+
+        self._check_state(dest)
+        if dest == PROC_NULL:
+            return PersistentP2P(CompletedRequest)
+        return PersistentP2P(lambda: self.pml.isend(self, buf, dest, tag))
+
+    def ssend_init(self, buf, dest: int, tag: int = 0) -> Request:
+        from ompi_tpu_torch.api.request import PersistentP2P
+
+        self._check_state(dest)
+        if dest == PROC_NULL:
+            return PersistentP2P(CompletedRequest)
+        return PersistentP2P(
+            lambda: self.pml.isend(self, buf, dest, tag, sync=True))
+
+    def bsend_init(self, buf, dest: int, tag: int = 0) -> Request:
+        """``MPI_Bsend_init``: every start() claims attach-buffer space and
+        completes locally."""
+        from ompi_tpu_torch.api.request import PersistentP2P
+
+        self._check_state(dest)
+        return PersistentP2P(lambda: self.ibsend(buf, dest, tag))
+
+    def rsend_init(self, buf, dest: int, tag: int = 0) -> Request:
+        """``MPI_Rsend_init``: ready mode shares the standard path."""
+        return self.send_init(buf, dest, tag)
+
+    def recv_init(self, buf, source: int = ANY_SOURCE,
+                  tag: int = ANY_TAG) -> Request:
+        from ompi_tpu_torch.api.request import PersistentP2P
+
+        self._check_state(source)
+        if source == PROC_NULL:
+            return PersistentP2P(
+                lambda: CompletedRequest(Status(source=PROC_NULL, tag=ANY_TAG)))
+        return PersistentP2P(lambda: self.pml.irecv(self, buf, source, tag))
+
+    def sendrecv_replace(self, buf, dest: int, source: int = ANY_SOURCE,
+                         sendtag: int = 0, recvtag: int = ANY_TAG) -> Status:
+        """``MPI_Sendrecv_replace``: the received message overwrites the
+        sent buffer (staged through a copy, like the reference).  ``buf``
+        must be a writable ndarray."""
+        if not isinstance(buf, np.ndarray) or not buf.flags.writeable:
+            raise MpiError(ErrorClass.ERR_BUFFER,
+                           "sendrecv_replace needs a writable ndarray")
+        arr = np.ascontiguousarray(buf)
+        st = self.sendrecv(arr.copy(), dest, arr, source, sendtag, recvtag)
+        if buf is not arr:
+            np.copyto(buf, arr)
+        return st
+
+    def sendrecv(self, sendbuf, dest: int, recvbuf, source: int = ANY_SOURCE,
+                 sendtag: int = 0, recvtag: int = ANY_TAG) -> Status:
+        self._check_state(dest)
+        sreq = self.isend(sendbuf, dest, sendtag) if dest != PROC_NULL else None
+        st = self.recv(recvbuf, source, recvtag)
+        if sreq is not None:
+            sreq.wait()
+        return st
+
+    def probe(self, source: int = ANY_SOURCE, tag: int = ANY_TAG) -> Status:
+        self._check_state(source)
+        return self.pml.probe(self, source, tag, blocking=True)
+
+    def iprobe(self, source: int = ANY_SOURCE,
+               tag: int = ANY_TAG) -> tuple[bool, Optional[Status]]:
+        self._check_state(source)
+        return self.pml.probe(self, source, tag, blocking=False)
+
+    def mprobe(self, source: int = ANY_SOURCE, tag: int = ANY_TAG):
+        self._check_state(source)
+        return self.pml.mprobe(self, source, tag, blocking=True)
+
+    def improbe(self, source: int = ANY_SOURCE, tag: int = ANY_TAG):
+        self._check_state(source)
+        return self.pml.mprobe(self, source, tag, blocking=False)
+
+    def send_obj(self, obj: Any, dest: int, tag: int = 0) -> None:
+        from ompi_tpu_torch.api.request import waitall
+
+        waitall(self.isend_obj(obj, dest, tag))
+
+    def isend_obj(self, obj: Any, dest: int, tag: int = 0) -> list:
+        """Nonblocking ``send_obj``: returns the requests to waitall (they
+        keep the payload buffer alive)."""
+        import pickle
+
+        payload = np.frombuffer(pickle.dumps(obj), dtype=np.uint8)
+        hdr = np.array([payload.size], dtype=np.int64)
+        return [self.isend(hdr, dest, tag), self.isend(payload, dest, tag)]
+
+    def bcast_obj(self, obj: Any = None, root: int = 0) -> Any:
+        """Broadcast an arbitrary picklable object (size agreed first)."""
+        import pickle
+
+        if self.rank == root:
+            payload = np.frombuffer(pickle.dumps(obj), dtype=np.uint8)
+            self.bcast(np.array([payload.size], np.int64), root=root)
+            self.bcast(payload, root=root)
+            return obj
+        hdr = np.asarray(self.bcast(np.zeros(1, np.int64), root=root))
+        payload = np.asarray(self.bcast(
+            np.zeros(int(hdr[0]), np.uint8), root=root))
+        return pickle.loads(payload.tobytes())
+
+    def recv_obj(self, source: int = ANY_SOURCE, tag: int = ANY_TAG) -> Any:
+        import pickle
+
+        hdr = np.zeros(1, dtype=np.int64)
+        st = self.recv(hdr, source, tag)
+        payload = np.zeros(int(hdr[0]), dtype=np.uint8)
+        self.recv(payload, st.source, tag)
+        return pickle.loads(payload.tobytes())
 
     def release_coll_modules(self) -> None:
         """Tear down per-comm coll module state (``free``, and runtime

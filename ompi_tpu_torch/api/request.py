@@ -1,22 +1,24 @@
-"""Requests: the lifecycle of the persistent device collectives.
+"""Request lifecycle: completion callbacks, cancellation, persistent
+requests, and the wait/test families.
 
-Copy of ``Request``, ``CompletedRequest`` and ``PersistentP2P`` from
-``ompi_tpu/api/request.py:78-271``.  The device world has no progress engine:
-every device request is born complete (the stream is the progress engine),
-so ``wait`` and ``test`` never have to drive one.  Not ported yet: the
-progress-driven wait of host requests, the partitioned hooks
-(``pready``/``parrived``), ``GeneralizedRequest`` and the wait/test
-families; they come with the host tier.
+Copy of ``ompi_tpu/api/request.py`` (after the reference's
+``ompi/request/request.h``; the ``ompi_request_wait_completion`` spin at
+``request.h:427`` becomes a progress-driven wait loop).  A device request
+is born complete (the stream is its progress engine); a host request
+(pml/ob1's sends and receives) completes from the progress engine, which
+``wait`` and ``test`` drive.  Not copied: the partitioned hooks
+(``pready``/``parrived``, with ``mca/part``), ``GeneralizedRequest`` and
+the FT completion of ``req_ft.c``.
 """
 from __future__ import annotations
 
 import enum
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterable, Optional, Sequence
 
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError
-from ompi_tpu_torch.api.status import Status
+from ompi_tpu_torch.api.status import UNDEFINED, Status
 
 
 class RequestState(enum.Enum):
@@ -26,8 +28,34 @@ class RequestState(enum.Enum):
     CANCELLED = "cancelled"
 
 
+def _progress() -> int:
+    from ompi_tpu_torch.runtime.progress import progress
+
+    return progress()
+
+
+#: Empty progress polls before yielding the core.  On an oversubscribed
+#: host (more ranks than cores) a waiter that keeps spinning holds its
+#: scheduler quantum while the peer it waits on is runnable but
+#: descheduled; yielding after a handful of empty polls costs ~1 µs on an
+#: idle machine.
+_YIELD_AFTER = 4
+_SLEEP_AFTER = 64
+
+
+def _idle_backoff(spins: int) -> None:
+    """Escalating wait: spin, then sched_yield, then block on the
+    transports' fds (the btl/sm doorbell; wakes in ~10 µs on arrival)."""
+    if spins >= _SLEEP_AFTER:
+        from ompi_tpu_torch.runtime.progress import idle_wait
+
+        idle_wait(0.001)
+    elif spins >= _YIELD_AFTER:
+        time.sleep(0)          # bare yield: give the peer the core
+
+
 class Request:
-    """Base request; a subclass completes it."""
+    """Base request; subclasses drive completion from the progress engine."""
 
     def __init__(self, persistent: bool = False):
         self.state = RequestState.INACTIVE if persistent else RequestState.ACTIVE
@@ -68,22 +96,30 @@ class Request:
     def test(self) -> tuple[bool, Optional[Status]]:
         if self.persistent and self.state is RequestState.INACTIVE:
             return True, Status()    # MPI-3.1 §3.7.3: inactive → empty status
+        if not self.complete_flag:
+            _progress()
         if self.complete_flag:
             self._raise_if_error()
             return True, self.status
         return False, None
 
     def wait(self, timeout: Optional[float] = None) -> Status:
-        """Wait until complete; an inactive persistent request returns the
-        empty status at once (MPI-3.1 §3.7.3).  With nothing to progress,
-        an incomplete request only yields the core while it waits."""
+        """Spin in the progress engine until complete (``request.h:427``).
+        An inactive persistent request returns the empty status at once
+        (MPI-3.1 §3.7.3) instead of spinning forever."""
         if self.persistent and self.state is RequestState.INACTIVE:
             return Status()
         deadline = None if timeout is None else time.monotonic() + timeout
+        spins = 0
         while not self.complete_flag:
+            made = _progress()
             if deadline is not None and time.monotonic() > deadline:
                 raise TimeoutError("request wait timed out")
-            time.sleep(0)
+            if made == 0:
+                spins += 1
+                _idle_backoff(spins)
+            else:
+                spins = 0
         self._raise_if_error()
         return self.status
 
@@ -127,7 +163,8 @@ class Request:
 
 
 class CompletedRequest(Request):
-    """Immediately-complete request (device collectives, empty ops)."""
+    """Immediately-complete request (device collectives, empty ops,
+    trivial sends)."""
 
     def __init__(self, status: Optional[Status] = None):
         super().__init__()
@@ -173,3 +210,109 @@ class PersistentP2P(Request):
             return False
         self._inner.cancel()
         return self._inner.state is RequestState.CANCELLED
+
+
+# -- wait/test families (``ompi/request/req_wait.c`` / ``req_test.c``) ----
+
+def waitall(requests: Sequence[Request],
+            timeout: Optional[float] = None) -> list[Status]:
+    errs = []
+    stats = []
+    for r in requests:
+        try:
+            stats.append(r.wait(timeout))
+        except MpiError as e:
+            errs.append(e)
+            stats.append(r.status)
+    if errs:
+        raise MpiError(ErrorClass.ERR_IN_STATUS, f"{len(errs)} request(s) failed")
+    return stats
+
+
+def waitany(requests: Sequence[Request]) -> tuple[int, Status]:
+    if not requests or all(r.state is RequestState.INACTIVE for r in requests):
+        return UNDEFINED, Status()
+    spins = 0
+    while True:
+        for i, r in enumerate(requests):
+            if r.complete_flag:
+                r._raise_if_error()
+                return i, r.status
+        made = _progress()
+        spins = spins + 1 if made == 0 else 0
+        _idle_backoff(spins)
+
+
+def waitsome(requests: Sequence[Request]):
+    """Returns ``(indices, statuses)``; ``(UNDEFINED, [])`` when the list
+    holds no active request (outcount=MPI_UNDEFINED, MPI-3.1 §3.7.5)."""
+    idx, _ = waitany(requests)
+    if idx == UNDEFINED:
+        return UNDEFINED, []
+    out, stats = [], []
+    for i, r in enumerate(requests):
+        if r.complete_flag:
+            r._raise_if_error()
+            out.append(i)
+            stats.append(r.status)
+    return out, stats
+
+
+def _inactive(r: Request) -> bool:
+    """Inactive persistent requests don't participate in the wait/test
+    families and count as trivially complete (MPI-3.1 §3.7.3/§3.7.5)."""
+    return r.persistent and r.state is RequestState.INACTIVE
+
+
+def testall(requests: Sequence[Request]) -> tuple[bool, Optional[list[Status]]]:
+    _progress()
+    if all(r.complete_flag or _inactive(r) for r in requests):
+        out = []
+        for r in requests:
+            if _inactive(r):
+                out.append(Status())
+                continue
+            r._raise_if_error()
+            out.append(r.status)
+        return True, out
+    return False, None
+
+
+def testany(requests: Sequence[Request]) -> tuple[bool, int, Optional[Status]]:
+    _progress()
+    active = False
+    for i, r in enumerate(requests):
+        if _inactive(r):
+            continue
+        active = True
+        if r.complete_flag:
+            r._raise_if_error()
+            return True, i, r.status
+    if not active:
+        return True, UNDEFINED, Status()
+    return False, UNDEFINED, None
+
+
+def testsome(requests: Sequence[Request]):
+    """Returns ``(indices, statuses)``; ``(UNDEFINED, [])`` when the list
+    holds no active request (outcount=MPI_UNDEFINED, MPI-3.1 §3.7.5)."""
+    _progress()
+    if not requests or all(r.state is RequestState.INACTIVE
+                           for r in requests):
+        return UNDEFINED, []
+    out, stats = [], []
+    for i, r in enumerate(requests):
+        if r.complete_flag:
+            r._raise_if_error()
+            out.append(i)
+            stats.append(r.status)
+    return out, stats
+
+
+def start_all(requests: Iterable[Request]) -> None:
+    """``MPI_Startall``."""
+    for r in requests:
+        r.start()
+
+
+startall = start_all   # MPI spelling

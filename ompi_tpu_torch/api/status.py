@@ -1,7 +1,8 @@
-"""MPI_Status equivalent.
+"""MPI_Status equivalent (``ompi/include/mpi.h.in`` MPI_Status +
+``ompi/mpi/c`` get_count/get_elements semantics).
 
-Copy of ``ompi_tpu/api/status.py`` without ``get_count``/``get_elements``,
-which need the datatype engine of the host tier (not ported yet).
+Copy of ``ompi_tpu/api/status.py`` without ``ROOT``, the intercommunicator
+sentinel (the port has no intercommunicators).
 """
 from __future__ import annotations
 
@@ -9,6 +10,9 @@ from dataclasses import dataclass
 
 from ompi_tpu_torch.api.errors import ErrorClass
 
+ANY_SOURCE = -1
+ANY_TAG = -1
+PROC_NULL = -2
 UNDEFINED = -32766
 
 
@@ -20,8 +24,22 @@ class Status:
     _nbytes: int = 0
     _cancelled: bool = False
 
+    def get_count(self, datatype) -> int:
+        """Number of whole datatype elements received (UNDEFINED if partial)."""
+        if datatype.size == 0:
+            return 0 if self._nbytes == 0 else UNDEFINED
+        n, rem = divmod(self._nbytes, datatype.size)
+        return n if rem == 0 else UNDEFINED
+
+    def get_elements(self, datatype) -> int:
+        """Number of completed elementary items received."""
+        return datatype.element_count(self._nbytes)
+
     def is_cancelled(self) -> bool:
         return self._cancelled
 
     def set_cancelled(self, flag: bool) -> None:
         self._cancelled = flag
+
+    def set_elements(self, datatype, count: int) -> None:
+        self._nbytes = count * datatype.size

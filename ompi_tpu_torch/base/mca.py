@@ -160,6 +160,21 @@ class Framework:
                            comp.name, exc)
             return None
 
+    def select(self) -> Optional[Component]:
+        """The highest-priority available component answering init_query
+        (single-select frameworks: pml, threads)."""
+        with self._lock:
+            if not self.opened:
+                self.open()
+            candidates = [c for c in self.available
+                          if self._query(c) is not None]
+            candidates.sort(key=lambda c: c.priority, reverse=True)
+            chosen = candidates[0] if candidates else None
+            if chosen is not None:
+                _output.output(self.stream, 1, "selected component %s",
+                               chosen.name)
+            return chosen
+
     def select_all(self) -> list[Component]:
         """All available components in descending priority (multi-select fws)."""
         with self._lock:

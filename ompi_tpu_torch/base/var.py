@@ -6,15 +6,16 @@ the port uses: every tunable is a registered typed variable addressable as
 from defaults, parameter files named by ``OTPU_PARAM_FILES``, the
 environment (``OTPU_MCA_<name>``), the command line (``--mca <name>
 <value>``) and the API, with source tracking.  Both packages read the same
-``OTPU_MCA_*`` names, each through its own registry.  The performance
-variables (pvars) of the reference have no user in the port yet.
+``OTPU_MCA_*`` names, each through its own registry.  Performance
+variables (pvars, ``opal/mca/base/mca_base_pvar.c``) back the SPC counters
+(``runtime/spc.py``).
 """
 from __future__ import annotations
 
 import enum
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional
 
 ENV_PREFIX = "OTPU_MCA_"
@@ -145,12 +146,67 @@ class Var:
         self._set(raw, VarSource.API, "api")
 
 
+class PvarClass(enum.Enum):
+    """Performance-variable classes (``mca_base_pvar.h`` equivalents)."""
+
+    COUNTER = "counter"
+    TIMER = "timer"
+    LEVEL = "level"
+    SIZE = "size"
+    HIGHWATERMARK = "highwatermark"
+    LOWWATERMARK = "lowwatermark"
+    STATE = "state"
+    AGGREGATE = "aggregate"
+
+
+@dataclass
+class Pvar:
+    """A performance variable (copy of ``ompi_tpu/base/var.py:Pvar``)."""
+
+    name: str
+    pclass: PvarClass
+    help: str = ""
+    bind: str = ""                 # object class this binds to ("comm", ...)
+    on_read: Optional[Callable] = None   # pre-read hook (flush deferred adds)
+    _value: float = 0
+    _touched: bool = False
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def add(self, delta: float = 1) -> None:
+        with self._lock:
+            self._value += delta
+            self._touched = True
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            if self.pclass is PvarClass.HIGHWATERMARK:
+                self._value = max(self._value, value) if self._touched else value
+            elif self.pclass is PvarClass.LOWWATERMARK:
+                self._value = min(self._value, value) if self._touched else value
+            else:
+                self._value = value
+            self._touched = True
+
+    def read(self) -> float:
+        if self.on_read is not None:
+            self.on_read()
+        return self._value
+
+    def reset(self) -> None:
+        if self.on_read is not None:
+            self.on_read()   # fold deferred adds in before zeroing
+        with self._lock:
+            self._value = 0
+            self._touched = False
+
+
 class VarRegistry:
-    """Process-global registry of vars with reflection."""
+    """Process-global registry of vars and pvars with reflection."""
 
     def __init__(self) -> None:
         self._vars: dict[str, Var] = {}
         self._alias: dict[str, str] = {}
+        self._pvars: dict[str, Pvar] = {}
         self._cli: dict[str, str] = {}
         self._file: dict[str, tuple[str, str]] = {}  # name -> (value, path)
         self._files_loaded = False
@@ -193,6 +249,24 @@ class VarRegistry:
                 self._alias[a] = full
             self._apply_external(var)
             return var
+
+    def register_pvar(
+        self,
+        framework: str,
+        component: str,
+        name: str,
+        *,
+        pclass: PvarClass = PvarClass.COUNTER,
+        help: str = "",
+        bind: str = "",
+    ) -> Pvar:
+        parts = [p for p in ("otpu", framework, component, name) if p]
+        full = "_".join(parts)
+        with self._lock:
+            if full not in self._pvars:
+                self._pvars[full] = Pvar(name=full, pclass=pclass, help=help,
+                                         bind=bind)
+            return self._pvars[full]
 
     # -- external sources ------------------------------------------------
     def _load_files(self) -> None:
@@ -276,6 +350,9 @@ class VarRegistry:
         with self._lock:
             out = [v for v in self._vars.values() if v.group.startswith(group)]
         return sorted(out, key=lambda v: v.name)
+
+    def all_pvars(self) -> list[Pvar]:
+        return sorted(self._pvars.values(), key=lambda p: p.name)
 
 
 registry = VarRegistry()

@@ -1,0 +1,332 @@
+"""Stateful pack/unpack convertor with partial-buffer resume.
+
+Copy of ``ompi_tpu/datatype/convertor.py`` (after the reference's
+``opal/datatype/opal_convertor.c`` and the pack state machine of
+``opal_datatype_pack.c``): a convertor binds a (datatype, count, user
+buffer) triple and iterates the packed byte stream in caller-sized chunks,
+resumable at any byte position (``opal_convertor_set_position``).  Host
+copies are numpy-vectorized: full elements move through a precomputed
+byte-offset template (the flattened type map), partial elements walk
+segment prefix sums — the loops the reference falls back to without its
+native core (``convertor.py:201-230``); the native pack loop and its
+worker-pool fan-out wait for the native core.  Flags mirror
+``opal_convertor.h:50-57``: CHECKSUM (CRC32 of the stream), EXTERNAL32
+(canonical big-endian), DEVICE (the buffer lives on the card — the
+``CONVERTOR_CUDA`` analog; it must be staged to the host first).
+"""
+from __future__ import annotations
+
+import enum
+import zlib
+from typing import Optional, Union
+
+import numpy as np
+
+from ompi_tpu_torch.datatype.core import Datatype
+from ompi_tpu_torch.runtime.hotpath import hot_path
+
+class ConvertorFlags(enum.IntFlag):
+    NONE = 0
+    CHECKSUM = 1
+    EXTERNAL32 = 2
+    DEVICE = 4
+
+
+def _as_byte_view(buffer) -> np.ndarray:
+    """A writable (when possible) flat uint8 view of the caller's buffer."""
+    if isinstance(buffer, np.ndarray):
+        if not buffer.flags.c_contiguous:
+            raise ValueError("convertor requires a C-contiguous buffer")
+        return buffer.reshape(-1).view(np.uint8)
+    return np.frombuffer(buffer, dtype=np.uint8)
+
+
+class Convertor:
+    """Iterates the packed stream of ``count`` elements of ``datatype``."""
+
+    def __init__(
+        self,
+        datatype: Datatype,
+        count: int,
+        buffer=None,
+        flags: ConvertorFlags = ConvertorFlags.NONE,
+        base_offset: int = 0,
+    ) -> None:
+        if datatype.true_lb < 0 and base_offset + datatype.true_lb < 0:
+            raise ValueError("buffer does not cover negative true_lb")
+        self.datatype = datatype
+        self.count = count
+        self.flags = flags
+        self.base_offset = base_offset
+        self._mem: Optional[np.ndarray] = None
+        if buffer is not None:
+            self.prepare(buffer)
+        self.position = 0
+        self.checksum = 0
+        segs = datatype.segments
+        # the segment tables depend only on the datatype: build once and
+        # cache ON the datatype — convertor construction is per-message
+        # (every send/recv request makes one) and must stay O(1)
+        cache = getattr(datatype, "_convertor_cache", None)
+        if cache is None:
+            seg_offs = np.array([s.offset for s in segs], dtype=np.int64)
+            seg_lens = np.array([s.nbytes for s in segs], dtype=np.int64)
+            seg_prefix = np.concatenate(([0], np.cumsum(seg_lens)))
+            # byte-offset template of one element's packed stream
+            tmpl = np.empty(datatype.size, dtype=np.int64)
+            pos = 0
+            for s in segs:
+                tmpl[pos:pos + s.nbytes] = s.offset + np.arange(s.nbytes)
+                pos += s.nbytes
+            # gap-free single segment ⇒ the packed stream IS the memory
+            # layout: pack/unpack collapse to one slice copy
+            contig = (len(segs) == 1 and datatype.extent == datatype.size
+                      and segs[0].nbytes == datatype.size)
+            cache = (seg_offs, seg_lens, seg_prefix, tmpl, contig)
+            try:
+                datatype._convertor_cache = cache
+            except AttributeError:
+                pass   # slots/frozen types: just rebuild next time
+        (self._seg_offs, self._seg_lens, self._seg_prefix,
+         self._template, self._contig) = cache
+        # per-position itemsize (for external32 byteswap alignment)
+        if flags & ConvertorFlags.EXTERNAL32:
+            self._swap_plan = [
+                (int(self._seg_prefix[j]), s.dtype.itemsize, s.count)
+                for j, s in enumerate(segs)
+            ]
+
+    # -- buffer binding --------------------------------------------------
+    def prepare(self, buffer) -> "Convertor":
+        """Bind the user buffer (``opal_convertor_prepare_for_send/recv``)."""
+        if self.flags & ConvertorFlags.DEVICE:
+            raise RuntimeError(
+                "DEVICE-flagged convertor: stage through the accelerator "
+                "component (torch_acc.to_host) before host pack/unpack")
+        self._mem = _as_byte_view(buffer)
+        # Reject layouts that would index outside the buffer: numpy would
+        # wrap negative indices to the buffer's end and silently corrupt.
+        dt, n = self.datatype, self.count
+        if n > 0 and dt.size > 0:
+            lo = self.base_offset + min(0, (n - 1) * dt.extent) + dt.true_lb
+            hi = self.base_offset + max(0, (n - 1) * dt.extent) + dt.true_ub
+            if lo < 0 or hi > len(self._mem):
+                raise ValueError(
+                    f"buffer of {len(self._mem)} bytes does not cover type "
+                    f"span [{lo}, {hi}) for count={n}")
+        return self
+
+    @property
+    def packed_size(self) -> int:
+        return self.count * self.datatype.size
+
+    @property
+    def finished(self) -> bool:
+        return self.position >= self.packed_size
+
+    def set_position(self, position: int) -> None:
+        if not 0 <= position <= self.packed_size:
+            raise ValueError(f"position {position} out of range")
+        if self.flags & ConvertorFlags.EXTERNAL32 and self.datatype.size:
+            rem = position % self.datatype.size
+            j = int(np.searchsorted(self._seg_prefix, rem, side="right")) - 1
+            if j < len(self._seg_lens):
+                off_in_seg = rem - int(self._seg_prefix[j])
+                isz = self.datatype.segments[j].dtype.itemsize
+                if off_in_seg % isz:
+                    raise ValueError(
+                        "external32 position must be item-aligned")
+        self.position = position
+
+    # -- core copy loop --------------------------------------------------
+    def _stream_ranges(self, start: int, nbytes: int):
+        """Yield (mem_lo, mem_hi, stream_off) contiguous copy ranges."""
+        dt = self.datatype
+        size, ext = dt.size, dt.extent
+        p, remaining = start, nbytes
+        while remaining > 0:
+            e, r = divmod(p, size)
+            j = int(np.searchsorted(self._seg_prefix, r, side="right")) - 1
+            seg = dt.segments[j]
+            o = r - int(self._seg_prefix[j])
+            take = min(remaining, seg.nbytes - o)
+            lo = self.base_offset + e * ext + seg.offset + o
+            yield lo, lo + take, p - start
+            p += take
+            remaining -= take
+
+    def _full_element_copy(self, first_elem: int, nelem: int,
+                           packed: np.ndarray, to_packed: bool) -> None:
+        """Gather/scatter of whole elements through the byte-offset
+        template (numpy fancy indexing)."""
+        dt = self.datatype
+        if nelem <= 0:
+            return
+        idx = (self.base_offset
+               + (first_elem + np.arange(nelem, dtype=np.int64))[:, None]
+               * dt.extent
+               + self._template[None, :]).reshape(-1)
+        view = packed[: nelem * dt.size]
+        if to_packed:
+            view[:] = self._mem[idx]
+        else:
+            self._mem[idx] = view
+
+    def _swap_external32(self, chunk: np.ndarray, stream_start: int) -> None:
+        """In-place byteswap of a packed chunk (item-aligned chunks only)."""
+        dt = self.datatype
+        size = dt.size
+        pos = 0
+        n = len(chunk)
+        while pos < n:
+            p = stream_start + pos
+            e, r = divmod(p, size)
+            j = int(np.searchsorted(self._seg_prefix, r, side="right")) - 1
+            seg = dt.segments[j]
+            o = r - int(self._seg_prefix[j])
+            take = min(n - pos, seg.nbytes - o)
+            isz = seg.dtype.itemsize
+            if o % isz or take % isz:
+                raise ValueError("external32 chunk not item-aligned")
+            if isz > 1:
+                sub = chunk[pos:pos + take].reshape(-1, isz)
+                sub[:] = sub[:, ::-1]
+            pos += take
+
+    def pack(self, max_bytes: Optional[int] = None) -> np.ndarray:
+        """Return the next <= max_bytes of the packed stream; advances.
+
+        Returns an OWNED uint8 array (bytes-like; btls write it straight
+        to the wire — returning ``bytes`` would add a full-size copy per
+        fragment on the host hot path)."""
+        if self._mem is None:
+            raise RuntimeError("convertor has no buffer bound")
+        if self.packed_size == 0:
+            return np.empty(0, np.uint8)
+        dt = self.datatype
+        n = self.packed_size - self.position
+        if max_bytes is not None:
+            n = min(n, max_bytes)
+        n = self._align_external32(n)
+        start = self.position
+        if self._contig and not (self.flags & ConvertorFlags.EXTERNAL32):
+            # contiguous fast path: stream position == memory offset
+            lo = self.base_offset + dt.segments[0].offset + start
+            out = np.array(self._mem[lo:lo + n])   # owned copy
+            if self.flags & ConvertorFlags.CHECKSUM:
+                self.checksum = zlib.crc32(out, self.checksum)
+            self.position = start + n
+            return out
+        out = np.empty(n, dtype=np.uint8)
+        # head partial element
+        written = 0
+        size = dt.size
+        e0, r0 = divmod(start, size)
+        if r0:
+            head = min(n, size - r0)
+            for lo, hi, so in self._stream_ranges(start, head):
+                out[so:so + (hi - lo)] = self._mem[lo:hi]
+            written = head
+        # full elements
+        nfull = (n - written) // size
+        if nfull:
+            self._full_element_copy(
+                (start + written) // size, nfull,
+                out[written:written + nfull * size], to_packed=True)
+            written += nfull * size
+        # tail partial
+        if written < n:
+            for lo, hi, so in self._stream_ranges(start + written, n - written):
+                out[written + so: written + so + (hi - lo)] = self._mem[lo:hi]
+            written = n
+        if self.flags & ConvertorFlags.EXTERNAL32:
+            self._swap_external32(out, start)
+        if self.flags & ConvertorFlags.CHECKSUM:
+            self.checksum = zlib.crc32(out, self.checksum)
+        self.position = start + n
+        return out
+
+    @hot_path
+    def pack_borrow(self, max_bytes: Optional[int] = None):
+        """Like :meth:`pack` but may return a zero-copy VIEW of the bound
+        user buffer: ``(chunk, borrowed)``.  When ``borrowed`` is True the
+        chunk aliases user memory — a transport must either consume it
+        synchronously (copy to wire/ring before returning) or take an
+        owned copy before queueing it anywhere (the reference's btl
+        descriptors make the same send-in-place vs buffered distinction).
+        """
+        if (self._contig and self._mem is not None and self.packed_size
+                and not self.flags & (ConvertorFlags.EXTERNAL32
+                                      | ConvertorFlags.CHECKSUM)):
+            n = self.packed_size - self.position
+            if max_bytes is not None:
+                n = min(n, max_bytes)
+            lo = (self.base_offset + self.datatype.segments[0].offset
+                  + self.position)
+            self.position += n
+            return self._mem[lo:lo + n], True
+        return self.pack(max_bytes), False
+
+    def unpack(self, data: Union[bytes, memoryview, np.ndarray]) -> int:
+        """Consume an incoming packed chunk at the current position."""
+        if self._mem is None:
+            raise RuntimeError("convertor has no buffer bound")
+        if self.packed_size == 0:
+            return 0
+        chunk = np.frombuffer(data, dtype=np.uint8).copy() \
+            if self.flags & ConvertorFlags.EXTERNAL32 \
+            else np.frombuffer(data, dtype=np.uint8)
+        n = min(len(chunk), self.packed_size - self.position)
+        aligned = self._align_external32(n)
+        if aligned != n and len(chunk) > aligned:
+            n = aligned  # leave unaligned tail to the caller
+        chunk = chunk[:n]
+        start = self.position
+        if self.flags & ConvertorFlags.CHECKSUM:
+            self.checksum = zlib.crc32(np.ascontiguousarray(chunk),
+                                       self.checksum)
+        if self.flags & ConvertorFlags.EXTERNAL32:
+            self._swap_external32(chunk, start)
+        dt = self.datatype
+        if self._contig and not (self.flags & ConvertorFlags.EXTERNAL32):
+            lo = self.base_offset + dt.segments[0].offset + start
+            self._mem[lo:lo + n] = chunk
+            self.position = start + n
+            return n
+        size = dt.size
+        written = 0
+        e0, r0 = divmod(start, size)
+        if r0:
+            head = min(n, size - r0)
+            for lo, hi, so in self._stream_ranges(start, head):
+                self._mem[lo:hi] = chunk[so:so + (hi - lo)]
+            written = head
+        nfull = (n - written) // size
+        if nfull:
+            self._full_element_copy(
+                (start + written) // size, nfull,
+                chunk[written:written + nfull * size], to_packed=False)
+            written += nfull * size
+        if written < n:
+            for lo, hi, so in self._stream_ranges(start + written, n - written):
+                self._mem[lo:hi] = chunk[written + so: written + so + (hi - lo)]
+        self.position = start + n
+        return n
+
+    def _align_external32(self, n: int) -> int:
+        """Round a chunk size down to an item boundary in external32 mode."""
+        if not (self.flags & ConvertorFlags.EXTERNAL32) or n == 0:
+            return n
+        dt = self.datatype
+        size = dt.size
+        end = self.position + n
+        e, r = divmod(end, size)
+        if r == 0:
+            return n
+        j = int(np.searchsorted(self._seg_prefix, r, side="right")) - 1
+        seg = dt.segments[j]
+        o = r - int(self._seg_prefix[j])
+        slack = o % seg.dtype.itemsize
+        if slack and n - slack <= 0:
+            raise ValueError("external32 chunk smaller than one item")
+        return n - slack

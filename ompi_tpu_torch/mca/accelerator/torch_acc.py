@@ -8,10 +8,16 @@ buffer is a device buffer, which goes to the device collective slots
 ``jax.Array`` counts, CPU-backed ones included, any ``torch.Tensor`` counts,
 whatever its device: the CPU lane takes the same route as the card.
 
-Not ported yet: the host staging pool (``_StagingPool``), the RMA
-registration cache (``register``/``deregister``/``lookup``) and the
-framework's component (``JaxAcceleratorComponent``), whose users are
-host-tier modules.
+The host tier meets a tensor in two places: point-to-point's
+``as_buffer`` and coll/basic's send buffers, both of which stage it through
+``to_host`` (a D2H copy on the card into pageable host memory, the copy
+``Tensor.cpu()`` makes), as the reference's ``np.asarray`` stages a
+``jax.Array``.
+
+Not ported yet: the host staging pool (``_StagingPool``, whose one caller
+in the reference is coll/algorithms), the RMA registration cache
+(``register``/``deregister``/``lookup``, for the one-sided btl segments)
+and the framework's component (``JaxAcceleratorComponent``); ROADMAP A 4.
 """
 from __future__ import annotations
 

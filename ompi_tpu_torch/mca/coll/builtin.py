@@ -89,9 +89,12 @@ programs per ``("allreduce_quant", codec, op, shape, dtype, device)`` and
 template and returns a ``PersistentColl`` (``xla.py:60-93``) bound to the
 cached callable, as the reference binds its cached program; a collective
 with no cached callable (the copies, and an allreduce on a comm with a
-budget, whose codec is picked per call) is bound to its slot.  The
-reference's handle also bumps the SPC device counters and opens a trace
-span per call: neither is ported yet.
+budget, whose codec is picked per call) is bound to its slot.
+
+Every slot call records one device collective and its input's bytes in the
+SPC counters (``spc.bump_device``, ``xla.py:150-185``), as do the binding
+and every call or start of a persistent handle (``xla.py:60-93``); the
+reference's trace spans are not ported.
 """
 from __future__ import annotations
 
@@ -106,6 +109,7 @@ from ompi_tpu_torch.base import cudaenv
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
 from ompi_tpu_torch.mca.coll import quant as quant_mod
+from ompi_tpu_torch.runtime import spc
 
 
 def counts_table(counts, shape: tuple, what: str) -> np.ndarray:
@@ -230,17 +234,23 @@ class PersistentColl:
     """A bound device collective (``MPI_*_init`` analog): ``h(x)`` runs it,
     ``h.start(x)`` returns a request born complete with the result (the
     stream is the progress engine).  ``place`` puts a host stack on the
-    device, as the reference's jitted program does implicitly.  The
-    reference's ``nbytes`` feeds its SPC bump, which is not ported."""
+    device, as the reference's jitted program does implicitly.  Each call
+    bumps the SPC device counters by ``nbytes``, the template's bytes (pre-
+    bound, as the reference's); a handle bound to its slot (``nbytes`` None)
+    leaves the bump to the slot."""
 
-    __slots__ = ("fn", "coll", "_place")
+    __slots__ = ("fn", "coll", "_place", "_nbytes", "_bump")
 
-    def __init__(self, fn, coll: str, place) -> None:
+    def __init__(self, fn, coll: str, place, nbytes=None) -> None:
         self.fn = fn
         self.coll = coll
         self._place = place
+        self._nbytes = nbytes
+        self._bump = spc.bump_device if nbytes is not None \
+            else (lambda _n: None)
 
     def __call__(self, x):
+        self._bump(self._nbytes)
         return self.fn(self._place(x))
 
     def start(self, x):
@@ -371,8 +381,10 @@ class BuiltinCollModule:
         if isinstance(x, torch.Tensor):
             fn = self._cache.get(_keyfor(coll, x, *args))
             if fn is not None:
+                spc.bump_device(x.nbytes)
                 return fn(x)
         x = self._check(comm, x, inner_n)
+        spc.bump_device(x.nbytes)
         return self._cached(_keyfor(coll, x, *args), lambda: make(x))(x)
 
     def _cached(self, key, make):
@@ -389,8 +401,10 @@ class BuiltinCollModule:
         if isinstance(x, torch.Tensor):
             fn = self._cache.get(_key(coll, x, op))
             if fn is not None:
+                spc.bump_device(x.nbytes)
                 return fn(x)
         x = self._check(comm, x, inner_n)
+        spc.bump_device(x.nbytes)
         return self._cached(_key(coll, x, op),
                             lambda: self._reduce_fn(op, x.dtype))(x)
 
@@ -405,6 +419,7 @@ class BuiltinCollModule:
                                    int(getattr(x, "nbytes", 0)), op)
             if codec is not None:
                 x = self._check(comm, x)
+                spc.bump_device(x.nbytes)
                 return self._cached(
                     ("allreduce_quant", codec, op.name, x.shape, x.dtype,
                      x.device),
@@ -419,6 +434,7 @@ class BuiltinCollModule:
 
     def bcast_array(self, comm, x, root: int = 0):
         x = self._check(comm, x)
+        spc.bump_device(x.nbytes)
         return x[int(root) % self.n].expand(x.shape).clone()
 
     def allgather_array(self, comm, x):
@@ -429,17 +445,22 @@ class BuiltinCollModule:
                                    int(getattr(x, "nbytes", 0)))
             if codec is not None:
                 x = self._check(comm, x)
+                spc.bump_device(x.nbytes)
                 return self._cached(
                     ("allgather_quant", codec, x.shape, x.dtype, x.device),
                     lambda: _quant_allgather_fn(codec))(x)
-        return self._check(comm, x).clone()
+        x = self._check(comm, x)
+        spc.bump_device(x.nbytes)
+        return x.clone()
 
     def allgatherv_array(self, comm, x, counts):
         counts = counts_table(counts, (self.n,), "allgatherv")
         return ragged_views(self.allgather_array(comm, x), counts)
 
     def alltoall_array(self, comm, x):
-        return self._check(comm, x, inner_n=True).transpose(0, 1).contiguous()
+        x = self._check(comm, x, inner_n=True)
+        spc.bump_device(x.nbytes)
+        return x.transpose(0, 1).contiguous()
 
     def alltoallv_array(self, comm, x, counts):
         counts = counts_table(counts, (self.n, self.n), "alltoallv")
@@ -518,6 +539,7 @@ class BuiltinCollModule:
 
     def ppermute_array(self, comm, x, perm):
         x = self._check(comm, x)
+        spc.bump_device(x.nbytes)
         perm = tuple((int(s), int(d)) for s, d in perm)
         src, dst = self._perm_index(perm, x.device)
         if len(perm) == self.n:             # every rank receives
@@ -542,7 +564,9 @@ class BuiltinCollModule:
         if fn is None:
             def fn(x):
                 return method(comm, x, *args)
-        return PersistentColl(fn, coll, lambda x: self._check(comm, x))
+            return PersistentColl(fn, coll, lambda x: self._check(comm, x))
+        return PersistentColl(fn, coll, lambda x: self._check(comm, x),
+                              template.nbytes)
 
 
 class BuiltinCollComponent(Component):

@@ -1,0 +1,413 @@
+"""pml/ob1 — the default matching & protocol engine over BTLs.
+
+Copy of ``ompi_tpu/mca/pml/ob1.py`` (after the reference's
+``ompi/mca/pml/ob1/``): MPI matching by (comm, src, tag) with sender
+sequence numbers, unexpected-message and out-of-order queues
+(``pml_ob1_recvfrag.c:293,831,923``; ooo held by seq, ``:106-147``), and the
+eager / rendezvous (RNDV/ACK/FRAG) protocol ladder selected by the BTL's
+size limits (``pml_ob1_sendreq.h:375-401``).  The RGET rung waits for a btl
+with a one-sided ``get`` (btl/sm's mapped segments, ROADMAP A 4).
+
+Matching state is keyed by (cid, receiver world rank) so one process can
+host every rank of the device world — ``mpirun --oversubscribe`` over
+btl/self.  Not copied: the FT hooks (``ft_state.on_failure`` and the
+``ProcFailed``/``Revoked`` completions, ROADMAP A 6), the quant wire codec
+stamp (A 5), and the trace, peruse, profile and memchecker calls.
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+
+import numpy as np
+
+from ompi_tpu_torch.api.errors import ErrorClass, MpiError
+from ompi_tpu_torch.api.request import Request
+from ompi_tpu_torch.api.status import ANY_SOURCE, ANY_TAG, Status
+from ompi_tpu_torch.base.mca import Component
+from ompi_tpu_torch.base.var import VarType
+from ompi_tpu_torch.datatype import Convertor
+from ompi_tpu_torch.mca.bml import Bml
+from ompi_tpu_torch.mca.btl.base import ACK, CTL, FRAG, MATCH, RNDV, Frag
+from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime.hotpath import hot_path
+
+
+class SendRequest(Request):
+    def __init__(self, pml, comm, buf, dest: int, tag: int):
+        super().__init__()
+        from ompi_tpu_torch.api.comm import as_buffer
+
+        self.pml = pml
+        self.comm = comm
+        arr, count, dt = as_buffer(buf)
+        self.convertor = Convertor(dt, count, arr)
+        self.nbytes = self.convertor.packed_size
+        self.dest = dest
+        self.tag = tag
+        self.req_id = next(pml._req_counter)
+        self.acked = False
+
+
+class RecvRequest(Request):
+    def __init__(self, pml, comm, buf, source: int, tag: int):
+        super().__init__()
+        from ompi_tpu_torch.api.comm import as_buffer
+
+        self.pml = pml
+        self.comm = comm
+        arr, count, dt = as_buffer(buf)
+        self.convertor = Convertor(dt, count, arr)
+        self.capacity = self.convertor.packed_size
+        self.source = source            # comm rank or ANY_SOURCE
+        self.tag = tag
+        self.req_id = next(pml._req_counter)
+        self.received = 0
+        self.total = None               # known after match
+        self.matched_src = None
+
+    def matches(self, frag: Frag, comm_src: int) -> bool:
+        if self.source != ANY_SOURCE and self.source != comm_src:
+            return False
+        if self.tag == ANY_TAG:
+            return frag.tag >= 0        # wildcards never match internal tags
+        return self.tag == frag.tag
+
+    def _try_cancel(self) -> bool:
+        return self.pml._cancel_recv(self)
+
+
+class Message:
+    """``MPI_Mprobe`` matched-message handle."""
+
+    def __init__(self, pml, comm, frag: Frag, status: Status):
+        self._pml = pml
+        self._comm = comm
+        self._frag = frag
+        self.status = status
+
+    def recv(self, buf) -> Status:
+        req = RecvRequest(self._pml, self._comm, buf,
+                          self.status.source, self.status.tag)
+        self._pml._deliver_to_request(req, self._frag)
+        return req.wait()
+
+    def irecv(self, buf) -> Request:
+        """``MPI_Imrecv``: nonblocking receive of the matched message."""
+        req = RecvRequest(self._pml, self._comm, buf,
+                          self.status.source, self.status.tag)
+        self._pml._deliver_to_request(req, self._frag)
+        return req
+
+
+class _MatchState:
+    """Per-(cid, receiver) matching queues."""
+
+    __slots__ = ("posted", "unexpected", "expected_seq", "ooo")
+
+    def __init__(self) -> None:
+        self.posted: list[RecvRequest] = []
+        self.unexpected: list[Frag] = []
+        self.expected_seq: dict[int, int] = {}   # src world rank -> next seq
+        self.ooo: dict[int, dict[int, Frag]] = {}
+
+
+class Ob1Pml:
+    """The pml module (one per process)."""
+
+    def __init__(self, component: "Ob1Component", rte) -> None:
+        self.component = component
+        self.rte = rte
+        self._lock = threading.RLock()
+        self._match: dict[tuple[int, int], _MatchState] = {}
+        self._seq: dict[tuple[int, int, int], itertools.count] = {}
+        self._req_counter = itertools.count(1)
+        self._send_reqs: dict[int, SendRequest] = {}
+        self._recv_reqs: dict[int, RecvRequest] = {}
+        self.bml = Bml(rte, self._recv_frag)
+
+    # -- framework hooks -------------------------------------------------
+    def add_comm(self, comm) -> None:
+        with self._lock:
+            for r in comm.group.world_ranks:
+                self._match.setdefault((comm.cid, r), _MatchState())
+
+    def del_comm(self, comm) -> None:
+        """Drop per-comm matching state (``MPI_Comm_free`` teardown)."""
+        with self._lock:
+            for key in [k for k in self._match if k[0] == comm.cid]:
+                del self._match[key]
+            for key in [k for k in self._seq if k[0] == comm.cid]:
+                del self._seq[key]
+
+    def finalize(self) -> None:
+        self.bml.finalize()
+
+    # -- send path (pml_ob1_isend.c:233) --------------------------------
+    @hot_path
+    def isend(self, comm, buf, dest: int, tag: int,
+              sync: bool = False) -> Request:
+        """``sync=True`` gives MPI_Ssend semantics: completion only after
+        the receiver has matched — implemented by forcing the rendezvous
+        protocol, whose sender completion requires the receiver's ACK
+        (``pml_ob1_sendreq.h:380`` RNDV; an eager send completes locally
+        and cannot observe the match)."""
+        spc.record("isend")
+        req = SendRequest(self, comm, buf, dest, tag)
+        dst_world = comm.group.world_rank(dest)
+        src_world = comm.world_rank(comm.rank)
+        ep = self.bml.endpoint(dst_world)
+        if ep is None:
+            raise MpiError(ErrorClass.ERR_INTERN,
+                           f"no transport reaches world rank {dst_world}")
+        seq = next(self._seq.setdefault(
+            (comm.cid, src_world, dst_world), itertools.count()))
+        spc.record("bytes_sent", req.nbytes)
+        if req.nbytes <= ep.btl.eager_limit and not sync:
+            # eager: single MATCH fragment, complete immediately.  The
+            # payload is a borrowed view when the layout allows it — the
+            # btl's wire/ring write is the only copy (send-in-place)
+            data, borrowed = req.convertor.pack_borrow()
+            frag = Frag(comm.cid, src_world, dst_world, tag, seq, MATCH,
+                        data, total_len=req.nbytes, borrowed=borrowed)
+            ep.btl.send(ep, frag)
+            req.complete()
+        else:
+            # rendezvous: RNDV head now, stream on ACK
+            try:
+                head, borrowed = req.convertor.pack_borrow(
+                    ep.btl.rndv_eager_limit)
+                self._send_reqs[req.req_id] = req
+                frag = Frag(comm.cid, src_world, dst_world, tag, seq, RNDV,
+                            head, total_len=req.nbytes,
+                            meta={"req_id": req.req_id}, borrowed=borrowed)
+                ep.btl.send(ep, frag)
+            except Exception:
+                # failed setup: the request would never complete
+                self._send_reqs.pop(req.req_id, None)
+                req.complete(MpiError(ErrorClass.ERR_OTHER,
+                                      "rendezvous setup failed"))
+                raise
+        return req
+
+    def send(self, comm, buf, dest: int, tag: int) -> None:
+        spc.record("send")
+        self.isend(comm, buf, dest, tag).wait()
+
+    def _stream_rest(self, req: SendRequest, ack: Frag) -> None:
+        """Receiver matched our RNDV: push the remaining FRAGs, offset-addressed, on the peer's endpoint (RPUT
+        analog).  On the contiguous path ``pack_borrow`` is an O(1) slice,
+        so the btl reads the user buffer itself.  The reference's multi-rail
+        striping (``bml_r2.c``) waits for a second btl that reaches a peer
+        (btl/tcp)."""
+        dst_world, peer_req = ack.src, ack.meta["peer_req"]
+        ep = self.bml.endpoint(dst_world)
+        conv = req.convertor
+        while not conv.finished:
+            off = conv.position
+            data, borrowed = conv.pack_borrow(ep.btl.max_send_size)
+            ep.btl.send(ep, Frag(ack.cid, ack.dst, dst_world,
+                                 -1, 0, FRAG, data, total_len=req.nbytes,
+                                 offset=off, meta={"req_id": peer_req},
+                                 borrowed=borrowed))
+        self._send_reqs.pop(req.req_id, None)
+        req.complete()
+
+    # -- recv path -------------------------------------------------------
+    def irecv(self, comm, buf, source: int, tag: int) -> Request:
+        spc.record("irecv")
+        req = RecvRequest(self, comm, buf, source, tag)
+        dst_world = comm.world_rank(comm.rank)
+        key = (comm.cid, dst_world)
+        with self._lock:
+            st = self._match.setdefault(key, _MatchState())
+            # check the unexpected queue first (arrival order)
+            for i, frag in enumerate(st.unexpected):
+                comm_src = comm.group.rank_of(frag.src)
+                if req.matches(frag, comm_src):
+                    st.unexpected.pop(i)
+                    self._deliver_to_request(req, frag)
+                    break
+            else:
+                st.posted.append(req)
+        return req
+
+    def recv(self, comm, buf, source: int, tag: int) -> Status:
+        spc.record("recv")
+        return self.irecv(comm, buf, source, tag).wait()
+
+    def _find_unexpected(self, comm, probe_req, take: bool):
+        """(frag, status) of the first unexpected frag matching
+        ``probe_req`` on comm's receiving rank, popped when ``take``; or
+        None."""
+        key = (comm.cid, comm.world_rank(comm.rank))
+        with self._lock:
+            st = self._match.setdefault(key, _MatchState())
+            for i, frag in enumerate(st.unexpected):
+                comm_src = comm.group.rank_of(frag.src)
+                if probe_req.matches(frag, comm_src):
+                    if take:
+                        st.unexpected.pop(i)
+                    return frag, Status(
+                        source=comm_src, tag=frag.tag,
+                        _nbytes=frag.total_len or len(frag.data))
+        return None
+
+    def probe(self, comm, source: int, tag: int, blocking: bool):
+        spc.record("probe" if blocking else "iprobe")
+        from ompi_tpu_torch.runtime.progress import progress
+
+        probe_req = RecvRequest(self, comm, np.empty(0, np.uint8), source, tag)
+        while True:
+            hit = self._find_unexpected(comm, probe_req, take=False)
+            if hit is not None:
+                return hit[1] if blocking else (True, hit[1])
+            progress()
+            if not blocking:
+                hit = self._find_unexpected(comm, probe_req, take=False)
+                return (True, hit[1]) if hit is not None else (False, None)
+
+    def mprobe(self, comm, source: int, tag: int, blocking: bool):
+        from ompi_tpu_torch.runtime.progress import progress
+
+        probe_req = RecvRequest(self, comm, np.empty(0, np.uint8), source, tag)
+        while True:
+            hit = self._find_unexpected(comm, probe_req, take=True)
+            if hit is not None:
+                msg = Message(self, comm, *hit)
+                return msg if blocking else (True, msg)
+            if not blocking:
+                return False, None
+            progress()
+
+    def _cancel_recv(self, req: RecvRequest) -> bool:
+        with self._lock:
+            for st in self._match.values():
+                if req in st.posted:
+                    st.posted.remove(req)
+                    return True
+        return False
+
+    # -- fragment delivery (pml_ob1_recvfrag.c:450) ----------------------
+    @hot_path
+    def _recv_frag(self, frag: Frag) -> None:
+        if frag.kind == ACK:
+            req = self._send_reqs.get(frag.meta["req_id"])
+            if req is not None:
+                self._stream_rest(req, frag)
+            return
+        if frag.kind == FRAG:
+            self._recv_data_frag(frag)
+            return
+        if frag.kind == CTL:
+            handler = _ctl_handlers.get(frag.meta.get("proto"))
+            if handler is not None:
+                frag.own_data()   # handlers may stash the payload
+                handler(frag)
+            return
+        key = (frag.cid, frag.dst)
+        with self._lock:
+            st = self._match.setdefault(key, _MatchState())
+            expected = st.expected_seq.get(frag.src, 0)
+            if frag.seq != expected:
+                # out-of-order arrival: hold by seq (recvfrag.c:106-147);
+                # held data must outlive the sender's btl.send call
+                frag.own_data()
+                spc.record("out_of_sequence_msgs")
+                st.ooo.setdefault(frag.src, {})[frag.seq] = frag
+                return
+            self._match_one(st, frag)
+            st.expected_seq[frag.src] = expected + 1
+            # drain any now-in-order held frags
+            held = st.ooo.get(frag.src, {})
+            nxt = st.expected_seq[frag.src]
+            while nxt in held:
+                self._match_one(st, held.pop(nxt))
+                nxt += 1
+                st.expected_seq[frag.src] = nxt
+
+    def _match_one(self, st: _MatchState, frag: Frag) -> None:
+        """Match one in-sequence frag against posted recvs (recvfrag.c:831);
+        runs under self._lock."""
+        for i, req in enumerate(st.posted):
+            comm_src = req.comm.group.rank_of(frag.src)
+            if req.matches(frag, comm_src):
+                st.posted.pop(i)
+                spc.record("matched_msgs")
+                self._deliver_to_request(req, frag)
+                return
+        spc.record("unexpected_msgs")
+        frag.own_data()   # queued past the sender's btl.send call
+        st.unexpected.append(frag)
+
+    def _deliver_to_request(self, req: RecvRequest, frag: Frag) -> None:
+        comm_src = req.comm.group.rank_of(frag.src)
+        req.matched_src = frag.src
+        req.total = frag.total_len or len(frag.data)
+        req.status.source = comm_src
+        req.status.tag = frag.tag
+        error = None
+        if req.total > req.capacity:
+            error = MpiError(ErrorClass.ERR_TRUNCATE,
+                             f"message of {req.total} bytes into "
+                             f"{req.capacity}-byte buffer")
+            req.total = req.capacity  # deliver what fits, like the reference
+        n = req.convertor.unpack(frag.data[:max(0, req.capacity)])
+        req.received += n
+        req.status._nbytes = min(req.total, req.received) if error else req.total
+        spc.record("bytes_received", n)
+        done = False
+        if frag.kind == RNDV and error is None:
+            # register for FRAG continuation and ACK the sender
+            self._recv_reqs[req.req_id] = req
+            ep = self.bml.endpoint(frag.src)
+            ep.btl.send(ep, Frag(frag.cid, frag.dst, frag.src, -1, 0, ACK,
+                                 meta={"req_id": frag.meta["req_id"],
+                                       "peer_req": req.req_id}))
+            if req.received >= req.total:
+                self._recv_reqs.pop(req.req_id, None)
+                req.status._nbytes = req.received
+                done = True
+        elif error is not None or req.received >= req.total:
+            req.status._nbytes = req.received
+            done = True
+        if done:
+            req.complete(error)
+
+    @hot_path
+    def _recv_data_frag(self, frag: Frag) -> None:
+        req = self._recv_reqs.get(frag.meta["req_id"])
+        if req is None:
+            return
+        req.convertor.set_position(min(frag.offset, req.capacity))
+        n = req.convertor.unpack(frag.data)
+        req.received += n
+        spc.record("bytes_received", n)
+        if req.received >= min(req.total, req.capacity):
+            self._recv_reqs.pop(frag.meta["req_id"], None)
+            req.status._nbytes = req.received
+            req.complete()
+
+
+# control-message protocol handlers (osc / ft register here)
+_ctl_handlers: dict[str, callable] = {}
+
+
+def register_ctl_handler(proto: str, handler) -> None:
+    _ctl_handlers[proto] = handler
+
+
+class Ob1Component(Component):
+    name = "ob1"
+    priority = 20
+
+    def register_vars(self, fw) -> None:
+        self.register_var("priority", vtype=VarType.INT, default=20,
+                          help="Selection priority of pml/ob1")
+
+    def get_module(self, rte) -> Ob1Pml:
+        self._module = Ob1Pml(self, rte)
+        return self._module
+
+
+COMPONENT = Ob1Component()

@@ -1,0 +1,202 @@
+"""threads framework base: the WorkPool contract + process-global pool.
+
+Copy of ``ompi_tpu/mca/threads/base.py``.  The reference's
+``opal/mca/threads/thread.h`` (create/join et al.) collapses here to one
+surface, a work pool with typed jobs: the jobs the reference spreads across
+raw threads (pack engines, reduction math) are typed loops.
+
+Jobs return a :class:`Work` handle (``test``/``wait``), mirroring the
+request-completion idiom of the rest of the stack so callers can overlap
+a background pack with their own work and complete it like any request.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import numpy as np
+
+from ompi_tpu_torch.base import mca
+
+
+class Work:
+    """Completion handle for one submitted pool job."""
+
+    def test(self) -> bool:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def wait(self) -> None:  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class CompletedWork(Work):
+    """Already-done job (inline execution paths)."""
+
+    def test(self) -> bool:
+        return True
+
+    def wait(self) -> None:
+        return
+
+
+class WorkPool:
+    """The substrate contract: typed parallel jobs over ``size`` workers.
+
+    All addresses are raw byte addresses (``ndarray.ctypes.data``);
+    arrays passed whole must be C-contiguous.  The caller owns buffer
+    lifetimes until ``wait`` returns, as for a nonblocking send.
+    """
+
+    size: int = 1
+    #: True when pack/unpack actually run as parallel loops —
+    #: the convertor only fans out when the substrate makes it a win
+    parallel_pack: bool = False
+
+    def memcpy(self, dst: np.ndarray, src: np.ndarray) -> Work:
+        raise NotImplementedError  # pragma: no cover - interface
+
+    def reduce(self, op: str, acc: np.ndarray,
+               src: np.ndarray) -> Work:
+        """Elementwise ``acc = acc <op> src`` (sum/prod/max/min)."""
+        raise NotImplementedError  # pragma: no cover - interface
+
+    def pack(self, mem: np.ndarray, out: np.ndarray, seg_off, seg_len,
+             extent: int, base_offset: int, first_elem: int,
+             nelem: int) -> Work:
+        raise NotImplementedError  # pragma: no cover - interface
+
+    def unpack(self, mem: np.ndarray, chunk: np.ndarray, seg_off,
+               seg_len, extent: int, base_offset: int, first_elem: int,
+               nelem: int) -> Work:
+        raise NotImplementedError  # pragma: no cover - interface
+
+    def close(self) -> None:  # pragma: no cover - hook
+        pass
+
+
+class ThreadsComponent(mca.Component):
+    """A threads component builds WorkPools."""
+
+    def make_pool(self, nworkers: int) -> WorkPool:
+        raise NotImplementedError  # pragma: no cover - interface
+
+
+class InlineSerialPool(WorkPool):
+    """Threadless fallback handed out after the permanent (finalize)
+    ``shutdown_pool``: no new worker threads may be spawned
+    past teardown — the basic jobs execute inline on the caller's
+    thread.  ``size == 1`` / ``parallel_pack = False`` keep every
+    fan-out site (op host reductions, convertor packs) on its serial
+    path, so pack/unpack are never reached and inherit the base
+    NotImplementedError."""
+
+    size = 1
+    parallel_pack = False
+
+    def memcpy(self, dst: np.ndarray, src: np.ndarray) -> Work:
+        if dst.nbytes != src.nbytes:
+            raise ValueError("memcpy size mismatch")
+        if not (dst.flags.c_contiguous and src.flags.c_contiguous):
+            raise ValueError("pool jobs need C-contiguous arrays")
+        dst.reshape(-1).view(np.uint8)[:] = src.reshape(-1).view(np.uint8)
+        return CompletedWork()
+
+    def reduce(self, op: str, acc: np.ndarray, src: np.ndarray) -> Work:
+        ufunc = {"sum": np.add, "prod": np.multiply,
+                 "max": np.maximum, "min": np.minimum}.get(op)
+        if (ufunc is None or acc.shape != src.shape
+                or src.dtype != acc.dtype):
+            raise ValueError(f"unsupported reduce: {op}")
+        if not acc.flags.c_contiguous:
+            raise ValueError("pool jobs need C-contiguous arrays")
+        a = acc.reshape(-1)
+        ufunc(a, src.reshape(-1), out=a)
+        return CompletedWork()
+
+
+_pool: Optional[WorkPool] = None
+_pool_lock = threading.Lock()
+_shut_down = False
+
+
+def framework() -> mca.Framework:
+    return mca.framework("threads", "host-path threading substrate")
+
+
+def default_workers() -> int:
+    import os
+
+    var = mca.registry.lookup("otpu_threads_pool_workers")
+    if var is not None and int(var.value) > 0:
+        return int(var.value)
+    # a single-core host gets ONE worker: pool.size==1 makes every
+    # fan-out site (convertor packs, host reductions) keep its serial
+    # path — steady-state the pool is ~neutral there (bench
+    # threads_pool_pack_4MB row: ~0.98x warm), but with no second core
+    # there is nothing to win, and the serial path skips worker
+    # startup and cross-thread traffic entirely
+    return max(1, min(4, os.cpu_count() or 1))
+
+
+def get_pool() -> WorkPool:
+    """Process-global pool from the selected component (lazy).
+
+    After the permanent (finalize) ``shutdown_pool`` callers get an
+    inline-serial pool: a host reduction or pack racing finalize must
+    not respawn worker threads the runtime just joined — the
+    lazy recreation here used to do exactly that.  A plain
+    ``shutdown_pool()`` keeps the lazy rebuild: bench and tests use it
+    to reconfigure the worker count."""
+    global _pool
+    with _pool_lock:
+        if _shut_down:
+            return InlineSerialPool()
+        if _pool is None:
+            comp = framework().select()
+            if comp is None:  # python component always opens; belt+braces
+                from ompi_tpu_torch.mca.threads.python import COMPONENT as comp
+            _pool = comp.make_pool(default_workers())
+        return _pool
+
+
+def shutdown_pool(permanent: bool = False) -> None:
+    """Close the pool.  ``permanent=True`` (runtime finalize) also bars
+    lazy recreation until :func:`reopen_pool` — the next re-init."""
+    global _pool, _shut_down
+    with _pool_lock:
+        if permanent:
+            _shut_down = True
+        if _pool is not None:
+            _pool.close()
+            _pool = None
+
+
+def reopen_pool() -> None:
+    """Re-arm lazy pool creation (runtime re-init after a finalize)."""
+    global _shut_down
+    with _pool_lock:
+        _shut_down = False
+
+
+def _reset_after_fork() -> None:
+    # worker threads do not survive fork(): drop the handle (the
+    # child rebuilds lazily) and renew the lock in case the parent held
+    # it mid-fork.  The reference's substrate has the same rule — OS
+    # threads are per-process (opal/mca/threads).
+    global _pool, _pool_lock, _shut_down
+    _pool_lock = threading.Lock()
+    _pool = None
+    _shut_down = False
+
+
+import os as _os  # noqa: E402  (registration must follow the handler)
+
+if hasattr(_os, "register_at_fork"):
+    _os.register_at_fork(after_in_child=_reset_after_fork)
+
+
+mca.registry.register(
+    "threads", "pool", "workers",
+    vtype=mca.VarType.INT, default=0,
+    help="Worker count for the threads framework's work pool "
+         "(0 = auto: min(4, cpu_count))")

@@ -19,11 +19,11 @@ tier (``:445-778``):
   ``ops/overlap.py``), else the reference's own unfused einsum.
 - **Dispatch** (:func:`dispatch_tokens`) rides the comm's
   ``alltoallv_array`` slot (coll/ring: K15), int8-packed into an int32 slab
-  when the comm's ``otpu_quant_budget`` admits coll/quant's int8 codec.
+  when the comm's ``otpu_quant_budget`` admits coll/quant's int8 codec,
+  recording ``n * n`` ``quant_encodes`` and ``quant_decodes`` SPC counts
+  as the reference does (``moe.py:726``, ``:730``).
 
-Where the port differs on purpose (ROADMAP C): ``dispatch_tokens`` bumps no
-SPC counter (``quant_encodes``/``quant_decodes``), as the port has no SPC
-runtime yet.  Not ported yet (they need the fault-tolerance tier):
+Not ported yet (they need the fault-tolerance tier):
 ``MoeTrainer``, ``main`` and the ``moe`` telemetry source, and with them
 the six ``otpu_moe_*`` vars only the trainer reads (``n_experts``,
 ``top_k``, ``drop_policy``, ``hot_expert``, ``hot_boost``,
@@ -461,6 +461,7 @@ def dispatch_tokens(comm, x, counts):
     ``codec`` is the engaged codec or None.  ``x`` is a tensor on the
     comm's device or an array placed there."""
     from ompi_tpu_torch.mca.coll import quant as quant_mod
+    from ompi_tpu_torch.runtime import spc
 
     if isinstance(x, torch.Tensor):
         x = x.to(torch.float32)
@@ -472,9 +473,12 @@ def dispatch_tokens(comm, x, counts):
                            x.numel() * x.element_size())
     if codec != "int8" or W % 512 or R == 0:
         return comm.alltoallv_array(x, counts), None
-    outs = comm.alltoallv_array(encode_dispatch_int8(x), counts)
+    enc = encode_dispatch_int8(x)
+    spc.record("quant_encodes", n * n)
+    outs = comm.alltoallv_array(enc, counts)
     dec = [[decode_dispatch_int8(outs[i][j], W) for j in range(n)]
            for i in range(n)]
+    spc.record("quant_decodes", n * n)
     return dec, codec
 
 

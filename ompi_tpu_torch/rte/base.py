@@ -8,6 +8,7 @@ the device-collective components compute on.  The multi-process model
 """
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, Optional
 
@@ -95,7 +96,15 @@ class SingletonRte(Rte):
 
 
 def detect(device=None) -> Rte:
-    """Pick the RTE for this process (``ompi_rte_init`` equivalent): the
-    device world on ``device``.  Unlike the JAX package it does not fall
-    back to a singleton when the device is missing: it raises."""
+    """Pick the RTE for this process (``ompi_rte_init`` equivalent).
+
+    Launched under ``tpurun`` (``OTPU_RANK``/``OTPU_NPROCS`` in the
+    environment): the multi-process ``ProcRte``.  Otherwise the device
+    world.  Either binds to ``device`` (default: the card).  Unlike the JAX
+    package it does not fall back to a singleton when the device is
+    missing: it raises."""
+    if "OTPU_RANK" in os.environ and "OTPU_NPROCS" in os.environ:
+        from ompi_tpu_torch.rte.proc import ProcRte
+
+        return ProcRte(device)
     return DeviceWorldRte(device)

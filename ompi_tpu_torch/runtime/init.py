@@ -1,19 +1,25 @@
 """Init/finalize state machine (``ompi/runtime/ompi_mpi_init.c`` flow).
 
-Port of the device-world boot of ``ompi_tpu/runtime/init.py``: apply
-``--mca`` arguments, bring up the device world (N virtual ranks on one
-device), build COMM_WORLD (cid 0) and COMM_SELF (cid 1, the conductor's
-rank alone) and run their per-comm coll selection.  Context ids of the
-comms made afterwards (``dup``, ``split``, ``create``, ...) come from
-``next_local_cid``: in the device world one process backs every rank, so a
-local find-and-set is the agreement.  The reference keeps a bitmap of CIDs
-in which a freed CID stays set (``retire_cid``: never reused) and only
-multi-process agreements punch holes; in the device world its
-find-and-set therefore hands out 2, 3, 4, ... in order, which is what the
-port's counter does.  ``finalize`` releases the coll modules of every comm
-made since ``init``, drops the world and resets the CID space, and closes
-the MCA frameworks, so the next ``init`` selects afresh.  Sessions, hooks,
-fault tolerance and monitoring are not ported yet.
+Port of the boot of ``ompi_tpu/runtime/init.py`` and of the instance
+layer's (``ompi_tpu/instance/__init__.py:119-135``): apply ``--mca``
+arguments, bring up the rte (the device world, or under ``tpurun`` the
+multi-process ``ProcRte``), start the SPC counters, select the pml
+(``ompi_mpi_init.c:630``), fence the modex (``:682-701``), build COMM_WORLD
+(cid 0) and COMM_SELF (cid 1) with the pml attached, build every peer's
+endpoint list outside the device world (eager ``add_procs``,
+``ompi_mpi_init.c:833``), and run their per-comm coll selection.
+
+The CID space is the reference's bitmap: ``next_local_cid`` is a local
+find-and-set (the device world's agreement, one process backs every rank);
+the multi-process world agrees on a CID with ``candidate_cid``,
+``is_cid_free`` and ``reserve_cid`` (``Comm._next_cid``).  A freed CID
+stays set (``retire_cid``: never reused).  ``finalize`` drains the btls'
+queued sends, fences the ranks (``fence_final``; the reference fences
+first and leaves queued frames to its native reactor's thread), releases
+the coll modules of every comm made since
+``init``, finalizes the pml and the rte, closes the work pool and the MCA
+frameworks and clears the CID space, so the next ``init`` selects afresh.
+Sessions, hooks, fault tolerance and monitoring are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import weakref
 from typing import Optional
 
 from ompi_tpu_torch.base import mca, var
+from ompi_tpu_torch.base.containers import Bitmap
 
 
 class State(enum.IntEnum):
@@ -38,10 +45,11 @@ _state = State.NOT_INITIALIZED
 _world = None
 _self = None
 _rte = None
+_pml = None
 #: live comms made since init (COMM_WORLD included): finalize releases them
 _comms: "weakref.WeakSet" = weakref.WeakSet()
-_FIRST_FREE_CID = 2     # cid 0 is COMM_WORLD, cid 1 COMM_SELF
-_next_cid = _FIRST_FREE_CID
+_cid_map = Bitmap(64)
+_cid_lock = threading.Lock()
 
 
 def initialized() -> bool:
@@ -56,20 +64,44 @@ def get_rte():
     return _rte
 
 
+# -- CID space (ompi_tpu/runtime/init.py:61-127) --------------------------
+
 def next_local_cid() -> int:
-    """The next free context id (``comm_cid.c``'s find-and-set, local)."""
-    global _next_cid
-    with _lock:
-        cid = _next_cid
-        _next_cid += 1
+    """The first free context id, taken (``comm_cid.c``'s find-and-set)."""
+    with _cid_lock:
+        return _cid_map.find_and_set_first_unset()
+
+
+def reserve_cid(cid: int) -> None:
+    with _cid_lock:
+        _cid_map.set(cid)
+
+
+def candidate_cid(floor: int = 0) -> int:
+    """First locally-free CID >= floor, WITHOUT reserving it: a losing
+    proposal of the agreement must not punch a hole in the bitmap."""
+    with _cid_lock:
+        cid = floor
+        while _cid_map.is_set(cid):
+            cid += 1
         return cid
+
+
+def is_cid_free(cid: int) -> bool:
+    with _cid_lock:
+        return not _cid_map.is_set(cid)
 
 
 def retire_cid(cid: int) -> None:
     """A freed CID is retired, never returned to the pool
     (``ompi_tpu/runtime/init.py:111-119``): reuse would let a stale handle
-    or a revoked (cid, epoch) be taken for a new communicator.  The counter
-    never hands a CID out twice, so retiring records intent only."""
+    or a revoked (cid, epoch) be taken for a new communicator.  The bit
+    simply stays set; the function records intent at call sites."""
+
+
+def clear_cid_space() -> None:
+    with _cid_lock:
+        _cid_map.clear_all()
 
 
 def register_comm(comm) -> None:
@@ -85,7 +117,7 @@ def init(device=None, rte=None, argv: Optional[list] = None):
     (``device="cpu"``: the CPU lane the tests run on).  With no card and no
     explicit device it raises; it never falls back to the CPU.
     """
-    global _state, _world, _self, _rte
+    global _state, _world, _self, _rte, _pml
     with _lock:
         if _state is State.INIT_COMPLETED:
             return _world
@@ -99,26 +131,56 @@ def init(device=None, rte=None, argv: Optional[list] = None):
             from ompi_tpu_torch.rte.base import detect
 
             _rte = rte if rte is not None else detect(device)
-            from ompi_tpu_torch.api.comm import Comm
-            from ompi_tpu_torch.api.group import Group
+            from ompi_tpu_torch.mca.threads import base as threads_base
+            from ompi_tpu_torch.runtime import spc
 
-            _world = Comm(Group(range(_rte.world_size)), cid=0, rte=_rte,
-                          name="COMM_WORLD")
-            _self = Comm(Group([_rte.my_world_rank]), cid=1, rte=_rte,
-                         name="COMM_SELF")
-            # per-comm coll selection (ompi_mpi_init.c:956,962)
-            from ompi_tpu_torch.mca.coll.base import comm_select
-
-            for comm in (_world, _self):
-                register_comm(comm)
-                comm_select(comm)
+            spc.init()
+            threads_base.reopen_pool()
+            # pml selection (ompi_mpi_init.c:630), then the modex fence
+            # that publishes its btls' endpoints (:682-701)
+            comp = mca.framework(
+                "pml", "point-to-point messaging layer").select()
+            if comp is None:
+                raise RuntimeError("no pml component available")
+            _pml = comp.get_module(_rte)
+            _rte.fence()
+            reserve_cid(0)
+            reserve_cid(1)
+            _build_world()
         except BaseException:
-            _world = _self = _rte = None
+            _teardown()
             _state = State.NOT_INITIALIZED
             raise
         var.mark_runtime_initialized(True)
         _state = State.INIT_COMPLETED
         return _world
+
+
+def _build_world() -> None:
+    """WORLD/SELF with the pml attached (``ompi_tpu/runtime/init.py:
+    159-200``); caller holds ``_lock``."""
+    global _world, _self
+    from ompi_tpu_torch.api.comm import Comm
+    from ompi_tpu_torch.api.group import Group
+    from ompi_tpu_torch.mca.coll.base import comm_select
+
+    _world = Comm(Group(range(_rte.world_size)), cid=0, rte=_rte,
+                  name="COMM_WORLD")
+    _self = Comm(Group([_rte.my_world_rank]), cid=1, rte=_rte,
+                 name="COMM_SELF")
+    for comm in (_world, _self):
+        comm.pml = _pml
+        _pml.add_comm(comm)
+    # eager add_procs: every peer's endpoint list NOW, while the modex is
+    # reachable (BML endpoint lists are an init product)
+    if not _rte.is_device_world:
+        for wr in _world.group.world_ranks:
+            if wr != _rte.my_world_rank:
+                _pml.bml.add_proc(wr)
+    # per-comm coll selection (ompi_mpi_init.c:956,962)
+    for comm in (_world, _self):
+        register_comm(comm)
+        comm_select(comm)
 
 
 def comm_world():
@@ -133,22 +195,59 @@ def comm_self():
     return _self
 
 
+def _teardown() -> None:
+    """Release what init acquired, in the reference's order (pml, rte,
+    work pool, frameworks, CID space); every step runs even if one
+    before it failed."""
+    global _world, _self, _rte, _pml
+    try:
+        for comm in list(_comms):
+            comm.release_coll_modules()
+        if _pml is not None:
+            _pml.finalize()
+        if _rte is not None:
+            _rte.finalize()
+    finally:
+        from ompi_tpu_torch.mca.threads import base as threads_base
+        from ompi_tpu_torch.runtime import progress
+
+        threads_base.shutdown_pool(permanent=True)
+        mca.close_all()
+        progress.reset_for_testing()
+        clear_cid_space()
+        _comms.clear()
+        _world = _self = _rte = _pml = None
+
+
 def finalize() -> None:
-    global _state, _world, _self, _rte, _next_cid
+    global _state
     with _lock:
         if _state is not State.INIT_COMPLETED:
             return
         _state = State.FINALIZE_STARTED
         try:
-            for comm in list(_comms):
-                comm.release_coll_modules()
-            if _rte is not None:
-                _rte.finalize()
-            mca.close_all()
+            # drain the btls' queued sends first: a completed send's frames
+            # may still wait for ring space that only the receiver frees,
+            # and the fence below blocks this rank's progress (with them
+            # queued, the receiver would wait out the fence's timeout).
+            # Frames that cannot be delivered fail this rank (after the
+            # teardown releases its segments), so the launcher ends the job
+            try:
+                _pml.bml.flush()
+            except BaseException:
+                _teardown()
+                raise
+            # pre-teardown synchronisation (ompi_mpi_finalize's barrier)
+            # before any shared segment is released: a fast rank must not
+            # unlink rings a slower peer still drains
+            fence_final = getattr(_rte, "fence_final", None)
+            if fence_final is not None:
+                try:
+                    fence_final()
+                except Exception:
+                    pass   # coord gone / timeout: peers are exiting too
+            _teardown()
         finally:
-            _comms.clear()
-            _next_cid = _FIRST_FREE_CID
-            _world = _self = _rte = None
             var.mark_runtime_initialized(False)
             _state = State.FINALIZE_COMPLETED
 

@@ -1,0 +1,77 @@
+"""Software performance counters (``ompi/runtime/ompi_spc.c``: inline
+counters bumped in the bindings, exported as MPI_T-style pvars).
+
+Copy of ``ompi_tpu/runtime/spc.py`` with the counters that the port's
+modules record: point-to-point and its protocols, the device collectives
+(``bump_device``), the coordination client's retries and the MoE
+dispatch's codec.  The reference's other counters (the host
+collectives', serving, chaos, telemetry, tracing) come with the modules
+that record them.
+"""
+from __future__ import annotations
+
+from ompi_tpu_torch.base.var import PvarClass, registry
+
+_COUNTERS = (
+    "send", "isend", "recv", "irecv", "probe", "iprobe",
+    "bytes_sent", "bytes_received",
+    "unexpected_msgs", "out_of_sequence_msgs", "matched_msgs",
+    "device_collectives", "device_bytes",
+    "coord_reconnects", "coord_rpc_retries",
+    "quant_encodes", "quant_decodes",
+)
+
+_pvars = {}
+
+
+def init() -> None:
+    for name in _COUNTERS:
+        _pvars[name] = registry.register_pvar(
+            "runtime", "spc", name, pclass=PvarClass.COUNTER,
+            help=f"SPC counter: number/volume of {name}")
+    # device counters accumulate in module ints (bump_device) and fold in
+    # lazily; the pre-read hook keeps direct pvar readers coherent too
+    for name in ("device_collectives", "device_bytes"):
+        _pvars[name].on_read = _flush_device
+
+
+def record(name: str, value: float = 1) -> None:
+    pv = _pvars.get(name)
+    if pv is not None:
+        pv.add(value)
+
+
+_dev_calls_n = 0
+_dev_bytes_n = 0
+
+
+def bump_device(nbytes: int) -> None:
+    """Hot-path SPC bump for device collectives: two plain integer adds on
+    module globals (folded into the pvars at read time), as the reference's
+    inline non-atomic counter increments (``ompi_spc.c``)."""
+    global _dev_calls_n, _dev_bytes_n
+    _dev_calls_n += 1
+    _dev_bytes_n += nbytes
+
+
+def _flush_device() -> None:
+    """Fold the relaxed device-counter accumulators into their pvars."""
+    global _dev_calls_n, _dev_bytes_n
+    if _dev_calls_n:
+        pv = _pvars.get("device_collectives")
+        if pv is not None:
+            pv.add(_dev_calls_n)
+            _dev_calls_n = 0
+        pv = _pvars.get("device_bytes")
+        if pv is not None:
+            pv.add(_dev_bytes_n)
+            _dev_bytes_n = 0
+
+
+def read(name: str) -> float:
+    pv = _pvars.get(name)
+    return 0 if pv is None else pv.read()
+
+
+def counters() -> dict:
+    return {k: v.read() for k, v in _pvars.items()}

@@ -1,0 +1,147 @@
+"""tpurun — the mpirun-equivalent launcher.
+
+Copy of the local launch of ``ompi_tpu/tools/tpurun.py`` (the reference's
+``mpirun`` is PRRTE's ``prte``: it launches processes and gives them a PMIx
+server).  tpurun starts the coordination service
+(``ompi_tpu_torch.rte.coord.CoordServer``) in this process, spawns N ranks
+with their identity in the environment (``OTPU_RANK``, ``OTPU_NPROCS``,
+``OTPU_COORD``; ``--mca NAME VALUE`` becomes ``OTPU_MCA_<name>``), streams
+their output with rank prefixes, and tears the job down on the first
+failure with that rank's exit code (mpirun's kill-job-on-abort).  The
+launcher imports neither torch nor CUDA: each rank binds its own device.
+
+Run: ``python -m ompi_tpu_torch.tools.tpurun -n 4 python -m
+ompi_tpu_torch.examples.ring`` (add ``--device cpu`` to the ring's
+arguments on a machine without a card).
+
+Not copied yet: hostfiles and launch agents (``tpurun.py:34-83``),
+``--enable-recovery``, process sets, spawn, the device-world and binding
+flags, and the trace, monitoring and flight merges (``:177-305``).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import threading
+import time
+
+
+def _monitor(procs_list, abort_check=None) -> int:
+    """Poll the ranks: the first nonzero exit ends the job with that code
+    (``ompi_tpu/tools/tpurun.py:_monitor``, without recovery).
+    ``abort_check()`` may return an exit code for an out-of-band abort
+    (the coordination service's MPI_Abort)."""
+    exit_code = 0
+    try:
+        while True:
+            snapshot = list(procs_list)
+            alive = [p for p in snapshot if p.poll() is None]
+            failed = [p for p in snapshot
+                      if p.poll() is not None and p.returncode != 0]
+            if abort_check is not None:
+                code = abort_check()
+                if code is not None:
+                    exit_code = code
+                    break
+            if failed:
+                exit_code = failed[0].returncode
+                break
+            if not alive:
+                break
+            time.sleep(0.05)
+    except KeyboardInterrupt:
+        exit_code = 130
+    return exit_code
+
+
+def _teardown(procs_list, pumps, exit_code: int) -> None:
+    """Shared job teardown: kill survivors on failure (mpirun's
+    kill-job-on-abort), drain cleanly on success, join the pumps."""
+    for p in procs_list:
+        if p.poll() is None:
+            if exit_code:
+                p.kill()
+            else:
+                p.wait()
+    for p in procs_list:
+        p.wait()
+    for t in pumps:
+        t.join(timeout=2)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="tpurun",
+        description="Launch an ompi_tpu_torch multi-process job")
+    ap.add_argument("-n", "-np", type=int, default=1, dest="nprocs")
+    ap.add_argument("--mca", action="append", nargs=2, default=[],
+                    metavar=("NAME", "VALUE"),
+                    help="Set an MCA variable for all ranks")
+    ap.add_argument("--coord-port", type=int, default=0)
+    ap.add_argument("command", nargs=argparse.REMAINDER)
+    args = ap.parse_args(argv)
+    if not args.command:
+        ap.error("no command given")
+    cmd = args.command
+    if cmd and cmd[0] == "--":
+        cmd = cmd[1:]
+
+    from ompi_tpu_torch.rte.coord import CoordServer
+
+    server = CoordServer(args.nprocs, port=args.coord_port)
+    host, port = server.addr
+
+    env_base = dict(os.environ)
+    # Ranks must be able to import ompi_tpu_torch however tpurun itself was
+    # found.  Appended, not prepended: the user's own PYTHONPATH entries
+    # keep shadowing rights.
+    import ompi_tpu_torch as _pkg
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(_pkg.__file__)))
+    env_base["PYTHONPATH"] = (
+        env_base["PYTHONPATH"] + os.pathsep + pkg_root
+        if env_base.get("PYTHONPATH") else pkg_root)
+    env_base["OTPU_NPROCS"] = str(args.nprocs)
+    env_base["OTPU_COORD"] = f"{host}:{port}"
+    for name, value in args.mca:
+        env_base["OTPU_MCA_" + name.removeprefix("otpu_")] = value
+
+    procs: list[subprocess.Popen] = []
+    pumps: list[threading.Thread] = []
+
+    def _pump(rank: int, stream) -> None:
+        for line in iter(stream.readline, b""):
+            sys.stdout.write(f"[{rank}] " + line.decode(errors="replace"))
+            sys.stdout.flush()
+
+    for rank in range(args.nprocs):
+        env = dict(env_base)
+        env["OTPU_RANK"] = str(rank)
+        try:
+            p = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT)
+        except OSError as exc:
+            print(f"tpurun: cannot launch {cmd[0]!r}: {exc}",
+                  file=sys.stderr)
+            for q in procs:
+                q.kill()
+            server.close()
+            return 127
+        procs.append(p)
+        t = threading.Thread(target=_pump, args=(rank, p.stdout),
+                             daemon=True)
+        t.start()
+        pumps.append(t)
+
+    exit_code = _monitor(procs, abort_check=lambda: server.aborted)
+    _teardown(procs, pumps, exit_code)
+    server.close()
+    if exit_code:
+        print(f"tpurun: job terminated with exit code {exit_code}",
+              file=sys.stderr)
+    return exit_code
+
+
+if __name__ == "__main__":
+    sys.exit(main())

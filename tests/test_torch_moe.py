@@ -15,7 +15,6 @@ Same numpy inputs go through both packages.  Bands, stated per comparison:
 * ``expert_ffn_fused``: the fused cell (K20's plain version) against the
   unfused einsum within 2e-4, the reference's own test's band.
 """
-import importlib.util
 import math
 
 import jax
@@ -193,20 +192,24 @@ def _dispatch_inputs():
 
 def _dispatch_both(jw, tw):
     """dispatch_tokens through both worlds, without and with the budget;
-    returns [(jax outs, port outs, jax codec, port codec)] and the
-    reference's quant_encodes delta of the budgeted call."""
-    from ompi_tpu.runtime import spc
+    returns [(jax outs, port outs, jax codec, port codec)] and each
+    package's (quant_encodes, quant_decodes) deltas over both calls."""
+    from ompi_tpu.runtime import spc as jspc
+    from ompi_tpu_torch.runtime import spc as tspc
 
+    names = ("quant_encodes", "quant_decodes")
+    before = [[s.read(k) for k in names] for s in (jspc, tspc)]
     x, counts = _dispatch_inputs()
     runs = [(*jmoe.dispatch_tokens(jw, x, counts),
              *moe.dispatch_tokens(tw, x, counts))]
     jc, tc = jw.dup(), tw.dup()
     jc.info.set("otpu_quant_budget", "0.02")
     tc.info.set("otpu_quant_budget", "0.02")
-    before = spc.read("quant_encodes")
     runs.append((*jmoe.dispatch_tokens(jc, x, counts),
                  *moe.dispatch_tokens(tc, x, counts)))
-    return runs, spc.read("quant_encodes") - before
+    deltas = [tuple(s.read(k) - b for k, b in zip(names, bs))
+              for s, bs in zip((jspc, tspc), before)]
+    return runs, deltas
 
 
 def _check_dispatch(runs):
@@ -230,9 +233,8 @@ def test_dispatch_tokens_matches_reference(jax_world, torch_world):
     """Without a budget the raw float32 rows, with 0.02 the int8 int32 slab
     decoded on arrival: bit for bit the reference's, at default priorities
     (coll/builtin against coll/xla)."""
-    runs, encodes = _dispatch_both(jax_world, torch_world)
+    runs, _ = _dispatch_both(jax_world, torch_world)
     _check_dispatch(runs)
-    assert encodes == 64
 
 
 def test_dispatch_tokens_on_the_raised_ring(ring_worlds, monkeypatch):
@@ -258,13 +260,11 @@ def test_dispatch_tokens_falls_back_for_thin_rows(torch_world):
 
 
 def test_dispatch_tokens_bumps_no_spc_counter(jax_world, torch_world):
-    """Reference behaviour not yet copied: the reference records
-    quant_encodes/quant_decodes per dispatch (moe.py:726, :730); the port
-    has no SPC runtime yet (ROADMAP A 4), so its dispatch bumps none."""
-    _runs, encodes = _dispatch_both(jax_world, torch_world)
-    assert encodes == 64
-    assert importlib.util.find_spec("ompi_tpu_torch.runtime.spc") is None
-    assert "spc" not in moe.dispatch_tokens.__code__.co_names
+    """SPC parity (the name kept from when the port had no SPC runtime):
+    both packages record n * n quant_encodes and quant_decodes for the
+    budgeted dispatch (moe.py:726, :730) and none for the exact one."""
+    _runs, (want, got) = _dispatch_both(jax_world, torch_world)
+    assert got == want == (64, 64)
 
 
 def test_run_quant_dispatch_check_matches_reference(capsys):

@@ -9,8 +9,6 @@ port's ops; the values are compared bit for bit (the ring keeps the
 reference's fold order), except where coll/builtin's torch sum meets XLA's
 psum (a band, stated there).
 """
-import importlib.util
-
 import numpy as np
 import pytest
 import torch
@@ -287,20 +285,37 @@ def test_coll_init_request_lifecycle(torch_world):
 
 
 def test_persistent_handle_bumps_no_spc_counter(jax_world, torch_world):
-    """Reference behaviour not yet copied: the reference's handle bumps the
-    SPC device counters on every call (xla.py:74-77); the port has no SPC
-    runtime yet (ROADMAP A 4), so its handle carries no bump."""
-    from ompi_tpu.runtime import spc
-    from ompi_tpu_torch.mca.coll.builtin import PersistentColl
+    """SPC parity (the name kept from when the port had no SPC runtime):
+    the device slots and the persistent handle bump the SPC device
+    counters alike in both packages (xla.py:74-90, :158, :182) — the
+    binding's one-shot run, every call and start of the handle, a one-shot
+    allreduce, a bcast handle bound to its slot, and a barrier."""
+    from ompi_tpu.runtime import spc as jspc
+    from ompi_tpu_torch.runtime import spc as tspc
 
     host = _stack((8, 24), 4)
-    jh = jax_world.allreduce_array_init(host)
-    before = spc.read("device_collectives")
-    jh(host)
-    assert spc.read("device_collectives") == before + 1
-    th = torch_world.allreduce_array_init(host)
-    assert type(th) is PersistentColl and "_bump" not in PersistentColl.__slots__
-    assert importlib.util.find_spec("ompi_tpu_torch.runtime.spc") is None
+    names = ("device_collectives", "device_bytes")
+
+    def run(world, spc, place):
+        before = [spc.read(k) for k in names]
+        h = world.allreduce_array_init(place(host))
+        for _ in range(3):
+            h(place(host))
+        h.start(place(host))
+        world.allreduce_array(place(host))
+        b = world.coll_init("bcast", place(host), 2)
+        b.start()
+        b.wait()
+        world.barrier()
+        return [spc.read(k) - v for k, v in zip(names, before)]
+
+    import jax.numpy as jnp
+
+    want = run(jax_world, jspc, jnp.asarray)
+    got = run(torch_world, tspc, lambda a: cudaenv.make_world_array(
+        a, torch_world.rte.device))
+    assert got == want
+    assert got[0] == 9 and got[1] == 8 * host.nbytes + 8 * 4
 
 
 def test_persistent_allreduce_on_a_budgeted_comm(jax_world, torch_world):

@@ -296,9 +296,14 @@ def test_components_come_from_the_port(torch_world):
 
     assert mca.MCA_PACKAGE == "ompi_tpu_torch.mca"
     coll = coll_framework()
-    assert sorted(coll.components) == ["builtin", "conductor", "quant", "ring",
-                                       "self_coll", "tuned"]
+    assert sorted(coll.components) == ["basic", "builtin", "conductor",
+                                       "quant", "ring", "self_coll", "tuned"]
     op_fw = op_base._framework()
     assert sorted(op_fw.components) == ["builtin", "cuda_vpu"]
-    for comp in [*coll.components.values(), *op_fw.components.values()]:
+    pml_fw, btl_fw = mca.framework("pml"), mca.framework("btl")
+    assert sorted(pml_fw.components) == ["ob1"]
+    assert sorted(btl_fw.components) == ["self", "sm"]
+    assert [type(b).__name__ for b in torch_world.pml.bml.btls] == ["SelfBtl"]
+    for comp in [*coll.components.values(), *op_fw.components.values(),
+                 *pml_fw.components.values(), *btl_fw.components.values()]:
         assert type(comp).__module__.startswith("ompi_tpu_torch.mca."), comp
