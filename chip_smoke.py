@@ -219,11 +219,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    8-byte message; then three jobs of the port's tpurun (each must exit
    0): ``-n 4`` of ``ompi_tpu_torch.examples.ring`` (rank 0's lines the
    token countdown), a ``-n 2`` ping-pong over btl/sm (one-way latency at
-   8 B, eager; bandwidth at 4 MB, rendezvous), and a ``-n 4`` coll/basic
-   allreduce of a 16 MB float32 tensor a rank on the card, bit for bit
-   against a numpy fold in coll/basic's order on every rank.  All on one
-   ``{"host_tier": {...}}`` line that carries the card's name and power
-   limit.
+   8 B, eager; bandwidth at 4 MB, rendezvous), a ``-n 4`` coll/basic
+   allreduce (``--mca coll basic,self_coll``) of a 16 MB float32 tensor a
+   rank on the card, bit for bit against a numpy fold in coll/basic's order
+   on every rank; a ``-n 4`` job under default selection (``TUNED``):
+   coll/tuned's allreduce of 16 MB of integer-valued float32 a rank on the
+   card (its ladder's ``ring_segmented``, then every ``ALLREDUCE`` entry
+   forced through ``otpu_coll_tuned_allreduce_algorithm``, median ms of 5
+   by rank), the staging pool's hit and miss counts after the 16 MB loop,
+   libnbc's ``iallreduce`` (16 MB) and ``iallgather`` (1 MB) of card
+   tensors, every exact result bit for bit against numpy on every rank, and
+   the int8 ``allreduce_blockq`` on a dup with ``otpu_quant_budget`` 0.02
+   (within 1/127 of the exact sum, five encodes a rank, the same bytes on
+   every rank); a ``-n 4 --fake-nodes 2`` job (``HAN``): coll/han's
+   allreduce and bcast (root 1, not its node's leader) of card tensors,
+   exact; and coll/han's device half (``HierarchicalColl(2, 4)``) on the
+   card: ``allreduce`` of an 8 x 16 MB float32 world tensor and
+   ``reduce_scatter`` of an (8, 8, 512 K) one within 8 · 2^-24 of the
+   largest sum of magnitudes of the float64 sum over the rank axis,
+   timed beside ``torch.sum(x, 0)``.  All
+   on one ``{"host_tier": {...}}`` line that carries the card's name and
+   power limit.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -2642,6 +2658,160 @@ ompi_tpu_torch.finalize()
 """
 
 
+#: a -n 4 job under default selection: coll/tuned's allreduce of 16 MB of
+#: integer-valued float32 a rank (a tensor on the card; any order of the
+#: sum is exact), its ladder's pick (ring_segmented) and every menu entry
+#: forced through the var, the staging pool's counts after the 16 MB loop,
+#: libnbc's iallreduce and iallgather of card tensors, and the int8 blockq
+#: allreduce on a dup with an accuracy budget, within the codec's band
+TUNED = r"""
+import hashlib, json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+from ompi_tpu_torch.base.var import registry
+from ompi_tpu_torch.mca.accelerator import torch_acc
+from ompi_tpu_torch.mca.coll import algorithms as algs, quant
+from ompi_tpu_torch.runtime import spc
+w = ompi_tpu_torch.init()
+n, r = w.size, w.rank
+owner = {k: type(w.c_coll[k].__self__).__name__
+         for k in ("allreduce", "iallreduce", "iallgather")}
+assert w.rte.device.type == "cuda" and owner == {
+    "allreduce": "TunedModule", "iallreduce": "LibnbcModule",
+    "iallgather": "LibnbcModule"}, owner
+host = [np.random.default_rng(int(sys.argv[1]) + i).integers(
+    -1000, 1001, 4 << 20).astype(np.float32) for i in range(n)]
+x = torch.from_numpy(host[r]).to(w.rte.device)
+want = np.sum(host, axis=0, dtype=np.float32)
+
+
+def timed(fn, reps=5):
+    times = []
+    for _ in range(reps):
+        w.barrier()
+        t0 = time.perf_counter()
+        got = fn()
+        times.append(time.perf_counter() - t0)
+    return got, sorted(times)[len(times) // 2] * 1e3
+
+
+def exact(got, ref=want):
+    return isinstance(got, np.ndarray) and got.tobytes() == ref.tobytes()
+
+
+def waited(q):
+    q.wait()
+    return q.result
+
+
+res = {"rank": r}
+torch_acc.staging.clear()
+s0 = {k: spc.read(k) for k in ("fastpath_staging_hits",
+                               "fastpath_staging_misses")}
+got, ms = timed(lambda: w.allreduce(x))
+res["ladder"] = {"alg": "ring_segmented", "ms": ms, "bit_exact": exact(got)}
+res["staging"] = {"hits": torch_acc.staging.hits,
+                  "misses": torch_acc.staging.misses,
+                  **{k: spc.read(k) - v for k, v in s0.items()}}
+forced = {}
+for alg in sorted(algs.ALLREDUCE):
+    registry.set("otpu_coll_tuned_allreduce_algorithm", alg)
+    got, ms = timed(lambda: w.allreduce(x))
+    forced[alg] = {"ms": ms, "bit_exact": exact(got)}
+registry.set("otpu_coll_tuned_allreduce_algorithm", "")
+res["forced"] = forced
+got, ms = timed(lambda: waited(w.iallreduce(x)))
+res["iallreduce"] = {"ms": ms, "bit_exact": exact(got)}
+part = x[:1 << 18]                          # 1 MB a rank
+got, ms = timed(lambda: waited(w.iallgather(part)))
+res["iallgather_1MB"] = {"ms": ms, "bit_exact": exact(
+    got, np.stack([h[:1 << 18] for h in host]))}
+c = w.dup()
+c.info.set("otpu_quant_budget", "0.02")
+e0 = spc.read("quant_encodes")
+got, ms = timed(lambda: c.allreduce(x))
+res["blockq_int8"] = {
+    "ms": ms, "band": quant.CODEC_BANDS["int8"],
+    "rel_err": float(np.abs(got.astype(np.float64) - want).max()
+                     / np.abs(want).max()),
+    "encodes": spc.read("quant_encodes") - e0,
+    "digest": hashlib.sha256(got.tobytes()).hexdigest()[:16]}
+print(json.dumps(res), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+#: a -n 4 --fake-nodes 2 job: coll/han's allreduce (the symmetric fast
+#: path: reduce_scatter on the node, allreduce across, allgather on the
+#: node) and bcast from a root that is not its node's leader, of tensors on
+#: the card, exact against numpy on every rank
+HAN = r"""
+import json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+w = ompi_tpu_torch.init()
+n, r = w.size, w.rank
+assert w.rte.device.type == "cuda" and type(
+    w.c_coll["allreduce"].__self__).__name__ == "HanModule"
+host = [np.random.default_rng(int(sys.argv[1]) + i).integers(
+    -1000, 1001, 4 << 20).astype(np.float32) for i in range(n)]
+x = torch.from_numpy(host[r]).to(w.rte.device)
+want = np.sum(host, axis=0, dtype=np.float32)
+b = x if r == 1 else torch.zeros_like(x)
+res = {"rank": r}
+for name, fn, ref in (("allreduce", lambda: w.allreduce(x), want),
+                      ("bcast_root1", lambda: w.bcast(b, root=1), host[1])):
+    times = []
+    for _ in range(5):
+        w.barrier()
+        t0 = time.perf_counter()
+        got = fn()
+        times.append(time.perf_counter() - t0)
+    res[name] = {"ms": sorted(times)[2] * 1e3,
+                 "bit_exact": isinstance(got, np.ndarray)
+                 and got.tobytes() == ref.tobytes()}
+mod = w.c_coll["allreduce"].__self__
+res["sub_sizes"] = [c.size for c in (mod._low, mod._up, mod._leaders)
+                    if c is not None]
+print(json.dumps(res), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+#: float32 band of a sum of 8 rows against the exact (float64) sum: 8
+#: roundings of the largest sum of magnitudes
+HAN_BAND = 8 * 2.0 ** -24
+
+
+def han_device(gen) -> dict:
+    """coll/han's device half (``HierarchicalColl``, (n_up, n_low) = (2,
+    4)) on the card: ``allreduce`` of an 8 x 16 MB float32 world tensor and
+    ``reduce_scatter`` of an (8, 8, 16 MB / 8) one, each within the float32
+    band of the float64 sum over the rank axis of the same input computed
+    on the CPU (the plain answer of both), timed beside ``torch.sum(x, 0)``
+    on the same tensor; ``bound_ms`` is the input read once and the output
+    written once over 3.35 TB/s."""
+    from ompi_tpu_torch.mca.coll.han import HierarchicalColl
+
+    h = HierarchicalColl(2, 4)
+    x = operands(torch.float32, (N, 16 * MB // 4), gen)
+    z = operands(torch.float32, (N, N, 16 * MB // 4 // N), gen)
+    out = {}
+    for name, fn, arg in (("allreduce", h.allreduce, x),
+                          ("reduce_scatter", h.reduce_scatter, z)):
+        got = fn(arg)
+        ref = arg.cpu().double().sum(0)
+        require(tuple(got.shape) == tuple(ref.shape),
+                f"han device {name}: shape {tuple(got.shape)}")
+        err = (got.cpu().double() - ref).abs().max().item()
+        band = HAN_BAND * arg.abs().sum(0).max().item()
+        require(err <= band, f"han device {name}: error {err} above {band}")
+        nbytes = arg.numel() * 4 + got.numel() * 4
+        out[name] = {"shape": list(arg.shape), "max_abs_err": err,
+                     "band": band, "ms": time_ms(lambda: fn(arg)),
+                     "torch_sum_ms": time_ms(lambda: torch.sum(arg, 0)),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    return out
+
+
 def tpurun(n: int, argv: list, timeout: int = 240) -> tuple:
     """Run ``argv`` under the port's tpurun; (return code, {rank: lines},
     wall seconds).  The job's own failure fails the phase."""
@@ -2733,17 +2903,53 @@ def host_tier(gen, smi: str) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         ping, coll = Path(tmp, "pingpong.py"), Path(tmp, "allreduce.py")
+        tuned, han = Path(tmp, "tuned.py"), Path(tmp, "han.py")
         ping.write_text(PINGPONG)
         coll.write_text(ALLREDUCE)
+        tuned.write_text(TUNED)
+        han.write_text(HAN)
         lines, wall = tpurun(2, [sys.executable, str(ping)])
         out["pingpong_2"] = {**job_result(lines, 0), "wall_s": wall}
-        lines, wall = tpurun(4, [sys.executable, str(coll), str(SEED)])
-    ranks = [job_result(lines, r) for r in range(4)]
-    require(all(x["bit_exact"] for x in ranks),
-            f"coll/basic allreduce of card tensors not bit-exact: {ranks}")
-    out["allreduce_4_16MB"] = {"bit_exact": True,
-                               "ms_by_rank": [x["ms"] for x in ranks],
-                               "wall_s": wall}
+        # coll/basic alone, the figure before coll/tuned took the slot
+        lines, wall = tpurun(4, ["--mca", "coll", "basic,self_coll",
+                                 sys.executable, str(coll), str(SEED)])
+        ranks = [job_result(lines, r) for r in range(4)]
+        require(all(x["bit_exact"] for x in ranks),
+                f"coll/basic allreduce of card tensors not bit-exact: {ranks}")
+        out["allreduce_4_16MB"] = {"coll": "basic", "bit_exact": True,
+                                   "ms_by_rank": [x["ms"] for x in ranks],
+                                   "wall_s": wall}
+        lines, wall = tpurun(4, [sys.executable, str(tuned), str(SEED)])
+        ranks = [job_result(lines, r) for r in range(4)]
+        exact = [x[k]["bit_exact"] for x in ranks
+                 for k in ("ladder", "iallreduce", "iallgather_1MB")] + \
+            [v["bit_exact"] for x in ranks for v in x["forced"].values()]
+        require(all(exact), f"tuned/libnbc results not bit-exact: {ranks}")
+        q = [x["blockq_int8"] for x in ranks]
+        require(all(0 < v["rel_err"] <= v["band"] and v["encodes"] == 5
+                    for v in q) and len({v["digest"] for v in q}) == 1,
+                f"blockq int8 outside its band or ranks disagree: {q}")
+        out["tuned_4_16MB"] = {
+            "bit_exact": True, "wall_s": wall,
+            "ms_by_rank": {k: [x[k]["ms"] for x in ranks]
+                           for k in ("ladder", "iallreduce",
+                                     "iallgather_1MB", "blockq_int8")},
+            "forced_ms_by_rank": {a: [x["forced"][a]["ms"] for x in ranks]
+                                  for a in ranks[0]["forced"]},
+            "blockq_int8_rel_err": max(v["rel_err"] for v in q),
+            "staging_by_rank": [x["staging"] for x in ranks]}
+        lines, wall = tpurun(4, ["--fake-nodes", "2", sys.executable,
+                                 str(han), str(SEED)])
+        ranks = [job_result(lines, r) for r in range(4)]
+        require(all(x[k]["bit_exact"] for x in ranks
+                    for k in ("allreduce", "bcast_root1")),
+                f"coll/han results not bit-exact: {ranks}")
+        out["han_4_fake2_16MB"] = {
+            "bit_exact": True, "wall_s": wall,
+            "ms_by_rank": {k: [x[k]["ms"] for x in ranks]
+                           for k in ("allreduce", "bcast_root1")},
+            "sub_sizes_by_rank": [x["sub_sizes"] for x in ranks]}
+    out["han_device"] = han_device(gen)
     log(json.dumps({"host_tier": out}))
     return out
 

@@ -101,6 +101,9 @@ class Comm:
     CONGRUENT = 1
     SIMILAR = 2
     UNEQUAL = 3
+    #: the port has no intercommunicators yet; the coll components' queries
+    #: read this flag as the reference's do
+    is_inter = False
 
     def __init__(self, group: Group, cid: int, rte, name: str = "") -> None:
         self.group = group
@@ -822,7 +825,16 @@ class Comm:
 
     def release_coll_modules(self) -> None:
         """Tear down per-comm coll module state (``free``, and runtime
-        finalize for the comms the user never frees)."""
+        finalize for the comms the user never frees): each module's
+        ``comm_unquery`` runs (coll/han frees its sub-communicators), as
+        the reference's ``release_coll_modules`` does."""
+        for mod in self.coll_modules:
+            close = getattr(mod, "comm_unquery", None)
+            if close is not None:
+                try:
+                    close(self)
+                except Exception:
+                    pass
         self.coll_modules = []
         self.c_coll = {}
 

@@ -186,10 +186,12 @@ class SmBtl(Btl):
         self._db_rx: Optional[socket.socket] = None   # my doorbell
         self._db_tx: Optional[socket.socket] = None   # ring peers' bells
         self._db_addr: dict[int, str] = {}            # rank -> bell address
-        # node identity, not raw hostname: OTPU_NODE_ID partitions ranks
-        # into emulated nodes, and shared memory must not be offered
-        # across that boundary
-        self._hostname = os.environ.get("OTPU_NODE_ID", socket.gethostname())
+        # the host's name, not the node identity: OTPU_NODE_ID (tpurun
+        # --fake-nodes) partitions one host's ranks into emulated nodes for
+        # coll/han, and the reference carries the traffic between them over
+        # btl/tcp, which the port does not have yet; shared memory serves
+        # every rank of the host
+        self._hostname = socket.gethostname()
         self._ring_size = 4 << 20
 
     def _clamped(self, limit: int) -> int:

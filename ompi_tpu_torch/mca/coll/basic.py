@@ -22,6 +22,7 @@ from ompi_tpu_torch.api.comm import host_buffer
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
+from ompi_tpu_torch.mca.accelerator import torch_acc
 
 _TAG_BASE = 16
 _TAG_SPACE = 1 << 20
@@ -30,6 +31,13 @@ _TAG_SPACE = 1 << 20
 def _host(buf) -> np.ndarray:
     """A contiguous host array of ``buf`` (a tensor is staged D2H)."""
     return np.ascontiguousarray(host_buffer(buf))
+
+
+def staged(buf):
+    """``buf`` with a tensor staged to the host (read-only numpy, as the
+    reference's ``np.asarray`` of a ``jax.Array``); anything else as given.
+    The host collective modules call it once, at a slot's entry."""
+    return host_buffer(buf) if torch_acc.is_device_array(buf) else buf
 
 
 def coll_tag(comm) -> int:
@@ -274,7 +282,7 @@ class BasicCollModule:
         out = self.allreduce(comm, np.array([flag], np.int64), op_mod.BAND)
         return int(out[0])
 
-    # nonblocking wrappers (libnbc's schedules are not ported) ----------
+    # nonblocking wrappers (coll/libnbc's schedules take these slots) --
     def ibarrier(self, comm):
         from ompi_tpu_torch.api.request import CompletedRequest
 

@@ -1,21 +1,35 @@
-"""coll/quant — the accuracy-budget decision ladder of the quantized collectives.
+"""coll/quant — block-scale quantization: the codec and its decision ladder.
 
-Port of the device half of ``ompi_tpu/mca/coll/quant.py``: the rule that
-decides, per communicator, whether a device collective may run through a
-lossy block codec, and which.  coll/builtin consumes it
-(``allreduce_array``, ``allgather_array``); the codec kernels are in
-``ompi_tpu_torch/ops/quant.py`` (int8, K17–K19) and, for bf16, plain torch
-casts, as the reference computes that codec outside any Pallas kernel.
+Port of ``ompi_tpu/mca/coll/quant.py``, two of its three datapaths:
+
+* the device tier: the rule that decides, per communicator, whether a
+  device collective may run through a lossy block codec, and which.
+  coll/builtin consumes it (``allreduce_array``, ``allgather_array``); the
+  codec kernels are in ``ompi_tpu_torch/ops/quant.py`` (int8, K17–K19) and,
+  for bf16, plain torch casts, as the reference computes that codec outside
+  any Pallas kernel;
+* the host tier: the numpy codec (``encode_f32``/``decode_f32``) and the
+  tuned ladder's quant arm, ``allreduce_blockq``/``allgather_blockq`` (a
+  tensor staged to the host once, at their entry).
+
+Codec formats (pure numpy, round-half-even everywhere so every process
+encodes IDENTICAL bytes, the reference's bytes):
+
+* ``int8``: per ``block`` elements one f32 scale ``max(|x|)/127``; layout
+  ``[f32 scales x nblocks][int8 q x n]`` — ~3.9x smaller at the default
+  block of 128;
+* ``bf16``: round-to-nearest-even truncation to the top 16 bits; NaNs skip
+  the rounding add and keep a forced mantissa bit; layout ``[u16 x n]``.
 
 Quantization is LOSSY, so it engages only under an EXPLICIT
 per-communicator accuracy budget (the info key :data:`BUDGET_KEY`), never
 for non-commutative reductions (the codec reorders rounding error the way
 a ring reorders operands), and never for exact or non-float32 dtypes.
 
-Not ported yet: the numpy codec (``encode_f32``/``decode_f32``), the host
-collective variants, the btl wire stage and the serving KV slabs, with
-their ``block``, ``wire``, ``wire_codec`` and ``kv_codec`` vars (they come
-with the host tier and serving), and the SPC counters.
+Not ported yet: the btl/tcp wire stage with its ``wire``/``wire_codec``
+vars (it comes with btl/tcp), the serving KV slabs with ``kv_codec`` (they
+come with serving), and the ``quant.encode``/``quant.decode`` profile
+spans (with the runtime's profile module).
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ import torch
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.output import register_help, show_help
 from ompi_tpu_torch.base.var import VarType
+from ompi_tpu_torch.runtime import spc
 
 #: codec names, and the accuracy band each one charges against the declared
 #: budget.  bf16 rounds to 7 stored mantissa bits: per-element relative error
@@ -42,6 +57,7 @@ CODEC_BANDS = {"int8": 1.0 / 127.0, "bf16": 2.0 ** -8}
 #: for "alltoallv" in ``parallel/moe.py``'s ``dispatch_tokens``)
 QUANT_COLLS = ("allreduce", "allgather", "alltoallv")
 
+DEFAULT_BLOCK = 128        # elements per scale block (= one lane row)
 DEFAULT_MIN_BYTES = 64 << 10
 
 #: the comm info key carrying the accuracy budget (max relative error the
@@ -54,6 +70,90 @@ def _set_budget_key(value) -> None:
     global BUDGET_KEY
     BUDGET_KEY = str(value or "otpu_quant_budget")
 
+
+# -- the shared block-scale codec (numpy) --------------------------------
+
+def nblocks(nelems: int, block: int) -> int:
+    return -(-int(nelems) // int(block))
+
+
+def encoded_nbytes(nelems: int, codec: str, block: int = None) -> int:
+    """Encoded size in bytes of ``nelems`` f32 elements."""
+    n = int(nelems)
+    if codec == "bf16":
+        return 2 * n
+    if codec == "int8":
+        return n + 4 * nblocks(n, block or block_elems())
+    raise KeyError(f"unknown quant codec {codec!r}")
+
+
+def encode_f32(x, codec: str, block: int = None) -> np.ndarray:
+    """Encode an f32 array into the codec's byte layout (owned uint8).
+
+    Deterministic (round-half-even, pure numpy): every process encodes
+    identical bytes for identical input."""
+    x = np.ascontiguousarray(x, np.float32).reshape(-1)
+    n = x.size
+    if codec == "bf16":
+        u = x.view(np.uint32)
+        # round-to-nearest-even on the dropped 16 bits, in uint64 so the
+        # carry can never wrap the sign bit.  NaNs bypass the rounding add
+        # (it can carry into the exponent and flush a payload NaN to
+        # +/-0.0): truncate them and force a mantissa bit so the result
+        # stays a NaN.
+        rounded = (((u.astype(np.uint64) + 0x7FFF + ((u >> 16) & 1))
+                    >> 16).astype(np.uint16))
+        nan = ((u & 0x7F800000) == 0x7F800000) \
+            & ((u & 0x007FFFFF) != 0)
+        out = np.where(nan, ((u >> 16) | 0x0040).astype(np.uint16),
+                       rounded).view(np.uint8).copy()
+    elif codec == "int8":
+        b = int(block or block_elems())
+        nb = nblocks(n, b)
+        pad = nb * b - n
+        xp = (np.pad(x, (0, pad)) if pad else x).reshape(nb, b)
+        amax = np.abs(xp).max(axis=1)
+        scale = (amax * (1.0 / 127.0)).astype(np.float32)
+        inv = np.zeros_like(amax)
+        np.divide(127.0, amax, out=inv, where=amax > 0.0)
+        q = np.rint(xp * inv[:, None]).astype(np.int8)
+        out = np.empty(4 * nb + n, np.uint8)
+        out[:4 * nb] = scale.view(np.uint8)
+        out[4 * nb:] = q.reshape(-1)[:n].view(np.uint8)
+    else:
+        raise KeyError(f"unknown quant codec {codec!r}")
+    spc.record("quant_encodes")
+    return out
+
+
+def decode_f32(buf, codec: str, nelems: int,
+               block: int = None) -> np.ndarray:
+    """Decode a codec byte layout back to ``nelems`` f32 elements."""
+    n = int(nelems)
+    b8 = np.frombuffer(buf, np.uint8) if not isinstance(buf, np.ndarray) \
+        else buf.reshape(-1).view(np.uint8)
+    want = encoded_nbytes(n, codec, block)
+    if b8.size != want:
+        raise ValueError(
+            f"quant {codec} payload of {b8.size} bytes does not "
+            f"match {n} elements (expected {want})")
+    if codec == "bf16":
+        u16 = np.ascontiguousarray(b8).view(np.uint16)
+        out = (u16.astype(np.uint32) << 16).view(np.float32).copy()
+    else:
+        b = int(block or block_elems())
+        nb = nblocks(n, b)
+        scale = np.ascontiguousarray(b8[:4 * nb]).view(np.float32)
+        q = b8[4 * nb:].view(np.int8)
+        pad = nb * b - n
+        qp = (np.pad(q, (0, pad)) if pad else q).reshape(nb, b)
+        out = (qp.astype(np.float32)
+               * scale[:, None]).reshape(-1)[:n].copy()
+    spc.record("quant_decodes")
+    return out
+
+
+# -- the (dtype, size, accuracy_budget) decision ladder ------------------
 
 def _is_float32(dtype) -> bool:
     """True for torch.float32 and numpy float32 (the reference's
@@ -112,14 +212,58 @@ def pick(comm, coll: str, dtype, nbytes: int, op=None) -> Optional[str]:
     return decide(coll, dtype, int(nbytes), budget, commute, min_bytes())
 
 
+# -- host collective variants (the tuned ladder's quant arm) -------------
+
+def allreduce_blockq(comm, sendbuf, op, codec: str):
+    """Block-quantized host allreduce: encode once, allgather the encoded
+    payloads, dequant-accumulate locally.
+
+    Every rank folds the decoded contributions in RANK ORDER, so all ranks
+    compute bit-identical results; wire traffic is (n-1) ENCODED payloads
+    per rank instead of ~2x the raw buffer."""
+    from ompi_tpu_torch.mca.coll import algorithms as algs
+    from ompi_tpu_torch.mca.coll.basic import staged
+
+    arr = np.ascontiguousarray(staged(sendbuf), np.float32)
+    b = block_elems()
+    enc = encode_f32(arr.reshape(-1), codec, b)
+    gathered = algs.allgather_recursive_doubling(comm, enc)
+    acc = decode_f32(gathered[0], codec, arr.size, b)
+    for r in range(1, comm.size):
+        part = decode_f32(gathered[r], codec, arr.size, b)
+        acc = op.reduce_arrays(part, acc)
+    return acc.reshape(arr.shape)
+
+
+def allgather_blockq(comm, sendbuf, codec: str):
+    """Block-quantized host allgather: each rank's block travels encoded
+    and is decoded at every receiver (within the codec band)."""
+    from ompi_tpu_torch.mca.coll import algorithms as algs
+    from ompi_tpu_torch.mca.coll.basic import staged
+
+    arr = np.ascontiguousarray(staged(sendbuf), np.float32)
+    b = block_elems()
+    enc = encode_f32(arr.reshape(-1), codec, b)
+    gathered = algs.allgather_recursive_doubling(comm, enc)
+    return np.stack([decode_f32(gathered[r], codec, arr.size,
+                                b).reshape(arr.shape)
+                     for r in range(comm.size)])
+
+
 class QuantCollComponent(Component):
-    """Config home.  comm_query answers None: quant is not a per-comm
-    module — coll/builtin consumes its ladder directly."""
+    """Codec and config home.  comm_query answers None: quant is not a
+    per-comm module — coll/builtin and the tuned ladder consume its codec
+    and ladder directly."""
 
     name = "quant"
     priority = 0
 
     def register_vars(self, fw) -> None:
+        self._block = self.register_var(
+            "block", vtype=VarType.INT, default=DEFAULT_BLOCK,
+            help="Elements per block scale in the int8 codec (128 = one "
+                 "lane row; smaller tracks outliers closer at more scale "
+                 "overhead)")
         self._min = self.register_var(
             "min_bytes", vtype=VarType.SIZE, default="64k",
             help="Smallest payload (the whole (n, ...) world tensor) the "
@@ -137,6 +281,12 @@ class QuantCollComponent(Component):
 
 
 COMPONENT = QuantCollComponent()
+
+
+def block_elems() -> int:
+    v = getattr(COMPONENT, "_block", None)
+    value = int(v.value) if v is not None and v.value else DEFAULT_BLOCK
+    return max(1, value)
 
 
 def min_bytes() -> int:

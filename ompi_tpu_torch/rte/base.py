@@ -3,8 +3,8 @@
 Port of ``ompi_tpu/rte/base.py`` (the PMIx client surface of the
 reference, ``ompi/runtime/ompi_rte.c``): an Rte provides identity
 (rank/size), the wire-up KV space, barriers outside MPI and the device that
-the device-collective components compute on.  The multi-process model
-(``ProcRte``) is not ported yet.
+the device-collective components compute on.  The multi-process model is
+``rte/proc.py``'s ``ProcRte``.
 """
 from __future__ import annotations
 
@@ -33,6 +33,11 @@ class Rte:
     def fence(self) -> None:
         """Out-of-band barrier + modex publication (``PMIx_Fence``)."""
         raise NotImplementedError
+
+    def node_of(self, world_rank: int) -> Optional[Any]:
+        """Node identity of a peer (None if unknown) — the locality lookup
+        coll/han reads."""
+        return None
 
     def finalize(self) -> None:
         pass

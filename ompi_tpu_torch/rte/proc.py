@@ -7,14 +7,17 @@ service for identity, modex and fences (the ``PMIx_Init`` path of
 names another (``device="cpu"``); with no card and no explicit device,
 construction raises, as the device world's does.  Tensors a rank hands to
 point-to-point or to a host collective are staged through
-``torch_acc.to_host``.  Not copied: dpm's job identity (spawned jobs,
-parent ranks), the locality modex (``hostname``, ``node``) and
-``split_type``'s colors, the chaos hook and the multi-process device
-world.
+``torch_acc.to_host``.  Node identity for the hierarchy (coll/han): the
+``node`` modex key, from ``OTPU_NODE_ID`` (``tpurun --fake-nodes``) or
+else the hostname, read back through the cached ``node_of``.  Not copied:
+dpm's job identity (spawned jobs, parent ranks), the ``hostname`` key and
+``split_type``'s colors (the instance layer), the chaos hook and the
+multi-process device world.
 """
 from __future__ import annotations
 
 import os
+import socket
 from typing import Any, Optional
 
 from ompi_tpu_torch.base import cudaenv
@@ -31,6 +34,12 @@ class ProcRte(Rte):
         self.world_size = int(os.environ["OTPU_NPROCS"])
         self.job_ranks = list(range(self.world_size))
         self.client = CoordClient()
+        # node identity for the hierarchy (coll/han): hostname by default,
+        # OTPU_NODE_ID when the launcher partitions ranks into fake nodes
+        # (tpurun --fake-nodes)
+        self._node = os.environ.get("OTPU_NODE_ID", socket.gethostname())
+        self.modex_put("node", self._node)
+        self._node_cache: dict = {}
         self._fence_counter = 0
 
     def device_of(self, world_rank: int):
@@ -67,6 +76,21 @@ class ProcRte(Rte):
                 c.close()
             except Exception:
                 pass
+
+    def node_of(self, world_rank: int):
+        """Cached node identity of a peer (published at its init, before
+        the init fence); None while a peer's key is not readable."""
+        if world_rank == self.my_world_rank:
+            return self._node
+        if world_rank not in self._node_cache:
+            try:
+                val = self.modex_get(world_rank, "node", wait=False)
+            except Exception:
+                return None
+            if val is None:
+                return None     # not cached: may appear later
+            self._node_cache[world_rank] = val
+        return self._node_cache[world_rank]
 
     def finalize(self) -> None:
         self.client.close()

@@ -3,10 +3,12 @@ counters bumped in the bindings, exported as MPI_T-style pvars).
 
 Copy of ``ompi_tpu/runtime/spc.py`` with the counters that the port's
 modules record: point-to-point and its protocols, the device collectives
-(``bump_device``), the coordination client's retries and the MoE
-dispatch's codec.  The reference's other counters (the host
-collectives', serving, chaos, telemetry, tracing) come with the modules
-that record them.
+(``bump_device``), the coordination client's retries, the codec (the MoE
+dispatch's and coll/quant's host codec) and the host collectives'
+fastpath counters (coll/algorithms' schedule cache, coll/tuned's eager
+lane, the accelerator's staging pool).  The reference's other counters
+(the per-collective call counts, serving, chaos, telemetry, tracing) come
+with the modules that record them.
 """
 from __future__ import annotations
 
@@ -19,6 +21,10 @@ _COUNTERS = (
     "device_collectives", "device_bytes",
     "coord_reconnects", "coord_rpc_retries",
     "quant_encodes", "quant_decodes",
+    # fastpath counters: the schedule cache must hit on repeated
+    # collectives, and the staging pool must reuse its warm buffers
+    "fastpath_sched_hits", "fastpath_sched_misses", "fastpath_eager_lane",
+    "fastpath_staging_hits", "fastpath_staging_misses",
 )
 
 _pvars = {}

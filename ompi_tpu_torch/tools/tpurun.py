@@ -14,9 +14,14 @@ Run: ``python -m ompi_tpu_torch.tools.tpurun -n 4 python -m
 ompi_tpu_torch.examples.ring`` (add ``--device cpu`` to the ring's
 arguments on a machine without a card).
 
+``--fake-nodes K`` partitions the ranks into K emulated nodes
+(``OTPU_NODE_ID=node<rank*K//n>`` for each rank) so that coll/han's
+hierarchy runs on one host, as ``mpirun --oversubscribe`` tests han.
+
 Not copied yet: hostfiles and launch agents (``tpurun.py:34-83``),
-``--enable-recovery``, process sets, spawn, the device-world and binding
-flags, and the trace, monitoring and flight merges (``:177-305``).
+``--enable-recovery``, process sets (the per-node sets ``--fake-nodes``
+names there too), spawn, the device-world and binding flags, and the
+trace, monitoring and flight merges (``:177-305``).
 """
 from __future__ import annotations
 
@@ -80,6 +85,11 @@ def main(argv=None) -> int:
                     metavar=("NAME", "VALUE"),
                     help="Set an MCA variable for all ranks")
     ap.add_argument("--coord-port", type=int, default=0)
+    ap.add_argument("--fake-nodes", type=int, default=0, metavar="K",
+                    help="Partition ranks into K emulated nodes (sets "
+                         "OTPU_NODE_ID=rank*K//nprocs per rank) so the "
+                         "hierarchical coll/han path can be exercised on "
+                         "one host, like mpirun --oversubscribe for han")
     ap.add_argument("command", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     if not args.command:
@@ -118,6 +128,8 @@ def main(argv=None) -> int:
     for rank in range(args.nprocs):
         env = dict(env_base)
         env["OTPU_RANK"] = str(rank)
+        if args.fake_nodes > 0:
+            env["OTPU_NODE_ID"] = f"node{rank * args.fake_nodes // args.nprocs}"
         try:
             p = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT)

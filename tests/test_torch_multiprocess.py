@@ -1,18 +1,21 @@
 """The port's multi-process world on the CPU lane, held against the JAX
 package's: the same jobs launched by each package's ``tpurun`` (the
-coordination service, ProcRte, btl/self + btl/sm, pml/ob1, coll/basic),
-their per-rank outputs compared line for line.  The reference runs with
-``--mca coll basic,self_coll``, the components the port has; its ranks
-keep their own btls (its btl/sm pulls messages above 512 KB one-sidedly,
-the port's streams them: the same bytes).  The port's ranks bind
-``--device cpu``.
+coordination service, ProcRte, btl/self + btl/sm, pml/ob1, the coll
+components), their per-rank outputs compared line for line.  The first
+jobs run both packages with ``--mca coll basic,self_coll``; the
+reference's ranks keep their own btls (its btl/sm pulls messages above
+512 KB one-sidedly, the port's streams them: the same bytes).  The port's
+ranks bind ``--device cpu``.
 
 Jobs: the ring (``tpurun -n 4`` of each package's ``ring`` example); the
 host collectives and ``split``/``dup``/``create_group`` under ``-n 4``; a
 rendezvous message of 2 MB under ``-n 2``; tensors (the reference's
 ``jax.Array``) as send buffers of point-to-point and of coll/basic's
 allreduce; and the failure teardown (a rank that exits 3 brings the job
-down with 3).  Every subprocess has its own ``timeout=``.
+down with 3).  The default-selection jobs run both packages with no
+``--mca coll`` list at ``-n 2``, ``3`` and ``4`` (coll/tuned's picks,
+coll/libnbc's ``i*``), and at ``-n 4`` and ``5`` across ``--fake-nodes 2``
+(coll/han).  Every subprocess has its own ``timeout=``.
 """
 import os
 import signal
@@ -112,6 +115,171 @@ elif mode == "p2p":
 m.finalize()
 '''
 
+#: the default-selection jobs: which component owns each slot, tuned's
+#: picks across its thresholds (and every allreduce entry forced through
+#: the var), the twelve ``i*`` schedules of libnbc, a tensor in and numpy
+#: out, and with ``--fake-nodes 2`` han's compositions, its decline on a
+#: comm with one rank a node, and its sub-comms freed with their parent
+DEFAULT = r'''
+import hashlib, json, sys
+import numpy as np
+
+pkg, mode = sys.argv[1], sys.argv[2]
+if pkg == "torch":
+    import ompi_tpu_torch as m
+    from ompi_tpu_torch.api import op as op_mod
+    from ompi_tpu_torch.base.var import registry
+    from ompi_tpu_torch.mca.coll import algorithms as algs
+    w = m.init(device="cpu")
+else:
+    import ompi_tpu as m
+    from ompi_tpu.api import op as op_mod
+    from ompi_tpu.base.var import registry
+    from ompi_tpu.mca.coll import algorithms as algs
+    w = m.init()
+r, n = w.rank, w.size
+SLOTS = ("barrier", "bcast", "gather", "gatherv", "scatter", "scatterv",
+         "allgather", "allgatherv", "alltoall", "alltoallv", "alltoallw",
+         "reduce", "allreduce", "reduce_scatter", "scan", "exscan",
+         "ibarrier", "ibcast", "igather", "iscatter", "iallgather",
+         "ialltoall", "ireduce", "iallreduce", "ireduce_scatter", "iscan",
+         "iexscan")
+
+
+def out(key, value):
+    print(json.dumps([key, value]), flush=True)
+
+
+def hexed(a):
+    # a digest keeps every line short: the launchers' output pumps may
+    # interleave lines of several ranks that run past the pipe's buffer
+    if a is None:
+        return None
+    if isinstance(a, list):
+        return [hexed(x) for x in a]
+    a = np.ascontiguousarray(a)
+    return [str(a.dtype), list(a.shape),
+            hashlib.sha256(a.tobytes()).hexdigest()]
+
+
+def owners(c):
+    # agree is coll/ftagree's in the reference (ROADMAP A 6), basic's here;
+    # a slot coll/demo or coll/sync wrapped names its wrapper
+    return {k: type(getattr(c.c_coll[k], "__self__", None)
+                    or c.c_coll[k]).__name__ for k in SLOTS
+            if k in c.c_coll}
+
+
+def signed_product(invec, inoutvec, datatype=None):
+    np.multiply(invec, np.abs(inoutvec), out=inoutvec)
+
+
+nc = op_mod.create(signed_product, commute=False)
+rng = np.random.default_rng(17)           # the same data on every rank
+
+
+def data(k, dtype=np.float32):
+    return rng.standard_normal((n, k)).astype(dtype)
+
+
+out("owners", owners(w))
+if mode == "default":
+    for k in (3, 1000, 20000, 200000):
+        x = data(k)
+        out(f"allreduce {k}", hexed(w.allreduce(x[r])))
+        out(f"allreduce nc {k}", hexed(w.allreduce(
+            np.abs(x[r]) + 0.5, nc)))
+        out(f"reduce_scatter {k}", hexed(w.reduce_scatter(x[r])))
+    for k in (100, 20000):
+        x = data(k)
+        out(f"reduce {k}", hexed(w.reduce(x[r], m.SUM, n - 1)))
+        out(f"reduce nc {k}", hexed(w.reduce(np.abs(x[r]) + 0.5, nc, 0)))
+        out(f"gather {k}", hexed(w.gather(x[r], 0)))
+        out(f"scatter {k}", hexed(w.scatter(x if r == 1 else x[r], 1)))
+    for k in (100, 1000, 300000):
+        x = data(k)
+        out(f"bcast {k}", hexed(w.bcast(x[0] if r == 0 else x[r] * 0, 0)))
+    for k in (10, 1000, 150000):
+        out(f"allgather {k}", hexed(w.allgather(data(k)[r])))
+    for k in (4, 128):
+        out(f"alltoall {k}", hexed(w.alltoall(data(n * k).reshape(
+            n, n, k)[r])))
+    w.barrier()
+    x = data(16384)
+    registry.set("otpu_coll_tuned_allreduce_segsize", 8192)
+    for alg in sorted(algs.ALLREDUCE):
+        registry.set("otpu_coll_tuned_allreduce_algorithm", alg)
+        out(f"forced {alg}", hexed(w.allreduce(x[r])))
+    registry.set("otpu_coll_tuned_allreduce_algorithm", "")
+    x = data(40)
+    reqs = [("ibarrier", w.ibarrier()),
+            ("ibcast", w.ibcast(x[1] if r == 1 else x[r] * 0, 1)),
+            ("iallreduce", w.iallreduce(x[r])),
+            ("iallreduce nc", w.iallreduce(np.abs(x[r]) + 0.5, nc)),
+            ("iallgather", w.iallgather(x[r])),
+            ("ialltoall", w.ialltoall(data(n * 3).reshape(n, n, 3)[r])),
+            ("ireduce", w.ireduce(x[r], m.SUM, n - 1)),
+            ("igather", w.igather(x[r], 0)),
+            ("iscatter", w.iscatter(x if r == 0 else x[r], 0)),
+            ("ireduce_scatter", w.ireduce_scatter(x[r])),
+            ("iscan", w.iscan(x[r])),
+            ("iexscan", w.iexscan(x[r]))]
+    for name, q in reversed(reqs):
+        q.wait()
+    for name, q in reqs:
+        out(name, hexed(q.result))
+    sub = w.split(r % 2, key=-r)
+    out("split", [sub.size, sub.rank, sub.cid, hexed(sub.allreduce(x[r]))])
+elif mode == "interpose":
+    # coll/adapt raised (4 KB segments), coll/sync's barrier every 3 rooted
+    # calls, coll/demo announcing each wrapped slot on the coll stream
+    x = data(3000)
+    out("bcast", hexed(w.bcast(x[2] if r == 2 else x[r] * 0, 2)))
+    out("reduce", hexed(w.reduce(x[r], m.SUM, 1)))
+    out("reduce nc", hexed(w.reduce(np.abs(x[r]) + 0.5, nc, 0)))
+    q = w.ibcast(x[0].astype(np.float64) if r == 0 else np.zeros(3000), 0)
+    q.wait()
+    out("ibcast", hexed(q.result))
+    q = w.ireduce(x[r], m.MAX, 3)
+    q.wait()
+    out("ireduce", hexed(q.result))
+    for i in range(4):
+        out(f"scatter {i}", hexed(w.scatter(x[:, :5] if r == i else
+                                            x[r][:5], i)))
+    out("allreduce", hexed(w.allreduce(x[r])))
+else:
+    x = data(64)
+    out("han sym", hexed(w.allreduce(x[r])))
+    out("han leader", hexed(w.allreduce(x[r][:7])))
+    out("han max", hexed(w.allreduce(x[r], m.MAX)))
+    out("han nc", hexed(w.allreduce(np.abs(x[r]) + 0.5, nc)))
+    out("han bcast", hexed(w.bcast(x[1] if r == 1 else x[r] * 0, 1)))
+    out("han bcast leader", hexed(w.bcast(x[2] if r == 2 else x[r] * 0, 2)))
+    out("han reduce", hexed(w.reduce(x[r], m.SUM, n - 1)))
+    out("han allgather", hexed(w.allgather(x[r][:5])))
+    w.barrier()
+    out("han gather", hexed(w.gather(x[r][:3], n - 2)))
+    out("han scatter", hexed(w.scatter(x[:, :4] if r == 1 else x[r][:4], 1)))
+    out("han alltoall", hexed(w.alltoall(data(n * 2).reshape(n, n, 2)[r])))
+    q = w.iallreduce(x[r])
+    q.wait()
+    out("han iallreduce", hexed(q.result))
+    mod = w.c_coll["allreduce"].__self__
+    out("subs", [c.size for c in (mod._low, mod._up, mod._leaders)
+                 if c is not None])
+    one = w.split(0 if r in (0, n - 1) else 1)
+    out("one a node", [type(one.c_coll["allreduce"].__self__).__name__,
+                       hexed(one.allreduce(x[r]))])
+    d = w.dup()
+    out("dup", [d.cid, hexed(d.allreduce(x[r]))])
+    dm = d.c_coll["allreduce"].__self__
+    subs = [c for c in (dm._low, dm._up, dm._leaders) if c is not None]
+    d.free()
+    out("freed", [dm._low is None, [c.freed for c in subs]])
+    out("after", [w.dup().cid, hexed(w.allreduce(x[r]))])
+m.finalize()
+'''
+
 DRAIN = r'''
 import time
 import numpy as np
@@ -207,7 +375,8 @@ def test_ring_matches_the_reference():
 
 @pytest.mark.parametrize("mode,n", [("coll", 4), ("p2p", 2)])
 def test_jobs_match_the_reference(worker, mode, n):
-    got = _tpurun("torch", n, [sys.executable, str(worker), "torch", mode],
+    got = _tpurun("torch", n, ["--mca", "coll", "basic,self_coll",
+                               sys.executable, str(worker), "torch", mode],
                   timeout=150)
     want = _tpurun("jax", n, ["--mca", "coll", "basic,self_coll",
                               sys.executable, str(worker), "jax", mode],
@@ -220,6 +389,57 @@ def test_jobs_match_the_reference(worker, mode, n):
         assert got_l[rank] == want_l[rank], rank
     if mode == "p2p":
         assert '"rndv", [0, 2097152, true]' in got_l[1][0]
+
+
+@pytest.fixture(scope="module")
+def default_worker(tmp_path_factory):
+    path = tmp_path_factory.mktemp("mp") / "default.py"
+    path.write_text(DEFAULT)
+    return path
+
+
+@pytest.mark.parametrize("mode,n", [("default", 2), ("default", 3),
+                                    ("default", 4), ("han", 4), ("han", 5),
+                                    ("interpose", 4)])
+def test_default_selection_matches_the_reference(default_worker, mode, n):
+    """Both packages under default selection: the same component owns
+    every slot (tuned, libnbc, basic; han across ``--fake-nodes 2``, 2+2
+    and 3+2 ranks), and every line of the job is equal.  The reference runs
+    without its native core (``OTPU_NATIVE_DISABLE``), as the port has
+    none: its coll/sm would take single-node comms (ROADMAP A 4)."""
+    extra = {"han": ["--fake-nodes", "2"],
+             "interpose": ["--mca", "coll_adapt_priority", "60",
+                           "--mca", "coll_adapt_segsize", "4k",
+                           "--mca", "coll_sync_barrier_after", "3",
+                           "--mca", "coll_demo_priority", "100",
+                           "--mca", "coll_base_verbose", "1"]}.get(mode, [])
+    got = _tpurun("torch", n, [*extra, sys.executable, str(default_worker),
+                               "torch", mode], timeout=150)
+    want = _tpurun("jax", n, [*extra, sys.executable, str(default_worker),
+                              "jax", mode], timeout=150,
+                   extra_env={"OTPU_NATIVE_DISABLE": "1"})
+    assert got.returncode == 0, got.stdout + got.stderr
+    assert want.returncode == 0, want.stdout + want.stderr
+    got_l, want_l = _lines(got.stdout), _lines(want.stdout)
+    assert sorted(got_l) == list(range(n))
+    for rank in range(n):
+        assert got_l[rank] == want_l[rank], rank
+    owners = got_l[0][0]
+    if mode == "interpose":
+        # demo wraps the slots it announces; adapt owns ibcast and ireduce
+        assert '"ibcast": "AdaptModule"' in owners
+        assert '"iallgather": "LibnbcModule"' in owners
+        assert any(x.startswith("demo: bcast on COMM_WORLD (rank 0)")
+                   or "demo: bcast on COMM_WORLD (rank 0)" in x
+                   for x in got_l[0])
+        return
+    if mode == "han":
+        assert '"allreduce": "HanModule"' in owners
+        assert '"freed", [true, [true, true' in got_l[0][-2]
+    else:
+        assert '"allreduce": "TunedModule"' in owners
+    assert '"iallgather": "LibnbcModule"' in owners
+    assert '"scan": "BasicCollModule"' in owners
 
 
 def test_finalize_drains_queued_sends(tmp_path):

@@ -371,7 +371,34 @@ NOT_COPIED = {
     # the native core (push/pop, pack loops, threads/native): next slice
     "native_core": lambda pkg: importlib.util.find_spec(
         f"{pkg}.native") is not None,
+    # coll/tuned's and coll/quant's profile spans (coll.decide, coll.alg,
+    # quant.encode, quant.decode): with the runtime's profile module, A 4
+    "coll_profile_spans": lambda pkg: all(
+        hasattr(__import__(f"{pkg}.mca.coll.{m}", fromlist=["x"]), "profile")
+        for m in ("tuned", "quant")),
+    # the staging pool's trace spans, its telemetry source and the
+    # sanitizer branch of release: with trace, telemetry and sanitizer, A 4
+    "staging_observability": lambda pkg: all(
+        hasattr(_accelerator(pkg), m)
+        for m in ("trace", "_telemetry", "sanitizer")),
+    # coll/quant's btl/tcp wire stage (encode_wire/decode_wire, the wire
+    # and wire_codec vars): with btl/tcp, A 4.1 and A 5
+    "quant_wire_stage": lambda pkg: hasattr(
+        __import__(f"{pkg}.mca.coll.quant", fromlist=["x"]), "encode_wire"),
+    # coll/sm: after the native core (A 4.2); coll/inter: with
+    # intercommunicators; coll/ftagree: with fault tolerance (A 6)
+    "coll_sm": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.mca.coll.sm_coll") is not None,
+    "coll_inter": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.mca.coll.inter") is not None,
+    "coll_ftagree": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.mca.coll.ftagree") is not None,
 }
+
+
+def _accelerator(pkg):
+    name = "jax_acc" if pkg == "ompi_tpu" else "torch_acc"
+    return __import__(f"{pkg}.mca.accelerator.{name}", fromlist=["x"])
 
 
 @pytest.mark.parametrize("what", sorted(NOT_COPIED))

@@ -296,8 +296,9 @@ def test_components_come_from_the_port(torch_world):
 
     assert mca.MCA_PACKAGE == "ompi_tpu_torch.mca"
     coll = coll_framework()
-    assert sorted(coll.components) == ["basic", "builtin", "conductor",
-                                       "quant", "ring", "self_coll", "tuned"]
+    assert sorted(coll.components) == [
+        "adapt", "basic", "builtin", "conductor", "demo", "han", "libnbc",
+        "quant", "ring", "self_coll", "sync", "tuned"]
     op_fw = op_base._framework()
     assert sorted(op_fw.components) == ["builtin", "cuda_vpu"]
     pml_fw, btl_fw = mca.framework("pml"), mca.framework("btl")
