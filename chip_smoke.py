@@ -239,7 +239,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    largest sum of magnitudes of the float64 sum over the rank axis,
    timed beside ``torch.sum(x, 0)``.  All
    on one ``{"host_tier": {...}}`` line that carries the card's name and
-   power limit.
+   power limit.  With the native core built, the default-selection job's
+   allreduce slot is coll/sm's, which hands 16 MB on to coll/tuned, and
+   the han job's ranks must reach their node over btl/sm and the other
+   node over btl/tcp.
+6. The host transports (no kernel runs here): the native core
+   (``ompi_tpu_torch/native``, built with g++ at first use) must be
+   available and its epoll reactor must engage, or the phase fails; then
+   the ``-n 2`` ping-pong over btl/sm and over btl/tcp (``--mca btl
+   tcp,self``), each with the core and with ``OTPU_NATIVE_DISABLE=1`` (each
+   job reports the btl and lane it ran on, checked), one-way latency at 8 B
+   and bandwidth at 4 MB; coll/sm's allreduce and bcast (root 2) of 1 MB
+   integer-valued float32 card tensors at ``-n 4``, bit for bit, beside
+   coll/tuned (``--mca coll ^sm_coll``), median of 11 by rank; the quantized
+   wire (``--fake-nodes 2 --mca otpu_coll_quant_wire 1``): coll/han's
+   allreduce of 4 MB of float32 a rank, error within 1/127 of the largest
+   exact sum, the ranks of a node equal, orig/enc bytes from
+   ``quant.wire_stats()``; the convertor's pack of a 16 MB strided vector,
+   native (over the worker pool) beside numpy, bytes equal first.  One
+   ``{"host_transports": {...}}`` line with the card's name and power
+   limit.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -2572,7 +2591,9 @@ PINGPONG = r"""
 import json, sys, time
 import numpy as np
 import ompi_tpu_torch
+from ompi_tpu_torch import native
 from ompi_tpu_torch.api import request
+from ompi_tpu_torch.runtime import reactor
 w = ompi_tpu_torch.init()
 peer = 1 - w.rank
 res = {}
@@ -2600,6 +2621,7 @@ for size, rounds in ((8, 2000), (4 << 20, 40)):
     warm = rounds // 10
     for i in range(warm + rounds):
         if i == warm:
+            assert np.all(b == peer + 1), "ping-pong payload after warm-up"
             w.barrier()
             t0 = time.perf_counter()
             idle0 = dict(idle)
@@ -2622,7 +2644,10 @@ if w.rank == 0:
                       "rank0_yields_per_round_trip_8B":
                           per_round_trip[8]["yields"],
                       "rank0_blocks_per_round_trip_8B":
-                          per_round_trip[8]["blocks"]}),
+                          per_round_trip[8]["blocks"],
+                      "btl": w.pml.bml.endpoint(peer).btl.name,
+                      "native": native.available(),
+                      "reactor": reactor.active()}),
           flush=True)
 ompi_tpu_torch.finalize()
 """
@@ -2676,9 +2701,10 @@ w = ompi_tpu_torch.init()
 n, r = w.size, w.rank
 owner = {k: type(w.c_coll[k].__self__).__name__
          for k in ("allreduce", "iallreduce", "iallgather")}
-assert w.rte.device.type == "cuda" and owner == {
-    "allreduce": "TunedModule", "iallreduce": "LibnbcModule",
-    "iallgather": "LibnbcModule"}, owner
+fallback = getattr(w.c_coll["allreduce"].__self__, "_fallback", None)
+if fallback is not None:
+    owner["allreduce above the slot"] = type(fallback).__name__
+assert w.rte.device.type == "cuda", w.rte.device
 host = [np.random.default_rng(int(sys.argv[1]) + i).integers(
     -1000, 1001, 4 << 20).astype(np.float32) for i in range(n)]
 x = torch.from_numpy(host[r]).to(w.rte.device)
@@ -2704,7 +2730,7 @@ def waited(q):
     return q.result
 
 
-res = {"rank": r}
+res = {"rank": r, "owner": owner}
 torch_acc.staging.clear()
 s0 = {k: spc.read(k) for k in ("fastpath_staging_hits",
                                "fastpath_staging_misses")}
@@ -2740,6 +2766,12 @@ print(json.dumps(res), flush=True)
 ompi_tpu_torch.finalize()
 """
 
+#: the owners of the default-selection job's slots with the native core:
+#: coll/sm holds the allreduce and hands 16 MB on to coll/tuned
+TUNED_OWNERS = {"allreduce": "SmCollModule", "iallreduce": "LibnbcModule",
+                "iallgather": "LibnbcModule",
+                "allreduce above the slot": "TunedModule"}
+
 #: a -n 4 --fake-nodes 2 job: coll/han's allreduce (the symmetric fast
 #: path: reduce_scatter on the node, allreduce across, allgather on the
 #: node) and bcast from a root that is not its node's leader, of tensors on
@@ -2772,7 +2804,72 @@ for name, fn, ref in (("allreduce", lambda: w.allreduce(x), want),
 mod = w.c_coll["allreduce"].__self__
 res["sub_sizes"] = [c.size for c in (mod._low, mod._up, mod._leaders)
                     if c is not None]
+res["eps"] = {p: w.pml.bml.endpoint(p).btl.name for p in range(n) if p != r}
 print(json.dumps(res), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+#: a -n 4 job: coll/sm's allreduce and bcast (root 2) of 1 MB float32 card
+#: tensors a rank (integer-valued: any order of the sum is exact), checked
+#: bit for bit on every rank before they are timed; the owner of each slot
+#: is printed, so the same script runs under ``--mca coll ^sm_coll``
+SMCOLL = r"""
+import json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+w = ompi_tpu_torch.init()
+n, r = w.size, w.rank
+host = [np.random.default_rng(int(sys.argv[1]) + i).integers(
+    -1000, 1001, 1 << 18).astype(np.float32) for i in range(n)]
+x = torch.from_numpy(host[r]).to(w.rte.device)
+want = np.sum(host, axis=0, dtype=np.float32)
+b = x if r == 2 else torch.zeros_like(x)
+res = {"rank": r, "owner": {k: type(w.c_coll[k].__self__).__name__
+                            for k in ("allreduce", "bcast")}}
+for name, fn, ref in (("allreduce", lambda: w.allreduce(x), want),
+                      ("bcast_root2", lambda: w.bcast(b, root=2), host[2])):
+    got = fn()
+    assert got.tobytes() == ref.tobytes(), name
+    times = []
+    for _ in range(11):
+        w.barrier()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    res[name] = {"ms": sorted(times)[5] * 1e3, "bit_exact": True}
+print(json.dumps(res), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+#: a -n 4 --fake-nodes 2 job with ``otpu_coll_quant_wire`` set: coll/han's
+#: allreduce of 4 MB of float32 a rank (a card tensor), the traffic between
+#: the nodes int8-encoded on btl/tcp; its error against the float64 sum,
+#: the same bytes on the ranks of a node, and ``quant.wire_stats()``
+QUANTWIRE = r"""
+import hashlib, json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+from ompi_tpu_torch.mca.coll import quant
+w = ompi_tpu_torch.init()
+n, r = w.size, w.rank
+assert quant.wire_enabled
+host = [np.random.default_rng(int(sys.argv[1]) + i).standard_normal(
+    1 << 20).astype(np.float32) for i in range(n)]
+x = torch.from_numpy(host[r]).to(w.rte.device)
+exact = np.sum(np.array(host, np.float64), axis=0)
+got = w.allreduce(x)
+err = float(np.abs(got - exact).max() / np.abs(exact).max())
+times = []
+for _ in range(5):
+    w.barrier()
+    t0 = time.perf_counter()
+    w.allreduce(x)
+    times.append(time.perf_counter() - t0)
+print(json.dumps({"rank": r, "ms": sorted(times)[2] * 1e3, "rel_err": err,
+                  "digest": hashlib.sha256(got.tobytes()).hexdigest()[:16],
+                  "wire": quant.wire_stats(),
+                  "eps": {p: w.pml.bml.endpoint(p).btl.name
+                          for p in range(n) if p != r}}), flush=True)
 ompi_tpu_torch.finalize()
 """
 
@@ -2812,13 +2909,14 @@ def han_device(gen) -> dict:
     return out
 
 
-def tpurun(n: int, argv: list, timeout: int = 240) -> tuple:
-    """Run ``argv`` under the port's tpurun; (return code, {rank: lines},
-    wall seconds).  The job's own failure fails the phase."""
+def tpurun(n: int, argv: list, timeout: int = 240, env: dict = None) -> tuple:
+    """Run ``argv`` under the port's tpurun (``env`` added to this
+    process's environment); ({rank: lines}, wall seconds).  The job's own
+    failure fails the phase."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.tools.tpurun",
                         "-n", str(n), *argv], capture_output=True, text=True,
-                       timeout=timeout)
+                       timeout=timeout, env={**os.environ, **(env or {})})
     wall = time.perf_counter() - t0
     lines = {}
     for line in r.stdout.splitlines():
@@ -2921,6 +3019,8 @@ def host_tier(gen, smi: str) -> dict:
                                    "wall_s": wall}
         lines, wall = tpurun(4, [sys.executable, str(tuned), str(SEED)])
         ranks = [job_result(lines, r) for r in range(4)]
+        require(all(x["owner"] == TUNED_OWNERS for x in ranks),
+                f"default selection with the native core: {ranks}")
         exact = [x[k]["bit_exact"] for x in ranks
                  for k in ("ladder", "iallreduce", "iallgather_1MB")] + \
             [v["bit_exact"] for x in ranks for v in x["forced"].values()]
@@ -2944,6 +3044,8 @@ def host_tier(gen, smi: str) -> dict:
         require(all(x[k]["bit_exact"] for x in ranks
                     for k in ("allreduce", "bcast_root1")),
                 f"coll/han results not bit-exact: {ranks}")
+        require(all(x["eps"] == HAN_EPS[x["rank"]] for x in ranks),
+                f"han job: not sm within a node and tcp between: {ranks}")
         out["han_4_fake2_16MB"] = {
             "bit_exact": True, "wall_s": wall,
             "ms_by_rank": {k: [x[k]["ms"] for x in ranks]
@@ -2951,6 +3053,128 @@ def host_tier(gen, smi: str) -> dict:
             "sub_sizes_by_rank": [x["sub_sizes"] for x in ranks]}
     out["han_device"] = han_device(gen)
     log(json.dumps({"host_tier": out}))
+    return out
+
+
+#: -n 4 --fake-nodes 2: each rank's transport to every peer (nodes 0-1, 2-3)
+HAN_EPS = {0: {"1": "sm", "2": "tcp", "3": "tcp"},
+           1: {"0": "sm", "2": "tcp", "3": "tcp"},
+           2: {"0": "tcp", "1": "tcp", "3": "sm"},
+           3: {"0": "tcp", "1": "tcp", "2": "sm"}}
+
+
+def pack_figure() -> dict:
+    """The convertor's pack of a 16 MB strided float32 vector (every other
+    element of 32 MB), through the native core (a whole-element job above
+    ``_POOL_PACK_MIN`` fans out over ``threads/native``'s workers) beside
+    the numpy lane, bytes equal before either is timed; median ms of 5."""
+    from ompi_tpu_torch.datatype import convertor as cv
+    from ompi_tpu_torch.datatype import core
+
+    dt = core.vector(4 * MB, 1, 2, core.FLOAT32)
+    mem = np.random.default_rng(SEED).standard_normal(
+        8 * MB).astype(np.float32).view(np.uint8)
+
+    def pack(use_native: bool) -> np.ndarray:
+        c = cv.Convertor(dt, 1)
+        c.prepare(mem)
+        c._native = use_native
+        return c.pack()
+
+    want = mem.view(np.float32)[::2].tobytes()
+    require(pack(True).tobytes() == want and pack(False).tobytes() == want,
+            "convertor pack of the strided vector: bytes differ")
+    out = {"packed_bytes": len(want)}
+    for lane, flag in (("native", True), ("numpy", False)):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pack(flag)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{lane}_ms"] = statistics.median(times)
+    return out
+
+
+def host_transports(smi: str) -> dict:
+    """The host transports on the card's machine: the native core and its
+    reactor must be there (a job that falls back to the pure-Python lane is
+    a failure, not a quieter row); the ``-n 2`` ping-pong over btl/sm and
+    over btl/tcp (``--mca btl tcp,self``), each with the native core on
+    and with ``OTPU_NATIVE_DISABLE=1``, in this run; coll/sm's allreduce
+    and bcast of 1 MB card tensors at ``-n 4`` beside coll/tuned (``--mca
+    coll ^sm_coll``); the quantized wire's 4 MB allreduce across ``--fake-
+    nodes 2``; the convertor's pack of a 16 MB strided vector.  One
+    ``host_transports`` line."""
+    import tempfile
+
+    from ompi_tpu_torch import native
+    from ompi_tpu_torch.runtime import reactor
+
+    require(native.available(), "the native core is not available: "
+            + native.unavailable_reason())
+    require(reactor.engage() and reactor.active(),
+            "the native progress reactor did not engage")
+    reactor.shutdown()
+    out = {"card": smi, "native_core": native.library_path().name}
+    pure = {"OTPU_NATIVE_DISABLE": "1"}
+    with tempfile.TemporaryDirectory() as tmp:
+        ping, smcoll = Path(tmp, "pingpong.py"), Path(tmp, "smcoll.py")
+        qwire = Path(tmp, "quantwire.py")
+        ping.write_text(PINGPONG)
+        smcoll.write_text(SMCOLL)
+        qwire.write_text(QUANTWIRE)
+        lanes = {}
+        for name, btl, args, env in (
+                ("sm_native", "sm", [], {}), ("sm_pure", "sm", [], pure),
+                ("tcp_native", "tcp", ["--mca", "btl", "tcp,self"], {}),
+                ("tcp_pure", "tcp", ["--mca", "btl", "tcp,self"], pure)):
+            lines, wall = tpurun(2, [*args, sys.executable, str(ping)],
+                                 env=env)
+            res = job_result(lines, 0)
+            on = not env
+            require(res["btl"] == btl and res["native"] is on
+                    and res["reactor"] is on,
+                    f"ping-pong {name}: lane {res['btl']}, native "
+                    f"{res['native']}, reactor {res['reactor']}")
+            lanes[name] = {k: res[k] for k in (
+                "latency_us_8B", "bandwidth_MBps_4MB", "one_way_ms_4MB")}
+            lanes[name]["wall_s"] = wall
+        out["pingpong_2"] = lanes
+        for name, args, owner in (
+                ("sm_coll", [], "SmCollModule"),
+                ("tuned", ["--mca", "coll", "^sm_coll"], "TunedModule")):
+            lines, wall = tpurun(4, [*args, sys.executable, str(smcoll),
+                                     str(SEED)])
+            ranks = [job_result(lines, r) for r in range(4)]
+            require(all(x["owner"] == {"allreduce": owner, "bcast": owner}
+                        and x["allreduce"]["bit_exact"]
+                        and x["bcast_root2"]["bit_exact"] for x in ranks),
+                    f"1 MB collectives under {name}: {ranks}")
+            out[f"coll_1MB_{name}"] = {
+                "ms_by_rank": {k: [x[k]["ms"] for x in ranks]
+                               for k in ("allreduce", "bcast_root2")},
+                "wall_s": wall}
+        lines, wall = tpurun(4, ["--fake-nodes", "2", "--mca",
+                                 "otpu_coll_quant_wire", "1", sys.executable,
+                                 str(qwire), str(SEED)])
+        ranks = [job_result(lines, r) for r in range(4)]
+        orig = sum(x["wire"]["orig"] for x in ranks)
+        enc = sum(x["wire"]["enc"] for x in ranks)
+        # each node's ranks agree; the nodes differ, as in the JAX package
+        # (each leader adds its own exact part to the other's decoded one)
+        require(all(x["rel_err"] <= 1 / 127 for x in ranks)
+                and ranks[0]["digest"] == ranks[1]["digest"]
+                and ranks[2]["digest"] == ranks[3]["digest"] and enc > 0
+                and all(x["eps"] == HAN_EPS[x["rank"]] for x in ranks),
+                f"the quantized wire's allreduce: {ranks}")
+        out["quant_wire_4_fake2_4MB"] = {
+            "ms_by_rank": [x["ms"] for x in ranks],
+            "orig_over_enc": orig / enc,
+            "rel_err": max(x["rel_err"] for x in ranks),
+            "wire_bytes_by_rank": [x["wire"] for x in ranks],
+            "wall_s": wall}
+    out["pack_16MB_strided"] = pack_figure()
+    log(json.dumps({"host_transports": out}))
     return out
 
 
@@ -3019,6 +3243,7 @@ def main() -> int:
     rows.append(measure_flash(gen, trained["flash_block"], err))
     rows += measure_fused_matmul(gen, moe_launched, err)
     host_tier(gen, smi)
+    host_transports(smi)
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))

@@ -12,9 +12,10 @@ of ``jax_stack_reduce``/``jax_fold``.  User ops (``create``, the
 ``MPI_Op_create`` analog) carry a numpy function and a commute flag and
 fold host buffers only.
 
-The reference fans large host reductions out over its threads framework
-(``_pool_reduce``); that framework comes with the host tier, and until then
-the ufunc runs inline.
+Host reductions of 1 MB and more (SUM, PROD, MAX, MIN on float32/64,
+int32/64, contiguous) fan out over the threads framework's worker pool
+(``_pool_reduce``, ``ompi_tpu/api/op.py:53-95``) when the pool runs parallel
+native loops (``threads/native``); otherwise the ufunc runs inline.
 """
 from __future__ import annotations
 
@@ -53,11 +54,42 @@ class Op:
         return f"Op({self.name}, commute={self.commute})"
 
 
+#: ufuncs the threads-framework pool can run as parallel native spans
+_POOL_UFUNC = {np.add: "sum", np.multiply: "prod",
+               np.maximum: "max", np.minimum: "min"}
+_POOL_DTYPES = ("float32", "float64", "int32", "int64")
+#: big host reductions fan out over the worker pool (op/avx discipline:
+#: keep the reduction math at the speed of every memory channel)
+_POOL_REDUCE_MIN = 1 << 20
+
+
+def _pool_reduce(ufunc, invec, inoutvec) -> bool:
+    opname = _POOL_UFUNC.get(ufunc)
+    if (opname is None or not isinstance(inoutvec, np.ndarray)
+            or not isinstance(invec, np.ndarray)
+            or inoutvec.nbytes < _POOL_REDUCE_MIN
+            or str(inoutvec.dtype) not in _POOL_DTYPES
+            or invec.dtype != inoutvec.dtype
+            or invec.shape != inoutvec.shape
+            or not (invec.flags.c_contiguous
+                    and inoutvec.flags.c_contiguous)):
+        return False
+    from ompi_tpu_torch.mca.threads import base as threads_base
+
+    pool = threads_base.get_pool()
+    if not getattr(pool, "parallel_pack", False) or pool.size < 2:
+        return False
+    # commutative elementwise: acc = acc (op) src == invec (op) inoutvec
+    pool.reduce(opname, inoutvec, invec).wait()
+    return True
+
+
 def _elementwise(ufunc):
     # write straight into inoutvec: the temp-then-copy form doubles memory
     # traffic, which is THE cost of a host reduction
     def fn(invec, inoutvec, datatype=None):
-        ufunc(invec, inoutvec, out=inoutvec)
+        if not _pool_reduce(ufunc, invec, inoutvec):
+            ufunc(invec, inoutvec, out=inoutvec)
     return fn
 
 

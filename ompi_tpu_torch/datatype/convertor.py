@@ -7,9 +7,11 @@ buffer) triple and iterates the packed byte stream in caller-sized chunks,
 resumable at any byte position (``opal_convertor_set_position``).  Host
 copies are numpy-vectorized: full elements move through a precomputed
 byte-offset template (the flattened type map), partial elements walk
-segment prefix sums — the loops the reference falls back to without its
-native core (``convertor.py:201-230``); the native pack loop and its
-worker-pool fan-out wait for the native core.  Flags mirror
+segment prefix sums.  Whole elements move through the native core's pack
+loop (``native.pack_elems``/``unpack_elems``, the ``opal_datatype_pack.c``
+twin) when it is built, fanned out over the threads framework's worker pool
+from :data:`_POOL_PACK_MIN` bytes (``convertor.py:170-235``); numpy's
+template indexing is the lane without it.  Flags mirror
 ``opal_convertor.h:50-57``: CHECKSUM (CRC32 of the stream), EXTERNAL32
 (canonical big-endian), DEVICE (the buffer lives on the card — the
 ``CONVERTOR_CUDA`` analog; it must be staged to the host first).
@@ -24,6 +26,13 @@ import numpy as np
 
 from ompi_tpu_torch.datatype.core import Datatype
 from ompi_tpu_torch.runtime.hotpath import hot_path
+
+# whole-element pack jobs at least this many bytes fan out over the
+# threads-framework worker pool instead of the single-thread native loop:
+# the pool's dispatch (job split, cross-thread handoff, wait) costs tens of
+# microseconds that a sub-megabyte native pack never earns back
+_POOL_PACK_MIN = 2 * 1024 * 1024
+
 
 class ConvertorFlags(enum.IntFlag):
     NONE = 0
@@ -59,6 +68,7 @@ class Convertor:
         self.flags = flags
         self.base_offset = base_offset
         self._mem: Optional[np.ndarray] = None
+        self._native: Optional[bool] = None
         if buffer is not None:
             self.prepare(buffer)
         self.position = 0
@@ -157,10 +167,42 @@ class Convertor:
 
     def _full_element_copy(self, first_elem: int, nelem: int,
                            packed: np.ndarray, to_packed: bool) -> None:
-        """Gather/scatter of whole elements through the byte-offset
-        template (numpy fancy indexing)."""
+        """Gather/scatter of whole elements: the native pack loop when the
+        core is built, numpy template indexing otherwise."""
         dt = self.datatype
         if nelem <= 0:
+            return
+        if self._use_native():
+            from ompi_tpu_torch import native
+
+            view = packed[: nelem * dt.size]
+            # big jobs go wide: the threads framework's pool splits the
+            # element loop across native workers
+            if nelem * dt.size >= _POOL_PACK_MIN:
+                from ompi_tpu_torch.mca.threads import base as threads_base
+
+                pool = threads_base.get_pool()
+                if getattr(pool, "parallel_pack", False) and pool.size > 1:
+                    if to_packed:
+                        pool.pack(self._mem, view, self._seg_offs,
+                                  self._seg_lens, dt.extent,
+                                  self.base_offset, first_elem,
+                                  nelem).wait()
+                    else:
+                        pool.unpack(self._mem, np.ascontiguousarray(view),
+                                    self._seg_offs, self._seg_lens,
+                                    dt.extent, self.base_offset,
+                                    first_elem, nelem).wait()
+                    return
+            if to_packed:
+                native.pack_elems(self._mem, view, self._seg_offs,
+                                  self._seg_lens, dt.extent,
+                                  self.base_offset, first_elem, nelem)
+            else:
+                native.unpack_elems(self._mem, np.ascontiguousarray(view),
+                                    self._seg_offs, self._seg_lens,
+                                    dt.extent, self.base_offset,
+                                    first_elem, nelem)
             return
         idx = (self.base_offset
                + (first_elem + np.arange(nelem, dtype=np.int64))[:, None]
@@ -171,6 +213,17 @@ class Convertor:
             view[:] = self._mem[idx]
         else:
             self._mem[idx] = view
+
+    def _use_native(self) -> bool:
+        if self._native is None:
+            from ompi_tpu_torch import native
+
+            # writeable: the native unpack copies into the buffer and must
+            # not bypass numpy's read-only protection
+            self._native = (native.available()
+                            and self._mem.flags.c_contiguous
+                            and self._mem.flags.writeable)
+        return self._native
 
     def _swap_external32(self, chunk: np.ndarray, stream_start: int) -> None:
         """In-place byteswap of a packed chunk (item-aligned chunks only)."""

@@ -4,8 +4,8 @@ Copy of ``ompi_tpu/mca/bml/r2.py``.  The reference's ``bml_r2.c`` builds,
 for every peer, the list of BTLs that can reach it, ordered for latency
 (eager sends) and striped by bandwidth (large transfers).  Here: query
 every available btl component for reachability at add_procs time; the
-lowest-latency endpoint serves every message (striping waits for a second
-btl that reaches a peer, btl/tcp).
+lowest-latency endpoint serves eager traffic (btl/sm on one node, btl/tcp
+between nodes), the full list serves pml/ob1's striping.
 """
 from __future__ import annotations
 
@@ -61,6 +61,12 @@ class Bml:
         if eps is None:
             eps = self.add_proc(world_rank)
         return eps[0] if eps else None
+
+    def endpoints(self, world_rank: int) -> list[Endpoint]:
+        eps = self._endpoints.get(world_rank)
+        if eps is None:
+            eps = self.add_proc(world_rank)
+        return eps
 
     def flush(self) -> None:
         """Drain every btl's queued sends (``flush`` where a btl queues)."""

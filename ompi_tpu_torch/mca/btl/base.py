@@ -2,10 +2,10 @@
 
 Copy of ``ompi_tpu/mca/btl/base.py`` (after the module struct of the
 reference's ``opal/mca/btl/btl.h:1158``: ``btl_send`` active messages)
-with the descriptor machinery collapsed to a :class:`Frag` dataclass.  Not
-copied: the one-sided RMA triple (``prepare_src``/``get``/``put``, no port
-btl offers it yet) and the quant wire codec stamp on the fragment (the host
-quantized wire comes with ROADMAP A 5).
+with the descriptor machinery collapsed to a :class:`Frag` dataclass, which
+carries coll/quant's wire codec stamp (``qcodec``).  Not copied: the
+one-sided RMA triple (``prepare_src``/``get``/``put``, no port btl offers it
+yet; ROADMAP A 4).
 """
 from __future__ import annotations
 
@@ -53,6 +53,12 @@ class Frag:
     offset: int = 0       # stream offset of this fragment (FRAG)
     meta: dict = field(default_factory=dict)
     borrowed: bool = False
+    #: coll/quant wire codec this payload may travel under (stamped by the
+    #: pml, which still knows the dtype; btl/tcp's codec stage encodes
+    #: eligible frames and its receive parse decodes them back to the
+    #: ORIGINAL bytes, so total_len/offset stay in raw-stream units).
+    #: None = raw bytes; transports without a codec stage ignore it.
+    qcodec: "Optional[str]" = None
 
     def own_data(self) -> None:
         """Replace a borrowed view with an owned copy (idempotent)."""

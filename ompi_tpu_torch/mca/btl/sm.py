@@ -12,13 +12,20 @@ semantics).  After a push the writer pings the reader's doorbell (an
 abstract unix datagram socket) so an idle reader blocked in
 ``progress.idle_wait`` wakes at once.
 
-This is the reference's ring without its native core (``sm.py:65-180``),
-its copies made with numpy slices between the caller's arrays and the
-mapped segment.  Not copied: the native push/pop, the native reactor's
-doorbell draining, the one-sided mapped segments (``prepare_src``,
-``get``, ``put``, which osc and ob1's RGET use), and the chaos hooks.  Segment and doorbell names carry the port's own prefix
-(``otpt_``), the coordination address and the pid, so they never meet the
-reference's (``otpu_``) or another job's.
+Push and pop run through the native core's ring ops (``native.ring_push2``,
+``ring_peek_len``, ``ring_pop``: the ``opal_fifo`` analog, fenced) when it
+is built, else through numpy slice copies between the caller's arrays and
+the mapped segment; the layout is the same either way, so processes of
+either lane interoperate (``sm.py:65-160``).  With the native reactor
+engaged the doorbell is a MODE_DRAIN fd of its epoll set (``sm.py:221``):
+the reactor thread consumes the pings and its wait fd wakes idle waiters.
+Reachability keys on the node identity, ``OTPU_NODE_ID`` first and then the
+host name (``sm.py:215-219``): across ``tpurun --fake-nodes`` nodes the
+traffic goes over btl/tcp.  Not copied: the one-sided mapped segments
+(``prepare_src``, ``get``, ``put``, which osc and ob1's RGET use; ROADMAP
+A 4) and the chaos hooks.  Segment and doorbell names carry the port's
+own prefix (``otpt_``), the coordination address and the pid, so they never
+meet the reference's (``otpu_``) or another job's.
 """
 from __future__ import annotations
 
@@ -79,9 +86,10 @@ def _as_u8(payload) -> np.ndarray:
 class _Ring:
     """SPSC byte ring over a shared memory buffer.
 
-    Frames move with numpy slice copies straight between the caller's
-    arrays and the mapped segment (one copy each way, the payload never
-    concatenated into ``bytes``); the layout is the reference's."""
+    Frames move straight between the caller's arrays and the mapped segment
+    (one copy each way, the payload never concatenated into ``bytes``): the
+    native core's ring ops when it is built, numpy slice copies otherwise;
+    the layout is the reference's either way."""
 
     def __init__(self, shm: shared_memory.SharedMemory, owner: bool):
         self.shm = shm
@@ -91,6 +99,14 @@ class _Ring:
             _HDR.pack_into(shm.buf, 0, 0, 0)
         self._data = np.frombuffer(shm.buf, np.uint8, offset=_DATA_OFF)
         self._framebuf: Optional[np.ndarray] = None
+        # the segment's base address for the native ring ops (None: the
+        # numpy lane)
+        self._addr: Optional[int] = None
+        from ompi_tpu_torch import native
+
+        if native.available():
+            self._native = native
+            self._addr = self._data.ctypes.data - _DATA_OFF
 
     def _load(self) -> tuple[int, int]:
         return _HDR.unpack_from(self.shm.buf, 0)
@@ -117,6 +133,10 @@ class _Ring:
         """Push one [u32 n][u32 hlen][hdr][payload] frame, or return False
         when the ring lacks the room."""
         body = _as_u8(payload)
+        if self._addr is not None:
+            pre = _LEN.pack(len(hdr)) + hdr
+            return self._native.ring_push2(
+                self._addr, self.cap, np.frombuffer(pre, np.uint8), body)
         n = _LEN.size + len(hdr) + len(body)
         head, tail = self._load()
         if _LEN.size + n > self.cap - (tail - head):
@@ -131,6 +151,16 @@ class _Ring:
         """Pop one frame into a REUSED scratch buffer; returns a view of it,
         valid until the next pop on this ring (the popped Frag is marked
         ``borrowed`` accordingly), or None."""
+        if self._addr is not None:
+            n = self._native.ring_peek_len(self._addr, self.cap)
+            if n < 0:
+                return None
+            buf = self._framebuf
+            if buf is None or len(buf) < n:
+                buf = self._framebuf = np.empty(max(n, 64 * 1024), np.uint8)
+            if self._native.ring_pop(self._addr, self.cap, buf) < 0:
+                return None
+            return buf[:n]
         head, tail = self._load()
         if tail - head < _LEN.size:
             return None
@@ -186,12 +216,14 @@ class SmBtl(Btl):
         self._db_rx: Optional[socket.socket] = None   # my doorbell
         self._db_tx: Optional[socket.socket] = None   # ring peers' bells
         self._db_addr: dict[int, str] = {}            # rank -> bell address
-        # the host's name, not the node identity: OTPU_NODE_ID (tpurun
-        # --fake-nodes) partitions one host's ranks into emulated nodes for
-        # coll/han, and the reference carries the traffic between them over
-        # btl/tcp, which the port does not have yet; shared memory serves
-        # every rank of the host
-        self._hostname = socket.gethostname()
+        # node identity, not the raw host name: OTPU_NODE_ID partitions
+        # ranks into emulated nodes (tpurun --fake-nodes), and shared
+        # memory must not be offered across that boundary, so traffic
+        # between nodes goes over btl/tcp
+        self._hostname = os.environ.get("OTPU_NODE_ID", socket.gethostname())
+        # doorbell registered with the native reactor (MODE_DRAIN): the
+        # epoll thread consumes the pings and its wait fd wakes idle_wait
+        self._db_reactor = False
         self._ring_size = 4 << 20
 
     def _clamped(self, limit: int) -> int:
@@ -247,7 +279,12 @@ class SmBtl(Btl):
             self._db_rx = db
             self._db_tx = socket.socket(socket.AF_UNIX, socket.SOCK_DGRAM)
             self._db_tx.setblocking(False)
-            progress_mod.register_waiter(db)
+            from ompi_tpu_torch.runtime import reactor as reactor_mod
+
+            self._db_reactor = reactor_mod.engage() and reactor_mod.add(
+                db.fileno(), reactor_mod.MODE_DRAIN, self._on_doorbell_record)
+            if not self._db_reactor:
+                progress_mod.register_waiter(db)
         except OSError:
             self._db_rx = self._db_tx = None
             db_name = None
@@ -300,11 +337,18 @@ class SmBtl(Btl):
                 (hdr, owned_bytes(frag.data)))
         self._ring_doorbell(ep.world_rank, ep.addr)
 
+    def _on_doorbell_record(self, etype: int, payload) -> int:
+        """Reactor DOORBELL record: the epoll thread consumed the pings and
+        woke any idle waiter; the ring drain runs on this same progress
+        tick, so the record IS the wakeup."""
+        return 0
+
     @hot_path
     def progress(self) -> int:
         events = 0
-        # drain doorbell pings (edge signal only; frames carry the data)
-        if self._db_rx is not None:
+        # drain doorbell pings (edge signal only; frames carry the data);
+        # with the reactor engaged its epoll thread consumed them
+        if self._db_rx is not None and not self._db_reactor:
             while True:
                 try:
                     self._db_rx.recv(512)
@@ -362,9 +406,15 @@ class SmBtl(Btl):
 
     def close(self) -> None:
         if self._db_rx is not None:
-            from ompi_tpu_torch.runtime import progress as progress_mod
+            if self._db_reactor:
+                from ompi_tpu_torch.runtime import reactor as reactor_mod
 
-            progress_mod.unregister_waiter(self._db_rx)
+                reactor_mod.remove(self._db_rx.fileno())
+                self._db_reactor = False
+            else:
+                from ompi_tpu_torch.runtime import progress as progress_mod
+
+                progress_mod.unregister_waiter(self._db_rx)
             try:
                 self._db_rx.close()
             except OSError:

@@ -1,6 +1,7 @@
 """coll/quant — block-scale quantization: the codec and its decision ladder.
 
-Port of ``ompi_tpu/mca/coll/quant.py``, two of its three datapaths:
+Port of ``ompi_tpu/mca/coll/quant.py``, two of its three datapaths and
+the host wire stage:
 
 * the device tier: the rule that decides, per communicator, whether a
   device collective may run through a lossy block codec, and which.
@@ -10,7 +11,14 @@ Port of ``ompi_tpu/mca/coll/quant.py``, two of its three datapaths:
   any Pallas kernel;
 * the host tier: the numpy codec (``encode_f32``/``decode_f32``) and the
   tuned ladder's quant arm, ``allreduce_blockq``/``allgather_blockq`` (a
-  tensor staged to the host once, at their entry).
+  tensor staged to the host once, at their entry);
+* the wire stage of btl/tcp (``otpu_coll_quant_wire``, off by default):
+  pml/ob1 stamps each fragment of a contiguous float32 message of
+  ``min_bytes`` or more with :func:`wire_codec_for`, btl/tcp encodes its
+  payload with :func:`encode_wire` between the convertor's pack and the
+  out-queue and decodes it on the receive parse (:func:`decode_wire`) back
+  to the original bytes; :func:`wire_stats` counts the original and the
+  encoded bytes this process sent.
 
 Codec formats (pure numpy, round-half-even everywhere so every process
 encodes IDENTICAL bytes, the reference's bytes):
@@ -26,10 +34,9 @@ per-communicator accuracy budget (the info key :data:`BUDGET_KEY`), never
 for non-commutative reductions (the codec reorders rounding error the way
 a ring reorders operands), and never for exact or non-float32 dtypes.
 
-Not ported yet: the btl/tcp wire stage with its ``wire``/``wire_codec``
-vars (it comes with btl/tcp), the serving KV slabs with ``kv_codec`` (they
-come with serving), and the ``quant.encode``/``quant.decode`` profile
-spans (with the runtime's profile module).
+Not ported yet: the serving KV slabs with ``kv_codec`` (they come with
+serving), and the ``quant.encode``/``quant.decode`` profile spans (with the
+runtime's profile module).
 """
 from __future__ import annotations
 
@@ -51,6 +58,9 @@ from ompi_tpu_torch.runtime import spc
 #: codec only when the comm's declared budget covers its band.
 CODECS = ("int8", "bf16")
 CODEC_BANDS = {"int8": 1.0 / 127.0, "bf16": 2.0 ** -8}
+#: the codec byte of btl/tcp's quant sub-header (the reference's ids)
+_CODEC_IDS = {"int8": 1, "bf16": 2}
+_CODEC_BY_ID = {v: k for k, v in _CODEC_IDS.items()}
 
 #: collectives the quant tier implements (the reference's list; alltoallv's
 #: quantized path is the MoE dispatch's int8 packing, which asks ``pick``
@@ -64,6 +74,16 @@ DEFAULT_MIN_BYTES = 64 << 10
 #: application accepts).  Mutable through the budget_key var; this module
 #: global IS the current name (one dict probe on the device fast path).
 BUDGET_KEY = "otpu_quant_budget"
+
+
+#: THE wire-stage guard: the pml and btl hot paths read this bool and
+#: branch; nothing else happens while quantize-on-pack is disabled
+wire_enabled = False
+
+
+def _set_wire(value) -> None:
+    global wire_enabled
+    wire_enabled = bool(value)
 
 
 def _set_budget_key(value) -> None:
@@ -250,10 +270,80 @@ def allgather_blockq(comm, sendbuf, codec: str):
                      for r in range(comm.size)])
 
 
+# -- wire codec stage (btl/tcp quantize-on-pack) -------------------------
+
+#: wire volume (module ints): original vs encoded bytes of every quantized
+#: frame this process sent
+_wire_orig = 0
+_wire_enc = 0
+
+
+def wire_stats() -> dict:
+    return {"orig": _wire_orig, "enc": _wire_enc}
+
+
+def codec_id(codec: str) -> int:
+    return _CODEC_IDS[codec]
+
+
+def wire_codec_for(convertor, nbytes: int) -> Optional[str]:
+    """pml-side eligibility: the codec for this message's fragments, or
+    None.  Only contiguous float32 streams qualify: the btl sees opaque
+    packed bytes, so the layer that still knows the dtype stamps the
+    fragment."""
+    if nbytes < min_bytes():
+        return None
+    if not getattr(convertor, "_contig", False):
+        return None
+    try:
+        seg_dtype = convertor.datatype.segments[0].dtype
+    except (AttributeError, IndexError):
+        return None
+    if seg_dtype != np.float32:
+        return None
+    codec = wire_codec_name()
+    return codec if codec in CODECS else None
+
+
+def encode_wire(payload, codec: str) -> Optional[np.ndarray]:
+    """The codec stage between the pack and the tcp out-queue: an owned
+    encoded payload, or None when this fragment cannot carry the codec
+    (element-misaligned split, too small to earn the scales)."""
+    global _wire_orig, _wire_enc
+    nbytes = len(payload)
+    if nbytes % 4 or nbytes < 1024:
+        return None
+    enc = encode_f32(np.frombuffer(payload, np.float32), codec,
+                     block_elems())
+    _wire_orig += nbytes
+    _wire_enc += enc.nbytes
+    spc.record("quant_wire_bytes_saved", nbytes - enc.nbytes)
+    return enc
+
+
+def decode_wire(payload, codec_byte: int, raw_len: int,
+                block: int) -> np.ndarray:
+    """Receive-parse decode back to the original float32 byte stream.
+
+    Loud on any inconsistency: a quant frame that does not decode exactly
+    is wire corruption and must fail like a crc32 mismatch, never deliver
+    garbage bytes."""
+    codec = _CODEC_BY_ID.get(int(codec_byte))
+    if codec is None:
+        raise ValueError(f"unknown quant codec id {codec_byte} on the wire")
+    if raw_len % 4:
+        raise ValueError(f"quant frame raw length {raw_len} is not "
+                         "f32-aligned")
+    out = decode_f32(np.frombuffer(payload, np.uint8) if not
+                     isinstance(payload, np.ndarray) else payload,
+                     codec, raw_len // 4, int(block))
+    return out.view(np.uint8)
+
+
 class QuantCollComponent(Component):
     """Codec and config home.  comm_query answers None: quant is not a
-    per-comm module — coll/builtin and the tuned ladder consume its codec
-    and ladder directly."""
+    per-comm module — coll/builtin, the tuned ladder and btl/tcp's wire
+    stage consume its codec and ladder directly."""
 
     name = "quant"
     priority = 0
@@ -267,8 +357,18 @@ class QuantCollComponent(Component):
         self._min = self.register_var(
             "min_bytes", vtype=VarType.SIZE, default="64k",
             help="Smallest payload (the whole (n, ...) world tensor) the "
-                 "quant ladder considers — below this the encode costs more "
-                 "than the bytes it saves")
+                 "quant ladder and the wire codec stage consider — below "
+                 "this the encode costs more than the bytes it saves")
+        self._wire = self.register_var(
+            "wire", vtype=VarType.BOOL, default=False,
+            on_set=_set_wire,
+            help="Arm quantize-on-pack for contiguous f32 streams on the "
+                 "btl/tcp fastpath (LOSSY within the codec band; "
+                 "dequantized on the receive parse).  Disabled cost is one "
+                 "module-bool check per send")
+        self._wire_codec = self.register_var(
+            "wire_codec", vtype=VarType.STRING, default="int8",
+            help=f"Wire-stage codec: one of {', '.join(CODECS)}")
         self._budget_key = self.register_var(
             "budget_key", vtype=VarType.STRING,
             default="otpu_quant_budget", on_set=_set_budget_key,
@@ -295,6 +395,11 @@ def min_bytes() -> int:
         else DEFAULT_MIN_BYTES
 
 
+def wire_codec_name() -> str:
+    v = getattr(COMPONENT, "_wire_codec", None)
+    return str(v.value or "int8") if v is not None else "int8"
+
+
 register_help(
     "help-coll-quant", "bad-budget",
     "The communicator info key {info_key!r} carries {value!r}, which does "
@@ -302,3 +407,9 @@ register_help(
     "relative error the application accepts (>= 1/127 ~ 0.0079 admits "
     "the int8 block codec, >= 2^-8 ~ 0.0039 bf16); quantization stays "
     "OFF for this communicator.")
+register_help(
+    "help-coll-quant", "wire-frame-bad",
+    "A quantized tcp frame from rank {peer} does not decode: {error}. "
+    "The frame is treated as wire corruption (the crc32 discipline) and "
+    "the job is being aborted — a quant frame must fail loudly, never "
+    "deliver garbage bytes.")

@@ -10,9 +10,14 @@ with a one-sided ``get`` (btl/sm's mapped segments, ROADMAP A 4).
 
 Matching state is keyed by (cid, receiver world rank) so one process can
 host every rank of the device world — ``mpirun --oversubscribe`` over
-btl/self.  Not copied: the FT hooks (``ft_state.on_failure`` and the
-``ProcFailed``/``Revoked`` completions, ROADMAP A 6), the quant wire codec
-stamp (A 5), and the trace, peruse, profile and memchecker calls.
+btl/self.  Each fragment of a contiguous float32 message carries
+coll/quant's wire codec stamp (``Frag.qcodec``, ``ob1.py:301``, ``:326``,
+``:387``, ``:409``) while ``otpu_coll_quant_wire`` is set; btl/tcp encodes
+it, the other btls ignore it.  A rendezvous stream of ``stripe_min`` (2 MB)
+or more stripes across every btl that reaches the peer (sm and tcp on one
+node).  Not copied: the FT hooks (``ft_state.on_failure`` and the
+``ProcFailed``/``Revoked`` completions, ROADMAP A 6), the ``striped_msgs``
+counter, and the trace, peruse, profile and memchecker calls.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from ompi_tpu_torch.base.var import VarType
 from ompi_tpu_torch.datatype import Convertor
 from ompi_tpu_torch.mca.bml import Bml
 from ompi_tpu_torch.mca.btl.base import ACK, CTL, FRAG, MATCH, RNDV, Frag
+from ompi_tpu_torch.mca.coll import quant as quant_mod
 from ompi_tpu_torch.runtime import spc
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
@@ -169,7 +175,10 @@ class Ob1Pml:
             # btl's wire/ring write is the only copy (send-in-place)
             data, borrowed = req.convertor.pack_borrow()
             frag = Frag(comm.cid, src_world, dst_world, tag, seq, MATCH,
-                        data, total_len=req.nbytes, borrowed=borrowed)
+                        data, total_len=req.nbytes, borrowed=borrowed,
+                        qcodec=quant_mod.wire_codec_for(
+                            req.convertor, req.nbytes)
+                        if quant_mod.wire_enabled else None)
             ep.btl.send(ep, frag)
             req.complete()
         else:
@@ -180,7 +189,10 @@ class Ob1Pml:
                 self._send_reqs[req.req_id] = req
                 frag = Frag(comm.cid, src_world, dst_world, tag, seq, RNDV,
                             head, total_len=req.nbytes,
-                            meta={"req_id": req.req_id}, borrowed=borrowed)
+                            meta={"req_id": req.req_id}, borrowed=borrowed,
+                            qcodec=quant_mod.wire_codec_for(
+                                req.convertor, req.nbytes)
+                            if quant_mod.wire_enabled else None)
                 ep.btl.send(ep, frag)
             except Exception:
                 # failed setup: the request would never complete
@@ -195,23 +207,48 @@ class Ob1Pml:
         self.isend(comm, buf, dest, tag).wait()
 
     def _stream_rest(self, req: SendRequest, ack: Frag) -> None:
-        """Receiver matched our RNDV: push the remaining FRAGs, offset-addressed, on the peer's endpoint (RPUT
+        """Receiver matched our RNDV: push the remaining FRAGs (RPUT
         analog).  On the contiguous path ``pack_borrow`` is an O(1) slice,
-        so the btl reads the user buffer itself.  The reference's multi-rail
-        striping (``bml_r2.c``) waits for a second btl that reaches a peer
-        (btl/tcp)."""
+        so the btl reads the user buffer itself.
+
+        Multi-rail: FRAG frames are offset-addressed and reassembled by
+        req-id at the receiver, so a stream of ``stripe_min`` or more
+        stripes across EVERY endpoint that reaches the peer, weighted by
+        btl bandwidth (``bml_r2.c``'s bandwidth-proportional scheduling).
+        The RNDV head stays on the lowest-latency rail."""
         dst_world, peer_req = ack.src, ack.meta["peer_req"]
-        ep = self.bml.endpoint(dst_world)
+        rails = self._stripe_rails(dst_world, req.nbytes)
         conv = req.convertor
+        # coll/quant wire stamp, once per stream: the btl's codec stage
+        # sees only opaque packed bytes
+        qc = quant_mod.wire_codec_for(conv, req.nbytes) \
+            if quant_mod.wire_enabled else None
+        assigned = [0] * len(rails)
         while not conv.finished:
+            # finish-time greedy: the frag goes to the rail that would
+            # complete its assigned bytes soonest (one rail: always it)
+            j = 0 if len(rails) == 1 else min(
+                range(len(rails)),
+                key=lambda k: (assigned[k] + rails[k].btl.max_send_size)
+                / max(1, rails[k].btl.bandwidth))
+            ep = rails[j]
             off = conv.position
             data, borrowed = conv.pack_borrow(ep.btl.max_send_size)
+            assigned[j] += len(data)
             ep.btl.send(ep, Frag(ack.cid, ack.dst, dst_world,
                                  -1, 0, FRAG, data, total_len=req.nbytes,
                                  offset=off, meta={"req_id": peer_req},
-                                 borrowed=borrowed))
+                                 borrowed=borrowed, qcodec=qc))
         self._send_reqs.pop(req.req_id, None)
         req.complete()
+
+    def _stripe_rails(self, dst_world: int, nbytes: int) -> list:
+        """Endpoints eligible to carry one large transfer's FRAG stream."""
+        eps = self.bml.endpoints(dst_world)
+        if (len(eps) < 2 or not self.component.stripe_enabled()
+                or nbytes < self.component.stripe_min()):
+            return eps[:1] or [self.bml.endpoint(dst_world)]
+        return list(eps)
 
     # -- recv path -------------------------------------------------------
     def irecv(self, comm, buf, source: int, tag: int) -> Request:
@@ -404,6 +441,21 @@ class Ob1Component(Component):
     def register_vars(self, fw) -> None:
         self.register_var("priority", vtype=VarType.INT, default=20,
                           help="Selection priority of pml/ob1")
+        self._stripe_var = self.register_var(
+            "stripe", vtype=VarType.BOOL, default=True,
+            help="Stripe large RNDV streams across every btl that reaches "
+                 "the peer, bandwidth-weighted (bml/r2 multi-rail)")
+        self._stripe_min_var = self.register_var(
+            "stripe_min", vtype=VarType.SIZE, default="2m",
+            help="Smallest message that stripes across rails")
+
+    def stripe_enabled(self) -> bool:
+        var = getattr(self, "_stripe_var", None)
+        return bool(var.value) if var is not None else True
+
+    def stripe_min(self) -> int:
+        var = getattr(self, "_stripe_min_var", None)
+        return int(var.value) if var is not None else 2 << 20
 
     def get_module(self, rte) -> Ob1Pml:
         self._module = Ob1Pml(self, rte)

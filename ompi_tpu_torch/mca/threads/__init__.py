@@ -5,7 +5,8 @@ Copy of ``ompi_tpu/mca/threads/__init__.py`` (after the reference's
 :mod:`threading`, so what this framework provides is a worker pool that
 runs the host data path's tight loops (memcpy, datatype pack/unpack,
 elementwise reductions) in parallel.  Components compete to provide the
-pool: ``threads/python`` (a ``ThreadPoolExecutor``; numpy releases the GIL
-in its loops) is always available; the reference's ``threads/native``
-waits for the native core.
+pool: ``threads/native`` (40, the C++ worker pool of the native core,
+``ompi_tpu_torch/native``) wherever the core is built, else
+``threads/python`` (a ``ThreadPoolExecutor``; numpy releases the GIL in its
+loops), which is always available.
 """

@@ -6,10 +6,14 @@ Copy of ``ompi_tpu/runtime/progress.py`` (after the reference's
 :func:`register` / :func:`unregister` (``:414``).  Device collectives need
 no progress engine (the stream is one); this loop serves the host tier:
 btl polling, the rendezvous protocol and blocking probes.  An idle waiter blocks in
-``select`` on the readable fds transports register (:func:`idle_wait`).
+``select`` on the readable fds transports register (:func:`idle_wait`);
+the native reactor (``runtime/reactor.py``) registers its drain as a
+callback and its wait fd as a waiter (``ompi_tpu/runtime/progress.py:185``),
+and :func:`reset_for_testing` stops its thread first.  A sanitizer trip
+(``SanitizeError``: wire corruption, a quant frame that does not decode)
+propagates to the waiting caller instead of quarantining the callback.
 Not copied: the low-priority callbacks run every 8th tick (``:227``; no
-port component registers one yet), the native reactor, the sanitizer's
-fatal pass-through and the telemetry source.
+port component registers one yet) and the telemetry source.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import threading
 import time
 from typing import Callable
 
+from ompi_tpu_torch.runtime import sanitizer
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
 _lock = threading.RLock()
@@ -117,6 +122,11 @@ def progress() -> int:
         for cb in cbs:
             try:
                 events += cb()
+            except sanitizer.SanitizeError:
+                # a deliberate fatal integrity stop, not a broken callback:
+                # quarantining it would turn detected corruption into a
+                # silent hang
+                raise
             except Exception:
                 # a broken progress callback must not kill the loop; it is
                 # removed and reported once
@@ -133,6 +143,12 @@ def progress() -> int:
 
 
 def reset_for_testing() -> None:
+    # the native reactor registered a callback and a waiter here: stop its
+    # thread BEFORE clearing the lists, so that no late record dispatch
+    # fires into a half-reset engine
+    from ompi_tpu_torch.runtime import reactor as _reactor
+
+    _reactor.shutdown()
     with _lock:
         _callbacks.clear()
 

@@ -6,7 +6,8 @@ modules record: point-to-point and its protocols, the device collectives
 (``bump_device``), the coordination client's retries, the codec (the MoE
 dispatch's and coll/quant's host codec) and the host collectives'
 fastpath counters (coll/algorithms' schedule cache, coll/tuned's eager
-lane, the accelerator's staging pool).  The reference's other counters
+lane, the accelerator's staging pool) and the host transports' (btl/tcp,
+the native reactor, coll/quant's wire stage).  The reference's other counters
 (the per-collective call counts, serving, chaos, telemetry, tracing) come
 with the modules that record them.
 """
@@ -25,6 +26,14 @@ _COUNTERS = (
     # collectives, and the staging pool must reuse its warm buffers
     "fastpath_sched_hits", "fastpath_sched_misses", "fastpath_eager_lane",
     "fastpath_staging_hits", "fastpath_staging_misses",
+    # the host transports: btl/tcp's header forms, sendmsg calls and
+    # backpressure copies, the native reactor's drains and its two lanes,
+    # the wire's integrity trips and coll/quant's wire stage
+    "fastpath_hdr_fast", "fastpath_hdr_pickle", "fastpath_sendmsg",
+    "fastpath_payload_copies", "progress_native_drains",
+    "fastpath_native_frags", "fastpath_native_raw", "wire_cksum_fail",
+    "wire_desync",
+    "quant_wire_bytes_saved", "quant_wire_decode_fail",
 )
 
 _pvars = {}

@@ -16,7 +16,8 @@ arguments on a machine without a card).
 
 ``--fake-nodes K`` partitions the ranks into K emulated nodes
 (``OTPU_NODE_ID=node<rank*K//n>`` for each rank) so that coll/han's
-hierarchy runs on one host, as ``mpirun --oversubscribe`` tests han.
+hierarchy runs on one host, as ``mpirun --oversubscribe`` tests han:
+btl/sm carries the traffic within a node and btl/tcp between nodes.
 
 Not copied yet: hostfiles and launch agents (``tpurun.py:34-83``),
 ``--enable-recovery``, process sets (the per-node sets ``--fake-nodes``

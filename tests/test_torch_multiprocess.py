@@ -14,8 +14,13 @@ rendezvous message of 2 MB under ``-n 2``; tensors (the reference's
 allreduce; and the failure teardown (a rank that exits 3 brings the job
 down with 3).  The default-selection jobs run both packages with no
 ``--mca coll`` list at ``-n 2``, ``3`` and ``4`` (coll/tuned's picks,
-coll/libnbc's ``i*``), and at ``-n 4`` and ``5`` across ``--fake-nodes 2``
-(coll/han).  Every subprocess has its own ``timeout=``.
+coll/libnbc's ``i*``; coll/sm with the native core), and at ``-n 4`` and
+``5`` across ``--fake-nodes 2`` (coll/han), with the native core on in
+both packages and, in two cases, off in both.  The transport jobs run a
+``-n 2 --mca btl tcp,self`` ping-pong, the ``--fake-nodes 2`` transport
+matrix (btl/sm within a node, btl/tcp between), the quantized wire's 4 MB
+allreduce, a 16 MB stream striped over sm and tcp, and coll/sm's slots.
+Every subprocess has its own ``timeout=``.
 """
 import os
 import signal
@@ -280,6 +285,103 @@ else:
 m.finalize()
 '''
 
+#: the host transports' jobs: a ping-pong at 8 B (eager) and 4 MB
+#: (rendezvous) with each rank's transport to its peer, the transport
+#: matrix, the quantized wire's 4 MB allreduce, and coll/sm's slots
+TRANSPORT = r'''
+import hashlib, json, sys
+import numpy as np
+
+pkg, mode = sys.argv[1], sys.argv[2]
+if pkg == "torch":
+    import ompi_tpu_torch as m
+    from ompi_tpu_torch.mca.coll import quant
+    from ompi_tpu_torch.runtime import spc
+    w = m.init(device="cpu")
+else:
+    import ompi_tpu as m
+    from ompi_tpu.mca.coll import quant
+    from ompi_tpu.runtime import spc
+    w = m.init()
+r, n = w.rank, w.size
+
+
+def out(key, value):
+    print(json.dumps([key, value]), flush=True)
+
+
+def digest(a):
+    a = np.ascontiguousarray(a)
+    return [str(a.dtype), list(a.shape),
+            hashlib.sha256(a.tobytes()).hexdigest()[:32]]
+
+
+rng = np.random.default_rng(29)
+out("eps", {p: w.pml.bml.endpoint(p).btl.name for p in range(n) if p != r})
+if mode == "pingpong":
+    peer = (r + n // 2) % n
+    for k in (2, 1 << 20):                  # 8 B and 4 MB of float32
+        a = rng.standard_normal((n, k)).astype(np.float32)
+        b = np.empty(k, np.float32)
+        for _ in range(3):
+            if r < n // 2:
+                w.send(a[r], peer, 7)
+                st = w.recv(b, peer, 7)
+            else:
+                st = w.recv(b, peer, 7)
+                w.send(a[r], peer, 7)
+        out(f"pingpong {4 * k}", [st.source, st._nbytes, digest(b),
+                                  b.tobytes() == a[peer].tobytes()])
+    # the last sender waits for its peer's ack, so it reaches finalize
+    # with nothing queued (the reference fences before it drains)
+    ack = np.zeros(1, np.int32)
+    if r < n // 2:
+        w.send(ack, peer, 9)
+    else:
+        w.recv(ack, peer, 9)
+elif mode == "stripe":
+    # 16 MB in one rendezvous stream between the ranks of one node: the
+    # FRAGs stripe over btl/sm and btl/tcp by bandwidth; the tcp frames
+    # the sender framed show how many took the second rail
+    # (the receiver's ack keeps the sender out of finalize until every
+    # frame is delivered: the reference fences before it drains)
+    x = rng.standard_normal(1 << 22).astype(np.float32)
+    ack = np.zeros(1, np.int32)
+    if r == 0:
+        before = spc.read("fastpath_hdr_fast")
+        w.send(x, 1, 3)
+        w.recv(ack, 1, 4)
+        out("tcp frags", spc.read("fastpath_hdr_fast") - before)
+    else:
+        y = np.empty_like(x)
+        w.recv(y, 0, 3)
+        w.send(ack, 0, 4)
+        out("received", [digest(y), y.tobytes() == x.tobytes()])
+elif mode == "quantwire":
+    x = rng.standard_normal((n, 1 << 20)).astype(np.float32)   # 4 MB
+    got = w.allreduce(x[r])
+    exact = x.astype(np.float64).sum(0)
+    out("allreduce", [digest(got), float(np.abs(got - exact).max()
+                                         / np.abs(exact).max())])
+    out("wire_stats", quant.wire_stats())
+else:
+    owners = {k: type(w.c_coll[k].__self__).__name__
+              for k in ("allreduce", "bcast", "barrier", "reduce")}
+    out("owners", owners)
+    for k in (3, 1000, 200000, 700000):       # the last above the 2 MB slot
+        x = rng.standard_normal((n, k)).astype(np.float32)
+        out(f"allreduce {k}", digest(w.allreduce(x[r])))
+        out(f"allreduce max {k}", digest(w.allreduce(x[r], m.MAX)))
+        out(f"bcast {k}", digest(w.bcast(x[1] if r == 1 else x[r] * 0, 1)))
+        red = w.reduce(x[r], m.SUM, n - 1)
+        out(f"reduce {k}", digest(red) if r == n - 1 else red)
+        w.barrier()
+    for i in range(5):
+        w.barrier()
+    out("after barriers", digest(w.allreduce(np.arange(5.0) + r)))
+m.finalize()
+'''
+
 DRAIN = r'''
 import time
 import numpy as np
@@ -398,26 +500,31 @@ def default_worker(tmp_path_factory):
     return path
 
 
-@pytest.mark.parametrize("mode,n", [("default", 2), ("default", 3),
-                                    ("default", 4), ("han", 4), ("han", 5),
-                                    ("interpose", 4)])
-def test_default_selection_matches_the_reference(default_worker, mode, n):
+@pytest.mark.parametrize("mode,n,native", [
+    ("default", 2, "on"), ("default", 3, "on"), ("default", 4, "on"),
+    ("han", 4, "on"), ("han", 5, "on"), ("interpose", 4, "on"),
+    ("default", 4, "off"), ("han", 4, "off")])
+def test_default_selection_matches_the_reference(default_worker, mode, n,
+                                                 native):
     """Both packages under default selection: the same component owns
-    every slot (tuned, libnbc, basic; han across ``--fake-nodes 2``, 2+2
-    and 3+2 ranks), and every line of the job is equal.  The reference runs
-    without its native core (``OTPU_NATIVE_DISABLE``), as the port has
-    none: its coll/sm would take single-node comms (ROADMAP A 4)."""
+    every slot and every line of the job is equal.  With the native core
+    on in both (``native="on"``), coll/sm owns the single-node comms'
+    allreduce, bcast, reduce and barrier (tuned the rest, libnbc the
+    ``i*``, basic scan); across ``--fake-nodes 2`` (2+2 and 3+2 ranks) han
+    owns the world, with btl/tcp between the nodes and btl/sm within them.
+    With ``OTPU_NATIVE_DISABLE`` in both (``native="off"``) the pure-Python
+    lanes carry the same jobs and coll/tuned takes coll/sm's slots."""
     extra = {"han": ["--fake-nodes", "2"],
              "interpose": ["--mca", "coll_adapt_priority", "60",
                            "--mca", "coll_adapt_segsize", "4k",
                            "--mca", "coll_sync_barrier_after", "3",
                            "--mca", "coll_demo_priority", "100",
                            "--mca", "coll_base_verbose", "1"]}.get(mode, [])
+    env = {"OTPU_NATIVE_DISABLE": "1"} if native == "off" else {}
     got = _tpurun("torch", n, [*extra, sys.executable, str(default_worker),
-                               "torch", mode], timeout=150)
+                               "torch", mode], timeout=150, extra_env=env)
     want = _tpurun("jax", n, [*extra, sys.executable, str(default_worker),
-                              "jax", mode], timeout=150,
-                   extra_env={"OTPU_NATIVE_DISABLE": "1"})
+                              "jax", mode], timeout=150, extra_env=env)
     assert got.returncode == 0, got.stdout + got.stderr
     assert want.returncode == 0, want.stdout + want.stderr
     got_l, want_l = _lines(got.stdout), _lines(want.stdout)
@@ -436,10 +543,100 @@ def test_default_selection_matches_the_reference(default_worker, mode, n):
     if mode == "han":
         assert '"allreduce": "HanModule"' in owners
         assert '"freed", [true, [true, true' in got_l[0][-2]
+    elif native == "on":
+        assert '"allreduce": "SmCollModule"' in owners
+        assert '"barrier": "SmCollModule"' in owners
+        assert '"allgather": "TunedModule"' in owners
     else:
         assert '"allreduce": "TunedModule"' in owners
     assert '"iallgather": "LibnbcModule"' in owners
     assert '"scan": "BasicCollModule"' in owners
+
+
+@pytest.fixture(scope="module")
+def transport_worker(tmp_path_factory):
+    path = tmp_path_factory.mktemp("mp") / "transport.py"
+    path.write_text(TRANSPORT)
+    return path
+
+
+def _both(worker, n, args, mode, native="on"):
+    """Run the TRANSPORT worker under both packages' tpurun; per-rank
+    lines, equal between the packages."""
+    env = {"OTPU_NATIVE_DISABLE": "1"} if native == "off" else {}
+    got = _tpurun("torch", n, [*args, sys.executable, str(worker), "torch",
+                               mode], timeout=120, extra_env=env)
+    want = _tpurun("jax", n, [*args, sys.executable, str(worker), "jax",
+                              mode], timeout=120, extra_env=env)
+    assert got.returncode == 0, got.stdout + got.stderr
+    assert want.returncode == 0, want.stdout + want.stderr
+    got_l, want_l = _lines(got.stdout), _lines(want.stdout)
+    assert sorted(got_l) == list(range(n))
+    for rank in range(n):
+        assert got_l[rank] == want_l[rank], rank
+    return got_l
+
+
+@pytest.mark.parametrize("native", ["on", "off"])
+def test_tcp_pingpong_matches_the_reference(transport_worker, native):
+    """``-n 2 --mca btl tcp,self``: btl/tcp carries an 8 B (eager) and a
+    4 MB (rendezvous, 128 KB fragments) ping-pong, through the native
+    reactor or the selector lane, byte for byte as the reference's."""
+    lines = _both(transport_worker, 2, ["--mca", "btl", "tcp,self"],
+                  "pingpong", native)
+    assert lines[0][0] == '["eps", {"1": "tcp"}]'
+    assert all(x.endswith("true]]") for x in lines[1][1:])
+
+
+def test_the_transport_matrix_across_fake_nodes(transport_worker):
+    """``-n 4 --fake-nodes 2``: btl/sm within a node, btl/tcp between
+    them, as the reference's (the repaired node key of btl/sm)."""
+    lines = _both(transport_worker, 4, ["--fake-nodes", "2"], "pingpong")
+    assert lines[0][0] == '["eps", {"1": "sm", "2": "tcp", "3": "tcp"}]'
+    assert lines[3][0] == '["eps", {"0": "tcp", "1": "tcp", "2": "sm"}]'
+
+
+def test_quant_wire_allreduce_matches_the_reference(transport_worker):
+    """``--fake-nodes 2 --mca otpu_coll_quant_wire 1``: a 4 MB float32
+    allreduce whose traffic between the nodes goes int8-encoded over
+    btl/tcp; the result, its error and ``quant.wire_stats()`` (original and
+    encoded bytes) are the reference's on every rank."""
+    lines = _both(transport_worker, 4, ["--fake-nodes", "2", "--mca",
+                                        "otpu_coll_quant_wire", "1"],
+                  "quantwire")
+    import json
+
+    for rank in range(4):
+        stats = json.loads(lines[rank][2])[1]
+        err = json.loads(lines[rank][1])[1][1]
+        assert err <= 1 / 127
+        if stats["enc"]:
+            assert stats["orig"] / stats["enc"] > 3.5
+    assert any(json.loads(lines[r][2])[1]["enc"] for r in range(4))
+
+
+def test_a_large_stream_stripes_like_the_reference(transport_worker):
+    """A 16 MB rendezvous stream between two ranks of one node stripes its
+    FRAGs over btl/sm and btl/tcp (bml/r2's rails, finish-time greedy by
+    bandwidth): the same number of fragments takes tcp in both packages
+    (the reference's RGET rung is turned off, as the port has none)."""
+    lines = _both(transport_worker, 2, ["--mca", "pml_ob1_rget_limit", "0"],
+                  "stripe")
+    assert lines[0][0] == '["eps", {"1": "sm"}]'
+    assert lines[0][1].startswith('["tcp frags", ') and \
+        lines[0][1] != '["tcp frags", 0]'
+    assert lines[1][1].endswith("true]]")
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_coll_sm_matches_the_reference(transport_worker, n):
+    """coll/sm owns a single-node comm's allreduce, bcast, reduce and
+    barrier with the native core; a payload above its 2 MB slot falls
+    through to coll/tuned; every result is the reference's."""
+    lines = _both(transport_worker, n, [], "smcoll")
+    assert lines[0][1] == ('["owners", {"allreduce": "SmCollModule", '
+                           '"bcast": "SmCollModule", "barrier": '
+                           '"SmCollModule", "reduce": "SmCollModule"}]')
 
 
 def test_finalize_drains_queued_sends(tmp_path):

@@ -13,6 +13,7 @@ read-only and the delivery raises ``ValueError`` — the port copies that
 (pinned below), so a receive into a tensor never writes back silently.
 """
 import importlib.util
+import inspect
 import itertools
 from types import SimpleNamespace
 
@@ -353,9 +354,6 @@ NOT_COPIED = {
     "ft_hooks": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml,
         "_peer_failed"),
-    # the quant wire codec stamped on each fragment (ob1.py:301, :326); A 5
-    "quant_wire": lambda pkg: "qcodec" in __import__(
-        f"{pkg}.mca.btl.base", fromlist=["x"]).Frag.__dataclass_fields__,
     # the trace, peruse, profile and memchecker runtime; A 4 and A 10
     "observability": lambda pkg: all(
         importlib.util.find_spec(f"{pkg}.runtime.{m}") is not None
@@ -365,12 +363,31 @@ NOT_COPIED = {
     "rget": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml,
         "_deliver_rget"),
-    # btl/tcp: the next slice's
-    "btl_tcp": lambda pkg: importlib.util.find_spec(
-        f"{pkg}.mca.btl.tcp") is not None,
-    # the native core (push/pop, pack loops, threads/native): next slice
-    "native_core": lambda pkg: importlib.util.find_spec(
-        f"{pkg}.native") is not None,
+    # btl/tcp's chaos hooks (injected drops, delays, resets, corruption on
+    # the wire) and its FT side (_drain_suspects into ft/propagator): A 6
+    "tcp_chaos": lambda pkg: hasattr(
+        __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]), "chaos"),
+    "tcp_ft_suspects": lambda pkg: hasattr(
+        __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]).TcpBtl,
+        "_drain_suspects"),
+    # btl/tcp's trace, profile and telemetry calls: A 4.5
+    "tcp_observability": lambda pkg: hasattr(
+        __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]).TcpBtl,
+        "_telemetry_stats"),
+    # the one-sided rung (A 4): btl/sm's mapped segments (prepare_src, get,
+    # put), ob1's rget_emulate over btl/tcp, the accelerator's
+    # registration cache (containers.IntervalTree) and mca/osc
+    "btl_rma": lambda pkg: hasattr(
+        __import__(f"{pkg}.mca.btl.sm", fromlist=["x"]).SmBtl,
+        "prepare_src"),
+    "rget_emulate": lambda pkg: hasattr(
+        __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Component,
+        "rget_emulate"),
+    "registration_cache": lambda pkg: hasattr(
+        __import__(f"{pkg}.base.containers", fromlist=["x"]),
+        "IntervalTree"),
+    "osc": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.mca.osc") is not None,
     # coll/tuned's and coll/quant's profile spans (coll.decide, coll.alg,
     # quant.encode, quant.decode): with the runtime's profile module, A 4
     "coll_profile_spans": lambda pkg: all(
@@ -381,14 +398,12 @@ NOT_COPIED = {
     "staging_observability": lambda pkg: all(
         hasattr(_accelerator(pkg), m)
         for m in ("trace", "_telemetry", "sanitizer")),
-    # coll/quant's btl/tcp wire stage (encode_wire/decode_wire, the wire
-    # and wire_codec vars): with btl/tcp, A 4.1 and A 5
-    "quant_wire_stage": lambda pkg: hasattr(
-        __import__(f"{pkg}.mca.coll.quant", fromlist=["x"]), "encode_wire"),
-    # coll/sm: after the native core (A 4.2); coll/inter: with
-    # intercommunicators; coll/ftagree: with fault tolerance (A 6)
-    "coll_sm": lambda pkg: importlib.util.find_spec(
-        f"{pkg}.mca.coll.sm_coll") is not None,
+    # coll/sm's FT branch (a failed member turns the counter wait into
+    # ProcFailedError); coll/inter: with intercommunicators; coll/ftagree:
+    # with fault tolerance (A 6)
+    "coll_sm_ft": lambda pkg: "ProcFailedError" in inspect.getsource(
+        __import__(f"{pkg}.mca.coll.sm_coll",
+                   fromlist=["x"]).SmCollModule._wait_at_least),
     "coll_inter": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.coll.inter") is not None,
     "coll_ftagree": lambda pkg: importlib.util.find_spec(

@@ -69,13 +69,16 @@ def test_python_pool_matches(job):
 
 def test_pool_after_finalize_is_inline_serial():
     """After the permanent shutdown (finalize) the pool is the threadless
-    InlineSerialPool; the next init re-arms the lazy pool."""
+    InlineSerialPool; the next init re-arms the lazy pool (the native
+    core's pool where it is built, else the python one)."""
+    from ompi_tpu_torch import native
     from ompi_tpu_torch.mca.threads import base as tbase
     from ompi_tpu_torch.runtime import init as rt
 
     rt.reset_for_testing()
     ompi_tpu_torch.init(device="cpu")
-    assert type(tbase.get_pool()).__name__ == "PythonPool"
+    assert type(tbase.get_pool()).__name__ == (
+        "NativePool" if native.available() else "PythonPool")
     rt.finalize()
     pool = tbase.get_pool()
     assert isinstance(pool, tbase.InlineSerialPool)

@@ -298,12 +298,12 @@ def test_components_come_from_the_port(torch_world):
     coll = coll_framework()
     assert sorted(coll.components) == [
         "adapt", "basic", "builtin", "conductor", "demo", "han", "libnbc",
-        "quant", "ring", "self_coll", "sync", "tuned"]
+        "quant", "ring", "self_coll", "sm_coll", "sync", "tuned"]
     op_fw = op_base._framework()
     assert sorted(op_fw.components) == ["builtin", "cuda_vpu"]
     pml_fw, btl_fw = mca.framework("pml"), mca.framework("btl")
     assert sorted(pml_fw.components) == ["ob1"]
-    assert sorted(btl_fw.components) == ["self", "sm"]
+    assert sorted(btl_fw.components) == ["self", "sm", "tcp"]
     assert [type(b).__name__ for b in torch_world.pml.bml.btls] == ["SelfBtl"]
     for comp in [*coll.components.values(), *op_fw.components.values(),
                  *pml_fw.components.values(), *btl_fw.components.values()]:
