@@ -259,6 +259,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    native (over the worker pool) beside numpy, bytes equal first.  One
    ``{"host_transports": {...}}`` line with the card's name and power
    limit.
+7. The one-sided rung (no kernel runs here): osc/device's window in the
+   device world at full width, 8 ranks x 16 MB of float32 a row on the
+   card, through a round of puts, SUM and MAX accumulates, get_accumulate
+   and compare_and_swap (a match and a miss), bit for bit against the same
+   updates made by plain torch on a copy, host µs a call; the ``-n 2``
+   ping-pong of card tensors at 4 and 16 MB in four lanes: btl/sm with
+   RGET (the default) and with ``pml_ob1_rget_limit 0``, btl/tcp
+   (``--mca btl tcp,self``) with ``pml_ob1_rget_emulate 1`` and without,
+   each rank asserting the payload and ``rget_msgs`` non-zero exactly in
+   the RGET lanes; a ``-n 4`` osc/rdma window of 16 MB of float32 a rank
+   (one fence epoch of puts to the right neighbour, 50 SUM accumulates a
+   rank into rank 0, a ``fetch_and_op`` ticket, an exclusive-lock CAS loop
+   and one PSCW epoch, every window bit for bit against numpy) and the same
+   job at 1 MB across ``--fake-nodes 2``, where osc/pt2pt serves (the
+   module of each rank asserted).  One ``{"one_sided": {...}}`` line with
+   the card's name and power limit, ms per epoch by rank and each job's
+   wall seconds.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -3178,6 +3195,269 @@ def host_transports(smi: str) -> dict:
     return out
 
 
+#: the RGET ping-pong: ``-n 2``, card tensors as the send buffers (staged to
+#: the host), numpy receive buffers, at 4 and 16 MB; the lanes in turns,
+#: twice: ``argv[1]`` set to ``argv[2]`` (the job's lane) and to ``argv[3]``
+#: (ob1 reads its RGET vars at every send).  The first pass warms the
+#: host's allocator and the segment pool for both; each rank asserts the
+#: payload and reports each lane's btl and ``rget_msgs`` in both passes
+RGET_PINGPONG = r"""
+import json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+from ompi_tpu_torch.base.var import registry
+from ompi_tpu_torch.runtime import spc
+w = ompi_tpu_torch.init()
+peer = 1 - w.rank
+for npass, lane in ((1, "job"), (1, "set"), (2, "job"), (2, "set")):
+    registry.set(sys.argv[1], sys.argv[2] if lane == "job" else sys.argv[3])
+    rgets = spc.read("rget_msgs")
+    one_way = {}
+    for size, rounds in ((4 << 20, 20), (16 << 20, 10)):
+        t = torch.arange(size // 4, dtype=torch.float32, device=w.rte.device)
+        t += w.rank
+        b = np.empty(size // 4, np.float32)
+        want = np.arange(size // 4, dtype=np.float32) + peer
+        for i in range(2 + rounds):
+            if i == 2:
+                w.barrier()
+                t0 = time.perf_counter()
+            if w.rank == 0:
+                w.send(t, 1, 7)
+                w.recv(b, 1, 7)
+            else:
+                w.recv(b, 0, 7)
+                w.send(t, 0, 7)
+            assert b.tobytes() == want.tobytes(), f"{size} B payload"
+        one_way[size] = (time.perf_counter() - t0) / rounds / 2
+    print(json.dumps({"pass": npass, "lane": lane, "rank": w.rank,
+                      "btl": w.pml.bml.endpoint(peer).btl.name,
+                      "rget_msgs": spc.read("rget_msgs") - rgets,
+                      "one_way_ms": {str(k): v * 1e3
+                                     for k, v in one_way.items()},
+                      "MBps": {str(k): k / v / 1e6
+                               for k, v in one_way.items()}}), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+#: a ``-n 4`` window of ``argv[1]`` bytes of float32 a rank (``argv[2]`` the
+#: seed): one fence
+#: epoch of puts to the right neighbour, 50 SUM accumulates a rank into
+#: rank 0, a fetch_and_op ticket, an exclusive-lock CAS loop and one PSCW
+#: epoch (left exposes, right accesses); integer-valued data, so every
+#: order of the accumulates gives the same bits; each rank holds its window
+#: bit for bit against numpy
+RMA = r"""
+import json, sys, time
+import numpy as np
+import ompi_tpu_torch
+from ompi_tpu_torch.api.group import Group
+w = ompi_tpu_torch.init()
+r, n = w.rank, w.size
+count = int(sys.argv[1]) // 4
+rng = np.random.default_rng(int(sys.argv[2]))
+rows = rng.integers(-1000, 1000, (n, count)).astype(np.float32)
+acc = rng.integers(-8, 8, (n, 4096)).astype(np.float32)
+left, right = (r - 1) % n, (r + 1) % n
+win = ompi_tpu_torch.Win.create(w, size=count, dtype=np.float32)
+ms = {}
+
+
+def epoch(name, fn):
+    w.barrier()
+    t0 = time.perf_counter()
+    fn()
+    ms[name] = (time.perf_counter() - t0) * 1e3
+
+
+def puts():
+    win.fence()
+    win.put(rows[r], right)
+    win.fence()
+
+
+def accumulates():
+    for _ in range(50):
+        win.accumulate(acc[r], 0, offset=0)
+    win.fence()
+
+
+def ticket():
+    ms["ticket"] = int(win.fetch_and_op(1, 0, offset=count - 1))
+    win.fence()
+
+
+def cas_loop():
+    for _ in range(10):
+        win.lock(0, win.LOCK_EXCLUSIVE)
+        while True:
+            cur = win.get(1, 0, offset=count - 2)[0]
+            if win.compare_and_swap(cur + 1, cur, 0, offset=count - 2) == cur:
+                break
+        win.unlock(0)
+    w.barrier()
+
+
+def pscw():
+    win.post(Group([w.group.world_rank(left)]))
+    win.start(Group([w.group.world_rank(right)]))
+    win.put(np.full(8, 5000 + r, np.float32), right, offset=8192)
+    win.complete()
+    win.wait()
+
+
+for name, fn in (("put_fence", puts), ("acc50_fence", accumulates),
+                 ("fetch_and_op", ticket), ("cas_loop_x10", cas_loop),
+                 ("pscw", pscw)):
+    epoch(name, fn)
+tickets = sorted(int(np.ravel(x)[0]) for x in np.asarray(
+    w.allgather(np.array([ms.pop("ticket")], np.int64))))
+want = rows[left].copy()
+want[8192:8200] = 5000 + left
+if r == 0:
+    want[:4096] += 50 * acc.sum(0)
+    want[count - 1] += n
+    want[count - 2] += 10 * n
+base = int(rows[n - 1][count - 1])
+print(json.dumps({"rank": r, "module": type(win.module).__name__,
+                  "bit_exact": win.local.tobytes() == want.tobytes(),
+                  "tickets": tickets == list(range(base, base + n)),
+                  "ms": ms}), flush=True)
+win.free()
+ompi_tpu_torch.finalize()
+"""
+
+
+def device_window() -> dict:
+    """osc/device at full width: the device world's window, 8 ranks x 16 MB
+    of float32 a row, on the card.  A round of puts, SUM and MAX
+    accumulates, get_accumulate and compare_and_swap (a match and a miss),
+    held bit for bit against the same updates made by plain torch on a copy
+    of the window; host µs per call (20 calls, ending in a sync)."""
+    import ompi_tpu_torch
+
+    world = ompi_tpu_torch.init()
+    dev = world.rte.device
+    count = 16 * MB // 4
+    win = ompi_tpu_torch.Win.create(world, size=count, dtype=np.float32,
+                                    device=True)
+    require(type(win.module).__name__ == "DeviceModule"
+            and isinstance(win.device_array, torch.Tensor)
+            and win.device_array.device == dev
+            and tuple(win.device_array.shape) == (N, count),
+            f"device window: {win.module}, {type(win.device_array)}")
+    plain = win.device_array.clone()
+    k = MB // 4                                       # 1 MB an update
+    rng = np.random.default_rng(SEED)
+    vals = [rng.standard_normal(k).astype(np.float32) for _ in range(3)]
+    dvals = [torch.from_numpy(v).to(dev) for v in vals]
+    for r in range(N):
+        off = r * 4096
+        win.put(vals[0], r, offset=off)
+        plain[r, off:off + k] = dvals[0]
+        win.accumulate(vals[1], r, offset=off + 7)
+        plain[r, off + 7:off + 7 + k] += dvals[1]
+        win.accumulate(vals[2], r, offset=off + 100, op=ompi_tpu_torch.MAX)
+        sl = plain[r, off + 100:off + 100 + k]
+        sl.copy_(torch.maximum(sl, dvals[2]))
+        old = win.get_accumulate(vals[2], (r + 1) % N, offset=off)
+        want_old = plain[(r + 1) % N, off:off + k].cpu().numpy().copy()
+        plain[(r + 1) % N, off:off + k] += dvals[2]
+        require(old.tobytes() == want_old.tobytes(),
+                f"device window: get_accumulate's old values, rank {r}")
+        cur = float(plain[r, count - 1])
+        hit = win.compare_and_swap(float(r + 1), cur, r, offset=count - 1)
+        miss = win.compare_and_swap(99.0, cur - 1, r, offset=count - 1)
+        plain[r, count - 1] = float(r + 1)
+        require(hit == cur and miss == r + 1,
+                f"device window: compare_and_swap at rank {r}")
+    torch.cuda.synchronize()
+    require(torch.equal(win.device_array, plain),
+            "device window: the window differs from the plain updates")
+    us = {}
+    for name, fn in (
+            ("put_1MB", lambda: win.put(vals[0], 3, offset=0)),
+            ("accumulate_sum_1MB", lambda: win.accumulate(vals[1], 3)),
+            ("accumulate_max_1MB", lambda: win.accumulate(
+                vals[2], 3, op=ompi_tpu_torch.MAX)),
+            ("get_1MB", lambda: win.get(k, 3)),
+            ("get_accumulate_1MB", lambda: win.get_accumulate(vals[1], 3)),
+            ("compare_and_swap", lambda: win.compare_and_swap(1.0, 0.0, 3))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        us[name] = (time.perf_counter() - t0) / 20 * 1e6
+    win.free()
+    from ompi_tpu_torch.runtime import init as rt
+
+    rt.finalize()
+    return {"ranks": N, "row_bytes": count * 4, "bit_exact": True,
+            "host_us_per_call": us}
+
+
+def one_sided(smi: str) -> dict:
+    """The one-sided rung on the card's machine: osc/device's window at full
+    width (``device_window``); the ``-n 2`` ping-pong of card tensors at 4
+    and 16 MB in four lanes (btl/sm with RGET, the default; btl/sm with
+    ``pml_ob1_rget_limit 0``; btl/tcp with ``pml_ob1_rget_emulate 1``;
+    btl/tcp without it), each lane's ``rget_msgs`` non-zero exactly where it
+    is named for RGET; a ``-n 4`` osc/rdma window of 16 MB of float32 a
+    rank (``RMA``); the same job at 1 MB across ``--fake-nodes 2``, where
+    osc/pt2pt serves.  The module of each rank is asserted, each window
+    bit for bit.  One ``one_sided`` line with the card's name and power
+    limit, ms per epoch by rank and each job's wall seconds."""
+    import tempfile
+
+    out = {"card": smi, "device_window_8x16MB": device_window()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ping, rma = Path(tmp, "rget.py"), Path(tmp, "rma.py")
+        ping.write_text(RGET_PINGPONG)
+        rma.write_text(RMA)
+        lanes = {}
+        for btl, args, var, values, names in (
+                ("sm", [], "otpu_pml_ob1_rget_limit", ("512k", "0"),
+                 ("sm_rget", "sm_rget_off")),
+                ("tcp", ["--mca", "btl", "tcp,self"],
+                 "otpu_pml_ob1_rget_emulate", ("0", "1"),
+                 ("tcp_frag", "tcp_emulated_pull"))):
+            lines, wall = tpurun(2, [*args, sys.executable, str(ping), var,
+                                     *values])
+            results = [json.loads(y) for r in range(2)
+                       for y in lines.get(r, []) if y.startswith("{")]
+            for lane, name in zip(("job", "set"), names):
+                rget = name.endswith(("_rget", "_pull"))
+                both = [x for x in results if x["lane"] == lane]
+                require(len(both) == 4 and all(
+                            x["btl"] == btl and (x["rget_msgs"] > 0) is rget
+                            for x in both),
+                        f"RGET lane {name} ran another protocol: {both}")
+                ranks = sorted((x for x in both if x["pass"] == 2),
+                               key=lambda x: x["rank"])
+                lanes[name] = {"rget_msgs": [x["rget_msgs"] for x in ranks],
+                               "one_way_ms_rank0": ranks[0]["one_way_ms"],
+                               "MBps_rank0": ranks[0]["MBps"]}
+            lanes[f"{btl}_job_wall_s"] = wall
+        out["pingpong_2"] = lanes
+        for name, args, nbytes, module in (
+                ("rdma_4_16MB", [], 16 * MB, "RdmaModule"),
+                ("pt2pt_4_fake2_1MB", ["--fake-nodes", "2"], MB,
+                 "Pt2ptModule")):
+            lines, wall = tpurun(4, [*args, sys.executable, str(rma),
+                                     str(nbytes), str(SEED)])
+            ranks = [job_result(lines, r) for r in range(4)]
+            require(all(x["module"] == module and x["bit_exact"]
+                        and x["tickets"] for x in ranks),
+                    f"window job {name}: {ranks}")
+            out[name] = {"module": module,
+                         "ms_by_rank": [x["ms"] for x in ranks],
+                         "wall_s": wall}
+    log(json.dumps({"one_sided": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -3244,6 +3524,7 @@ def main() -> int:
     rows += measure_fused_matmul(gen, moe_launched, err)
     host_tier(gen, smi)
     host_transports(smi)
+    one_sided(smi)
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))

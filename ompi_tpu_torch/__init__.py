@@ -12,6 +12,10 @@ device world and over btl/sm between the processes that
 ``python -m ompi_tpu_torch.tools.tpurun`` launches (one rank a process,
 the multi-process world, whose host collectives are coll/basic's); a
 tensor handed to either is staged to the host.
+One-sided communication (``Win`` over mca/osc: osc/device's window on
+the card in the device world, osc/rdma's mapped segments or osc/pt2pt's
+agent between processes) and the MPI environment (``init_thread``,
+``wtime``, error handlers, user error classes) come as in the reference.
 ``ompi_tpu_torch.parallel`` runs the reference's flagship
 training step (dp × pp × sp × tp) on the same virtual ranks, its ring
 attention's block update a hand-written CUDA C++ kernel.  Each kernel has a
@@ -30,11 +34,30 @@ _API = {
     "finalize": "ompi_tpu_torch.runtime.init",
     "initialized": "ompi_tpu_torch.runtime.init",
     "finalized": "ompi_tpu_torch.runtime.init",
+    "init_thread": "ompi_tpu_torch.runtime.init",
+    "query_thread": "ompi_tpu_torch.runtime.interlib",
+    "is_thread_main": "ompi_tpu_torch.runtime.interlib",
+    "THREAD_SINGLE": "ompi_tpu_torch.runtime.interlib",
+    "THREAD_FUNNELED": "ompi_tpu_torch.runtime.interlib",
+    "THREAD_SERIALIZED": "ompi_tpu_torch.runtime.interlib",
+    "THREAD_MULTIPLE": "ompi_tpu_torch.runtime.interlib",
+    "wtime": "ompi_tpu_torch.api.env",
+    "wtick": "ompi_tpu_torch.api.env",
+    "get_processor_name": "ompi_tpu_torch.api.env",
+    "get_version": "ompi_tpu_torch.api.env",
+    "get_library_version": "ompi_tpu_torch.api.env",
+    "alloc_mem": "ompi_tpu_torch.api.env",
+    "free_mem": "ompi_tpu_torch.api.env",
     "COMM_WORLD": "ompi_tpu_torch.runtime.init",
     "COMM_SELF": "ompi_tpu_torch.runtime.init",
     "Comm": "ompi_tpu_torch.api.comm",
     "Group": "ompi_tpu_torch.api.group",
+    "Request": "ompi_tpu_torch.api.request",
+    "Datatype": "ompi_tpu_torch.datatype",
     "Op": "ompi_tpu_torch.api.op",
+    "Info": "ompi_tpu_torch.api.info",
+    "Win": "ompi_tpu_torch.api.win",
+    "Status": "ompi_tpu_torch.api.status",
     "reduce_local": "ompi_tpu_torch.api.op",
     # built-in reduction operators (MPI_SUM & friends)
     "SUM": "ompi_tpu_torch.api.op",

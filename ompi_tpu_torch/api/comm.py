@@ -27,9 +27,13 @@ the probe family and the object forms.  A tensor given as a buffer is
 staged through ``torch_acc.to_host`` (the reference's ``np.asarray`` of a
 ``jax.Array``); as a receive buffer it is read-only there, as
 ``np.asarray`` of a ``jax.Array`` is, so the delivery raises ValueError.
-Not ported yet: ``split_type`` and ``create_from_group`` (the instance
-layer), the partitioned forms (``mca/part``), topologies, error handlers,
-attributes, intercommunicators and fault tolerance beyond ``agree``.
+Error handlers (``comm.py:195-203``): a comm starts with
+ERRORS_ARE_FATAL, a comm made from it inherits its handler, and
+``call_errhandler`` invokes it.  ``idup`` is the dup with a request born
+complete (``comm.py:948``).  Not ported yet: ``split_type`` and
+``create_from_group`` (the instance layer), the partitioned forms
+(``mca/part``), topologies, attributes, intercommunicators and fault
+tolerance beyond ``agree``.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Any, Optional
 import numpy as np
 
 from ompi_tpu_torch.api import op as op_mod
+from ompi_tpu_torch.api.errhandler import ERRORS_ARE_FATAL, Errhandler
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError, RevokedError
 from ompi_tpu_torch.api.group import Group
 from ompi_tpu_torch.api.info import Info
@@ -116,6 +121,7 @@ class Comm:
         self.revoked = False
         self.freed = False
         self.pml = None           # selected pml module (set at creation)
+        self.errhandler: Errhandler = ERRORS_ARE_FATAL
         self._rank = group.rank_of(rte.my_world_rank) if rte else 0
 
     @property
@@ -147,6 +153,25 @@ class Comm:
 
     def set_name(self, name: str) -> None:
         self.name = name
+
+    def set_errhandler(self, eh: Errhandler) -> None:
+        self.errhandler = eh
+
+    def get_errhandler(self) -> Errhandler:
+        return self.errhandler
+
+    def call_errhandler(self, errorcode) -> None:
+        """``MPI_Comm_call_errhandler`` (the fatal default handler aborts,
+        ERRORS_RETURN raises the MpiError to the caller)."""
+        try:
+            cls = ErrorClass(int(errorcode))
+        except ValueError:
+            cls = ErrorClass.ERR_OTHER
+        self._err(MpiError(cls, f"user-raised code {int(errorcode)}"))
+
+    def _err(self, error: MpiError) -> None:
+        self.errhandler.invoke(self, error)
+        raise error  # ERRORS_RETURN handler already raised; fatal aborts
 
     def _check_state(self, peer: Optional[int] = None) -> None:
         # NOTE: allreduce_array inlines the peer=None predicate on its
@@ -185,6 +210,14 @@ class Comm:
         newcomm.info = self.info.dup()
         self._finish_create(newcomm)
         return newcomm
+
+    def idup(self) -> tuple["Comm", Request]:
+        """``MPI_Comm_idup``: the dup itself is collective-synchronous
+        here (CID agreement), so the request is born complete."""
+        newcomm = self.dup()
+        req = CompletedRequest()
+        req.result = newcomm
+        return newcomm, req
 
     def dup_with_info(self, info: Info) -> "Comm":
         """``MPI_Comm_dup_with_info``: dup, with the new comm's hints
@@ -334,6 +367,7 @@ class Comm:
         from ompi_tpu_torch.runtime import init as rt
 
         rt.register_comm(newcomm)
+        newcomm.errhandler = self.errhandler
         newcomm.pml = self.pml
         if self.pml is not None:
             self.pml.add_comm(newcomm)

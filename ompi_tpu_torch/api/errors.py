@@ -1,8 +1,9 @@
 """MPI error classes and exception types.
 
 Copy of ``ompi_tpu/api/errors.py``: the reference's MPI_ERR_* table
-(``ompi/include/mpi.h.in``) with the ULFM classes, and the exception the
-API raises.  User error classes have no user in the port yet.
+(``ompi/include/mpi.h.in``) with the ULFM classes, the exceptions the API
+raises (``ProcFailedError`` completes an RGET receive whose sender is gone)
+and the user error classes (``MPI_Add_error_class`` and its family).
 """
 from __future__ import annotations
 
@@ -66,8 +67,67 @@ class MpiError(Exception):
                          else self.error_class.name)
 
 
+class ProcFailedError(MpiError):
+    """A peer involved in the operation has failed (ULFM)."""
+
+    def __init__(self, message: str = "", failed_ranks: tuple = ()):
+        super().__init__(ErrorClass.ERR_PROC_FAILED, message)
+        self.failed_ranks = failed_ranks
+
+
 class RevokedError(MpiError):
     """The communicator has been revoked (ULFM)."""
 
     def __init__(self, message: str = ""):
         super().__init__(ErrorClass.ERR_REVOKED, message)
+
+
+_user_classes: dict[int, str] = {}
+_user_codes: dict[int, tuple[int, str]] = {}
+_next_user = 100
+
+
+def add_error_class(msg: str = "") -> int:
+    """``MPI_Add_error_class``: allocate a user error class."""
+    global _next_user
+    cls = _next_user
+    _next_user += 1
+    _user_classes[cls] = msg or f"user error class {cls}"
+    return cls
+
+
+def add_error_code(error_class: int, msg: str = "") -> int:
+    """``MPI_Add_error_code``: a code within a (user) class."""
+    global _next_user
+    code = _next_user
+    _next_user += 1
+    _user_codes[code] = (error_class, msg or f"user error code {code}")
+    return code
+
+
+def add_error_string(code: int, string: str) -> None:
+    """``MPI_Add_error_string``."""
+    if code in _user_classes:
+        _user_classes[code] = string
+    elif code in _user_codes:
+        _user_codes[code] = (_user_codes[code][0], string)
+    else:
+        raise MpiError(ErrorClass.ERR_ARG, f"unknown error code {code}")
+
+
+def error_string(error_class) -> str:
+    """``MPI_Error_string``."""
+    code = int(error_class)
+    if code in _user_classes:
+        return _user_classes[code]
+    if code in _user_codes:
+        return _user_codes[code][1]
+    return ErrorClass(error_class).name
+
+
+def error_class_of(code) -> int:
+    """``MPI_Error_class``: map a code back to its class."""
+    c = int(code)
+    if c in _user_codes:
+        return _user_codes[c][0]
+    return c

@@ -6,9 +6,10 @@ Copy of ``ompi_tpu/api/request.py`` (after the reference's
 ``request.h:427`` becomes a progress-driven wait loop).  A device request
 is born complete (the stream is its progress engine); a host request
 (pml/ob1's sends and receives) completes from the progress engine, which
-``wait`` and ``test`` drive.  Not copied: the partitioned hooks
-(``pready``/``parrived``, with ``mca/part``), ``GeneralizedRequest`` and
-the FT completion of ``req_ft.c``.
+``wait`` and ``test`` drive.  ``GeneralizedRequest`` is
+``MPI_Grequest_start``'s user-completed request.  Not copied: the
+partitioned hooks (``pready``/``parrived``, with ``mca/part``) and the FT
+completion of ``req_ft.c``.
 """
 from __future__ import annotations
 
@@ -210,6 +211,32 @@ class PersistentP2P(Request):
             return False
         self._inner.cancel()
         return self._inner.state is RequestState.CANCELLED
+
+
+class GeneralizedRequest(Request):
+    """``MPI_Grequest_start``: user-driven completion with query/free/cancel."""
+
+    def __init__(self, query_fn=None, free_fn=None, cancel_fn=None):
+        super().__init__()
+        self._query_fn = query_fn
+        self._free_fn = free_fn
+        self._cancel_fn = cancel_fn
+
+    def grequest_complete(self) -> None:
+        if self._query_fn is not None:
+            self._query_fn(self.status)
+        self.complete()
+
+    def _try_cancel(self) -> bool:
+        if self._cancel_fn is not None:
+            self._cancel_fn(False)
+            return True
+        return False
+
+    def free(self) -> None:
+        if self._free_fn is not None:
+            self._free_fn()
+        super().free()
 
 
 # -- wait/test families (``ompi/request/req_wait.c`` / ``req_test.c``) ----

@@ -3,7 +3,7 @@
 Copy of the part of ``ompi_tpu/base/containers.py`` that the port's host
 tier uses (the reference's ``opal/class/`` containers): ``Fifo`` (btl
 queues), ``PointerArray`` (attribute keyvals) and ``Bitmap`` (the CID
-space).  ``IntervalTree`` comes with the registration cache that uses it.
+space) and ``IntervalTree`` (the accelerator's registration cache).
 """
 from __future__ import annotations
 
@@ -130,3 +130,54 @@ class Bitmap:
                 yield i
             b >>= 1
             i += 1
+
+
+class IntervalTree:
+    """Interval -> value map with stabbing and overlap queries.
+
+    Reference ``opal/class/opal_interval_tree.h`` (an augmented RB tree used
+    by the registration cache).  A sorted list of ``(low, high, value)``, as
+    in ``ompi_tpu/base/containers.py:234``: adequate for registration-cache
+    sizes.
+    """
+
+    def __init__(self) -> None:
+        self._iv: list[tuple[int, int, Any]] = []
+        self._lock = threading.RLock()
+
+    def insert(self, low: int, high: int, value: Any) -> None:
+        import bisect
+
+        with self._lock:
+            bisect.insort(self._iv, (low, high, value),
+                          key=lambda t: (t[0], t[1]))
+
+    def delete(self, low: int, high: int, value: Any = None) -> bool:
+        with self._lock:
+            for i, (lo, hi, v) in enumerate(self._iv):
+                if lo == low and hi == high and (value is None or v is value):
+                    del self._iv[i]
+                    return True
+        return False
+
+    def find_overlapping(self, low: int, high: int) -> list[tuple[int, int, Any]]:
+        with self._lock:
+            return [(lo, hi, v) for lo, hi, v in self._iv
+                    if lo < high and low < hi]
+
+    def find_containing(self, low: int, high: int) -> Optional[tuple[int, int, Any]]:
+        """Smallest interval fully containing [low, high)."""
+        best = None
+        with self._lock:
+            for lo, hi, v in self._iv:
+                if lo <= low and high <= hi:
+                    if best is None or (hi - lo) < (best[1] - best[0]):
+                        best = (lo, hi, v)
+        return best
+
+    def __len__(self) -> int:
+        return len(self._iv)
+
+    def __iter__(self):
+        with self._lock:
+            return iter(list(self._iv))

@@ -320,6 +320,26 @@ class Convertor:
             return self._mem[lo:lo + n], True
         return self.pack(max_bytes), False
 
+    def unpack_view(self, n: int) -> Optional[np.ndarray]:
+        """Writable zero-copy view of the next ``n`` destination bytes,
+        or None when the layout/flags force the generic unpack path.
+        The caller fills the view, then calls :meth:`advance`: the
+        one-sided receive path (RGET) lands peer data straight in the
+        user buffer this way, skipping the staging copy."""
+        if (not self._contig or self._mem is None
+                or self.flags & (ConvertorFlags.EXTERNAL32
+                                 | ConvertorFlags.CHECKSUM)
+                or not self._mem.flags.writeable):
+            return None
+        n = min(n, self.packed_size - self.position)
+        lo = (self.base_offset + self.datatype.segments[0].offset
+              + self.position)
+        return self._mem[lo:lo + n]
+
+    def advance(self, n: int) -> None:
+        """Consume ``n`` stream bytes filled through :meth:`unpack_view`."""
+        self.position = min(self.position + n, self.packed_size)
+
     def unpack(self, data: Union[bytes, memoryview, np.ndarray]) -> int:
         """Consume an incoming packed chunk at the current position."""
         if self._mem is None:

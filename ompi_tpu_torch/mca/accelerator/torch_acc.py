@@ -27,10 +27,14 @@ raw ``uint8`` owners handed out as shaped views.  Vars:
 
 Not ported yet: the pool's trace and profile spans, the sanitizer branch of
 ``release`` and the ``staging`` telemetry source (they come with the
-runtime's trace, profile, sanitizer and telemetry modules), the RMA
-registration cache (``register``/``deregister``/``lookup``, for the
-one-sided btl segments) and the framework's component
-(``JaxAcceleratorComponent``); ROADMAP A 4.
+runtime's trace, profile, sanitizer and telemetry modules) and the
+framework's component (``JaxAcceleratorComponent``); ROADMAP A 2.
+
+The **registration cache** (``register``/``deregister``/``lookup``,
+``jax_acc.py:365-379``) keeps an interval tree of exposed host regions for
+the RMA path (the rcache's bookkeeping).  A region is keyed by its numpy
+address, as in the reference, which registers only host memory: a card
+tensor gets no key.
 """
 from __future__ import annotations
 
@@ -43,10 +47,13 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.base import cudaenv
+from ompi_tpu_torch.base.containers import IntervalTree
 from ompi_tpu_torch.base.output import register_help, show_help
 from ompi_tpu_torch.base.var import VarType, registry
 from ompi_tpu_torch.runtime import spc
 from ompi_tpu_torch.runtime.hotpath import hot_path
+
+_rcache = IntervalTree()
 
 # module-level vars: this framework's component is consumed by direct
 # import, not framework selection
@@ -316,3 +323,20 @@ register_help(
     "checkouts are contiguous, so a transformed (transposed/strided) "
     "array points at a layout bug in the caller.  The buffer is "
     "dropped; this warning is shown once.")
+
+
+def register(buf: np.ndarray, key: Any = None):
+    """Expose a host region (RMA window registration)."""
+    addr = buf.__array_interface__["data"][0]
+    _rcache.insert(addr, addr + buf.nbytes, key or buf)
+    return addr
+
+
+def deregister(buf: np.ndarray) -> None:
+    addr = buf.__array_interface__["data"][0]
+    _rcache.delete(addr, addr + buf.nbytes)
+
+
+def lookup(addr: int, nbytes: int):
+    hit = _rcache.find_containing(addr, addr + nbytes)
+    return None if hit is None else hit[2]

@@ -3,9 +3,9 @@
 Copy of ``ompi_tpu/mca/btl/base.py`` (after the module struct of the
 reference's ``opal/mca/btl/btl.h:1158``: ``btl_send`` active messages)
 with the descriptor machinery collapsed to a :class:`Frag` dataclass, which
-carries coll/quant's wire codec stamp (``qcodec``).  Not copied: the
-one-sided RMA triple (``prepare_src``/``get``/``put``, no port btl offers it
-yet; ROADMAP A 4).
+carries coll/quant's wire codec stamp (``qcodec``), and the ``rdma`` flag
+of the one-sided RMA triple (``prepare_src``/``get``/``put``), which
+btl/sm offers and pml/ob1's RGET rung reads.
 """
 from __future__ import annotations
 
@@ -99,6 +99,12 @@ class Btl(Component):
     def reachable(self, world_rank: int, rte) -> Optional[Endpoint]:
         """Return an endpoint if this BTL can reach the peer, else None."""
         return None
+
+    #: True when this BTL implements the one-sided prepare_src/get/put
+    #: RMA triple (``btl.h:949`` btl_put / ``:987`` btl_get); pml/ob1's
+    #: RGET protocol engages only on rdma-capable transports and falls
+    #: back to pull-streaming emulation elsewhere
+    rdma = False
 
     def send(self, ep: Endpoint, frag: Frag) -> None:
         raise NotImplementedError

@@ -21,11 +21,22 @@ engaged the doorbell is a MODE_DRAIN fd of its epoll set (``sm.py:221``):
 the reactor thread consumes the pings and its wait fd wakes idle waiters.
 Reachability keys on the node identity, ``OTPU_NODE_ID`` first and then the
 host name (``sm.py:215-219``): across ``tpurun --fake-nodes`` nodes the
-traffic goes over btl/tcp.  Not copied: the one-sided mapped segments
-(``prepare_src``, ``get``, ``put``, which osc and ob1's RGET use; ROADMAP
-A 4) and the chaos hooks.  Segment and doorbell names carry the port's
+traffic goes over btl/tcp.  Segment and doorbell names carry the port's
 own prefix (``otpt_``), the coordination address and the pid, so they never
 meet the reference's (``otpu_``) or another job's.
+
+The one-sided triple (``rdma = True``; ``prepare_src``, ``release_src``,
+``get``, ``put``, ``sm.py:443-520``), which ob1's RGET rung pulls from: a
+mapped-segment copy.  ``prepare_src`` stages the packed bytes into a
+shared-memory segment (one copy), the peer's ``get`` copies them straight
+into its destination (one copy): two copies and one ring handoff, where
+the rendezvous stream costs three copies and a frame per
+``max_send_size``.  Segments are pooled by pow2 size class (64 KB floor,
+:data:`_RMA_POOL_CAP` a class) and peers cache their attachments
+(``4 * _RMA_POOL_CAP``), the registration cache's role.  Exposed segments
+are named ``otpt_rg_<rank>_<pid>_<seq>`` (the reference's
+``otpu_rg_...`` with the port's prefix); ``close`` unlinks every pooled
+and exposed one.  Not copied: the chaos hooks.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import os
 import pickle
 import socket
 import struct
+import threading
 from multiprocessing import resource_tracker, shared_memory
 from typing import Optional
 
@@ -225,6 +237,20 @@ class SmBtl(Btl):
         # epoll thread consumes the pings and its wait fd wakes idle_wait
         self._db_reactor = False
         self._ring_size = 4 << 20
+        # a ring has one producer and one consumer, but the progress engine
+        # and the sends may run on several threads (osc/pt2pt's agent):
+        # pushes, the pending retries and the drain are serialized here
+        self._tx_lock = threading.Lock()
+        self._rx_lock = threading.Lock()
+        # one-sided segments: mine by size class (free) and by name
+        # (exposed), and the peers' I attached (insertion order: LRU); the
+        # sending threads expose and the drain releases, so the pool, the
+        # names and both maps change only under _rma_lock
+        self._rma_lock = threading.Lock()
+        self._rma_pool: dict[int, list] = {}
+        self._exposed: dict[str, shared_memory.SharedMemory] = {}
+        self._attached: dict[str, shared_memory.SharedMemory] = {}
+        self._expose_seq = 0
 
     def _clamped(self, limit: int) -> int:
         """A frame larger than the ring can NEVER be pushed (push would
@@ -327,14 +353,15 @@ class SmBtl(Btl):
 
     @hot_path
     def send(self, ep: Endpoint, frag: Frag) -> None:
-        ring = self._ring_to(ep.world_rank, ep.addr)
         hdr = _frame_hdr(frag)
-        if not ring.push_frame(hdr, frag.data):
-            # defer with an OWNED payload copy: the caller's request may
-            # complete (eager) and the user reuse the buffer before the
-            # retry fires from the progress loop
-            self._pending.setdefault(ep.world_rank, Fifo()).push(
-                (hdr, owned_bytes(frag.data)))
+        with self._tx_lock:
+            ring = self._ring_to(ep.world_rank, ep.addr)
+            if not ring.push_frame(hdr, frag.data):
+                # defer with an OWNED payload copy: the caller's request
+                # may complete (eager) and the user reuse the buffer before
+                # the retry fires from the progress loop
+                self._pending.setdefault(ep.world_rank, Fifo()).push(
+                    (hdr, owned_bytes(frag.data)))
         self._ring_doorbell(ep.world_rank, ep.addr)
 
     def _on_doorbell_record(self, etype: int, payload) -> int:
@@ -356,16 +383,28 @@ class SmBtl(Btl):
                     break
                 except OSError:
                     break
-        # drain incoming rings
-        for ring in self._rings_in.values():
-            while True:
-                buf = ring.pop_frame()
-                if buf is None:
-                    break
-                if self._recv_cb is not None:
-                    self._recv_cb(_unframe(buf))
-                    events += 1
-        # retry pending writes
+        # drain incoming rings: one consumer at a time (a ring is SPSC and
+        # a popped frame borrows the ring's scratch buffer); a thread that
+        # finds another draining skips the drain
+        if self._rx_lock.acquire(blocking=False):
+            try:
+                for ring in self._rings_in.values():
+                    while True:
+                        buf = ring.pop_frame()
+                        if buf is None:
+                            break
+                        if self._recv_cb is not None:
+                            self._recv_cb(_unframe(buf))
+                            events += 1
+            finally:
+                self._rx_lock.release()
+        with self._tx_lock:
+            events += self._retry_pending()
+        return events
+
+    def _retry_pending(self) -> int:
+        """Push queued frames into their rings (caller holds the tx lock)."""
+        events = 0
         for rank, fifo in self._pending.items():
             ring = self._rings_out.get(rank)
             if ring is None:
@@ -404,6 +443,80 @@ class SmBtl(Btl):
             if self.progress() == 0:
                 _time.sleep(0.0005)
 
+    # -- one-sided RMA (btl.h:949 put / :987 get) ------------------------
+    rdma = True
+    _RMA_POOL_CAP = 8
+
+    def prepare_src(self, ep: Endpoint, arr) -> dict:
+        """Expose ``arr``'s bytes in a pooled segment; the key a peer's
+        ``get``/``put`` names it by."""
+        src = _as_u8(arr)
+        # pow2 size class with a 64KB floor
+        size = 1 << max(16, (int(len(src)) - 1).bit_length())
+        with self._rma_lock:
+            free = self._rma_pool.get(size)
+            if free:
+                shm = free.pop()
+            else:
+                self._expose_seq += 1
+                name = (f"{NAME_PREFIX}_rg_{self._rte.my_world_rank}_"
+                        f"{os.getpid() & 0xffff}_{self._expose_seq}")
+                shm = shared_memory.SharedMemory(name=name, create=True,
+                                                 size=size)
+            self._exposed[shm.name] = shm
+        # the segment is this send's alone until release_src: no peer
+        # reads it before the key goes out
+        np.copyto(np.frombuffer(shm.buf, np.uint8, count=len(src)), src)
+        return {"btl": "sm", "seg": shm.name, "size": size,
+                "nbytes": int(len(src))}
+
+    def release_src(self, key: dict) -> None:
+        with self._rma_lock:
+            shm = self._exposed.pop(key["seg"], None)
+            if shm is None:
+                return
+            pool = self._rma_pool.setdefault(key["size"], [])
+            if len(pool) < self._RMA_POOL_CAP:
+                pool.append(shm)   # keep warm: the name is stable, peers
+                return             # stay attached across reuses
+        try:
+            shm.close()
+            shm.unlink()
+        except (OSError, BufferError):
+            pass
+
+    def _rma_attach(self, name: str) -> shared_memory.SharedMemory:
+        cache = self._attached
+        with self._rma_lock:
+            shm = cache.get(name)
+            if shm is not None:
+                return shm
+            shm = cache[name] = _attach(name)
+            evicted = []
+            while len(cache) > 4 * self._RMA_POOL_CAP:
+                oldest = next(iter(cache))   # insertion order: never the
+                if oldest == name:           # entry just added
+                    break
+                evicted.append(cache.pop(oldest))
+        for old in evicted:
+            try:
+                old.close()
+            except (OSError, BufferError):
+                pass
+        return shm
+
+    def get(self, ep: Endpoint, local, remote_key: dict) -> None:
+        dst = _as_u8(local)
+        n = min(len(dst), remote_key["nbytes"])
+        shm = self._rma_attach(remote_key["seg"])
+        np.copyto(dst[:n], np.frombuffer(shm.buf, np.uint8, count=n))
+
+    def put(self, ep: Endpoint, local, remote_key: dict) -> None:
+        src = _as_u8(local)
+        n = min(len(src), remote_key["nbytes"])
+        shm = self._rma_attach(remote_key["seg"])
+        np.copyto(np.frombuffer(shm.buf, np.uint8, count=n), src[:n])
+
     def close(self) -> None:
         if self._db_rx is not None:
             if self._db_reactor:
@@ -439,6 +552,24 @@ class SmBtl(Btl):
         self._rings_in.clear()
         self._rings_out.clear()
         self._pending.clear()
+        with self._rma_lock:
+            attached = list(self._attached.values())
+            segs = list(self._exposed.values()) + [
+                s for pool in self._rma_pool.values() for s in pool]
+            self._attached.clear()
+            self._exposed.clear()
+            self._rma_pool.clear()
+        for shm in attached:
+            try:
+                shm.close()
+            except (OSError, BufferError):
+                pass
+        for shm in segs:
+            try:
+                shm.close()
+                shm.unlink()
+            except (OSError, BufferError):
+                pass
         self._rte = None
 
 

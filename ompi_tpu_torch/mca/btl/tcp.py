@@ -38,11 +38,12 @@ reactor is engaged, its records (FAST frames arrive pre-parsed, every other
 frame RAW into the same ``_parse_frame``).
 
 Not copied: the chaos hooks (``chaos.wire_send``/``wire_recv``, injected
-resets and corruption; ROADMAP A 6), the FT side (``_drain_suspects`` into
+resets and corruption; ROADMAP A 4), the FT side (``_drain_suspects`` into
 ``ft/propagator``, best-effort FT sends with their connect backoff and
-``est_only``, the ``abort`` event a wire fault posts; A 6),
-``rget_emulate``'s pull path (with the one-sided rung, A 4), and the trace,
-profile and telemetry calls (A 4.5).
+``est_only``, the ``abort`` event a wire fault posts; A 4), and the trace,
+profile and telemetry calls (A 2).  btl/tcp has no one-sided triple
+(``rdma`` False): ob1's RGET rung reaches it only as the receiver-requested
+FRAG stream of ``pml_ob1_rget_emulate``.
 """
 from __future__ import annotations
 
@@ -95,7 +96,7 @@ _QHDR = struct.Struct("!BIH")
 
 def _cksum_armed() -> bool:
     """Frame checksumming is opt-in: the sanitizer's hard-assertion mode
-    arms it (the reference's chaos arming waits for ROADMAP A 6); the
+    arms it (the reference's chaos arming waits for ROADMAP A 4); the
     default fast path never pays the crc."""
     return sanitizer.enabled
 
@@ -820,7 +821,7 @@ class TcpBtl(Btl):
         re-raises SanitizeError, so the waiting caller dies loudly and the
         launcher tears the job down with the rank's exit code (the
         reference also posts an ``abort`` event for its FT listeners,
-        ROADMAP A 6)."""
+        ROADMAP A 4)."""
         spc.record(counter)
         raise sanitizer.SanitizeError(message)
 

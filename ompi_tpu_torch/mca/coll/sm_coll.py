@@ -23,7 +23,7 @@ comm that spans nodes, and without the native core (``:259-280``).  A
 tensor is staged to the host once, at a slot's entry.  The segment's name
 carries the port's prefix (``otpt_csm``).  Not copied: the FT branch of
 the counter wait (a failed member turns the wait into ``ProcFailedError``,
-``:157-172``; ROADMAP A 6).
+``:157-172``; ROADMAP A 4).
 """
 from __future__ import annotations
 

@@ -39,6 +39,9 @@ class Rte:
         coll/han reads."""
         return None
 
+    def event_notify(self, event: str, payload: Any) -> None:
+        pass
+
     def finalize(self) -> None:
         pass
 

@@ -14,7 +14,7 @@ server keeps a small per-client replay cache — a request whose processing
 completed before the reset is answered from the cache, one still in
 flight is adopted — so a fence interrupted mid-RPC is applied exactly
 once.  Timeouts are MCA vars (``otpu_coord_*``).  Not copied: spawn and
-process sets (with dpm, ROADMAP A 6), the recovery scope of ULFM, the
+process sets (with dpm, ROADMAP A 4), the recovery scope of ULFM, the
 chaos hooks and the flight-recorder views.
 """
 from __future__ import annotations

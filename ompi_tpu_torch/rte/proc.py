@@ -10,7 +10,8 @@ point-to-point or to a host collective are staged through
 ``torch_acc.to_host``.  Node identity for the hierarchy (coll/han): the
 ``node`` modex key, from ``OTPU_NODE_ID`` (``tpurun --fake-nodes``) or
 else the hostname, read back through the cached ``node_of``.  Not copied:
-dpm's job identity (spawned jobs, parent ranks), the ``hostname`` key and
+dpm's job identity (spawned jobs, parent ranks), ``event_poll``, the
+``hostname`` key and
 ``split_type``'s colors (the instance layer), the chaos hook and the
 multi-process device world.
 """
@@ -91,6 +92,9 @@ class ProcRte(Rte):
                 return None     # not cached: may appear later
             self._node_cache[world_rank] = val
         return self._node_cache[world_rank]
+
+    def event_notify(self, event: str, payload: Any) -> None:
+        self.client.event_publish(event, payload)
 
     def finalize(self) -> None:
         self.client.close()

@@ -19,11 +19,23 @@ first and leaves queued frames to its native reactor's thread), releases
 the coll modules of every comm made since
 ``init``, finalizes the pml and the rte, closes the work pool and the MCA
 frameworks and clears the CID space, so the next ``init`` selects afresh.
-Sessions, hooks, fault tolerance and monitoring are not ported yet.
+While a library holds an interlib registration, ``finalize`` returns and
+the runtime stays up (``ompi_tpu/runtime/init.py:285-290``).
+
+The first init arms an exit hook (``atexit``, ``init.py:226-229``): a rank
+that returns without ``finalize`` still drains its queued sends, fences and
+releases its segments on the way out.  ``init_thread`` returns the world
+with the provided thread level (always THREAD_MULTIPLE), ``abort``
+publishes an ``abort`` event and exits with the code (mpirun's launcher
+then ends the job), and ``get_world_if_initialized`` gives COMM_WORLD
+without an implicit init.  Sessions, hooks, fault tolerance, monitoring
+and the flight recorder's dump at ``abort`` are not ported yet.
 """
 from __future__ import annotations
 
+import atexit
 import enum
+import sys
 import threading
 import weakref
 from typing import Optional
@@ -50,6 +62,7 @@ _pml = None
 _comms: "weakref.WeakSet" = weakref.WeakSet()
 _cid_map = Bitmap(64)
 _cid_lock = threading.Lock()
+_atexit_armed = False
 
 
 def initialized() -> bool:
@@ -62,6 +75,12 @@ def finalized() -> bool:
 
 def get_rte():
     return _rte
+
+
+def get_world_if_initialized():
+    """COMM_WORLD if init completed, else None (no implicit init): for
+    services that must not trigger init."""
+    return _world if _state is State.INIT_COMPLETED else None
 
 
 # -- CID space (ompi_tpu/runtime/init.py:61-127) --------------------------
@@ -92,6 +111,14 @@ def is_cid_free(cid: int) -> bool:
         return not _cid_map.is_set(cid)
 
 
+def release_cid(cid: int) -> None:
+    """Return a NEVER-USED CID to the pool (``ompi_tpu/runtime/init.py:98``:
+    dpm's partial-failure path).  Only legal for a cid no communicator was
+    ever built on, on any rank; used CIDs go through :func:`retire_cid`."""
+    with _cid_lock:
+        _cid_map.clear(cid)
+
+
 def retire_cid(cid: int) -> None:
     """A freed CID is retired, never returned to the pool
     (``ompi_tpu/runtime/init.py:111-119``): reuse would let a stale handle
@@ -117,7 +144,7 @@ def init(device=None, rte=None, argv: Optional[list] = None):
     (``device="cpu"``: the CPU lane the tests run on).  With no card and no
     explicit device it raises; it never falls back to the CPU.
     """
-    global _state, _world, _self, _rte, _pml
+    global _state, _world, _self, _rte, _pml, _atexit_armed
     with _lock:
         if _state is State.INIT_COMPLETED:
             return _world
@@ -152,7 +179,13 @@ def init(device=None, rte=None, argv: Optional[list] = None):
             _state = State.NOT_INITIALIZED
             raise
         var.mark_runtime_initialized(True)
+        from ompi_tpu_torch.runtime import interlib
+
+        interlib.note_main_thread(force=True)
         _state = State.INIT_COMPLETED
+        if not _atexit_armed:
+            _atexit_armed = True
+            atexit.register(_atexit_finalize)
         return _world
 
 
@@ -195,6 +228,16 @@ def comm_self():
     return _self
 
 
+def init_thread(required: int = 0, device=None, rte=None, argv=None):
+    """``MPI_Init_thread``: returns (world, provided).  The engine is
+    thread-safe throughout, so provided is always THREAD_MULTIPLE whatever
+    level was required."""
+    from ompi_tpu_torch.runtime import interlib
+
+    world = init(device=device, rte=rte, argv=argv)
+    return world, interlib.query_thread()
+
+
 def _teardown() -> None:
     """Release what init acquired, in the reference's order (pml, rte,
     work pool, frameworks, CID space); every step runs even if one
@@ -221,8 +264,14 @@ def _teardown() -> None:
 
 def finalize() -> None:
     global _state
+    from ompi_tpu_torch.runtime import interlib
+
     with _lock:
         if _state is not State.INIT_COMPLETED:
+            return
+        # the interlib guard, inside the init lock: while another library
+        # holds a registration the runtime stays up
+        if interlib.registrations() > 0:
             return
         _state = State.FINALIZE_STARTED
         try:
@@ -252,9 +301,28 @@ def finalize() -> None:
             _state = State.FINALIZE_COMPLETED
 
 
+def _atexit_finalize() -> None:
+    try:
+        finalize()
+    except Exception:
+        pass
+
+
 def reset_for_testing() -> None:
     """Full teardown allowing re-init (tests only)."""
     global _state
+    from ompi_tpu_torch.runtime import interlib
+
+    interlib.reset_for_testing()
     finalize()
     with _lock:
         _state = State.NOT_INITIALIZED
+
+
+def abort(obj, errorcode: int = 1) -> None:
+    """``MPI_Abort``: tear down the job."""
+    print(f"[ompi_tpu_torch] MPI_Abort on {obj!r} with code {errorcode}",
+          file=sys.stderr, flush=True)
+    if _rte is not None:
+        _rte.event_notify("abort", {"code": errorcode})
+    sys.exit(errorcode)

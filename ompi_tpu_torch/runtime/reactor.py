@@ -23,7 +23,7 @@ or queued records) is a progress WAITER, so ``idle_wait`` wakes the moment
 wire bytes arrive and the next drain's inline pump parses them on the
 consumer thread.  Not copied: ``_native_drain``, the frame the reference's
 sampling profiler names its native sites by (with the profile module,
-ROADMAP A 4.5).
+ROADMAP A 2).
 """
 from __future__ import annotations
 

@@ -16,7 +16,7 @@ at import from the environment (``tpurun``'s ranks inherit it); every check
 site is on an error path or behind ``if sanitizer.enabled``.  Tests may flip
 ``sanitizer.enabled`` directly (consumers read it at use time).  Not
 copied: the flight recorder's crash dump on a trip, the staging pool's and
-the memchecker's checks (with those modules, ROADMAP A 4.5).
+the memchecker's checks (with those modules, ROADMAP A 2).
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 counters bumped in the bindings, exported as MPI_T-style pvars).
 
 Copy of ``ompi_tpu/runtime/spc.py`` with the counters that the port's
-modules record: point-to-point and its protocols, the device collectives
-(``bump_device``), the coordination client's retries, the codec (the MoE
+modules record: point-to-point and its protocols (ob1's RGET rung and
+its striped streams among them), the device collectives (``bump_device``),
+the coordination client's retries, the codec (the MoE
 dispatch's and coll/quant's host codec) and the host collectives'
 fastpath counters (coll/algorithms' schedule cache, coll/tuned's eager
 lane, the accelerator's staging pool) and the host transports' (btl/tcp,
@@ -19,6 +20,7 @@ _COUNTERS = (
     "send", "isend", "recv", "irecv", "probe", "iprobe",
     "bytes_sent", "bytes_received",
     "unexpected_msgs", "out_of_sequence_msgs", "matched_msgs",
+    "rget_msgs", "striped_msgs",
     "device_collectives", "device_bytes",
     "coord_reconnects", "coord_rpc_retries",
     "quant_encodes", "quant_decodes",

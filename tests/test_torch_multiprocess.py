@@ -2,10 +2,9 @@
 package's: the same jobs launched by each package's ``tpurun`` (the
 coordination service, ProcRte, btl/self + btl/sm, pml/ob1, the coll
 components), their per-rank outputs compared line for line.  The first
-jobs run both packages with ``--mca coll basic,self_coll``; the
-reference's ranks keep their own btls (its btl/sm pulls messages above
-512 KB one-sidedly, the port's streams them: the same bytes).  The port's
-ranks bind ``--device cpu``.
+jobs run both packages with ``--mca coll basic,self_coll``; both pull
+messages above 512 KB one-sidedly over btl/sm (ob1's RGET rung).  The
+port's ranks bind ``--device cpu``.
 
 Jobs: the ring (``tpurun -n 4`` of each package's ``ring`` example); the
 host collectives and ``split``/``dup``/``create_group`` under ``-n 4``; a
@@ -168,7 +167,7 @@ def hexed(a):
 
 
 def owners(c):
-    # agree is coll/ftagree's in the reference (ROADMAP A 6), basic's here;
+    # agree is coll/ftagree's in the reference (ROADMAP A 4), basic's here;
     # a slot coll/demo or coll/sync wrapped names its wrapper
     return {k: type(getattr(c.c_coll[k], "__self__", None)
                     or c.c_coll[k]).__name__ for k in SLOTS
@@ -240,7 +239,10 @@ elif mode == "interpose":
     # calls, coll/demo announcing each wrapped slot on the coll stream
     x = data(3000)
     out("bcast", hexed(w.bcast(x[2] if r == 2 else x[r] * 0, 2)))
-    out("reduce", hexed(w.reduce(x[r], m.SUM, 1)))
+    # coll/adapt folds a commutative op's segments in ARRIVAL order (both
+    # packages), so a float SUM's rounding follows the scheduler: integer
+    # values make every order exact, and the bits comparable
+    out("reduce", hexed(w.reduce(np.round(x[r] * 64), m.SUM, 1)))
     out("reduce nc", hexed(w.reduce(np.abs(x[r]) + 0.5, nc, 0)))
     q = w.ibcast(x[0].astype(np.float64) if r == 0 else np.zeros(3000), 0)
     q.wait()
@@ -340,9 +342,10 @@ if mode == "pingpong":
     else:
         w.recv(ack, peer, 9)
 elif mode == "stripe":
-    # 16 MB in one rendezvous stream between the ranks of one node: the
-    # FRAGs stripe over btl/sm and btl/tcp by bandwidth; the tcp frames
-    # the sender framed show how many took the second rail
+    # 16 MB in one message between the ranks of one node: by RGET, or with
+    # RGET off in one rendezvous stream whose FRAGs stripe over btl/sm and
+    # btl/tcp by bandwidth; the tcp frames the sender framed show how many
+    # took the second rail
     # (the receiver's ack keeps the sender out of finalize until every
     # frame is delivered: the reference fences before it drains)
     x = rng.standard_normal(1 << 22).astype(np.float32)
@@ -352,6 +355,8 @@ elif mode == "stripe":
         w.send(x, 1, 3)
         w.recv(ack, 1, 4)
         out("tcp frags", spc.read("fastpath_hdr_fast") - before)
+        out("rget, striped", [spc.read("rget_msgs"),
+                              spc.read("striped_msgs")])
     else:
         y = np.empty_like(x)
         w.recv(y, 0, 3)
@@ -406,11 +411,15 @@ from ompi_tpu_torch.mca.btl import sm
 sm.FLUSH_TIMEOUT_S = 1.0
 w = m.init(device="cpu")
 if w.rank == 0:
+    w.recv(np.zeros(1, np.int32), source=1, tag=2)
     for i in range(20):     # 5 MB of eager sends: more than the 4 MB ring
         w.send(np.full(1 << 16, i, np.float32), dest=1, tag=1)
     print("sent", flush=True)
     m.finalize()
 else:
+    # ready only once init is behind it: no progress of this rank drains
+    # the ring after the ack
+    w.send(np.zeros(1, np.int32), dest=0, tag=2)
     time.sleep(60)          # never drains: the launcher ends this rank
 '''
 
@@ -600,12 +609,19 @@ def test_quant_wire_allreduce_matches_the_reference(transport_worker):
     """``--fake-nodes 2 --mca otpu_coll_quant_wire 1``: a 4 MB float32
     allreduce whose traffic between the nodes goes int8-encoded over
     btl/tcp; the result, its error and ``quant.wire_stats()`` (original and
-    encoded bytes) are the reference's on every rank."""
+    encoded bytes) are the reference's on every rank, and the result is
+    one per node in both (pinned below)."""
     lines = _both(transport_worker, 4, ["--fake-nodes", "2", "--mca",
                                         "otpu_coll_quant_wire", "1"],
                   "quantwire")
     import json
 
+    # a divergence of both packages from MPI: each han leader adds its own
+    # exact part to the other leader's decoded one, so the result is one
+    # per node: equal within a node, different between the nodes
+    digests = [json.loads(lines[rank][1])[1][0] for rank in range(4)]
+    assert digests[0] == digests[1] and digests[2] == digests[3]
+    assert digests[0] != digests[2]
     for rank in range(4):
         stats = json.loads(lines[rank][2])[1]
         err = json.loads(lines[rank][1])[1][1]
@@ -616,15 +632,23 @@ def test_quant_wire_allreduce_matches_the_reference(transport_worker):
 
 
 def test_a_large_stream_stripes_like_the_reference(transport_worker):
-    """A 16 MB rendezvous stream between two ranks of one node stripes its
+    """A 16 MB message between two ranks of one node.  By default both
+    packages pull it by RGET from btl/sm's mapped segment: no fragment
+    takes tcp, ``rget_msgs`` 1 and ``striped_msgs`` 0 on the sender.  With
+    RGET off (``pml_ob1_rget_limit 0``) its rendezvous stream stripes its
     FRAGs over btl/sm and btl/tcp (bml/r2's rails, finish-time greedy by
-    bandwidth): the same number of fragments takes tcp in both packages
-    (the reference's RGET rung is turned off, as the port has none)."""
+    bandwidth): the same number of fragments takes tcp in both packages,
+    and ``striped_msgs`` is 1 in both."""
+    lines = _both(transport_worker, 2, [], "stripe")
+    assert lines[0][:3] == ['["eps", {"1": "sm"}]', '["tcp frags", 0]',
+                            '["rget, striped", [1, 0]]']
+    assert lines[1][1].endswith("true]]")
     lines = _both(transport_worker, 2, ["--mca", "pml_ob1_rget_limit", "0"],
                   "stripe")
     assert lines[0][0] == '["eps", {"1": "sm"}]'
     assert lines[0][1].startswith('["tcp frags", ') and \
         lines[0][1] != '["tcp frags", 0]'
+    assert lines[0][2] == '["rget, striped", [0, 1]]'
     assert lines[1][1].endswith("true]]")
 
 
@@ -641,15 +665,17 @@ def test_coll_sm_matches_the_reference(transport_worker, n):
 
 def test_finalize_drains_queued_sends(tmp_path):
     """A send completes once its frames are packed; over btl/sm the last
-    of an 8 MB stream can still wait for ring space when the sender
-    reaches finalize, and the finalize fence stops the sender's progress.
+    of an 8 MB stream (RGET off: the stream rung) can still wait for ring
+    space when the sender reaches finalize, and the finalize fence stops
+    the sender's progress.
     The port drains the btls before that fence, so the job ends without
     waiting out the fence's 10 s timeout.  (The reference fences first and
     relies on its native reactor's progress thread, or on RGET, to move
     those frames; ROADMAP C.)"""
     script = tmp_path / "drain.py"
     script.write_text(DRAIN)
-    r = _tpurun("torch", 2, [sys.executable, str(script)], timeout=90)
+    r = _tpurun("torch", 2, ["--mca", "pml_ob1_rget_limit", "0",
+                             sys.executable, str(script)], timeout=90)
     assert r.returncode == 0, r.stdout + r.stderr
     assert _lines(r.stdout)[1] == ["drained True"]
     assert "expired" not in r.stdout

@@ -350,57 +350,59 @@ def test_a_tensor_receive_buffer_raises_like_the_reference(worlds, posted):
 
 NOT_COPIED = {
     # ob1's FT hooks: the reference completes a dead peer's requests in
-    # error (ft_state.on_failure, ProcFailedError); ROADMAP A 6
+    # error (ft_state.on_failure, ProcFailedError); ROADMAP A 4.1
     "ft_hooks": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml,
         "_peer_failed"),
-    # the trace, peruse, profile and memchecker runtime; A 4 and A 10
+    # the trace, peruse, profile and memchecker runtime; A 2 and A 8
     "observability": lambda pkg: all(
         importlib.util.find_spec(f"{pkg}.runtime.{m}") is not None
         for m in ("trace", "peruse", "profile", "memchecker")),
-    # ob1's RGET rung and btl/sm's one-sided segments it pulls from: they
-    # come together with the port's first btl that offers ``get``; A 4
-    "rget": lambda pkg: hasattr(
+    # ob1's RGET send side freezes the user buffer (memchecker.protect_send)
+    # until the pull completes; with the memchecker runtime, A 2
+    "rget_memchecker": lambda pkg: "protect_send" in inspect.getsource(
+        __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml.isend),
+    # a dead puller releases the sender's RGET exposure (_peer_failed's
+    # _release_rget); with the FT hooks, A 4.1
+    "rget_ft_release": lambda pkg: "_release_rget" in _source_or_empty(
         __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml,
-        "_deliver_rget"),
+        "_peer_failed"),
+    # Win's osc trace spans around the epoch calls (win.py:23) and its
+    # osc/monitoring hook (_mon); with trace and monitoring, A 2
+    "win_trace": lambda pkg: hasattr(
+        __import__(f"{pkg}.api.win", fromlist=["x"]), "trace"),
+    "win_monitoring": lambda pkg: hasattr(
+        __import__(f"{pkg}.api.win", fromlist=["x"]).Win, "_mon"),
+    # the top-level names whose modules are not ported: Session (A 4.2),
+    # File (A 5), get_parent and open_port (dpm, A 4.3)
+    "top_level_session": lambda pkg: "Session" in __import__(pkg)._API,
+    "top_level_file": lambda pkg: "File" in __import__(pkg)._API,
+    "top_level_dpm": lambda pkg: {"get_parent", "open_port"}
+    <= set(__import__(pkg)._API),
     # btl/tcp's chaos hooks (injected drops, delays, resets, corruption on
-    # the wire) and its FT side (_drain_suspects into ft/propagator): A 6
+    # the wire) and its FT side (_drain_suspects into ft/propagator): A 4
     "tcp_chaos": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]), "chaos"),
     "tcp_ft_suspects": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]).TcpBtl,
         "_drain_suspects"),
-    # btl/tcp's trace, profile and telemetry calls: A 4.5
+    # btl/tcp's trace, profile and telemetry calls: A 2
     "tcp_observability": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]).TcpBtl,
         "_telemetry_stats"),
-    # the one-sided rung (A 4): btl/sm's mapped segments (prepare_src, get,
-    # put), ob1's rget_emulate over btl/tcp, the accelerator's
-    # registration cache (containers.IntervalTree) and mca/osc
-    "btl_rma": lambda pkg: hasattr(
-        __import__(f"{pkg}.mca.btl.sm", fromlist=["x"]).SmBtl,
-        "prepare_src"),
-    "rget_emulate": lambda pkg: hasattr(
-        __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Component,
-        "rget_emulate"),
-    "registration_cache": lambda pkg: hasattr(
-        __import__(f"{pkg}.base.containers", fromlist=["x"]),
-        "IntervalTree"),
-    "osc": lambda pkg: importlib.util.find_spec(
-        f"{pkg}.mca.osc") is not None,
     # coll/tuned's and coll/quant's profile spans (coll.decide, coll.alg,
-    # quant.encode, quant.decode): with the runtime's profile module, A 4
+    # quant.encode, quant.decode): with the runtime's profile module, A 2
     "coll_profile_spans": lambda pkg: all(
         hasattr(__import__(f"{pkg}.mca.coll.{m}", fromlist=["x"]), "profile")
         for m in ("tuned", "quant")),
     # the staging pool's trace spans, its telemetry source and the
-    # sanitizer branch of release: with trace, telemetry and sanitizer, A 4
+    # sanitizer branch of release: with trace, telemetry and sanitizer, A 2
     "staging_observability": lambda pkg: all(
         hasattr(_accelerator(pkg), m)
         for m in ("trace", "_telemetry", "sanitizer")),
     # coll/sm's FT branch (a failed member turns the counter wait into
     # ProcFailedError); coll/inter: with intercommunicators; coll/ftagree:
-    # with fault tolerance (A 6)
+    # with fault tolerance (A 4)
     "coll_sm_ft": lambda pkg: "ProcFailedError" in inspect.getsource(
         __import__(f"{pkg}.mca.coll.sm_coll",
                    fromlist=["x"]).SmCollModule._wait_at_least),
@@ -409,6 +411,11 @@ NOT_COPIED = {
     "coll_ftagree": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.coll.ftagree") is not None,
 }
+
+
+def _source_or_empty(cls, name):
+    fn = getattr(cls, name, None)
+    return inspect.getsource(fn) if fn is not None else ""
 
 
 def _accelerator(pkg):
