@@ -276,6 +276,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    module of each rank asserted).  One ``{"one_sided": {...}}`` line with
    the card's name and power limit, ms per epoch by rank and each job's
    wall seconds.
+8. The observability runtime (``observability``): the main path and the
+   communicator's path again with tracing on (``otpu_trace_enable``), each
+   with the counts set to 0 before and read after: the same launches as
+   with tracing off, the captured movers passing, and device (``xla_*``)
+   and coll spans recorded; the host µs a call of ``allreduce_array`` at 8
+   x 2 KB three ways in turns (through the trace wrapper with tracing off,
+   on the wrapper's ``__wrapped__`` slot, and with tracing on); a ``-n 2``
+   ping-pong of card tensors at 8 B, 64 KB and 4 MB with ``otpu_trace_enable``
+   and ``otpu_profile_stages`` over btl/sm and over btl/tcp, each job's
+   merged timeline written and every ``pml_msg`` flow start finished, rank
+   0's one-way µs at 8 B, the stage table of its 400 timed 8 B round
+   trips and of the whole job; a ``-n 4`` job with monitoring on, the
+   telemetry sampler at 100 ms and the sampling profiler at 10 ms: each
+   rank's p2p bytes of card tensors and its coll bytes equal to the bytes
+   it sent (a tensor's own count, no host copy), the launcher's merged
+   matrix printed, the sampler's and the profiler's sample counts.  One
+   ``{"observability": {...}}`` line with the card's name and power limit.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -1645,7 +1662,7 @@ def slot_rows(world, big, zbig) -> list:
     return rows
 
 
-def comm_path(gen) -> tuple:
+def comm_path(gen, timed: bool = True) -> tuple:
     """The device-world communicator on the card, with every count set to 0
     before and read after: a world with coll/ring raised (one-way, no
     wire16); the new slots at 8 x 16 MB and 8 x 1 MB (reduce_array's tree
@@ -1655,7 +1672,8 @@ def comm_path(gen) -> tuple:
     ``world.scan`` of a tensor stays on the card).  Then, uncounted, the
     mover under graph capture (``check_captured_movers``), and the same
     slots on the CPU lane at 8 x 1 MB, bit for bit with the card's.
-    Returns (the launch counts, the slots' time rows)."""
+    Returns (the launch counts, the slots' time rows); ``timed=False``
+    skips the time rows (the observability phase's second run)."""
     import ompi_tpu_torch
     from ompi_tpu_torch.ops import ring_collectives as rc
     from ompi_tpu_torch.runtime import init as rt
@@ -1702,7 +1720,7 @@ def comm_path(gen) -> tuple:
     wall = time.perf_counter() - t0
     launched = counts()
     captured = check_captured_movers(gen)
-    rows = slot_rows(world, big, zbig)
+    rows = slot_rows(world, big, zbig) if timed else []
     rt.finalize()
 
     cpu = ompi_tpu_torch.init(device="cpu")
@@ -1741,7 +1759,8 @@ def comm_path(gen) -> tuple:
         f"sub-comms bit-exact with the plain versions ({len(subs)} calls); "
         f"world.allreduce(tensor) {conducted}; world.scan(tensor) on the "
         "card, equal to scan_array; the captured movers byte-exact")
-    log(json.dumps({"comm_slots_ms": rows}))
+    if timed:
+        log(json.dumps({"comm_slots_ms": rows}))
     return launched, rows
 
 
@@ -2930,6 +2949,14 @@ def tpurun(n: int, argv: list, timeout: int = 240, env: dict = None) -> tuple:
     """Run ``argv`` under the port's tpurun (``env`` added to this
     process's environment); ({rank: lines}, wall seconds).  The job's own
     failure fails the phase."""
+    lines, _, wall = tpurun_job(n, argv, timeout, env)
+    return lines, wall
+
+
+def tpurun_job(n: int, argv: list, timeout: int = 240,
+               env: dict = None) -> tuple:
+    """:func:`tpurun` that also returns the launcher's standard error:
+    ({rank: lines}, stderr, wall seconds)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.tools.tpurun",
                         "-n", str(n), *argv], capture_output=True, text=True,
@@ -2942,7 +2969,7 @@ def tpurun(n: int, argv: list, timeout: int = 240, env: dict = None) -> tuple:
             lines.setdefault(int(rank[1:]), []).append(rest)
     require(r.returncode == 0, f"tpurun -n {n} {argv} exited {r.returncode}:"
             f"\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    return lines, wall
+    return lines, r.stderr, wall
 
 
 def job_result(lines: dict, rank: int) -> dict:
@@ -3458,6 +3485,273 @@ def one_sided(smi: str) -> dict:
     return out
 
 
+#: the observability phase's -n 2 ping-pong of card tensors: 8 B (eager;
+#: 40 warm-up round trips, then 400 timed, whose stage clocks are taken
+#: apart from the rest), then 64 KB (rendezvous) and 4 MB (RGET over
+#: btl/sm); rank 0 prints the 8 B one-way µs, the 8 B stage table and the
+#: whole run's
+OBS_PINGPONG = r"""
+import json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+from ompi_tpu_torch.runtime import profile, trace
+w = ompi_tpu_torch.init()
+peer = 1 - w.rank
+assert trace.enabled and profile.enabled
+
+
+def rounds(size, count):
+    a = torch.full((size // 4,), float(w.rank + 1), device="cuda")
+    b = np.empty(size // 4, np.float32)
+    for _ in range(count):
+        if w.rank == 0:
+            w.send(a, 1, 7)
+            w.recv(b, 1, 7)
+        else:
+            w.recv(b, 0, 7)
+            w.send(a, 0, 7)
+    assert np.all(b == peer + 1), "ping-pong payload"
+
+
+def delta(old, new):
+    # the timed rounds' stage populations (min/max clamps: the run's)
+    out = {}
+    for k, (n, total, lo, hi, bins) in new.items():
+        n0, total0, _, _, bins0 = old.get(k, (0, 0, 0, 0, {}))
+        if n > n0:
+            out[k] = (n - n0, total - total0, lo, hi,
+                      {d: c - bins0.get(d, 0) for d, c in bins.items()
+                       if c > bins0.get(d, 0)})
+    return out
+
+
+rounds(8, 40)
+before = profile.stage_snapshot()
+t0 = time.perf_counter()
+rounds(8, 400)
+one_way_us = (time.perf_counter() - t0) / 400 / 2 * 1e6
+stages_8 = profile.stage_stats(delta(before, profile.stage_snapshot()))
+rounds(64 << 10, 40)
+rounds(4 << 20, 10)
+print(json.dumps({"btl": w.pml.bml.endpoint(peer).btl.name,
+                  "one_way_us_8B": one_way_us, "stages_8B": stages_8,
+                  "stages": profile.stage_stats()}), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+#: the observability phase's -n 4 job with monitoring, the telemetry
+#: sampler and the sampling profiler on: each rank sends card tensors of
+#: (r + 1) * 1000 float32 to its right neighbour and 8 float32 to its left,
+#: then allreduces a card tensor of 256 K float32 five times; it prints how
+#: much its row of the p2p matrix grew over the sends, the bytes it sent,
+#: its coll counters and its sample counts
+OBS_MONITOR = r"""
+import json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+from ompi_tpu_torch.runtime import monitoring, profile, spc, telemetry
+w = ompi_tpu_torch.init()
+r, n = w.rank, w.size
+assert monitoring.enabled() and telemetry.enabled
+right, left = (r + 1) % n, (r - 1) % n
+# init's own coordination messages are in the matrix already: the row's
+# growth over the sends is what they added
+_, before = monitoring.p2p_matrix(n)
+big = torch.arange((r + 1) * 1000, dtype=torch.float32, device="cuda")
+small = torch.full((8,), float(r), device="cuda")
+reqs = [w.isend(big, right, 1), w.isend(small, left, 2)]
+got_big = np.empty(((left + 1) * 1000,), np.float32)
+got_small = np.empty(8, np.float32)
+w.recv(got_big, left, 1)
+w.recv(got_small, right, 2)
+for q in reqs:
+    q.wait()
+assert got_big.tolist() == list(range((left + 1) * 1000)), "big payload"
+assert np.all(got_small == right), "small payload"
+msgs, byts = monitoring.p2p_matrix(n)
+grew = (byts[r] - before[r]).tolist()
+sent = {right: big.nbytes, left: small.nbytes}
+x = torch.ones(256 * 1024, dtype=torch.float32, device="cuda")
+for _ in range(5):
+    out = w.allreduce(x)
+# the sampler publishes every 100 ms and the profiler ticks every 10 ms on
+# their own threads: wait (no traffic, so the ranks stay in step) for both
+deadline = time.perf_counter() + 20
+while (spc.read("telemetry_samples") < 3 or spc.read("profile_samples") < 10) \
+        and time.perf_counter() < deadline:
+    time.sleep(0.05)
+coll = monitoring.coll_counters()
+print(json.dumps({
+    "p2p_row_grew": grew, "p2p_msgs_row": msgs[r].tolist(),
+    "sent": {str(k): v for k, v in sent.items()},
+    "allreduce": list(coll["allreduce"]), "x_nbytes": x.nbytes,
+    "result_ok": bool(np.all(np.asarray(out) == n)),
+    "telemetry_samples": spc.read("telemetry_samples"),
+    "profile_samples": spc.read("profile_samples")}), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+#: calls a round of the host-µs comparison of the trace wrapper
+OBS_HOST_CALLS = 500
+OBS_ROUNDS = 5
+
+
+def ring_defaults() -> None:
+    """Re-apply coll/ring's defaults through the environment: a value an
+    earlier phase put there stays in the registry after it is deleted (an
+    absent variable changes nothing), and the main path's first world must
+    run at the default priorities."""
+    from ompi_tpu_torch.base.var import registry
+
+    for name in ("priority", "bidirectional", "wire16"):
+        var = registry.lookup(f"otpu_coll_ring_{name}")
+        os.environ[f"OTPU_MCA_coll_ring_{name}"] = str(int(var.default))
+
+
+def observability(smi: str, gen, main_launched: dict,
+                  comm_launched: dict) -> dict:
+    """The observability runtime on the card's machine (see phase 8 of the
+    module docstring).  Returns the ``observability`` line's object."""
+    import tempfile
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.base.var import registry
+    from ompi_tpu_torch.runtime import init as rt
+    from ompi_tpu_torch.runtime import trace
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        registry.set("otpu_trace_dir", str(Path(tmp, "device")))
+        registry.set("otpu_trace_enable", True)
+        trace.reset_for_testing()
+        try:
+            log("observability: the main path and the comm path again, with "
+                "tracing on")
+            ring_defaults()
+            traced_main = main_path(gen)
+            traced_comm, _ = comm_path(gen, timed=False)
+            cats = {}
+            for ev in trace.chrome_events():
+                cats[ev["cat"]] = cats.get(ev["cat"], 0) + 1
+        finally:
+            registry.set("otpu_trace_enable", False)
+            trace.reset_for_testing()
+        for what, got, want in (("main", traced_main, main_launched),
+                                ("comm", traced_comm, comm_launched)):
+            require(got == want, f"the {what} path with tracing on launched "
+                    f"{got}, with it off {want}")
+        require(cats.get("device", 0) > 0 and cats.get("coll", 0) > 0,
+                f"tracing recorded no device or coll span: {cats}")
+        out["traced_paths"] = {"same_launches": True, "spans_by_category":
+                               cats, "captured_movers": "passed"}
+
+        # host µs a call of allreduce_array: through the wrapper (tracing
+        # off), on the wrapped slot, and with tracing on, in turns
+        ring_defaults()
+        world = ompi_tpu_torch.init()
+        require(owner(world, "allreduce_array") == "BuiltinCollModule",
+                "the default owner of allreduce_array is not coll/builtin")
+        x = operands(torch.float32, (N, 512), gen)
+        wrapped = world.c_coll["allreduce_array"]
+        inner = wrapped.__wrapped__
+        require(wrapped.__self__ is inner.__self__,
+                "the trace wrapper lost its slot's __self__")
+        ways = {"wrapper_off": lambda: world.allreduce_array(x),
+                "direct": lambda: inner(world, x),
+                "wrapper_on": lambda: world.allreduce_array(x)}
+        per = {k: [] for k in ways}
+        for _ in range(OBS_ROUNDS):
+            for name, fn in ways.items():
+                on = name == "wrapper_on"
+                registry.set("otpu_trace_enable", on)
+                trace.reset_for_testing()
+                per[name].append(host_us(fn, OBS_HOST_CALLS))
+        registry.set("otpu_trace_enable", False)
+        trace.reset_for_testing()
+        rt.finalize()
+        for name in ("priority", "bidirectional", "wire16"):
+            del os.environ[f"OTPU_MCA_coll_ring_{name}"]
+        med = {k: statistics.median(v) for k, v in per.items()}
+        out["allreduce_array_host_us"] = {
+            "median": med, "rounds": per,
+            "wrapper_off_minus_direct": med["wrapper_off"] - med["direct"],
+            "wrapper_on_minus_direct": med["wrapper_on"] - med["direct"],
+            "shape": [N, 512], "calls_a_round": OBS_HOST_CALLS}
+
+        # -n 2 ping-pongs of card tensors with tracing and the stage clocks
+        ping = Path(tmp, "obs_ping.py")
+        ping.write_text(OBS_PINGPONG)
+        lanes = {}
+        for btl, args in (("sm", []), ("tcp", ["--mca", "btl", "tcp,self"])):
+            tdir = Path(tmp, f"trace_{btl}")
+            lines, stderr, wall = tpurun_job(2, [
+                *args, "--mca", "otpu_trace_enable", "1",
+                "--mca", "otpu_profile_stages", "1",
+                "--mca", "otpu_trace_dir", str(tdir),
+                sys.executable, str(ping)])
+            res = job_result(lines, 0)
+            require(res["btl"] == btl, f"ping-pong ran over {res['btl']}")
+            merged_path = tdir / "trace_merged.json"
+            require(merged_path.exists() and (tdir / "trace_skew.txt")
+                    .exists(), f"no merged timeline over {btl}: {stderr}")
+            merged = json.loads(merged_path.read_text())["traceEvents"]
+            starts = sorted(e["id"] for e in merged
+                            if e["ph"] == "s" and e["name"] == "pml_msg")
+            finishes = sorted(e["id"] for e in merged
+                              if e["ph"] == "f" and e["name"] == "pml_msg")
+            require(starts and starts == finishes,
+                    f"unmatched pml_msg flows over {btl}: {len(starts)} "
+                    f"starts, {len(finishes)} finishes")
+            lanes[btl] = {
+                "one_way_us_8B_rank0": res["one_way_us_8B"],
+                "stages_8B_rank0": res["stages_8B"],
+                "stages_rank0": {k: {"n": v["n"],
+                                     "p50_us": v.get("p50_us"),
+                                     "mean_us": v["mean_us"]}
+                                 for k, v in res["stages"].items()},
+                "merged_timeline": str(merged_path.relative_to(tmp)),
+                "flows_matched": len(starts), "events": len(merged),
+                "wall_s": wall}
+        out["pingpong_2"] = lanes
+
+        # -n 4 with monitoring, the sampler and the profiler
+        mon = Path(tmp, "obs_monitor.py")
+        mon.write_text(OBS_MONITOR)
+        lines, stderr, wall = tpurun_job(4, [
+            "--mca", "otpu_monitoring_enable", "1",
+            "--mca", "otpu_telemetry_interval_ms", "100",
+            "--mca", "otpu_profile_interval_ms", "10",
+            sys.executable, str(mon)])
+        ranks = [job_result(lines, r) for r in range(4)]
+        for r, res in enumerate(ranks):
+            want_row = [res["sent"].get(str(d), 0) for d in range(4)]
+            require(res["p2p_row_grew"] == want_row,
+                    f"rank {r}'s monitored p2p bytes {res['p2p_row_grew']}, "
+                    f"sent {want_row}")
+            calls = res["allreduce"][0]
+            require(res["allreduce"][1] == calls * res["x_nbytes"]
+                    and calls >= 5 and res["result_ok"],
+                    f"rank {r}'s monitored allreduce {res['allreduce']}")
+            require(res["telemetry_samples"] > 0
+                    and res["profile_samples"] > 0,
+                    f"rank {r} took no telemetry or profile sample: {res}")
+        merged = [x for x in stderr.splitlines() if x.startswith(
+            ("tpurun: monitoring: job-wide", "  "))]
+        require(merged and merged[0].startswith(
+            "tpurun: monitoring: job-wide p2p matrix (4 ranks, 4 reporting"),
+            f"the launcher printed no merged matrix: {stderr[-2000:]}")
+        out["monitor_4"] = {
+            "p2p_rows_grew": [x["p2p_row_grew"] for x in ranks],
+            "allreduce": [x["allreduce"] for x in ranks],
+            "telemetry_samples": [x["telemetry_samples"] for x in ranks],
+            "profile_samples": [x["profile_samples"] for x in ranks],
+            "merged": merged, "wall_s": wall}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"observability": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -3513,9 +3807,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     err = check_kernels(gen)
-    launched = main_path(gen)
+    main_launched = main_path(gen)
     comm_launched, _ = comm_path(gen)
-    launched = {k: v + comm_launched.get(k, 0) for k, v in launched.items()}
+    launched = {k: v + comm_launched.get(k, 0)
+                for k, v in main_launched.items()}
     os.environ["OTPU_MODEL_SCALE"] = "64"
     trained = training_path()
     moe_launched = moe_path(gen)
@@ -3525,6 +3820,7 @@ def main() -> int:
     host_tier(gen, smi)
     host_transports(smi)
     one_sided(smi)
+    observability(smi, gen, main_launched, comm_launched)
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))

@@ -9,10 +9,12 @@ isolates its RMA traffic, and the osc module chosen at creation
 get_accumulate/fetch_and_op/compare_and_swap and their request forms
 (``rput``...), fence, passive-target lock/unlock/lock_all/flush, PSCW, the
 dynamic windows (``create_dynamic``, ``attach_region``) and
-``allocate_shared``/``shared_query``.  Not copied yet: the osc trace spans
-of the epoch calls (``win.py:23``, ``_epoch``) and the osc/monitoring hook
-(``_mon``); they come with the runtime's trace and monitoring modules, and
-the epoch calls go straight to the osc module until then.
+``allocate_shared``/``shared_query``.  The epoch calls (fence, lock,
+unlock, their ``_all`` forms, flush, flush_all and PSCW) each run under an
+osc trace span (``win.py:23``, ``_epoch``: ``win_fence`` ... of category
+``osc``) while tracing is on, and the RMA ops record their bytes into
+osc/monitoring's counters (``_mon``, ``win.py:187-263``) while monitoring
+is on.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ompi_tpu_torch.api import op as op_mod
 from ompi_tpu_torch.api.attributes import AttributeHost
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.api.group import Group
+from ompi_tpu_torch.runtime import trace
 
 
 class Win(AttributeHost):
@@ -172,11 +175,31 @@ class Win(AttributeHost):
         if self.freed:
             raise MpiError(ErrorClass.ERR_WIN, "window was freed")
 
+    def _mon(self, op: str, nbytes: int) -> None:
+        # osc/monitoring interposition (common_monitoring.h's osc slot)
+        from ompi_tpu_torch.runtime import monitoring
+
+        if monitoring.enabled():
+            monitoring.record_osc(op, nbytes)
+
+    def _epoch(self, name: str, fn, *a):
+        """Run one epoch-synchronization call under an osc trace span
+        (fence / lock / unlock / PSCW / flush: the waits where RMA skew and
+        straggler targets become visible)."""
+        if not trace.enabled:
+            return fn(*a)
+        t0 = trace.now()
+        try:
+            return fn(*a)
+        finally:
+            trace.span(name, "osc", t0, args={"win": self.name})
+
     # -- RMA ops ---------------------------------------------------------
     def put(self, arr, target: int, offset: int = 0,
             region: Optional[int] = None) -> None:
         self._check()
         arr = np.ascontiguousarray(arr)
+        self._mon("put", arr.nbytes)
         if region is not None:
             self._region_op("put_region", arr, target, offset, region)
             return
@@ -189,7 +212,9 @@ class Win(AttributeHost):
             # region dtype lives at the target: count real bytes after
             out = self._region_op("get_region", count, target, offset,
                                   region)
+            self._mon("get", out.nbytes)
             return out
+        self._mon("get", count * self.dtype.itemsize)
         return self.module.get(self, count, target, offset)
 
     def _region_op(self, name: str, payload, target: int, offset: int,
@@ -205,6 +230,7 @@ class Win(AttributeHost):
                    op: op_mod.Op = op_mod.SUM) -> None:
         self._check()
         arr = np.ascontiguousarray(arr)
+        self._mon("accumulate", arr.nbytes)
         self.module.accumulate(self, arr, target, offset, op)
 
     def get_accumulate(self, arr, target: int, offset: int = 0,
@@ -212,6 +238,7 @@ class Win(AttributeHost):
         """Atomically fetch the old contents and apply ``arr (op) target``."""
         self._check()
         arr = np.ascontiguousarray(arr)
+        self._mon("get_accumulate", arr.nbytes)
         return self.module.get_accumulate(self, arr, target, offset, op)
 
     def fetch_and_op(self, value, target: int, offset: int = 0,
@@ -224,6 +251,7 @@ class Win(AttributeHost):
 
     def compare_and_swap(self, value, compare, target: int, offset: int = 0):
         self._check()
+        self._mon("compare_and_swap", np.asarray(value).nbytes)
         return self.module.compare_and_swap(self, value, compare, target,
                                             offset)
 
@@ -264,35 +292,47 @@ class Win(AttributeHost):
     def fence(self) -> None:
         """``MPI_Win_fence``: close + open an active-target epoch."""
         self._check()
-        self.module.fence(self)
+        self._epoch("win_fence", self.module.fence, self)
 
     def lock(self, target: int, lock_type: str = LOCK_EXCLUSIVE) -> None:
         self._check()
-        self.module.lock(self, target, lock_type)
+        self._epoch("win_lock", self.module.lock, self, target, lock_type)
 
     def unlock(self, target: int) -> None:
         self._check()
-        self.module.unlock(self, target)
+        self._epoch("win_unlock", self.module.unlock, self, target)
 
     def lock_all(self) -> None:
         self._check()
-        for t in range(self.size):
-            self.module.lock(self, t, self.LOCK_SHARED)
+
+        def _all():
+            for t in range(self.size):
+                self.module.lock(self, t, self.LOCK_SHARED)
+
+        self._epoch("win_lock_all", _all)
 
     def unlock_all(self) -> None:
         self._check()
-        for t in range(self.size):
-            self.module.unlock(self, t)
+
+        def _all():
+            for t in range(self.size):
+                self.module.unlock(self, t)
+
+        self._epoch("win_unlock_all", _all)
 
     def flush(self, target: int) -> None:
         """Complete all outstanding ops this process issued to ``target``."""
         self._check()
-        self.module.flush(self, target)
+        self._epoch("win_flush", self.module.flush, self, target)
 
     def flush_all(self) -> None:
         self._check()
-        for t in range(self.size):
-            self.module.flush(self, t)
+
+        def _all():
+            for t in range(self.size):
+                self.module.flush(self, t)
+
+        self._epoch("win_flush_all", _all)
 
     def flush_local(self, target: int) -> None:
         # origin-local completion; our put/accumulate pack eagerly, so
@@ -305,19 +345,19 @@ class Win(AttributeHost):
     # PSCW generalized active-target (MPI_Win_post/start/complete/wait)
     def post(self, group: Group) -> None:
         self._check()
-        self.module.post(self, group)
+        self._epoch("win_post", self.module.post, self, group)
 
     def start(self, group: Group) -> None:
         self._check()
-        self.module.start(self, group)
+        self._epoch("win_start", self.module.start, self, group)
 
     def complete(self) -> None:
         self._check()
-        self.module.complete(self)
+        self._epoch("win_complete", self.module.complete, self)
 
     def wait(self) -> None:
         self._check()
-        self.module.wait(self)
+        self._epoch("win_wait", self.module.wait, self)
 
     def test(self) -> bool:
         """``MPI_Win_test``: nonblocking ``wait`` — True iff the exposure

@@ -177,6 +177,12 @@ class Pvar:
             self._value += delta
             self._touched = True
 
+    def add_relaxed(self, delta: float = 1) -> None:
+        """Unlocked add for hot paths; racing adds may drop counts (the
+        reference's SPC counters make the same accuracy/cost trade)."""
+        self._value += delta
+        self._touched = True
+
     def set(self, value: float) -> None:
         with self._lock:
             if self.pclass is PvarClass.HIGHWATERMARK:

@@ -25,10 +25,13 @@ raw ``uint8`` owners handed out as shaped views.  Vars:
 ``otpu_accelerator_torch_staging_pool_bytes`` (the reference's
 ``otpu_accelerator_jax_*``).
 
-Not ported yet: the pool's trace and profile spans, the sanitizer branch of
-``release`` and the ``staging`` telemetry source (they come with the
-runtime's trace, profile, sanitizer and telemetry modules) and the
-framework's component (``JaxAcceleratorComponent``); ROADMAP A 2.
+The pool's observability is the reference's (``jax_acc.py:35``,
+``:184-232``, ``:281``, ``:326-328``): each checkout is a ``staging_hit``
+or ``staging_miss`` span of category ``staging`` with its log2 histogram
+and the ``send.staging`` stage, ``release`` fails loudly under
+``OTPU_SANITIZE`` on a non-contiguous buffer or a double release, and
+:meth:`_StagingPool.stats` is the ``staging`` telemetry source.  Not
+ported yet: the framework's component (``JaxAcceleratorComponent``).
 
 The **registration cache** (``register``/``deregister``/``lookup``,
 ``jax_acc.py:365-379``) keeps an interval tree of exposed host regions for
@@ -39,6 +42,7 @@ tensor gets no key.
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from collections import OrderedDict, deque
 from typing import Any, Optional
@@ -50,7 +54,7 @@ from ompi_tpu_torch.base import cudaenv
 from ompi_tpu_torch.base.containers import IntervalTree
 from ompi_tpu_torch.base.output import register_help, show_help
 from ompi_tpu_torch.base.var import VarType, registry
-from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime import profile, sanitizer, spc, trace
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
 _rcache = IntervalTree()
@@ -178,6 +182,8 @@ class _StagingPool:
         nbytes = int(np.prod(shape)) * dtype.itemsize if shape \
             else dtype.itemsize
         cls = self._class_of(nbytes)
+        t0 = time.perf_counter_ns() \
+            if (trace.enabled or profile.enabled) else 0
         out = None
         with self._lock:
             dq = self._free.get(cls)
@@ -198,20 +204,33 @@ class _StagingPool:
                 out = self._checkout(raw, shape, dtype)
             else:
                 self.misses += 1
-        if out is not None:
+        hit = out is not None
+        if hit:
             spc.record("fastpath_staging_hits")
-            return out
-        spc.record("fastpath_staging_misses")
-        # fresh allocation OUTSIDE the lock (first-touch page faults are the
-        # expensive part); the owner was never pooled, so nothing can race
-        # its checkout registration
-        return self._checkout(np.empty(cls, np.uint8), shape, dtype)
+        else:
+            spc.record("fastpath_staging_misses")
+            # fresh allocation OUTSIDE the lock (first-touch page faults
+            # are the expensive part); the owner was never pooled, so
+            # nothing can race its checkout registration
+            out = self._checkout(np.empty(cls, np.uint8), shape, dtype)
+        if trace.enabled:
+            name = "staging_hit" if hit else "staging_miss"
+            trace.span(name, "staging", t0, args={"nbytes": nbytes})
+            trace.hist_record(name, nbytes, time.perf_counter_ns() - t0)
+        if profile.enabled:
+            profile.stage_span("send.staging", t0)
+        return out
 
     @hot_path
     def release(self, buf: np.ndarray) -> None:
         if not self.enabled:
             return
         if not buf.flags.c_contiguous:
+            if sanitizer.enabled:
+                sanitizer.fail(
+                    "non-C-contiguous buffer released to the staging "
+                    f"pool (shape {tuple(buf.shape)}, dtype {buf.dtype})"
+                    " — layout bug in the caller")
             # a transformed checkout points at a layout bug in the caller:
             # warn once per pool, pool nothing
             if not self._warned_noncontig:
@@ -249,6 +268,11 @@ class _StagingPool:
             # double release: the owner is already in a free bin, or its
             # bytes are checked out right now; repooling would alias two
             # later acquires.  Both checks run under the pool lock.
+            if sanitizer.enabled:
+                sanitizer.fail(
+                    "double release of a staging owner buffer "
+                    f"({raw.nbytes} bytes): already pooled or checked out "
+                    "— repooling would alias two later acquires")
             return
         dq = self._free.get(cls)
         if dq is None:
@@ -286,6 +310,11 @@ class _StagingPool:
 
 
 staging = _StagingPool()
+
+# staging-pool occupancy for otpu_top (sampler-thread-only provider)
+from ompi_tpu_torch.runtime import telemetry as _telemetry  # noqa: E402
+
+_telemetry.register_source("staging", staging.stats)
 
 
 def staging_acquire(shape, dtype) -> np.ndarray:

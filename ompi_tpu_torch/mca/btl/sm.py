@@ -36,7 +36,13 @@ the rendezvous stream costs three copies and a frame per
 (``4 * _RMA_POOL_CAP``), the registration cache's role.  Exposed segments
 are named ``otpt_rg_<rank>_<pid>_<seq>`` (the reference's
 ``otpu_rg_...`` with the port's prefix); ``close`` unlinks every pooled
-and exposed one.  Not copied: the chaos hooks.
+and exposed one.
+
+Observability (``sm.py:347-411``): the header build is the ``send.queue``
+stage, the ring write (sm's wire) a ``btl_ringpush`` span of category
+``btl`` with its log2 histogram and the ``send.wire`` stage, and the
+frame's unpickle the ``recv.parse`` stage, each behind its module flag.
+Not copied: the chaos hooks.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.base.containers import Fifo
 from ompi_tpu_torch.base.var import VarType
 from ompi_tpu_torch.mca.btl.base import Btl, Endpoint, Frag, owned_bytes
+from ompi_tpu_torch.runtime import profile, trace
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
 _HDR = struct.Struct("<QQ")  # head, tail
@@ -353,15 +360,34 @@ class SmBtl(Btl):
 
     @hot_path
     def send(self, ep: Endpoint, frag: Frag) -> None:
+        # stage clock: the header build is send.queue; the ring write
+        # itself (the sm "wire") is send.wire
+        _pt = profile.now() if profile.enabled else 0
         hdr = _frame_hdr(frag)
+        if profile.enabled:
+            profile.stage_span("send.queue", _pt)
         with self._tx_lock:
             ring = self._ring_to(ep.world_rank, ep.addr)
+            # the ring write is sm's "wire": traced like tcp's btl_sendmsg
+            _t0 = trace.now() if (trace.enabled or profile.enabled) else 0
             if not ring.push_frame(hdr, frag.data):
                 # defer with an OWNED payload copy: the caller's request
                 # may complete (eager) and the user reuse the buffer before
                 # the retry fires from the progress loop
                 self._pending.setdefault(ep.world_rank, Fifo()).push(
                     (hdr, owned_bytes(frag.data)))
+            t1 = trace.now() if _t0 else 0
+        if _t0:
+            if trace.enabled:
+                nb = getattr(frag.data, "nbytes", None)
+                if nb is None:
+                    nb = len(frag.data)
+                trace.span("btl_ringpush", "btl", _t0, t1,
+                           args={"nbytes": int(nb),
+                                 "peer": ep.world_rank})
+                trace.hist_record("btl_ringpush", int(nb), t1 - _t0)
+            if profile.enabled:
+                profile.stage_span("send.wire", _t0, t1)
         self._ring_doorbell(ep.world_rank, ep.addr)
 
     def _on_doorbell_record(self, etype: int, payload) -> int:
@@ -394,7 +420,11 @@ class SmBtl(Btl):
                         if buf is None:
                             break
                         if self._recv_cb is not None:
-                            self._recv_cb(_unframe(buf))
+                            _pt = profile.now() if profile.enabled else 0
+                            frag = _unframe(buf)
+                            if profile.enabled:
+                                profile.stage_span("recv.parse", _pt)
+                            self._recv_cb(frag)
                             events += 1
             finally:
                 self._rx_lock.release()

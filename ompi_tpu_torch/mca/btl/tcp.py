@@ -37,11 +37,21 @@ the recv scratch, ``_drain`` reassembles split frames) or, when the native
 reactor is engaged, its records (FAST frames arrive pre-parsed, every other
 frame RAW into the same ``_parse_frame``).
 
+Observability (``tcp.py:233-235``, ``:492-773``, ``:956-998``,
+``:1104-1118``): the frame build and enqueue is the ``send.queue`` stage,
+each ``sendmsg`` a ``btl_sendmsg`` span of category ``btl`` with its log2
+histogram and the ``send.wire`` stage, and every frame parse the
+``recv.parse`` stage on both receive lanes (the selector's scratch and
+reassembly parses, the reactor's FAST and RAW records); a wire fault is a
+trace instant under its counter's name.  While set up the btl publishes
+its out-queue depth as the ``tcp`` telemetry source
+(:meth:`TcpBtl._telemetry_stats`); ``close`` withdraws it.
+
 Not copied: the chaos hooks (``chaos.wire_send``/``wire_recv``, injected
-resets and corruption; ROADMAP A 4), the FT side (``_drain_suspects`` into
-``ft/propagator``, best-effort FT sends with their connect backoff and
-``est_only``, the ``abort`` event a wire fault posts; A 4), and the trace,
-profile and telemetry calls (A 2).  btl/tcp has no one-sided triple
+resets and corruption; ROADMAP A 4), and the FT side (``_drain_suspects``
+into ``ft/propagator``, best-effort FT sends with their connect backoff
+and ``est_only``, the ``abort`` event a wire fault posts; A 4).  btl/tcp
+has no one-sided triple
 (``rdma`` False): ob1's RGET rung reaches it only as the receiver-requested
 FRAG stream of ``pml_ob1_rget_emulate``.
 """
@@ -65,7 +75,8 @@ from ompi_tpu_torch.base.var import VarType
 from ompi_tpu_torch.mca.btl.base import ACK, CTL, FRAG, MATCH, RGET, \
     RNDV, Btl, Endpoint, Frag
 from ompi_tpu_torch.mca.coll import quant as quant_mod
-from ompi_tpu_torch.runtime import reactor as reactor_mod, sanitizer, spc
+from ompi_tpu_torch.runtime import profile, reactor as reactor_mod, \
+    sanitizer, spc, trace
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
 # reactor record types, bound to locals for the dispatch hot path
@@ -242,7 +253,26 @@ class TcpBtl(Btl):
 
             progress_mod.register_waiter(self._listener)
         rte.modex_put("btl_tcp_addr", self._listener.getsockname())
+        # live out-queue depth for otpu_top (one dict insert here; the
+        # provider runs only on the sampler thread, never on a hot path)
+        from ompi_tpu_torch.runtime import telemetry
+
+        telemetry.register_source("tcp", self._telemetry_stats)
         return True
+
+    def _telemetry_stats(self) -> dict:
+        """Sampler-thread source: aggregate out-queue depth/bytes and
+        connection count.  Racy unlocked reads of per-conn counters:
+        telemetry is an approximation, and the lock contract only covers
+        mutation."""
+        frags = qbytes = nconns = 0
+        for conns in list(self._by_rank.values()):
+            for conn in list(conns):
+                nconns += 1
+                frags += len(conn.outq)
+                qbytes += conn.out_bytes
+        return {"outq_frags": frags, "outq_bytes": qbytes,
+                "conns": nconns}
 
     def _register_conn(self, conn: _Conn) -> None:
         """Register a fresh connection for receive progress: a reactor
@@ -366,6 +396,9 @@ class TcpBtl(Btl):
                 payload = memoryview(enc)
                 borrowed = False
                 qbit = _H_QUANT
+        # stage clock: frame build + enqueue, the wire syscall excluded
+        # (that is send.wire, recorded inside _flush_locked)
+        _pt = profile.now() if profile.enabled else 0
         hdr = _fast_header(frag)
         if hdr is not None:
             spc.record("fastpath_hdr_fast")
@@ -404,6 +437,8 @@ class TcpBtl(Btl):
                                  else memoryview(payload))
                 conn.out_bytes += len(payload)
                 queued = 2
+            if profile.enabled:
+                profile.stage_span("send.queue", _pt)
             self._flush_locked(conn)
             if conn.outq and borrowed and queued == 2:
                 # whatever the kernel did not take must stop aliasing the
@@ -460,6 +495,8 @@ class TcpBtl(Btl):
                 bufs.append(mv)
                 if len(bufs) >= _IOV_BATCH:
                     break
+            t0 = time.perf_counter_ns() \
+                if (trace.enabled or profile.enabled) else 0
             try:
                 n = conn.sock.sendmsg(bufs)
             except (BlockingIOError, InterruptedError):
@@ -472,6 +509,19 @@ class TcpBtl(Btl):
                 self._mark_writable(conn, False)
                 self._drop_conn(conn)
                 return
+            if trace.enabled or profile.enabled:
+                t1 = time.perf_counter_ns()
+                if trace.enabled:
+                    # the peer rides along so the critical path's wire
+                    # bucket can attribute syscall time to the rank the
+                    # bytes went to (-1: a connection before its handshake)
+                    trace.span("btl_sendmsg", "btl", t0, t1,
+                               args={"nbytes": n, "iov": len(bufs),
+                                     "peer": conn.rank
+                                     if conn.rank is not None else -1})
+                    trace.hist_record("btl_sendmsg", n, t1 - t0)
+                if profile.enabled:
+                    profile.stage_span("send.wire", t0, t1)
             spc.record("fastpath_sendmsg")
             if n == 0:
                 break
@@ -513,6 +563,7 @@ class TcpBtl(Btl):
         memoryview is borrowed drain-buffer scratch, valid until the next
         drain."""
         if etype == _R_FAST:
+            _pt = profile.now() if profile.enabled else 0
             (cid, src, dst, tag, seq, code, total_len, offset,
              req_id) = _FAST.unpack_from(payload, 0)
             data = np.frombuffer(payload, np.uint8, offset=_FAST.size)
@@ -520,6 +571,8 @@ class TcpBtl(Btl):
                         data, total_len, offset,
                         {} if req_id < 0 else {"req_id": req_id},
                         borrowed=True)
+            if profile.enabled:
+                profile.stage_span("recv.parse", _pt)
             spc.record("fastpath_native_frags")
             if self._recv_cb is not None:
                 self._recv_cb(frag)
@@ -542,7 +595,7 @@ class TcpBtl(Btl):
         if etype == _R_DESYNC:
             self._wire_fault(
                 "wire_desync", "btl/tcp framing desync: zero-length frame "
-                "on the wire (native reactor)")
+                "on the wire (native reactor)", _conn_peer(conn))
         return 0
 
     @hot_path
@@ -551,7 +604,10 @@ class TcpBtl(Btl):
         not a plain fast header (crc-armed, quantized, pickle, handshake,
         unknown kind byte) VERBATIM, into the same ``_parse_frame`` the
         selector lane uses."""
+        _pt = profile.now() if profile.enabled else 0
         frag = self._parse_frame(conn, frame, borrowed=True)
+        if profile.enabled:
+            profile.stage_span("recv.parse", _pt)
         spc.record("fastpath_native_raw")
         if frag is not None and self._recv_cb is not None:
             self._recv_cb(frag)
@@ -699,7 +755,10 @@ class TcpBtl(Btl):
                     break
                 frame = view[pos + _LEN.size:pos + _LEN.size + fl]
                 pos += _LEN.size + fl
+                _pt = profile.now() if profile.enabled else 0
                 frag = self._parse_frame(conn, frame, borrowed=True)
+                if profile.enabled:
+                    profile.stage_span("recv.parse", _pt)
                 if frag is not None and self._recv_cb is not None:
                     self._recv_cb(frag)
                     events += 1
@@ -731,7 +790,10 @@ class TcpBtl(Btl):
                 frame = bytes(memoryview(buf)[pos + _LEN.size:
                                               pos + _LEN.size + n])
                 pos += _LEN.size + n
+                _pt = profile.now() if profile.enabled else 0
                 frag = self._parse_frame(conn, frame)
+                if profile.enabled:
+                    profile.stage_span("recv.parse", _pt)
                 if frag is not None and self._recv_cb is not None:
                     self._recv_cb(frag)
                     events += 1
@@ -799,7 +861,7 @@ class TcpBtl(Btl):
             self._wire_fault(
                 "quant_wire_decode_fail",
                 f"btl/tcp quantized frame from rank {peer} does not "
-                f"decode ({exc}): wire corruption detected")
+                f"decode ({exc}): wire corruption detected", peer, len(data))
 
     def _corrupt_frame(self, conn: Optional[_Conn], nbytes: int,
                        want: int, got: int) -> None:
@@ -811,18 +873,22 @@ class TcpBtl(Btl):
         self._wire_fault(
             "wire_cksum_fail", f"btl/tcp frame from rank {peer} failed its crc32 "
             f"({nbytes} bytes, want {want:#x} got {got:#x}): wire "
-            "corruption detected")
+            "corruption detected", peer, nbytes)
 
     @staticmethod
-    def _wire_fault(counter: str, message: str) -> None:
+    def _wire_fault(counter: str, message: str, peer: int = -1,
+                    nbytes: int = 0) -> None:
         """Shared tail of a wire-integrity trip (crc mismatch, a quant
         frame that does not decode, a framing desync), each under its own
-        counter: counted, then SanitizeError raised.  The progress loop
-        re-raises SanitizeError, so the waiting caller dies loudly and the
+        counter: counted, trace-instant'ed, then SanitizeError raised.
+        The progress loop re-raises SanitizeError, so the waiting caller dies loudly and the
         launcher tears the job down with the rank's exit code (the
         reference also posts an ``abort`` event for its FT listeners,
         ROADMAP A 4)."""
         spc.record(counter)
+        if trace.enabled:
+            trace.instant(counter, "btl",
+                          args={"peer": peer, "nbytes": nbytes})
         raise sanitizer.SanitizeError(message)
 
     def flush(self, timeout: float = 30.0) -> None:
@@ -838,6 +904,11 @@ class TcpBtl(Btl):
                 time.sleep(0.0005)
 
     def close(self) -> None:
+        # a closed btl must stop publishing telemetry: the sampler would
+        # report frozen queue depths as live data
+        from ompi_tpu_torch.runtime import telemetry
+
+        telemetry.unregister_source("tcp")
         self.flush()
         from ompi_tpu_torch.runtime import progress as progress_mod
 

@@ -4,9 +4,12 @@ Port of ``ompi_tpu/mca/coll/base.py`` (after the reference's
 ``ompi/mca/coll/base/coll_base_comm_select.c``): query every available
 component for this communicator, keep those answering with priority >= 0,
 sort ascending, then fill the per-comm vtable ``c_coll`` in priority order
-so the highest-priority provider of each individual function wins.  The
-monitoring and trace interposition of the reference package is not ported
-yet.
+so the highest-priority provider of each individual function wins.  Then
+the two interposition layers wrap every slot, device and host alike, as the
+reference's do (``ompi_tpu/mca/coll/base.py:64-73``): coll/monitoring's
+recorder only while ``otpu_monitoring_enable`` is set, then coll/trace's
+span and histogram recorder always (its disabled path is one flag check).
+Both wrappers carry the inner slot's ``__self__``.
 """
 from __future__ import annotations
 
@@ -53,6 +56,10 @@ def comm_select(comm) -> None:
                 comm.c_coll[fname] = fn
     if not comm.c_coll:
         _output.show_help("help-coll", "none-available", comm=comm.name)
+    from ompi_tpu_torch.runtime import monitoring, trace
+
+    monitoring.wrap_coll_table(comm)
+    trace.wrap_coll_table(comm)
 
 
 _output.register_help(

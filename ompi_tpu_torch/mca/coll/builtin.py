@@ -93,8 +93,11 @@ budget, whose codec is picked per call) is bound to its slot.
 
 Every slot call records one device collective and its input's bytes in the
 SPC counters (``spc.bump_device``, ``xla.py:150-185``), as do the binding
-and every call or start of a persistent handle (``xla.py:60-93``); the
-reference's trace spans are not ported.
+and every call or start of a persistent handle (``xla.py:60-93``).  While
+tracing is on, each of those launches is an ``xla_<coll>`` span of category
+``device`` named by its cache key's collective (``xla.py:45-57``): it times
+the launch of the torch program, never the card's work (no synchronize, no
+host read inside it).  With tracing off the slots run as before.
 """
 from __future__ import annotations
 
@@ -109,7 +112,7 @@ from ompi_tpu_torch.base import cudaenv
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
 from ompi_tpu_torch.mca.coll import quant as quant_mod
-from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime import spc, trace
 
 
 def counts_table(counts, shape: tuple, what: str) -> np.ndarray:
@@ -230,6 +233,25 @@ def _quant_allgather_fn(codec: str):
     return int8
 
 
+def _traced_dispatch(fn, coll: str, nbytes: int):
+    """``fn`` under an ``xla_<coll>`` device span (``xla.py:45-57``): the
+    span times the launch, not the card.  Installed only while tracing is
+    on."""
+    def dispatch(*a):
+        t0 = trace.now()
+        try:
+            return fn(*a)
+        finally:
+            trace.span(f"xla_{coll}", "device", t0,
+                       args={"nbytes": int(nbytes)})
+    return dispatch
+
+
+def _device_span(coll: str, t0: int, nbytes: int) -> None:
+    """Close an inline slot's ``xla_<coll>`` launch span begun at ``t0``."""
+    trace.span(f"xla_{coll}", "device", t0, args={"nbytes": int(nbytes)})
+
+
 class PersistentColl:
     """A bound device collective (``MPI_*_init`` analog): ``h(x)`` runs it,
     ``h.start(x)`` returns a request born complete with the result (the
@@ -251,6 +273,9 @@ class PersistentColl:
 
     def __call__(self, x):
         self._bump(self._nbytes)
+        if trace.enabled and self._nbytes is not None:
+            return _traced_dispatch(self.fn, self.coll,
+                                    self._nbytes)(self._place(x))
         return self.fn(self._place(x))
 
     def start(self, x):
@@ -382,10 +407,15 @@ class BuiltinCollModule:
             fn = self._cache.get(_keyfor(coll, x, *args))
             if fn is not None:
                 spc.bump_device(x.nbytes)
+                if trace.enabled:
+                    return _traced_dispatch(fn, coll, x.nbytes)(x)
                 return fn(x)
         x = self._check(comm, x, inner_n)
         spc.bump_device(x.nbytes)
-        return self._cached(_keyfor(coll, x, *args), lambda: make(x))(x)
+        fn = self._cached(_keyfor(coll, x, *args), lambda: make(x))
+        if trace.enabled:
+            return _traced_dispatch(fn, coll, x.nbytes)(x)
+        return fn(x)
 
     def _cached(self, key, make):
         fn = self._cache.get(key)
@@ -402,11 +432,16 @@ class BuiltinCollModule:
             fn = self._cache.get(_key(coll, x, op))
             if fn is not None:
                 spc.bump_device(x.nbytes)
+                if trace.enabled:
+                    return _traced_dispatch(fn, coll, x.nbytes)(x)
                 return fn(x)
         x = self._check(comm, x, inner_n)
         spc.bump_device(x.nbytes)
-        return self._cached(_key(coll, x, op),
-                            lambda: self._reduce_fn(op, x.dtype))(x)
+        fn = self._cached(_key(coll, x, op),
+                          lambda: self._reduce_fn(op, x.dtype))
+        if trace.enabled:
+            return _traced_dispatch(fn, coll, x.nbytes)(x)
+        return fn(x)
 
     # -- collective slots ------------------------------------------------
     def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
@@ -420,10 +455,14 @@ class BuiltinCollModule:
             if codec is not None:
                 x = self._check(comm, x)
                 spc.bump_device(x.nbytes)
-                return self._cached(
+                fn = self._cached(
                     ("allreduce_quant", codec, op.name, x.shape, x.dtype,
                      x.device),
-                    lambda: _quant_allreduce_fn(codec))(x)
+                    lambda: _quant_allreduce_fn(codec))
+                if trace.enabled:
+                    return _traced_dispatch(fn, "allreduce_quant",
+                                            x.nbytes)(x)
+                return fn(x)
         return self._reduction("allreduce", comm, x, op)
 
     def reduce_scatter_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
@@ -435,7 +474,11 @@ class BuiltinCollModule:
     def bcast_array(self, comm, x, root: int = 0):
         x = self._check(comm, x)
         spc.bump_device(x.nbytes)
-        return x[int(root) % self.n].expand(x.shape).clone()
+        t0 = trace.now() if trace.enabled else 0
+        out = x[int(root) % self.n].expand(x.shape).clone()
+        if t0:
+            _device_span("bcast", t0, x.nbytes)
+        return out
 
     def allgather_array(self, comm, x):
         # coll/quant tier: the same explicit-budget gate as allreduce
@@ -446,12 +489,20 @@ class BuiltinCollModule:
             if codec is not None:
                 x = self._check(comm, x)
                 spc.bump_device(x.nbytes)
-                return self._cached(
+                fn = self._cached(
                     ("allgather_quant", codec, x.shape, x.dtype, x.device),
-                    lambda: _quant_allgather_fn(codec))(x)
+                    lambda: _quant_allgather_fn(codec))
+                if trace.enabled:
+                    return _traced_dispatch(fn, "allgather_quant",
+                                            x.nbytes)(x)
+                return fn(x)
         x = self._check(comm, x)
         spc.bump_device(x.nbytes)
-        return x.clone()
+        t0 = trace.now() if trace.enabled else 0
+        out = x.clone()
+        if t0:
+            _device_span("allgather", t0, x.nbytes)
+        return out
 
     def allgatherv_array(self, comm, x, counts):
         counts = counts_table(counts, (self.n,), "allgatherv")
@@ -460,7 +511,11 @@ class BuiltinCollModule:
     def alltoall_array(self, comm, x):
         x = self._check(comm, x, inner_n=True)
         spc.bump_device(x.nbytes)
-        return x.transpose(0, 1).contiguous()
+        t0 = trace.now() if trace.enabled else 0
+        out = x.transpose(0, 1).contiguous()
+        if t0:
+            _device_span("alltoall", t0, x.nbytes)
+        return out
 
     def alltoallv_array(self, comm, x, counts):
         counts = counts_table(counts, (self.n, self.n), "alltoallv")
@@ -504,7 +559,15 @@ class BuiltinCollModule:
         if tok is None:
             tok = self._cache.setdefault("barrier_token", torch.zeros(
                 (self.n, 1), dtype=torch.float32, device=self.device))
-        self._reduction("allreduce", comm, tok, op_mod.SUM)
+        # the reference's barrier program is its own cache entry
+        # (("barrier",), xla.py:722), so its span is xla_barrier
+        fn = self._cached(_key("allreduce", tok, op_mod.SUM),
+                          lambda: self._reduce_fn(op_mod.SUM, tok.dtype))
+        spc.bump_device(tok.nbytes)
+        if trace.enabled:
+            _traced_dispatch(fn, "barrier", tok.nbytes)(tok)
+        else:
+            fn(tok)
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
@@ -540,12 +603,17 @@ class BuiltinCollModule:
     def ppermute_array(self, comm, x, perm):
         x = self._check(comm, x)
         spc.bump_device(x.nbytes)
+        t0 = trace.now() if trace.enabled else 0
         perm = tuple((int(s), int(d)) for s, d in perm)
         src, dst = self._perm_index(perm, x.device)
         if len(perm) == self.n:             # every rank receives
-            return x.index_select(0, src)
-        out = torch.zeros_like(x)
-        return out.index_copy_(0, dst, x.index_select(0, src))
+            out = x.index_select(0, src)
+        else:
+            out = torch.zeros_like(x).index_copy_(0, dst,
+                                                  x.index_select(0, src))
+        if t0:
+            _device_span("ppermute", t0, x.nbytes)
+        return out
 
     def persistent_coll(self, comm, coll: str, template, *args):
         """Bind ``coll`` for ``template``'s shape: run it once (checks the

@@ -34,9 +34,9 @@ per-communicator accuracy budget (the info key :data:`BUDGET_KEY`), never
 for non-commutative reductions (the codec reorders rounding error the way
 a ring reorders operands), and never for exact or non-float32 dtypes.
 
-Not ported yet: the serving KV slabs with ``kv_codec`` (they come with
-serving), and the ``quant.encode``/``quant.decode`` profile spans (with the
-runtime's profile module).
+The host codec's ``quant.encode`` and ``quant.decode`` stage clocks are the
+reference's (``quant.py:116-159``), behind ``profile.enabled``.  Not ported
+yet: the serving KV slabs with ``kv_codec`` (they come with serving).
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ import torch
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.output import register_help, show_help
 from ompi_tpu_torch.base.var import VarType
-from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime import profile, spc
 
 #: codec names, and the accuracy band each one charges against the declared
 #: budget.  bf16 rounds to 7 stored mantissa bits: per-element relative error
@@ -112,65 +112,75 @@ def encode_f32(x, codec: str, block: int = None) -> np.ndarray:
 
     Deterministic (round-half-even, pure numpy): every process encodes
     identical bytes for identical input."""
-    x = np.ascontiguousarray(x, np.float32).reshape(-1)
-    n = x.size
-    if codec == "bf16":
-        u = x.view(np.uint32)
-        # round-to-nearest-even on the dropped 16 bits, in uint64 so the
-        # carry can never wrap the sign bit.  NaNs bypass the rounding add
-        # (it can carry into the exponent and flush a payload NaN to
-        # +/-0.0): truncate them and force a mantissa bit so the result
-        # stays a NaN.
-        rounded = (((u.astype(np.uint64) + 0x7FFF + ((u >> 16) & 1))
-                    >> 16).astype(np.uint16))
-        nan = ((u & 0x7F800000) == 0x7F800000) \
-            & ((u & 0x007FFFFF) != 0)
-        out = np.where(nan, ((u >> 16) | 0x0040).astype(np.uint16),
-                       rounded).view(np.uint8).copy()
-    elif codec == "int8":
-        b = int(block or block_elems())
-        nb = nblocks(n, b)
-        pad = nb * b - n
-        xp = (np.pad(x, (0, pad)) if pad else x).reshape(nb, b)
-        amax = np.abs(xp).max(axis=1)
-        scale = (amax * (1.0 / 127.0)).astype(np.float32)
-        inv = np.zeros_like(amax)
-        np.divide(127.0, amax, out=inv, where=amax > 0.0)
-        q = np.rint(xp * inv[:, None]).astype(np.int8)
-        out = np.empty(4 * nb + n, np.uint8)
-        out[:4 * nb] = scale.view(np.uint8)
-        out[4 * nb:] = q.reshape(-1)[:n].view(np.uint8)
-    else:
-        raise KeyError(f"unknown quant codec {codec!r}")
-    spc.record("quant_encodes")
-    return out
+    _pt = profile.now() if profile.enabled else 0
+    try:
+        x = np.ascontiguousarray(x, np.float32).reshape(-1)
+        n = x.size
+        if codec == "bf16":
+            u = x.view(np.uint32)
+            # round-to-nearest-even on the dropped 16 bits, in uint64 so the
+            # carry can never wrap the sign bit.  NaNs bypass the rounding add
+            # (it can carry into the exponent and flush a payload NaN to
+            # +/-0.0): truncate them and force a mantissa bit so the result
+            # stays a NaN.
+            rounded = (((u.astype(np.uint64) + 0x7FFF + ((u >> 16) & 1))
+                        >> 16).astype(np.uint16))
+            nan = ((u & 0x7F800000) == 0x7F800000) \
+                & ((u & 0x007FFFFF) != 0)
+            out = np.where(nan, ((u >> 16) | 0x0040).astype(np.uint16),
+                           rounded).view(np.uint8).copy()
+        elif codec == "int8":
+            b = int(block or block_elems())
+            nb = nblocks(n, b)
+            pad = nb * b - n
+            xp = (np.pad(x, (0, pad)) if pad else x).reshape(nb, b)
+            amax = np.abs(xp).max(axis=1)
+            scale = (amax * (1.0 / 127.0)).astype(np.float32)
+            inv = np.zeros_like(amax)
+            np.divide(127.0, amax, out=inv, where=amax > 0.0)
+            q = np.rint(xp * inv[:, None]).astype(np.int8)
+            out = np.empty(4 * nb + n, np.uint8)
+            out[:4 * nb] = scale.view(np.uint8)
+            out[4 * nb:] = q.reshape(-1)[:n].view(np.uint8)
+        else:
+            raise KeyError(f"unknown quant codec {codec!r}")
+        spc.record("quant_encodes")
+        return out
+    finally:
+        if profile.enabled:
+            profile.stage_span("quant.encode", _pt)
 
 
 def decode_f32(buf, codec: str, nelems: int,
                block: int = None) -> np.ndarray:
     """Decode a codec byte layout back to ``nelems`` f32 elements."""
-    n = int(nelems)
-    b8 = np.frombuffer(buf, np.uint8) if not isinstance(buf, np.ndarray) \
-        else buf.reshape(-1).view(np.uint8)
-    want = encoded_nbytes(n, codec, block)
-    if b8.size != want:
-        raise ValueError(
-            f"quant {codec} payload of {b8.size} bytes does not "
-            f"match {n} elements (expected {want})")
-    if codec == "bf16":
-        u16 = np.ascontiguousarray(b8).view(np.uint16)
-        out = (u16.astype(np.uint32) << 16).view(np.float32).copy()
-    else:
-        b = int(block or block_elems())
-        nb = nblocks(n, b)
-        scale = np.ascontiguousarray(b8[:4 * nb]).view(np.float32)
-        q = b8[4 * nb:].view(np.int8)
-        pad = nb * b - n
-        qp = (np.pad(q, (0, pad)) if pad else q).reshape(nb, b)
-        out = (qp.astype(np.float32)
-               * scale[:, None]).reshape(-1)[:n].copy()
-    spc.record("quant_decodes")
-    return out
+    _pt = profile.now() if profile.enabled else 0
+    try:
+        n = int(nelems)
+        b8 = np.frombuffer(buf, np.uint8) if not isinstance(buf, np.ndarray) \
+            else buf.reshape(-1).view(np.uint8)
+        want = encoded_nbytes(n, codec, block)
+        if b8.size != want:
+            raise ValueError(
+                f"quant {codec} payload of {b8.size} bytes does not "
+                f"match {n} elements (expected {want})")
+        if codec == "bf16":
+            u16 = np.ascontiguousarray(b8).view(np.uint16)
+            out = (u16.astype(np.uint32) << 16).view(np.float32).copy()
+        else:
+            b = int(block or block_elems())
+            nb = nblocks(n, b)
+            scale = np.ascontiguousarray(b8[:4 * nb]).view(np.float32)
+            q = b8[4 * nb:].view(np.int8)
+            pad = nb * b - n
+            qp = (np.pad(q, (0, pad)) if pad else q).reshape(nb, b)
+            out = (qp.astype(np.float32)
+                   * scale[:, None]).reshape(-1)[:n].copy()
+        spc.record("quant_decodes")
+        return out
+    finally:
+        if profile.enabled:
+            profile.stage_span("quant.decode", _pt)
 
 
 # -- the (dtype, size, accuracy_budget) decision ladder ------------------

@@ -29,8 +29,9 @@ Dynamic rule file format (one rule per line, first match wins)::
     allreduce  8  4096  recursive_doubling
     allreduce  0  0     ring            # 0 = unbounded
 
-Not ported yet: the ``coll.decide`` and ``coll.alg`` profile spans (they
-come with the runtime's profile module).
+The ``coll.decide`` (the pick) and ``coll.alg`` (the algorithm's body,
+its wire waits included) stage clocks are the reference's
+(``tuned.py:219-288``), each behind ``profile.enabled``.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from ompi_tpu_torch.base.var import VarType
 from ompi_tpu_torch.mca.coll import algorithms as algs
 from ompi_tpu_torch.mca.coll import quant as quant_mod
 from ompi_tpu_torch.mca.coll.basic import BasicCollModule, staged
-from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime import profile, spc
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
 _MENUS = {
@@ -207,20 +208,25 @@ class TunedModule:
         non-commutative op — those always take the fixed ladder's
         order-safe picks.  A force var is the user's explicit override and
         still applies."""
-        forced = self._c.force_var(coll)
-        if forced:
-            return forced, 0
-        if not commute:
+        _pt = profile.now() if profile.enabled else 0
+        try:
+            forced = self._c.force_var(coll)
+            if forced:
+                return forced, 0
+            if not commute:
+                return default, 0
+            for (rcoll, max_size, max_bytes, alg, seg) in self._c.rules:
+                if rcoll != coll:
+                    continue
+                if max_size and comm_size > max_size:
+                    continue
+                if max_bytes and nbytes > max_bytes:
+                    continue
+                return alg, seg
             return default, 0
-        for (rcoll, max_size, max_bytes, alg, seg) in self._c.rules:
-            if rcoll != coll:
-                continue
-            if max_size and comm_size > max_size:
-                continue
-            if max_bytes and nbytes > max_bytes:
-                continue
-            return alg, seg
-        return default, 0
+        finally:
+            if profile.enabled:
+                profile.stage_span("coll.decide", _pt)
 
     def _run(self, coll: str, alg: str, default: str, *args, **kw):
         menu = _MENUS[coll]
@@ -231,7 +237,12 @@ class TunedModule:
             # fall back to the ladder's own default: unlike an arbitrary
             # menu entry it is always safe for the op at hand
             fn = menu[default]
-        return fn(*args, **kw)
+        _pt = profile.now() if profile.enabled else 0
+        try:
+            return fn(*args, **kw)
+        finally:
+            if profile.enabled:
+                profile.stage_span("coll.alg", _pt)
 
     # -- fixed ladders (decision_fixed.c shape) ---------------------------
     @hot_path
@@ -248,7 +259,13 @@ class TunedModule:
                 and not self._c.rules
                 and not self._c.force_var("allreduce")):
             spc.record("fastpath_eager_lane")
-            return algs.allreduce_recursive_doubling(comm, sendbuf, op)
+            if not profile.enabled:
+                return algs.allreduce_recursive_doubling(comm, sendbuf, op)
+            _pt = profile.now()
+            try:
+                return algs.allreduce_recursive_doubling(comm, sendbuf, op)
+            finally:
+                profile.stage_span("coll.alg", _pt)
         # coll/quant arm of the ladder: the (dtype, size, accuracy budget)
         # rule key, armed only by an EXPLICIT per-comm budget info key and
         # never for non-commutative ops (pick re-checks) — a force var
@@ -258,7 +275,13 @@ class TunedModule:
                                     getattr(sendbuf, "dtype", None),
                                     nbytes, op)
             if qcodec is not None:
-                return quant_mod.allreduce_blockq(comm, sendbuf, op, qcodec)
+                _pt = profile.now() if profile.enabled else 0
+                try:
+                    return quant_mod.allreduce_blockq(comm, sendbuf, op,
+                                                      qcodec)
+                finally:
+                    if profile.enabled:
+                        profile.stage_span("coll.alg", _pt)
         default = default_algorithm("allreduce", comm.size, nbytes,
                                     op.commute)
         alg, seg = self._pick("allreduce", comm.size, nbytes, default,
@@ -300,7 +323,13 @@ class TunedModule:
                                     getattr(sendbuf, "dtype", None),
                                     nbytes)
             if qcodec is not None:
-                return quant_mod.allgather_blockq(comm, sendbuf, qcodec)
+                _pt = profile.now() if profile.enabled else 0
+                try:
+                    return quant_mod.allgather_blockq(comm, sendbuf,
+                                                      qcodec)
+                finally:
+                    if profile.enabled:
+                        profile.stage_span("coll.alg", _pt)
         default = default_algorithm("allgather", comm.size, nbytes)
         alg, _ = self._pick("allgather", comm.size, nbytes, default)
         return self._run("allgather", alg, default, comm, sendbuf)

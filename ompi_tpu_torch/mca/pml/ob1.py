@@ -21,11 +21,19 @@ coll/quant's wire codec stamp (``Frag.qcodec``, ``ob1.py:301``, ``:326``,
 ``:387``, ``:409``) while ``otpu_coll_quant_wire`` is set; btl/tcp encodes
 it, the other btls ignore it.  A rendezvous stream of ``stripe_min`` (2 MB)
 or more stripes across every btl that reaches the peer (sm and tcp on one
-node; SPC ``striped_msgs``).  Not copied: the FT hooks
-(``ft_state.on_failure``, ``_peer_failed`` with its RGET release and the
-``ProcFailed``/``Revoked`` completions, ROADMAP A 4.1), and the trace,
-peruse, profile and memchecker calls (``memchecker.protect_send`` of the
-RGET and RNDV rungs among them).
+node; SPC ``striped_msgs``).
+
+The observability hooks are the reference's, each behind its module flag:
+a ``send``/``recv`` span of category ``pml`` closing at request completion
+(``ob1.py:214-248``, ``:431-446``) with the message's ``pml_msg`` flow key
+``(cid, src, dst, seq)`` off the match header, PERUSE events in the
+reference's order (``:224-478``, ``:604-855``, deferred past the match
+lock), the ``send.pack``, ``recv.deliver`` and ``recv.complete`` stage
+clocks, and ``memchecker.protect_send`` on the RGET and RNDV rungs (a
+numpy send buffer is read-only until the request completes; a tensor is
+staged to the host at the send's entry and not guarded).  Not copied: the
+FT hooks (``ft_state.on_failure``, ``_peer_failed`` with its RGET release
+and the ``ProcFailed``/``Revoked`` completions, ROADMAP A 4.1).
 """
 from __future__ import annotations
 
@@ -44,7 +52,7 @@ from ompi_tpu_torch.mca.bml import Bml
 from ompi_tpu_torch.mca.btl.base import ACK, CTL, FRAG, MATCH, RGET, RNDV, \
     Frag
 from ompi_tpu_torch.mca.coll import quant as quant_mod
-from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime import memchecker, peruse, profile, spc, trace
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
 
@@ -80,6 +88,7 @@ class RecvRequest(Request):
         self.received = 0
         self.total = None               # known after match
         self.matched_src = None
+        self._flow = None               # (cid, src, dst, seq) at deliver
 
     def matches(self, frag: Frag, comm_src: int) -> bool:
         if self.source != ANY_SOURCE and self.source != comm_src:
@@ -171,20 +180,48 @@ class Ob1Pml:
         and cannot observe the match)."""
         spc.record("isend")
         req = SendRequest(self, comm, buf, dest, tag)
+        _t0 = trace.now() if trace.enabled else 0
         dst_world = comm.group.world_rank(dest)
         src_world = comm.world_rank(comm.rank)
         ep = self.bml.endpoint(dst_world)
         if ep is None:
             raise MpiError(ErrorClass.ERR_INTERN,
                            f"no transport reaches world rank {dst_world}")
+        # activate fires only once the request is real (endpoint resolved)
+        # so activate/complete pairs always balance
+        if peruse.active():
+            peruse.fire(peruse.REQ_ACTIVATE, comm.cid, kind="send",
+                        dest=dest, tag=tag)
         seq = next(self._seq.setdefault(
             (comm.cid, src_world, dst_world), itertools.count()))
+        if trace.enabled:
+            # the span closes at request completion, whichever rung
+            # completes it; with the flow layer armed it carries the
+            # message's flow key (the match header's cid, src, dst, seq)
+            # and starts the flow arrow at its own end
+            fkey = ((comm.cid, src_world, dst_world, seq)
+                    if trace.flow_enabled else None)
+
+            def _send_span(r, _t0=_t0, fkey=fkey):
+                t1 = trace.now()
+                eargs = {"nbytes": r.nbytes, "dest": r.dest,
+                         "tag": r.tag, "cid": r.comm.cid}
+                if fkey is not None:
+                    eargs["fid"] = fkey
+                trace.span("send", "pml", _t0, t1, args=eargs)
+                if fkey is not None:
+                    trace.flow_start("pml_msg", fkey, t1)
+
+            req.on_complete(_send_span)
         spc.record("bytes_sent", req.nbytes)
         if req.nbytes <= ep.btl.eager_limit and not sync:
             # eager: single MATCH fragment, complete immediately.  The
             # payload is a borrowed view when the layout allows it — the
             # btl's wire/ring write is the only copy (send-in-place)
+            _pt = profile.now() if profile.enabled else 0
             data, borrowed = req.convertor.pack_borrow()
+            if profile.enabled:
+                profile.stage_span("send.pack", _pt)
             frag = Frag(comm.cid, src_world, dst_world, tag, seq, MATCH,
                         data, total_len=req.nbytes, borrowed=borrowed,
                         qcodec=quant_mod.wire_codec_for(
@@ -192,6 +229,9 @@ class Ob1Pml:
                         if quant_mod.wire_enabled else None)
             ep.btl.send(ep, frag)
             req.complete()
+            if peruse.active():
+                peruse.fire(peruse.REQ_COMPLETE, comm.cid, kind="send",
+                            dest=dest, tag=tag)
             return req
         # past the eager limit only: an eager send does no RGET work
         rget_limit = self.component.rget_limit()
@@ -200,7 +240,10 @@ class Ob1Pml:
             # RGET (pml_ob1_sendreq.h:375-401): expose the packed stream
             # and let the RECEIVER pull it, one one-sided copy into the
             # destination on an rdma btl; elsewhere (rget_emulate) the
-            # receiver asks for the FRAG stream instead
+            # receiver asks for the FRAG stream instead.  The user buffer
+            # stays MPI-owned until the pull completes: memchecker freezes
+            # a numpy one so a racy write fails loudly
+            memchecker.protect_send(req, buf)
             try:
                 self._send_reqs[req.req_id] = req
                 spc.record("rget_msgs")
@@ -224,10 +267,15 @@ class Ob1Pml:
                                       "rget setup failed"))
                 raise
             return req
-        # rendezvous: RNDV head now, stream on ACK
+        # rendezvous: RNDV head now, stream on ACK.  The user buffer stays
+        # MPI-owned until completion (memchecker.h:25-52 analog)
+        memchecker.protect_send(req, buf)
         try:
+            _pt = profile.now() if profile.enabled else 0
             head, borrowed = req.convertor.pack_borrow(
                 ep.btl.rndv_eager_limit)
+            if profile.enabled:
+                profile.stage_span("send.pack", _pt)
             self._send_reqs[req.req_id] = req
             frag = Frag(comm.cid, src_world, dst_world, tag, seq, RNDV,
                         head, total_len=req.nbytes,
@@ -237,10 +285,15 @@ class Ob1Pml:
                         if quant_mod.wire_enabled else None)
             ep.btl.send(ep, frag)
         except Exception:
-            # failed setup: the request would never complete
+            # failed setup: the request will never complete, so the guard's
+            # release callback must fire here or the user's buffer stays
+            # read-only forever
             self._send_reqs.pop(req.req_id, None)
             req.complete(MpiError(ErrorClass.ERR_OTHER,
                                   "rendezvous setup failed"))
+            if peruse.active():
+                peruse.fire(peruse.REQ_COMPLETE, comm.cid, kind="send",
+                            dest=dest, tag=tag)
             raise
         return req
 
@@ -275,7 +328,10 @@ class Ob1Pml:
                 / max(1, rails[k].btl.bandwidth))
             ep = rails[j]
             off = conv.position
+            _pt = profile.now() if profile.enabled else 0
             data, borrowed = conv.pack_borrow(ep.btl.max_send_size)
+            if profile.enabled:
+                profile.stage_span("send.pack", _pt)
             assigned[j] += len(data)
             ep.btl.send(ep, Frag(ack.cid, ack.dst, dst_world,
                                  -1, 0, FRAG, data, total_len=req.nbytes,
@@ -283,6 +339,9 @@ class Ob1Pml:
                                  borrowed=borrowed, qcodec=qc))
         self._send_reqs.pop(req.req_id, None)
         req.complete()
+        if peruse.active():
+            peruse.fire(peruse.REQ_COMPLETE, ack.cid, kind="send",
+                        dest=req.dest, tag=req.tag)
 
     def _stripe_rails(self, dst_world: int, nbytes: int) -> list:
         """Endpoints eligible to carry one large transfer's FRAG stream."""
@@ -297,8 +356,31 @@ class Ob1Pml:
     def irecv(self, comm, buf, source: int, tag: int) -> Request:
         spc.record("irecv")
         req = RecvRequest(self, comm, buf, source, tag)
+        if trace.enabled:
+            _t0 = trace.now()
+
+            def _recv_span(r, _t0=_t0):
+                t1 = trace.now()
+                eargs = {"nbytes": r.received, "source": r.status.source,
+                         "tag": r.tag, "cid": r.comm.cid}
+                fl = r._flow
+                if fl is not None and trace.flow_enabled:
+                    # the sender's stamp rode the match header; closing
+                    # the same key here draws the send -> recv arrow
+                    eargs["fid"] = fl
+                trace.span("recv", "pml", _t0, t1, args=eargs)
+                if fl is not None and trace.flow_enabled:
+                    trace.flow_finish("pml_msg", fl, t1)
+
+            req.on_complete(_recv_span)
         dst_world = comm.world_rank(comm.rank)
         key = (comm.cid, dst_world)
+        if peruse.active():
+            peruse.fire(peruse.REQ_ACTIVATE, comm.cid, kind="recv",
+                        source=source, tag=tag)
+        # PERUSE events observed under self._lock are deferred and fired
+        # after release so a callback can never deadlock against the pml
+        events: list = []
         with self._lock:
             st = self._match.setdefault(key, _MatchState())
             # check the unexpected queue first (arrival order)
@@ -306,10 +388,20 @@ class Ob1Pml:
                 comm_src = comm.group.rank_of(frag.src)
                 if req.matches(frag, comm_src):
                     st.unexpected.pop(i)
-                    self._deliver_to_request(req, frag)
+                    if peruse.active():
+                        events.append((peruse.REQ_MATCH_UNEX, comm.cid,
+                                       dict(source=comm_src, tag=frag.tag,
+                                            unex_qlen=len(st.unexpected))))
+                    self._deliver_to_request(req, frag, events)
                     break
             else:
                 st.posted.append(req)
+                if peruse.active():
+                    events.append((peruse.REQ_INSERT_IN_POSTED_Q, comm.cid,
+                                   dict(source=source, tag=tag,
+                                        posted_qlen=len(st.posted))))
+        for ev, cid, info in events:
+            peruse.fire(ev, cid, **info)
         return req
 
     def recv(self, comm, buf, source: int, tag: int) -> Status:
@@ -386,6 +478,14 @@ class Ob1Pml:
                 handler(frag)
             return
         key = (frag.cid, frag.dst)
+        events: list = []
+        try:
+            self._recv_frag_locked(key, frag, events)
+        finally:
+            for ev, cid, info in events:
+                peruse.fire(ev, cid, **info)
+
+    def _recv_frag_locked(self, key, frag: Frag, events: list) -> None:
         with self._lock:
             st = self._match.setdefault(key, _MatchState())
             expected = st.expected_seq.get(frag.src, 0)
@@ -396,33 +496,54 @@ class Ob1Pml:
                 spc.record("out_of_sequence_msgs")
                 st.ooo.setdefault(frag.src, {})[frag.seq] = frag
                 return
-            self._match_one(st, frag)
+            self._match_one(st, frag, events)
             st.expected_seq[frag.src] = expected + 1
             # drain any now-in-order held frags
             held = st.ooo.get(frag.src, {})
             nxt = st.expected_seq[frag.src]
             while nxt in held:
-                self._match_one(st, held.pop(nxt))
+                self._match_one(st, held.pop(nxt), events)
                 nxt += 1
                 st.expected_seq[frag.src] = nxt
 
-    def _match_one(self, st: _MatchState, frag: Frag) -> None:
+    def _match_one(self, st: _MatchState, frag: Frag, events: list) -> None:
         """Match one in-sequence frag against posted recvs (recvfrag.c:831);
-        runs under self._lock."""
+        runs under self._lock, PERUSE events append to ``events`` for the
+        caller to fire after release."""
+        if peruse.active():
+            events.append((peruse.MSG_ARRIVED, frag.cid,
+                           dict(source=frag.src, tag=frag.tag)))
         for i, req in enumerate(st.posted):
             comm_src = req.comm.group.rank_of(frag.src)
             if req.matches(frag, comm_src):
                 st.posted.pop(i)
                 spc.record("matched_msgs")
-                self._deliver_to_request(req, frag)
+                if peruse.active():
+                    events.append((peruse.MSG_MATCH_POSTED_REQ, frag.cid,
+                                   dict(source=frag.src, tag=frag.tag,
+                                        posted_qlen=len(st.posted))))
+                self._deliver_to_request(req, frag, events)
                 return
         spc.record("unexpected_msgs")
         frag.own_data()   # queued past the sender's btl.send call
         st.unexpected.append(frag)
+        if peruse.active():
+            events.append((peruse.MSG_INSERT_IN_UNEX_Q, frag.cid,
+                           dict(source=frag.src, tag=frag.tag,
+                                unex_qlen=len(st.unexpected))))
 
-    def _deliver_to_request(self, req: RecvRequest, frag: Frag) -> None:
+    def _deliver_to_request(self, req: RecvRequest, frag: Frag,
+                            events: list = None) -> None:
+        fire_now = events is None
+        if events is None:
+            events = []
+        _pt = profile.now() if profile.enabled else 0
         comm_src = req.comm.group.rank_of(frag.src)
         req.matched_src = frag.src
+        if trace.flow_enabled:
+            # the flow key off the match header (MATCH/RNDV/RGET all carry
+            # the pml sequence); the recv span closes it
+            req._flow = (frag.cid, frag.src, frag.dst, frag.seq)
         req.total = frag.total_len or len(frag.data)
         req.status.source = comm_src
         req.status.tag = frag.tag
@@ -433,12 +554,17 @@ class Ob1Pml:
                              f"{req.capacity}-byte buffer")
             req.total = req.capacity  # deliver what fits, like the reference
         if frag.kind == RGET:
-            self._deliver_rget(req, frag, error)
+            self._deliver_rget(req, frag, error, events)
+            if fire_now:
+                for ev, cid, info in events:
+                    peruse.fire(ev, cid, **info)
             return
         n = req.convertor.unpack(frag.data[:max(0, req.capacity)])
         req.received += n
         req.status._nbytes = min(req.total, req.received) if error else req.total
         spc.record("bytes_received", n)
+        if profile.enabled:
+            profile.stage_span("recv.deliver", _pt)
         done = False
         if frag.kind == RNDV and error is None:
             # register for FRAG continuation and ACK the sender
@@ -455,9 +581,23 @@ class Ob1Pml:
             req.status._nbytes = req.received
             done = True
         if done:
+            if peruse.active():
+                events.append((peruse.REQ_XFER_END, frag.cid,
+                               dict(source=frag.src, tag=req.status.tag,
+                                    nbytes=req.received)))
+                events.append((peruse.REQ_COMPLETE, frag.cid,
+                               dict(kind="recv", source=req.status.source,
+                                    tag=req.status.tag)))
+            _pt = profile.now() if profile.enabled else 0
             req.complete(error)
+            if profile.enabled:
+                profile.stage_span("recv.complete", _pt)
+        if fire_now:
+            for ev, cid, info in events:
+                peruse.fire(ev, cid, **info)
 
-    def _deliver_rget(self, req: RecvRequest, frag: Frag, error) -> None:
+    def _deliver_rget(self, req: RecvRequest, frag: Frag, error,
+                      events: list) -> None:
         """Receiver side of the RGET rung (pml_ob1_recvreq.c's RGET
         scheduling): pull the exposed region one-sidedly (rdma btl) or ask
         for a sender-driven stream (the pull emulation)."""
@@ -465,7 +605,7 @@ class Ob1Pml:
         if ep is None:
             # the sender's endpoint is gone: complete in error rather than
             # raise out of the progress engine
-            self._rget_fail(req, frag)
+            self._rget_fail(req, frag, events)
             return
         done = Frag(frag.cid, frag.dst, frag.src, -1, 0, CTL,
                     meta={"proto": "ob1_rget_done",
@@ -476,6 +616,10 @@ class Ob1Pml:
             # has nothing exposed to release) and fail locally
             ep.btl.send(ep, done)
             req.status._nbytes = 0
+            if peruse.active():
+                events.append((peruse.REQ_COMPLETE, frag.cid,
+                               dict(kind="recv", source=req.status.source,
+                                    tag=req.status.tag)))
             req.complete(error)
             return
         if key is not None:
@@ -497,7 +641,7 @@ class Ob1Pml:
                     ep.btl.send(ep, done)
                 except Exception:
                     pass
-                self._rget_fail(req, frag)
+                self._rget_fail(req, frag, events)
                 return
             if view is not None:
                 req.convertor.advance(len(view))
@@ -508,6 +652,13 @@ class Ob1Pml:
             req.status._nbytes = n
             spc.record("bytes_received", n)
             ep.btl.send(ep, done)
+            if peruse.active():
+                events.append((peruse.REQ_XFER_END, frag.cid,
+                               dict(source=frag.src, tag=req.status.tag,
+                                    nbytes=n)))
+                events.append((peruse.REQ_COMPLETE, frag.cid,
+                               dict(kind="recv", source=req.status.source,
+                                    tag=req.status.tag)))
             req.complete(error)
             return
         # pull emulation: the sender streams FRAGs through the normal
@@ -518,12 +669,17 @@ class Ob1Pml:
                                    "req_id": frag.meta["req_id"],
                                    "peer_req": req.req_id}))
 
-    def _rget_fail(self, req: RecvRequest, frag: Frag) -> None:
+    def _rget_fail(self, req: RecvRequest, frag: Frag,
+                   events: list) -> None:
         """Complete an RGET recv in error (the sender is gone or the pull
-        failed)."""
+        failed), keeping the PERUSE activate/complete pairing balanced."""
         from ompi_tpu_torch.api.errors import ProcFailedError
 
         req.status._nbytes = 0
+        if peruse.active():
+            events.append((peruse.REQ_COMPLETE, frag.cid,
+                           dict(kind="recv", source=req.status.source,
+                                tag=req.status.tag)))
         req.complete(ProcFailedError(
             f"RGET sender world rank {frag.src} unreachable", (frag.src,)))
 
@@ -535,6 +691,9 @@ class Ob1Pml:
             return
         _release_rget(req)
         req.complete()
+        if peruse.active():
+            peruse.fire(peruse.REQ_COMPLETE, frag.cid, kind="send",
+                        dest=req.dest, tag=req.tag)
 
     def _on_rget_pull(self, frag: Frag) -> None:
         """Sender side of the pull emulation: stream the payload."""
@@ -547,14 +706,26 @@ class Ob1Pml:
         req = self._recv_reqs.get(frag.meta["req_id"])
         if req is None:
             return
+        _pt = profile.now() if profile.enabled else 0
         req.convertor.set_position(min(frag.offset, req.capacity))
         n = req.convertor.unpack(frag.data)
         req.received += n
         spc.record("bytes_received", n)
+        if profile.enabled:
+            profile.stage_span("recv.deliver", _pt)
         if req.received >= min(req.total, req.capacity):
             self._recv_reqs.pop(frag.meta["req_id"], None)
             req.status._nbytes = req.received
+            if peruse.active():
+                peruse.fire(peruse.REQ_XFER_END, frag.cid,
+                            source=req.status.source, tag=req.status.tag,
+                            nbytes=req.received)
+                peruse.fire(peruse.REQ_COMPLETE, frag.cid, kind="recv",
+                            source=req.status.source, tag=req.status.tag)
+            _pt = profile.now() if profile.enabled else 0
             req.complete()
+            if profile.enabled:
+                profile.stage_span("recv.complete", _pt)
 
 
 def _release_rget(req) -> None:

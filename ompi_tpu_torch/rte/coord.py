@@ -13,9 +13,12 @@ with exponential backoff and jitter and retries the SAME request, and the
 server keeps a small per-client replay cache — a request whose processing
 completed before the reset is answered from the cache, one still in
 flight is adopted — so a fence interrupted mid-RPC is applied exactly
-once.  Timeouts are MCA vars (``otpu_coord_*``).  Not copied: spawn and
-process sets (with dpm, ROADMAP A 4), the recovery scope of ULFM, the
-chaos hooks and the flight-recorder views.
+once.  Timeouts are MCA vars (``otpu_coord_*``).  The ``ping`` op answers
+with the server's wall clock (``CoordClient.server_time``, the exchange
+the trace exporter's clock offset reads) and ``CoordServer.collect``
+gathers one key's per-rank values for the launcher's merges.  Not copied:
+spawn and process sets (with dpm, ROADMAP A 4), the recovery scope of
+ULFM, the chaos hooks and the flight-recorder views.
 """
 from __future__ import annotations
 
@@ -282,6 +285,12 @@ class CoordServer:
             with self._fence_cond:
                 self._fence_cond.notify_all()
             return {"ok": True}
+        if op == "ping":
+            # "time" is the server's wall clock: ranks estimate their
+            # offset to it (min-RTT, the mpisync estimator) so per-rank
+            # trace timelines share one timebase
+            return {"ok": True, "nprocs": self.nprocs,
+                    "aborted": self._aborted, "time": time.time()}
         return {"ok": False, "error": f"bad op {op}"}
 
     def _fence_satisfied(self, fid: str) -> bool:
@@ -312,6 +321,13 @@ class CoordServer:
             self._event_seq += 1
             self._events.append((self._event_seq, name, payload))
             self._event_cond.notify_all()
+
+    def collect(self, key: str) -> dict:
+        """{rank: value} of every KV entry published under ``key``: the
+        launcher-side gather of per-rank payloads (trace timelines, the
+        monitoring matrices)."""
+        with self._kv_cond:
+            return {r: v for (r, k), v in self._kv.items() if k == key}
 
     @property
     def aborted(self) -> Optional[int]:
@@ -507,6 +523,11 @@ class CoordClient:
         if events:
             self._event_since = events[-1][0]
         return events
+
+    def server_time(self) -> float:
+        """The coord server's wall clock (one ping round trip): the
+        exchange ``mpisync.estimate_offset`` aligns trace clocks with."""
+        return float(self._rpc(op="ping")["time"])
 
     def abort(self, code: int = 1) -> None:
         self._rpc(op="abort", code=code)

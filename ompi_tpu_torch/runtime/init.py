@@ -28,8 +28,21 @@ releases its segments on the way out.  ``init_thread`` returns the world
 with the provided thread level (always THREAD_MULTIPLE), ``abort``
 publishes an ``abort`` event and exits with the code (mpirun's launcher
 then ends the job), and ``get_world_if_initialized`` gives COMM_WORLD
-without an implicit init.  Sessions, hooks, fault tolerance, monitoring
-and the flight recorder's dump at ``abort`` are not ported yet.
+without an implicit init.
+
+The observability runtime rides the same boot and teardown as the
+reference's instance (``ompi_tpu/instance/__init__.py:64-165``,
+``:241-271``): ``coord_connect``, ``modex_fence`` and ``instance_boot``
+spans of category ``boot``, ``trace.init``, pml/monitoring's interposition
+of the selected pml, the telemetry sampler (when the job has a coordination
+client and ``otpu_telemetry_interval_ms`` is positive) and the sampling
+profiler (``otpu_profile_interval_ms``).  ``finalize`` exports the trace
+and publishes the monitoring matrices while the coordination client is
+alive (after the final fence, before the teardown), then stops the
+sampler's and the profiler's threads; each step is guarded, so
+observability never breaks a teardown, and the exit hook's finalize runs
+the same path.  Sessions, hooks, fault tolerance and the flight recorder
+(its arming and its dump at ``abort``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -156,12 +169,18 @@ def init(device=None, rte=None, argv: Optional[list] = None):
             # every registered var: each init reads the settings anew
             var.registry.parse_cli(list(argv or ()))
             from ompi_tpu_torch.rte.base import detect
+            from ompi_tpu_torch.runtime import trace
 
+            t_boot = trace.now()
+            # the rte's construction is the coordination service's connect
+            t0 = trace.now()
             _rte = rte if rte is not None else detect(device)
+            trace.span("coord_connect", "boot", t0)
             from ompi_tpu_torch.mca.threads import base as threads_base
-            from ompi_tpu_torch.runtime import spc
+            from ompi_tpu_torch.runtime import monitoring, spc
 
             spc.init()
+            trace.init()
             threads_base.reopen_pool()
             # pml selection (ompi_mpi_init.c:630), then the modex fence
             # that publishes its btls' endpoints (:682-701)
@@ -169,8 +188,11 @@ def init(device=None, rte=None, argv: Optional[list] = None):
                 "pml", "point-to-point messaging layer").select()
             if comp is None:
                 raise RuntimeError("no pml component available")
-            _pml = comp.get_module(_rte)
+            # pml/monitoring interposition (per-peer traffic matrices)
+            _pml = monitoring.maybe_wrap_pml(comp.get_module(_rte))
+            t0 = trace.now()
             _rte.fence()
+            trace.span("modex_fence", "boot", t0)
             reserve_cid(0)
             reserve_cid(1)
             _build_world()
@@ -179,9 +201,16 @@ def init(device=None, rte=None, argv: Optional[list] = None):
             _state = State.NOT_INITIALIZED
             raise
         var.mark_runtime_initialized(True)
-        from ompi_tpu_torch.runtime import interlib
+        from ompi_tpu_torch.runtime import interlib, profile, telemetry
 
         interlib.note_main_thread(force=True)
+        # the live telemetry sampler needs the coordination client; the
+        # sampling profiler needs none (both are no-ops unless their
+        # vars arm them)
+        if getattr(_rte, "client", None) is not None:
+            telemetry.start(_rte)
+        profile.start(_rte)
+        trace.span("instance_boot", "boot", t_boot)
         _state = State.INIT_COMPLETED
         if not _atexit_armed:
             _atexit_armed = True
@@ -252,8 +281,12 @@ def _teardown() -> None:
             _rte.finalize()
     finally:
         from ompi_tpu_torch.mca.threads import base as threads_base
-        from ompi_tpu_torch.runtime import progress
+        from ompi_tpu_torch.runtime import profile, progress, telemetry
 
+        # the sampler's and the profiler's threads end with the runtime,
+        # whichever path tears it down
+        telemetry.stop()
+        profile.stop()
         threads_base.shutdown_pool(permanent=True)
         mca.close_all()
         progress.reset_for_testing()
@@ -295,10 +328,27 @@ def finalize() -> None:
                     fence_final()
                 except Exception:
                     pass   # coord gone / timeout: peers are exiting too
+            _publish_observability()
             _teardown()
         finally:
             var.mark_runtime_initialized(False)
             _state = State.FINALIZE_COMPLETED
+
+
+def _publish_observability() -> None:
+    """The trace export and the monitoring publish, while the coordination
+    client is still alive (the clock offset and the KV need it); each is
+    guarded: observability must never break a teardown."""
+    from ompi_tpu_torch.runtime import monitoring, trace
+
+    try:
+        trace.finalize_export(_rte)
+    except Exception:
+        pass
+    try:
+        monitoring.finalize_publish(_rte)
+    except Exception:
+        pass
 
 
 def _atexit_finalize() -> None:

@@ -12,8 +12,10 @@ callback and its wait fd as a waiter (``ompi_tpu/runtime/progress.py:185``),
 and :func:`reset_for_testing` stops its thread first.  A sanitizer trip
 (``SanitizeError``: wire corruption, a quant frame that does not decode)
 propagates to the waiting caller instead of quarantining the callback.
-Not copied: the low-priority callbacks run every 8th tick (``:227``; no
-port component registers one yet) and the telemetry source.
+The engine's depth is the ``progress`` telemetry source
+(``progress.py:204-218``).  Not copied: the low-priority callbacks run
+every 8th tick (``:227``; no port component registers one yet), so the
+source's ``low_priority`` is always 0.
 """
 from __future__ import annotations
 
@@ -157,3 +159,19 @@ from ompi_tpu_torch.base.output import register_help as _rh  # noqa: E402
 
 _rh("help-progress", "callback-failed",
     "A progress callback raised and was unregistered:\n{detail}")
+
+# progress-engine depth for otpu_top (sampler-thread-only provider)
+from ompi_tpu_torch.runtime import telemetry as _telemetry  # noqa: E402
+
+
+def _telemetry_stats() -> dict:
+    from ompi_tpu_torch.runtime import reactor as _reactor
+
+    with _lock:
+        out = {"callbacks": len(_callbacks), "low_priority": 0,
+               "waiters": _waiter_count}
+    out["reactor_active"] = _reactor.active()
+    return out
+
+
+_telemetry.register_source("progress", _telemetry_stats)

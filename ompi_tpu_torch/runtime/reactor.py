@@ -21,9 +21,10 @@ Registered with the progress engine two ways: :func:`drain` is a progress
 callback, and the reactor's WAIT fd (readable on raw btl-socket readiness
 or queued records) is a progress WAITER, so ``idle_wait`` wakes the moment
 wire bytes arrive and the next drain's inline pump parses them on the
-consumer thread.  Not copied: ``_native_drain``, the frame the reference's
-sampling profiler names its native sites by (with the profile module,
-ROADMAP A 2).
+consumer thread.  The drain's ctypes call runs in its own frame,
+:func:`_native_drain` (``reactor.py:237-267``), the name the sampling
+profiler classifies a GIL-released native site by
+(``profile._NATIVE_NAMES``).
 """
 from __future__ import annotations
 
@@ -226,6 +227,15 @@ def _ensure_drainbuf(nbytes: int) -> np.ndarray:
     return buf
 
 
+def _native_drain(fn, h, ptr, cap):
+    """The CDLL drain call in its own frame: ctypes releases the GIL for
+    the call's duration (socket drain, framing and the inline pump all run
+    GIL-free), and the sampling profiler classifies a thread parked here
+    as a GIL-released native site by this frame's name
+    (``profile._NATIVE_NAMES``)."""
+    return fn(h, ptr, cap)
+
+
 @hot_path
 def drain() -> int:
     """Empty the native record queue — the one ctypes call per
@@ -241,10 +251,10 @@ def drain() -> int:
         return 0      # another thread is mid-drain (SPSC consumer)
     try:
         buf = _drainbuf
-        n = fn(h, _drainbuf_ptr, len(buf))
+        n = _native_drain(fn, h, _drainbuf_ptr, len(buf))
         if n < 0:
             buf = _ensure_drainbuf(-n)
-            n = fn(h, _drainbuf_ptr, len(buf))
+            n = _native_drain(fn, h, _drainbuf_ptr, len(buf))
         if n <= 0:
             return 0
         spc.record("progress_native_drains")

@@ -14,9 +14,10 @@ The native progress reactor never engages under the sanitizer: its strict
 checks run on the pure-Python lane.  ``enabled`` is a module bool read once
 at import from the environment (``tpurun``'s ranks inherit it); every check
 site is on an error path or behind ``if sanitizer.enabled``.  Tests may flip
-``sanitizer.enabled`` directly (consumers read it at use time).  Not
-copied: the flight recorder's crash dump on a trip, the staging pool's and
-the memchecker's checks (with those modules, ROADMAP A 2).
+``sanitizer.enabled`` directly (consumers read it at use time).  The
+staging pool's release checks (a non-contiguous buffer, a double release)
+and the memchecker's guard (forced on under the mode) read it too.  Not
+copied: the flight recorder's crash dump on a trip (ROADMAP A 4.4).
 """
 from __future__ import annotations
 

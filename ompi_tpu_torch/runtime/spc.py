@@ -8,9 +8,10 @@ the coordination client's retries, the codec (the MoE
 dispatch's and coll/quant's host codec) and the host collectives'
 fastpath counters (coll/algorithms' schedule cache, coll/tuned's eager
 lane, the accelerator's staging pool) and the host transports' (btl/tcp,
-the native reactor, coll/quant's wire stage).  The reference's other counters
-(the per-collective call counts, serving, chaos, telemetry, tracing) come
-with the modules that record them.
+the native reactor, coll/quant's wire stage) and the observability
+runtime's (the telemetry sampler's publishes, the profiler's ticks, the
+trace's flow halves).  The reference's other counters (the per-collective
+call counts, serving, chaos) come with the modules that record them.
 """
 from __future__ import annotations
 
@@ -36,6 +37,11 @@ _COUNTERS = (
     "fastpath_native_frags", "fastpath_native_raw", "wire_cksum_fail",
     "wire_desync",
     "quant_wire_bytes_saved", "quant_wire_decode_fail",
+    # the observability runtime: telemetry samples published into the
+    # coord KV (runtime/telemetry), sampling-profiler ticks
+    # (runtime/profile), and the trace's message-flow halves
+    # (runtime/trace flow_start/flow_finish)
+    "telemetry_samples", "profile_samples", "flow_starts", "flow_finishes",
 )
 
 _pvars = {}

@@ -1,0 +1,831 @@
+"""otpu-trace — always-on span tracing with per-rank ring buffers.
+
+Copy of ``ompi_tpu/runtime/trace.py`` with its imports re-pointed: the
+span names, categories, flow keys, pvar names and the Chrome payload schema
+are the reference's, so a timeline of either package reads the same.  In
+the port the device spans (``xla_<coll>``, category ``device``) time the
+launch of coll/builtin's torch program, never the card's work: no span or
+wrapper synchronizes the stream or reads a tensor's value, and a tensor's
+size is its ``nbytes`` attribute.
+
+The missing *timeline* layer of the observability stack: SPC counts
+(`runtime/spc.py`), monitoring sums per peer (`runtime/monitoring.py`),
+PERUSE sees queue internals (`runtime/peruse.py`) — none of them record
+WHEN a collective started and ended on each rank, so collective skew,
+straggler ranks, and FT detection latency were invisible.  This module
+records spans (name, category, t_start/t_end ns, args) and instant
+events into a fixed-size per-rank ring buffer, plus log2-size-binned
+latency histograms per collective exported as MPI_T pvars.
+
+Hot-path discipline is peruse.py's: every instrumentation site is
+guarded by the single module flag ``enabled`` — the disabled cost is one
+attribute load + branch.  The enabled record path is lock-light: slot
+allocation is one ``itertools.count`` bump (atomic in CPython), the ring
+overwrites oldest entries, and only the histogram update takes a lock
+(it is exact, the way SPC's relaxed counters are not).
+
+At finalize each rank exports a Chrome trace-event JSON file
+(``otpu_trace_dir`` cvar) and publishes the payload into the
+CoordServer KV space so the launcher (``tools/tpurun.py``) can gather
+every rank's timeline, align clocks with the mpisync offset estimator,
+and emit one merged timeline plus a skew report.
+
+**Causal flow keys (otpu-crit).**  Per-rank spans say what each rank
+did; they cannot say which rank's message a recv waited on.  The flow
+layer stamps every pml message span with a compact key —
+``cid.src.dst.seq``, the (comm, sender, receiver, per-peer sequence)
+tuple that ALREADY rides every btl match header — and every traced
+collective span with ``(cid, cseq)``, a per-communicator collective
+sequence every member rank counts identically (MPI requires identical
+collective order per comm, so rank A's Nth collective on a cid IS rank
+B's Nth).  Send completion and recv delivery additionally emit Chrome
+flow events (``ph:"s"``/``"f"`` sharing an ``id``), so a merged
+timeline renders real cross-rank message arrows and
+``tools/otpu_analyze.py`` can assemble the cross-rank activity graph
+(program-order edges, message edges, collective barrier edges) behind
+``--critical-path``.  Guarded by its own module bool ``flow_enabled``
+(`otpu_trace_flow`): flow-off runs pay nothing beyond the existing
+``enabled`` checks.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import threading
+import time
+from typing import Any, Optional
+
+from ompi_tpu_torch.base.var import PvarClass, VarType, registry
+
+#: THE fast-path guard (peruse._active discipline): instrumentation
+#: sites read this module attribute and branch — nothing else happens
+#: while tracing is disabled.
+enabled = False
+
+#: the flow layer's own guard: true only while ``enabled`` AND the
+#: ``otpu_trace_flow`` cvar is set.  Flow stamping sites (pml span
+#: keys, flow_start/flow_finish, the coll-wrapper cseq) read this and
+#: branch — a flow-disabled run records exactly what it did before
+#: otpu-crit existed.
+flow_enabled = False
+
+#: the request layer's guard (otpu-req): true only while ``enabled``
+#: AND the ``otpu_trace_requests`` cvar is set.  Serving call sites
+#: (router stage stamps, worker prefill/kv/decode spans, the kv-slab
+#: per-sequence flow hops) read this and branch — a requests-disabled
+#: run records exactly what it did before otpu-req existed.
+requests_enabled = False
+
+#: Declared span categories (the registry ``otpu_info --trace``
+#: enumerates; every ``trace.span``/``instant`` call site uses one).
+CATEGORIES = {
+    "boot": "instance boot path (coord connect, modex fence)",
+    "btl": "transport-layer wire operations (sendmsg, ring push)",
+    "chaos": "injected-fault instants (ft/chaos)",
+    "coll": "collective invocations (c_coll interposition)",
+    "device": "device-world dispatch (coll/xla)",
+    "ft": "failure detection/propagation/agreement + elastic recovery",
+    "io": "MPI-IO (ompio) operations",
+    "osc": "one-sided epochs (fence/lock/PSCW/flush)",
+    "part": "partitioned communication (Pready/Parrived)",
+    "pml": "point-to-point send/recv completion spans",
+    "serving": "continuous-batching serving ticks",
+    "serve_req": "per-request serving stage spans (otpu-req: queue/"
+                 "dispatch/prefill/kv/decode/stream, args carry the "
+                 "rid — otpu_analyze --requests consumes them)",
+    "staging": "accelerator staging-pool checkouts",
+    "step": "application/training step windows (critical-path unit)",
+    "flow": "Chrome flow events binding send completion to recv "
+            "delivery (ph s/f; otpu-crit message arrows)",
+}
+
+#: Declared flow-key categories: the closed vocabulary ``flow_start``/
+#: ``flow_finish`` accept (otpu-lint's observability pass checks
+#: literal call sites against this table, the STAGES discipline).  The
+#: key format is part of the contract — otpu_analyze parses it.
+FLOW_CATEGORIES = {
+    "pml_msg": "one point-to-point message: send completion -> recv "
+               "delivery, id 'cid.src.dst.seq' (world ranks; the "
+               "per-(cid,src,dst) pml sequence that rides every btl "
+               "match header)",
+    "coll_round": "one collective round: every member rank's span "
+                  "carries the same (cid, cseq) key in its args; the "
+                  "analyzer builds last-arrival->all-release barrier "
+                  "edges from it",
+    "serve_req": "one serving-request hop: id 'rid.hop' where hop "
+                 "numbers the causal chain router dispatch (0) -> "
+                 "prefill shard -> KV slab Pready/Parrived (1) -> "
+                 "decode/token stream (2) -> router completion; a "
+                 "merged timeline renders one arrow chain per request "
+                 "across router and worker ranks",
+}
+
+_ring: Optional[list] = None
+_ring_n = 0
+_slot = itertools.count()
+
+#: per-communicator collective sequence counters (cid -> count); every
+#: rank assigns cseq at record time in program order, so the counters
+#: agree across ranks without any wire traffic
+_coll_seq: dict = {}
+
+#: wall/monotonic anchor pair: spans carry perf_counter_ns timestamps
+#: (monotonic, ns resolution); export maps them onto the wall clock via
+#: this pair so cross-rank merge has a common (pre-offset) timebase.
+_anchor_wall_ns = time.time_ns()
+_anchor_mono_ns = time.perf_counter_ns()
+
+# histogram state: (coll, log2 size bin) -> [count, sum_ns, min_ns,
+# max_ns, count_pvar, sum_pvar, {log2 dur bin: count}]; exact under
+# _hist_lock (enabled path only).  The trailing dict is the log2
+# LATENCY sub-histogram percentile estimation interpolates over.
+_hist: dict = {}
+_hist_lock = threading.Lock()
+
+_events_pvar = None
+_KV_KEY = "otpu_trace"
+_DEFAULT_DIR = "otpu-trace"
+
+
+def _sync_flow() -> None:
+    # defensive lookup: the flow var's own registration may fire this
+    # hook (env/file value applied) before the module global binds
+    global flow_enabled
+    var = globals().get("_flow_var")
+    flow_enabled = enabled and (var is None or bool(var.value))
+
+
+def _sync_requests() -> None:
+    # same defensive lookup as _sync_flow, same reason — but note the
+    # inverted default: flow rides enabled tracing unless opted OUT,
+    # the request layer stays off unless opted IN
+    global requests_enabled
+    var = globals().get("_requests_var")
+    requests_enabled = enabled and var is not None and bool(var.value)
+
+
+def _set_enabled(value: bool) -> None:
+    global enabled, _ring, _ring_n
+    if value:
+        want = max(1024, int(_buf_var.value or 65536))
+        if _ring is None or want != _ring_n:
+            # honor a buffer_events change across a disable/re-enable
+            # cycle; the resize starts a fresh (empty) ring
+            _ring_n = want
+            _ring = [None] * want
+    enabled = bool(value)
+    _sync_flow()
+    _sync_requests()
+
+
+# buffer/dir/flow register first: registering the enable var applies
+# its env/file value immediately, and the on_set hook sizes the ring
+_dir_var = registry.register(
+    "trace", None, "dir", vtype=VarType.STRING, default="",
+    help="Directory for per-rank Chrome trace JSON written at finalize "
+         f"(empty: '{_DEFAULT_DIR}' when tracing is enabled)")
+_buf_var = registry.register(
+    "trace", None, "buffer_events", vtype=VarType.INT, default=65536,
+    help="Ring buffer capacity in events; the ring overwrites oldest "
+         "entries, so a trace always holds the run's tail — the "
+         "overwritten count is surfaced in the export metadata and the "
+         "otpu_analyze report header")
+_flow_var = registry.register(
+    "trace", None, "flow", vtype=VarType.BOOL, default=True,
+    help="Stamp pml message spans with their cid.src.dst.seq flow key "
+         "(emitted as Chrome flow-event arrows) and collective spans "
+         "with a per-comm (cid, cseq) round key — the causal edges "
+         "otpu_analyze --critical-path consumes.  Only meaningful "
+         "while tracing is enabled; off pins the pre-otpu-crit "
+         "record path",
+    on_set=lambda _v: _sync_flow())
+_requests_var = registry.register(
+    "trace", None, "requests", vtype=VarType.BOOL, default=False,
+    help="Thread every serving request through the trace as a "
+         "request-scoped span/flow layer: per-stage 'serve_req' spans "
+         "(queue/dispatch/prefill/kv/decode/stream, keyed by rid) and "
+         "a 'rid.hop' flow-arrow chain router -> prefill -> decode -> "
+         "router riding the KV slab's per-sequence Pready keys — what "
+         "otpu_analyze --requests decomposes.  Default off: the "
+         "serving hot path pays nothing until a request-granular "
+         "question is asked",
+    on_set=lambda _v: _sync_requests())
+_enable_var = registry.register(
+    "trace", None, "enable", vtype=VarType.BOOL, default=False,
+    help="Record span/instant events (pml, coll host+device, osc epochs, "
+         "MPI-IO, FT) into the per-rank trace ring buffer and export "
+         "Chrome trace JSON at finalize; disabled cost is one flag check",
+    on_set=_set_enabled)
+
+
+def init() -> None:
+    """Register the tracer's own pvars (called from runtime init; safe
+    to call repeatedly)."""
+    global _events_pvar
+    _events_pvar = registry.register_pvar(
+        "trace", None, "events_recorded", pclass=PvarClass.COUNTER,
+        help="Total trace events recorded (ring may have overwritten "
+             "the oldest: capacity is otpu_trace_buffer_events)")
+    _events_pvar.on_read = \
+        lambda: _events_pvar.set(float(recorded_count()))
+
+
+def recorded_count() -> int:
+    """Total events ever recorded: the highest slot index still in the
+    ring, +1.  Slot allocation is the one atomic counter (itertools
+    .count), so this needs no second — racy — accumulator; overwritten
+    events can only have LOWER indices than the survivors."""
+    if _ring is None:
+        return 0
+    return max((e[-1] for e in _ring if e is not None), default=-1) + 1
+
+
+def now() -> int:
+    """Span start timestamp (perf_counter_ns)."""
+    return time.perf_counter_ns()
+
+
+def span(name: str, cat: str, t_start: int, t_end: Optional[int] = None,
+         args: Optional[dict] = None) -> None:
+    """Record one complete span.  Callers capture ``t_start = trace.now()``
+    inside their own ``if trace.enabled`` guard."""
+    if not enabled:
+        return
+    if t_end is None:
+        t_end = time.perf_counter_ns()
+    i = next(_slot)
+    _ring[i % _ring_n] = ("X", name, cat, t_start, t_end - t_start,
+                          threading.get_ident(), args, i)
+
+
+def instant(name: str, cat: str, args: Optional[dict] = None) -> None:
+    """Record one instant event (FT detection, propagation, delivery)."""
+    if not enabled:
+        return
+    i = next(_slot)
+    _ring[i % _ring_n] = ("i", name, cat, time.perf_counter_ns(), 0,
+                          threading.get_ident(), args, i)
+
+
+# -- causal flow events (otpu-crit) --------------------------------------
+
+def _flow_id(fid) -> str:
+    """Normalize a flow key to the Chrome id string: tuple keys (what
+    @hot_path call sites pass — string building is banned there) render
+    dot-joined, matching the documented ``cid.src.dst.seq`` format."""
+    return fid if isinstance(fid, str) else ".".join(map(str, fid))
+
+
+def flow_start(fcat: str, fid, t_ns: Optional[int] = None) -> None:
+    """Record the producing half of one flow edge (Chrome ``ph:"s"``).
+
+    ``fcat`` must be a :data:`FLOW_CATEGORIES` key (otpu-lint-enforced
+    at literal call sites); ``fid`` is the category's documented key —
+    a string or a tuple rendered dot-joined.  ``t_ns`` anchors the
+    arrow inside the emitting span — callers pass the span's own end
+    timestamp so viewers bind the flow to that slice."""
+    if not flow_enabled:
+        return
+    from ompi_tpu_torch.runtime import spc
+
+    spc.record("flow_starts")
+    i = next(_slot)
+    _ring[i % _ring_n] = ("s", fcat, "flow",
+                         t_ns if t_ns is not None
+                         else time.perf_counter_ns(), 0,
+                         threading.get_ident(), {"id": _flow_id(fid)}, i)
+
+
+def flow_finish(fcat: str, fid, t_ns: Optional[int] = None) -> None:
+    """Record the consuming half of one flow edge (Chrome ``ph:"f"``,
+    bound to the enclosing slice via ``bp:"e"``)."""
+    if not flow_enabled:
+        return
+    from ompi_tpu_torch.runtime import spc
+
+    spc.record("flow_finishes")
+    i = next(_slot)
+    _ring[i % _ring_n] = ("f", fcat, "flow",
+                         t_ns if t_ns is not None
+                         else time.perf_counter_ns(), 0,
+                         threading.get_ident(), {"id": _flow_id(fid)}, i)
+
+
+def next_coll_seq(cid: int) -> int:
+    """Allocate this rank's next collective sequence number on ``cid``
+    (the coll_round flow key's second half).  Program order per comm is
+    identical on every member rank by MPI semantics, so the counters
+    agree with zero wire traffic; assignment happens at record time, so
+    ring overwrite can never desynchronise surviving spans."""
+    c = _coll_seq.get(cid)
+    if c is None:
+        c = _coll_seq.setdefault(cid, itertools.count())
+    return next(c)
+
+
+# -- log2-size-binned latency histograms --------------------------------
+
+def _bin_label(b: int) -> str:
+    """Human label of log2 bin ``b`` (its lower bound): 0, 1b..512b,
+    1k..512k, 1m.."""
+    if b == 0:
+        return "0"
+    lo = 1 << (b - 1)
+    if lo < (1 << 10):
+        return f"{lo}b"
+    if lo < (1 << 20):
+        return f"{lo >> 10}k"
+    if lo < (1 << 30):
+        return f"{lo >> 20}m"
+    return f"{lo >> 30}g"
+
+
+def hist_record(coll: str, nbytes: int, dur_ns: int) -> None:
+    """Fold one collective invocation into its (coll, log2 size) bin and
+    the bin's MPI_T pvars (lazily registered on first hit so the pvar
+    namespace only carries bins the run actually touched)."""
+    b = int(nbytes).bit_length()
+    key = (coll, b)
+    with _hist_lock:
+        cell = _hist.get(key)
+        if cell is None:
+            label = _bin_label(b)
+            cnt = registry.register_pvar(
+                "trace", "hist", f"{coll}_{label}_count",
+                pclass=PvarClass.COUNTER,
+                help=f"{coll} invocations in the [{label}, next-bin) "
+                     "payload size bin")
+            tot = registry.register_pvar(
+                "trace", "hist", f"{coll}_{label}_sum_us",
+                pclass=PvarClass.AGGREGATE,
+                help=f"Summed {coll} latency (us) in the [{label}, "
+                     "next-bin) payload size bin")
+            cell = _hist[key] = [0, 0, dur_ns, dur_ns, cnt, tot, {}]
+            for q, qname in ((0.5, "p50"), (0.99, "p99")):
+                pv = registry.register_pvar(
+                    "trace", "hist", f"{coll}_{label}_{qname}_us",
+                    pclass=PvarClass.LEVEL,
+                    help=f"{qname} {coll} latency (us, interpolated from "
+                         f"the log2 latency bins) in the [{label}, "
+                         "next-bin) payload size bin")
+                # pre-read hook: percentiles are derived, not accumulated
+                pv.on_read = (lambda pv=pv, key=key, q=q:
+                              pv.set(_key_percentile_us(key, q)))
+        cell[0] += 1
+        cell[1] += dur_ns
+        cell[2] = min(cell[2], dur_ns)
+        cell[3] = max(cell[3], dur_ns)
+        cell[4].add_relaxed(1)
+        cell[5].add_relaxed(dur_ns / 1000.0)
+        db = int(dur_ns).bit_length()
+        cell[6][db] = cell[6].get(db, 0) + 1
+
+
+def histograms() -> dict:
+    """{(coll, bin_label): (count, sum_us, min_us, max_us)} snapshot."""
+    with _hist_lock:
+        return {
+            (coll, _bin_label(b)): (c[0], c[1] / 1000.0, c[2] / 1000.0,
+                                    c[3] / 1000.0)
+            for (coll, b), c in _hist.items()
+        }
+
+
+def _interp_percentile_ns(dur_bins: dict, q: float, lo_clamp: int,
+                          hi_clamp: int) -> float:
+    """Estimate the q-quantile (ns) from a {log2 bin: count} latency
+    histogram: find the bin holding the q*N-th sample and interpolate
+    linearly inside it (bin b covers [2^(b-1), 2^b)), clamped to the
+    exact observed [min, max] so single-bin cells don't over-report."""
+    total = sum(dur_bins.values())
+    if total == 0:
+        return 0.0
+    target = q * total
+    cum = 0.0
+    est = float(hi_clamp)
+    for b in sorted(dur_bins):
+        cnt = dur_bins[b]
+        if cum + cnt >= target:
+            lo = 0 if b == 0 else (1 << (b - 1))
+            hi = 1 if b == 0 else (1 << b)
+            frac = (target - cum) / cnt
+            est = lo + frac * (hi - lo)
+            break
+        cum += cnt
+    return float(max(lo_clamp, min(hi_clamp, est)))
+
+
+def _key_percentile_us(key, q: float) -> float:
+    """q-quantile (us) of ONE (coll, size-bin) cell (pvar read hook)."""
+    with _hist_lock:
+        cell = _hist.get(key)
+        if cell is None:
+            return 0.0
+        return _interp_percentile_ns(cell[6], q, cell[2], cell[3]) / 1000.0
+
+
+def hist_snapshot() -> dict:
+    """Deep-copied histogram state for delta consumers (the telemetry
+    sampler): ``{(coll, size_bin): (count, sum_ns, min_ns, max_ns,
+    {log2 dur bin: count})}``.  Pure read — the live populations are
+    NEVER reset or otherwise disturbed, so a sampler can snapshot at
+    its own cadence while percentile pvars, ``hist_percentile`` and the
+    finalize export keep seeing the full-run populations."""
+    with _hist_lock:
+        return {k: (c[0], c[1], c[2], c[3], dict(c[6]))
+                for k, c in _hist.items()}
+
+
+def hist_delta_stats(prev: dict, cur: dict) -> dict:
+    """Per-collective interval statistics between two
+    :func:`hist_snapshot` results: ``{coll: {"n": invocations,
+    "sum_us": total latency, "p50_us": ..., "p99_us": ...}}`` computed
+    from the BIN-COUNT DELTAS (size bins merged per collective), so the
+    percentiles describe only the interval's population.  Collectives
+    with no new invocations are omitted — the samples stay compact.
+    ``bytes`` is a payload-volume estimate (count x size-bin lower
+    bound, exact to within one log2 bin) — the live-rate signal for
+    traffic that never touches the pml SPC counters (sm collectives)."""
+    merged: dict = {}   # coll -> [dn, dsum_ns, {dur bin: dcount}, bytes]
+    clamps: dict = {}        # coll -> [lo_ns, hi_ns] (from cur cells)
+    for key, cell in cur.items():
+        coll = key[0]
+        old = prev.get(key)
+        dn = cell[0] - (old[0] if old else 0)
+        if dn <= 0:
+            continue
+        dsum = cell[1] - (old[1] if old else 0)
+        acc = merged.setdefault(coll, [0, 0, {}, 0])
+        acc[0] += dn
+        acc[1] += dsum
+        b = key[1]
+        acc[3] += dn * (0 if b == 0 else (1 << (b - 1)))
+        old_bins = old[4] if old else {}
+        for db, cnt in cell[4].items():
+            d = cnt - old_bins.get(db, 0)
+            if d > 0:
+                acc[2][db] = acc[2].get(db, 0) + d
+        cl = clamps.setdefault(coll, [cell[2], cell[3]])
+        cl[0] = min(cl[0], cell[2])
+        cl[1] = max(cl[1], cell[3])
+    out = {}
+    for coll, (dn, dsum, dbins, dbytes) in merged.items():
+        lo, hi = clamps[coll]
+        out[coll] = {
+            "n": dn,
+            "bytes": dbytes,
+            "sum_us": round(dsum / 1000.0, 1),
+            "p50_us": round(
+                _interp_percentile_ns(dbins, 0.5, lo, hi) / 1000.0, 1),
+            "p99_us": round(
+                _interp_percentile_ns(dbins, 0.99, lo, hi) / 1000.0, 1),
+        }
+    return out
+
+
+def hist_reset(coll: str) -> None:
+    """Drop every histogram cell of ``coll`` so the next records start
+    a fresh population — measurement harnesses (serving's load generator) use
+    this to keep per-run percentiles from merging with an earlier run's
+    samples in the same process.  The cells' pvars stay registered
+    (counters remain cumulative, like every SPC pvar); the percentile
+    pvars re-bind to the new cells on the next record."""
+    with _hist_lock:
+        for key in [k for k in _hist if k[0] == coll]:
+            del _hist[key]
+
+
+def hist_percentile(coll: str, q: float,
+                    nbytes: Optional[int] = None) -> float:
+    """Estimated q-quantile latency in MICROSECONDS of ``coll``'s
+    recorded invocations — interpolated from the log2-duration bins the
+    histogram keeps per cell (exact to within one log2 bin; serving's load
+    generator's p50/p99 report and ``otpu_info --pvars`` read this).
+
+    ``nbytes`` restricts the estimate to that payload's size bin;
+    without it the duration bins of every size bin are merged."""
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"quantile must be in [0, 1], got {q}")
+    if nbytes is not None:
+        return _key_percentile_us((coll, int(nbytes).bit_length()), q)
+    with _hist_lock:
+        merged: dict = {}
+        lo_clamp, hi_clamp, any_cell = None, 0, False
+        for (c, _b), cell in _hist.items():
+            if c != coll:
+                continue
+            any_cell = True
+            lo_clamp = cell[2] if lo_clamp is None else min(lo_clamp,
+                                                            cell[2])
+            hi_clamp = max(hi_clamp, cell[3])
+            for db, cnt in cell[6].items():
+                merged[db] = merged.get(db, 0) + cnt
+        if not any_cell:
+            return 0.0
+        return _interp_percentile_ns(merged, q, lo_clamp, hi_clamp) / 1000.0
+
+
+# -- per-comm coll table interposition ----------------------------------
+
+#: collectives whose first argument carries the payload (superset of
+#: monitoring's set: the device *_array entry points are sized too)
+_SIZED_COLLS = {
+    "bcast", "allreduce", "reduce", "allgather", "allgatherv", "alltoall",
+    "reduce_scatter", "reduce_scatter_block", "gather", "gatherv",
+    "scatter", "scan", "exscan",
+    "ibcast", "iallreduce", "ireduce", "iallgather", "ialltoall",
+    "igather", "iscatter", "ireduce_scatter", "iscan", "iexscan",
+    "allreduce_array", "bcast_array", "allgather_array",
+    "allgatherv_array", "reduce_scatter_array", "alltoall_array",
+    "alltoallv_array", "ppermute_array", "psum_scatter_array",
+    "reduce_array", "gather_array", "scatter_array", "scan_array",
+    "exscan_array",
+}
+
+
+def wrap_coll_table(comm) -> None:
+    """coll/trace interposition: wrap every selected c_coll slot with a
+    span + histogram recorder.  Installed unconditionally at comm_select
+    (tracing can be switched on mid-run through MPI_T); the wrapper's
+    disabled path is one flag check, verified by test_perf_guard."""
+
+    def make(name, fn):
+        def traced(comm_arg, *args, **kw):
+            if not enabled:
+                return fn(comm_arg, *args, **kw)
+            # .nbytes is an attribute on both numpy and jax arrays — no
+            # np.asarray here, which would pull a device buffer to host
+            nbytes = 0
+            if name in _SIZED_COLLS and args:
+                nbytes = getattr(args[0], "nbytes", 0) or 0
+            # coll_round flow key: cseq allocated BEFORE the collective
+            # runs, in program order — every member rank's span for this
+            # round carries the same (cid, cseq)
+            cseq = next_coll_seq(comm_arg.cid) if flow_enabled else None
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(comm_arg, *args, **kw)
+            finally:
+                t1 = time.perf_counter_ns()
+                eargs = {"nbytes": int(nbytes), "cid": comm_arg.cid}
+                if cseq is not None:
+                    eargs["cseq"] = cseq
+                span(name, "coll", t0, t1, args=eargs)
+                hist_record(name, int(nbytes), t1 - t0)
+
+        # carry the inner slot's marker attributes (__sync_wrapped__,
+        # __monitored__, ...) — interposition layers and tests probe the
+        # outermost callable for them
+        traced.__dict__.update(getattr(fn, "__dict__", {}))
+        traced.__traced__ = True
+        traced.__wrapped__ = fn
+        traced.__self__ = getattr(fn, "__self__", None)
+        return traced
+
+    for name, fn in list(comm.c_coll.items()):
+        if not getattr(fn, "__traced__", False):
+            comm.c_coll[name] = make(name, fn)
+
+
+# -- export --------------------------------------------------------------
+
+def _wall_us(t_ns: int) -> float:
+    return (_anchor_wall_ns + (t_ns - _anchor_mono_ns)) / 1000.0
+
+
+def chrome_events() -> list:
+    """Ring contents as Chrome trace-event dicts (ts/dur in wall-clock
+    microseconds), oldest first."""
+    if _ring is None:
+        return []
+    events = [e for e in _ring if e is not None]
+    events.sort(key=lambda e: e[3])
+    out = []
+    for ph, name, cat, t0, dur, tid, eargs, _slot_i in events:
+        ev = {"ph": ph, "name": name, "cat": cat,
+              "ts": _wall_us(t0), "tid": tid}
+        if ph == "X":
+            ev["dur"] = dur / 1000.0
+        if ph in ("s", "f"):
+            # flow events: the id is a top-level field in the Chrome
+            # schema; "f" binds to its enclosing slice (bp:"e") so the
+            # arrow lands on the recv span, not the next event
+            eargs = dict(eargs or {})
+            ev["id"] = eargs.pop("id", "")
+            if ph == "f":
+                ev["bp"] = "e"
+        if eargs:
+            ev["args"] = eargs
+        out.append(ev)
+    return out
+
+
+def chrome_payload(rank: int, clock_offset_us: float = 0.0,
+                   extra_meta: Optional[dict] = None) -> dict:
+    """Full per-rank Chrome trace JSON object (events + metadata)."""
+    import socket
+
+    recorded = recorded_count()
+    events = chrome_events()
+    for ev in events:
+        ev["pid"] = rank
+    meta = {
+        "rank": rank,
+        "host": socket.gethostname(),
+        "pid_os": os.getpid(),
+        "clock_offset_us": clock_offset_us,
+        "events_recorded": recorded,
+        "events_overwritten": max(0, int(recorded) - len(events)),
+        "trace_dir": str(_dir_var.value or _DEFAULT_DIR),
+    }
+    if extra_meta:
+        meta.update(extra_meta)
+    return {"traceEvents": events, "metadata": meta}
+
+
+def _estimate_coord_offset(client) -> float:
+    """This rank's wall clock MINUS the coord server's clock, in us
+    (the sign convention ``merge_timelines``/``skew_report`` consume:
+    ``ts - offset`` lands every rank on the coord timebase), via the
+    mpisync min-RTT estimator.  ``estimate_offset`` reports the peer's
+    clock minus ours, hence the negation."""
+    from ompi_tpu_torch.tools.mpisync import estimate_offset
+
+    off_s, _rtt = estimate_offset(client.server_time, iters=5)
+    return -off_s * 1e6
+
+
+def finalize_export(rte) -> None:
+    """Called from runtime finalize (while the coord client is still
+    alive): write this rank's Chrome trace JSON and publish the payload
+    into the CoordServer KV space for the launcher-side merge."""
+    if not enabled or _ring is None:
+        return
+    rank = int(getattr(rte, "my_world_rank", 0) or 0)
+    client = getattr(rte, "client", None)
+    offset_us = 0.0
+    if client is not None:
+        try:
+            offset_us = _estimate_coord_offset(client)
+        except Exception:
+            offset_us = 0.0
+    # otpu-prof rides in the payload metadata: the per-rank stage
+    # breakdown reaches the launcher/analyzer over the same file + KV
+    # gather the timeline already takes
+    extra_meta = None
+    try:
+        from ompi_tpu_torch.runtime import profile as _profile
+
+        prof = _profile.export_payload()
+        if prof is not None:
+            extra_meta = {"profile": prof}
+    except Exception:
+        extra_meta = None
+    payload = chrome_payload(rank, clock_offset_us=offset_us,
+                             extra_meta=extra_meta)
+    tdir = payload["metadata"]["trace_dir"]
+    encoded = json.dumps(payload)   # one encode serves file AND publish
+    try:
+        os.makedirs(tdir, exist_ok=True)
+        with open(os.path.join(tdir, f"trace_rank{rank}.json"), "w") as f:
+            f.write(encoded)
+    except OSError:
+        pass   # unwritable dir must not break finalize
+    if client is not None:
+        try:
+            client.put(rank, _KV_KEY, encoded)
+        except Exception:
+            pass   # coord gone: the per-rank file still exists
+
+
+# -- launcher-side merge (used by tools/tpurun.py) -----------------------
+
+def merge_timelines(payloads: list) -> list:
+    """Merge per-rank Chrome payloads into one clock-aligned event list:
+    each rank's timestamps are shifted by its measured offset to the
+    coord clock, pid is the world rank."""
+    merged = []
+    for p in payloads:
+        meta = p.get("metadata", {})
+        off_us = float(meta.get("clock_offset_us", 0.0))
+        rank = int(meta.get("rank", 0))
+        for ev in p.get("traceEvents", []):
+            e = dict(ev)
+            e["ts"] = float(e["ts"]) - off_us
+            e["pid"] = rank
+            merged.append(e)
+    merged.sort(key=lambda e: e["ts"])
+    return merged
+
+
+def _percentile(sorted_vals: list, q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    idx = min(len(sorted_vals) - 1, int(q * (len(sorted_vals) - 1) + 0.5))
+    return sorted_vals[idx]
+
+
+def skew_report(payloads: list) -> str:
+    """Cross-rank skew analysis of the collective spans: per
+    (collective, communicator) the arrival spread (start-time skew of
+    matched rounds), the most-often-slowest rank, and p50/p99 latency
+    by log2 size bin.
+
+    Rounds are matched per (name, cid) by occurrence index FROM THE
+    TAIL: the ring overwrites oldest events, so when ranks lost unequal
+    prefixes only the newest min-count occurrences still line up across
+    ranks.  Grouping by cid keeps a sub-communicator's collectives from
+    being index-matched against another comm's rounds."""
+    per_rank: dict = {}       # rank -> (name, cid) -> [(ts, dur, nbytes)]
+    overwritten = 0
+    for p in payloads:
+        meta = p.get("metadata", {})
+        rank = int(meta.get("rank", 0))
+        off_us = float(meta.get("clock_offset_us", 0.0))
+        overwritten += int(meta.get("events_overwritten", 0) or 0)
+        by_key = per_rank.setdefault(rank, {})
+        for ev in p.get("traceEvents", []):
+            if ev.get("cat") != "coll" or ev.get("ph") != "X":
+                continue
+            eargs = ev.get("args") or {}
+            key = (ev["name"], eargs.get("cid"))
+            by_key.setdefault(key, []).append(
+                (float(ev["ts"]) - off_us, float(ev.get("dur", 0.0)),
+                 int(eargs.get("nbytes", 0))))
+    ranks = sorted(per_rank)
+    keys = sorted({k for d in per_rank.values() for k in d},
+                  key=lambda k: (k[0], str(k[1])))
+    lines = [f"otpu-trace skew report — {len(ranks)} ranks "
+             f"({', '.join(str(r) for r in ranks)})"]
+    if overwritten:
+        lines.append(
+            f"note: {overwritten} events overwritten across ranks (ring "
+            "capacity otpu_trace_buffer_events); rounds are tail-aligned")
+    lines += ["",
+              "collective          cid  rounds  spread_mean_us  "
+              "spread_max_us  slowest_rank"]
+    bin_lat: dict = {}           # (name, bin_label) -> [dur...]
+    for key in keys:
+        name, cid = key
+        seqs = {r: per_rank[r].get(key, []) for r in ranks}
+        # rounds match across the ranks that HAVE spans for this key: a
+        # rank with none (died early, ring-wrapped, or sat out the comm
+        # — crash bundles produce all three) must not zero every other
+        # rank's rounds and erase the survivors' skew
+        members = [r for r in ranks if seqs[r]]
+        rounds = min((len(seqs[r]) for r in members), default=0) \
+            if len(members) >= 2 else 0
+        # tail-align: the ring keeps the newest events on every rank
+        tails = {r: seqs[r][len(seqs[r]) - rounds:] for r in members}
+        spreads, slow_count = [], {}
+        for k in range(rounds):
+            starts = {r: tails[r][k][0] for r in members}
+            durs = {r: tails[r][k][1] for r in members}
+            spreads.append(max(starts.values()) - min(starts.values()))
+            slowest = max(durs, key=durs.get)
+            slow_count[slowest] = slow_count.get(slowest, 0) + 1
+        for r in ranks:
+            for _ts, dur, nbytes in tails.get(r, []) if rounds \
+                    else seqs[r]:
+                label = _bin_label(int(nbytes).bit_length())
+                bin_lat.setdefault((name, label), []).append(dur)
+        cid_s = "-" if cid is None else str(cid)
+        if rounds:
+            slowest_rank = max(slow_count, key=slow_count.get)
+            absent = len(ranks) - len(members)
+            lines.append(
+                f"{name:<18}  {cid_s:>3}  {rounds:>6}"
+                f"  {sum(spreads)/len(spreads):>14.1f}"
+                f"  {max(spreads):>13.1f}  {slowest_rank:>12}"
+                f"  ({slow_count[slowest_rank]}/{rounds} rounds"
+                + (f"; {absent} rank(s) absent)" if absent else ")"))
+        else:
+            # unmatched across ranks (some rank never ran it): note only
+            total = sum(len(s) for s in seqs.values())
+            lines.append(f"{name:<18}  {cid_s:>3}  {0:>6}  "
+                         f"{'-':>14}  {'-':>13}  {'-':>12}  "
+                         f"({total} unmatched spans)")
+    lines += ["", "latency by log2 payload-size bin:",
+              "collective          bin      n     p50_us     p99_us"]
+    for (name, label), durs in sorted(bin_lat.items()):
+        durs.sort()
+        lines.append(
+            f"{name:<18}  {label:>5}  {len(durs):>5}  "
+            f"{_percentile(durs, 0.50):>9.1f}  {_percentile(durs, 0.99):>9.1f}")
+    return "\n".join(lines) + "\n"
+
+
+def reset_for_testing() -> None:
+    """Drop all tracer state and re-arm from the cvar (tests only)."""
+    global _ring, _ring_n, _slot, enabled, flow_enabled, requests_enabled
+    with _hist_lock:
+        _hist.clear()
+    _ring = None
+    _ring_n = 0
+    _slot = itertools.count()
+    _coll_seq.clear()
+    enabled = False
+    flow_enabled = False
+    requests_enabled = False
+    _set_enabled(bool(_enable_var.value))

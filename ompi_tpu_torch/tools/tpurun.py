@@ -19,10 +19,16 @@ arguments on a machine without a card).
 hierarchy runs on one host, as ``mpirun --oversubscribe`` tests han:
 btl/sm carries the traffic within a node and btl/tcp between nodes.
 
+At the job's end the launcher merges what the ranks published into the
+coordination service at their finalize (``tpurun.py:177-253``): the trace
+payloads into one clock-aligned timeline, ``<trace_dir>/trace_merged.json``
+(``otpu-trace/`` by default), with a skew report, ``trace_skew.txt``,
+beside it, and the monitoring matrices into one job-wide table on stderr.
+
 Not copied yet: hostfiles and launch agents (``tpurun.py:34-83``),
 ``--enable-recovery``, process sets (the per-node sets ``--fake-nodes``
 names there too), spawn, the device-world and binding flags, and the
-trace, monitoring and flight merges (``:177-305``).
+flight bundle merge (``:255-305``, with the flight recorder, ROADMAP A 4.4).
 """
 from __future__ import annotations
 
@@ -75,6 +81,81 @@ def _teardown(procs_list, pumps, exit_code: int) -> None:
         p.wait()
     for t in pumps:
         t.join(timeout=2)
+
+
+def _merge_traces(server) -> None:
+    """The trace gather: ranks publish their Chrome trace payloads into the
+    coordination service's KV space at finalize; the launcher aligns their
+    clocks (each payload carries the rank's measured offset to the
+    coordination clock, the mpisync min-RTT estimate) and writes one merged
+    timeline plus a text skew report next to the per-rank files."""
+    import json
+
+    from ompi_tpu_torch.runtime import trace
+
+    raw = server.collect(trace._KV_KEY)
+    if not raw:
+        return
+
+    payloads = []
+    for rank in sorted(raw):
+        try:
+            payloads.append(json.loads(raw[rank]))
+        except (TypeError, ValueError):
+            print(f"tpurun: rank {rank} published an unreadable trace",
+                  file=sys.stderr)
+    if not payloads:
+        return
+    tdir = payloads[0].get("metadata", {}).get("trace_dir", "otpu-trace")
+    try:
+        os.makedirs(tdir, exist_ok=True)
+        merged_path = os.path.join(tdir, "trace_merged.json")
+        # each rank's ring-wrap count rides into the merged file's
+        # metadata: a silently truncated timeline makes critical paths lie
+        overwritten = {
+            str(p["metadata"]["rank"]):
+                int(p["metadata"].get("events_overwritten", 0) or 0)
+            for p in payloads if p.get("metadata", {}).get("rank")
+            is not None}
+        with open(merged_path, "w") as f:
+            json.dump({"traceEvents": trace.merge_timelines(payloads),
+                       "metadata": {"ranks": sorted(raw),
+                                    "clock": "coord-server",
+                                    "events_overwritten": {
+                                        r: n for r, n in
+                                        overwritten.items() if n}}}, f)
+        report_path = os.path.join(tdir, "trace_skew.txt")
+        report = trace.skew_report(payloads)
+        with open(report_path, "w") as f:
+            f.write(report)
+    except OSError as exc:
+        print(f"tpurun: cannot write merged trace: {exc}", file=sys.stderr)
+        return
+    print(f"tpurun: merged timeline of {len(payloads)} ranks -> "
+          f"{merged_path}; skew report -> {report_path}", file=sys.stderr)
+
+
+def _merge_monitoring(server) -> None:
+    """The job-wide communication matrix: ranks publish their monitoring
+    matrices into the coordination KV at finalize; the launcher sums them
+    and prints ONE table (superseding the per-rank exit dumps)."""
+    import json
+
+    from ompi_tpu_torch.runtime import monitoring
+
+    raw = server.collect(monitoring._KV_KEY)
+    if not raw:
+        return
+
+    payloads = []
+    for rank in sorted(raw):
+        try:
+            payloads.append(json.loads(raw[rank]))
+        except (TypeError, ValueError):
+            pass
+    if payloads:
+        print("tpurun: " + monitoring.merged_summary(
+            payloads, server.nprocs), file=sys.stderr)
 
 
 def main(argv=None) -> int:
@@ -149,6 +230,8 @@ def main(argv=None) -> int:
 
     exit_code = _monitor(procs, abort_check=lambda: server.aborted)
     _teardown(procs, pumps, exit_code)
+    _merge_traces(server)
+    _merge_monitoring(server)
     server.close()
     if exit_code:
         print(f"tpurun: job terminated with exit code {exit_code}",

@@ -354,25 +354,11 @@ NOT_COPIED = {
     "ft_hooks": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml,
         "_peer_failed"),
-    # the trace, peruse, profile and memchecker runtime; A 2 and A 8
-    "observability": lambda pkg: all(
-        importlib.util.find_spec(f"{pkg}.runtime.{m}") is not None
-        for m in ("trace", "peruse", "profile", "memchecker")),
-    # ob1's RGET send side freezes the user buffer (memchecker.protect_send)
-    # until the pull completes; with the memchecker runtime, A 2
-    "rget_memchecker": lambda pkg: "protect_send" in inspect.getsource(
-        __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml.isend),
     # a dead puller releases the sender's RGET exposure (_peer_failed's
     # _release_rget); with the FT hooks, A 4.1
     "rget_ft_release": lambda pkg: "_release_rget" in _source_or_empty(
         __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml,
         "_peer_failed"),
-    # Win's osc trace spans around the epoch calls (win.py:23) and its
-    # osc/monitoring hook (_mon); with trace and monitoring, A 2
-    "win_trace": lambda pkg: hasattr(
-        __import__(f"{pkg}.api.win", fromlist=["x"]), "trace"),
-    "win_monitoring": lambda pkg: hasattr(
-        __import__(f"{pkg}.api.win", fromlist=["x"]).Win, "_mon"),
     # the top-level names whose modules are not ported: Session (A 4.2),
     # File (A 5), get_parent and open_port (dpm, A 4.3)
     "top_level_session": lambda pkg: "Session" in __import__(pkg)._API,
@@ -386,20 +372,6 @@ NOT_COPIED = {
     "tcp_ft_suspects": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]).TcpBtl,
         "_drain_suspects"),
-    # btl/tcp's trace, profile and telemetry calls: A 2
-    "tcp_observability": lambda pkg: hasattr(
-        __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]).TcpBtl,
-        "_telemetry_stats"),
-    # coll/tuned's and coll/quant's profile spans (coll.decide, coll.alg,
-    # quant.encode, quant.decode): with the runtime's profile module, A 2
-    "coll_profile_spans": lambda pkg: all(
-        hasattr(__import__(f"{pkg}.mca.coll.{m}", fromlist=["x"]), "profile")
-        for m in ("tuned", "quant")),
-    # the staging pool's trace spans, its telemetry source and the
-    # sanitizer branch of release: with trace, telemetry and sanitizer, A 2
-    "staging_observability": lambda pkg: all(
-        hasattr(_accelerator(pkg), m)
-        for m in ("trace", "_telemetry", "sanitizer")),
     # coll/sm's FT branch (a failed member turns the counter wait into
     # ProcFailedError); coll/inter: with intercommunicators; coll/ftagree:
     # with fault tolerance (A 4)
@@ -416,11 +388,6 @@ NOT_COPIED = {
 def _source_or_empty(cls, name):
     fn = getattr(cls, name, None)
     return inspect.getsource(fn) if fn is not None else ""
-
-
-def _accelerator(pkg):
-    name = "jax_acc" if pkg == "ompi_tpu" else "torch_acc"
-    return __import__(f"{pkg}.mca.accelerator.{name}", fromlist=["x"])
 
 
 @pytest.mark.parametrize("what", sorted(NOT_COPIED))
