@@ -293,6 +293,32 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    it sent (a tensor's own count, no host copy), the launcher's merged
    matrix printed, the sampler's and the profiler's sample counts.  One
    ``{"observability": {...}}`` line with the card's name and power limit.
+9. Process topologies and ULFM (``topology_ft``), with coll/ring raised and
+   the counts set to 0 before and read after: ``cart_create((2, 4),
+   periods=(True, False))`` over the world, ``cart_sub((False, True))``
+   from ranks 0 and 4; on each row (n = 4) ``allreduce_array`` at 4 and
+   16 MB a rank launches K3 or K4 once, bit for bit with the plain
+   versions; neighbor allgather and alltoall of every rank over card
+   tensor tables (1 MB rows), in CUDA's sync-debug "error" mode (a host
+   copy would raise), byte for byte and on the card; world rank 7 marked
+   failed, ``shrink``: on the 7-rank comm the allreduces (K3, K4) and a
+   16 MB ``bcast_array`` (K12) once each, bit for bit; a revoked dup's
+   ``allreduce_array`` raises ``RevokedError`` and launches nothing, and
+   the world's own ``allreduce_array`` launches what it did before the
+   failure; the captured movers again, after the shrink; the host µs a
+   call of ``allreduce_array`` with the revocation probe, of the parent's
+   body without it and of its slot, in turns, and ``is_revoked``'s own
+   cost (at most 1 µs or the phase fails).  Then three ``tpurun -n 4
+   --enable-recovery`` jobs of card tensors where rank 1 stops: over sm
+   (rank 0 first posts a 16 MB card-tensor send to it, which completes in
+   error with its RGET exposure released, and rank 0's next 16 MB send
+   works), across ``--fake-nodes 2`` (tcp between the nodes), and with the
+   heartbeat detector (``ft_detector_period`` 0.2, ``ft_detector_timeout``
+   1.5; rank 1 goes silent instead of exiting).  The survivors detect it,
+   ``agree`` (``ProcFailedError``, then agreement after ``ack_failed``),
+   shrink and allreduce a 1 MB card tensor with equal digests.  One
+   ``{"topology_ft": {...}}`` line with the card's name and power limit,
+   each job's detection latency, agree and shrink times by rank.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -3752,6 +3778,286 @@ def observability(smi: str, gen, main_launched: dict,
     return out
 
 
+FT_JOB = r"""
+import hashlib, json, os, sys, time
+import numpy as np, torch
+import ompi_tpu_torch
+from ompi_tpu_torch.api.errhandler import ERRORS_RETURN
+from ompi_tpu_torch.api.errors import ProcFailedError
+from ompi_tpu_torch.ft import propagator
+from ompi_tpu_torch.ft import state as ft_state
+
+w = ompi_tpu_torch.init()
+w.set_errhandler(ERRORS_RETURN)
+mode = sys.argv[1]
+big = torch.arange(4 << 20, dtype=torch.float32, device="cuda")   # 16 MB
+w.barrier()
+out = {"rank": w.rank}
+if w.rank == 0 and mode == "sm":
+    # the 16 MB card tensor to the rank about to die: its request holds the
+    # staged copy and, over sm, an RGET exposure no one will pull
+    req = w.isend(big, dest=1, tag=3)
+    w.send(np.zeros(1), dest=1, tag=4)
+if w.rank == 1:
+    if mode == "sm":
+        w.recv(np.zeros(1), source=0, tag=4)
+    if mode == "detector":
+        # a hang: alive, but the emitter stops without its tombstone
+        w.rte.modex_put("t_gone", time.time())
+        propagator._detector._stop.set()
+        time.sleep(5)
+        os._exit(0)
+    w.rte.modex_put("t_gone", time.time())
+    os._exit(9)
+deadline = time.time() + 60
+while not ft_state.is_failed(1):
+    assert time.time() < deadline, "the failure of rank 1 was never detected"
+    time.sleep(0.002)
+out["detect_s"] = time.time() - w.rte.modex_get(1, "t_gone")
+if w.rank == 0 and mode == "sm":
+    try:
+        req.wait()
+        raise AssertionError("the send to the dead rank completed")
+    except ProcFailedError:
+        pass
+    bml = w.pml.bml
+    out["exposed_after"] = sum(len(getattr(b, "_exposed", {}))
+                               for b in bml.btls)
+    w.send(big, dest=2, tag=5)          # the next card send works
+if w.rank == 2 and mode == "sm":
+    got = np.empty(4 << 20, np.float32)
+    w.recv(got, source=0, tag=5)
+    out["next_send_ok"] = bool(np.array_equal(got, np.arange(4 << 20,
+                                                           dtype=np.float32)))
+t0 = time.perf_counter()
+try:
+    w.agree(1)
+    raise AssertionError("agree did not raise ProcFailedError")
+except ProcFailedError as e:
+    out["agree_failed_flag"] = e.flag
+out["agree_raise_s"] = time.perf_counter() - t0
+w.ack_failed()
+t0 = time.perf_counter()
+out["agree_flag"] = w.agree(0b11 if w.rank else 0b01)
+out["agree_s"] = time.perf_counter() - t0
+t0 = time.perf_counter()
+s = w.shrink()
+out["shrink_s"] = time.perf_counter() - t0
+out["shrunk"] = [s.size, s.epoch, list(s.group.world_ranks)]
+x = torch.full((256 * 1024,), float(s.rank + 1), device="cuda")  # 1 MB
+r = np.asarray(s.allreduce(x))
+out["first"] = float(r[0])
+out["digest"] = hashlib.sha256(np.ascontiguousarray(r).tobytes()).hexdigest()
+print(json.dumps(out), flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+
+def parent_allreduce_array(comm, x, op):
+    """``Comm.allreduce_array``'s body before the revocation probe (the
+    comm's own flag only), to time the probe's share of the call."""
+    if comm.freed or comm.revoked:
+        comm._check_state()
+    fn = comm.c_coll.get("allreduce_array")
+    return fn(comm, x, op)
+
+
+def topology_ft(smi: str, gen) -> dict:
+    """Process topologies and ULFM on the card (phase 9 of the module
+    docstring).  Returns the ``topology_ft`` line's object."""
+    import tempfile
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.api.errhandler import ERRORS_RETURN
+    from ompi_tpu_torch.api.errors import RevokedError
+    from ompi_tpu_torch.api.status import PROC_NULL
+    from ompi_tpu_torch.ft import state as ft_state
+    from ompi_tpu_torch.ops import ring_collectives as rc
+    from ompi_tpu_torch.runtime import init as rt
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    settings = {"priority": "95", "bidirectional": "0", "wire16": "0"}
+    for name, value in settings.items():
+        os.environ[f"OTPU_MCA_coll_ring_{name}"] = value
+    x4 = operands(torch.float32, (N, 4 * MB // 4), gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    world = ompi_tpu_torch.init()
+    world.set_errhandler(ERRORS_RETURN)
+    _, world_before = launch_delta(lambda: world.allreduce_array(x4))
+
+    # the 2 x 4 grid and its rows (n = 4) from ranks 0 and 4
+    cart = world.cart_create((2, 4), periods=(True, False))
+    require(cart.cart_get() == ([2, 4], [True, False], [0, 0]),
+            f"cart_get {cart.cart_get()}")
+    rows = {0: cart.cart_sub((False, True)),
+            4: cart.as_rank(4).cart_sub((False, True))}
+    done = []
+    for first, row in rows.items():
+        require(list(row.group.world_ranks) == list(range(first, first + 4))
+                and row.topo.dims == [4]
+                and owner(row, "allreduce_array") == "RingCollModule",
+                f"row of rank {first}: {row.group.world_ranks}")
+        for mb, regime in ((4, "fused"), (16, "seg")):
+            x = operands(torch.float32, (4, mb * MB // 4), gen)
+            plain = (rc.all_reduce_fused_plain(x, 4, "sum") if regime == "fused"
+                     else rc.all_reduce_seg_plain(x, 4, "sum", SEG))
+            got, d = launch_delta(lambda: row.allreduce_array(x))
+            what = f"cart row {first} allreduce {mb} MB/rank"
+            require(d == {f"all_reduce_{regime}": 1}, f"{what} launched {d}")
+            same_bits(got, plain, what)
+            done.append(f"{what}: all_reduce_{regime}")
+
+    # neighbor collectives over a card tensor table: clones on the card,
+    # no host copy (any synchronizing copy raises in this mode)
+    table = operands(torch.float32, (N, MB // 4), gen)
+    blocks = operands(torch.float32, (N, 4, MB // 16), gen)
+    torch.cuda.synchronize()
+    gathered, exchanged = {}, {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, d = launch_delta(lambda: [
+            (gathered.__setitem__(r, cart.as_rank(r).neighbor_allgather(table)),
+             exchanged.__setitem__(r, cart.as_rank(r).neighbor_alltoall(blocks)))
+            for r in range(N)])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(d == {}, f"the neighbor collectives launched {d}")
+    chan = {}
+    for r in range(N):
+        for k, dst in enumerate(cart.topo.neighbors(r)[1]):
+            chan.setdefault((r, dst), []).append(k)
+    for r in range(N):
+        srcs = cart.topo.neighbors(r)[0]
+        for j, src in enumerate(srcs):
+            g, e = gathered[r][j], exchanged[r][j]
+            if src == PROC_NULL:
+                require(g is None and e is None, f"rank {r} slot {j}: not None")
+                continue
+            require(g.is_cuda and e.is_cuda, f"rank {r} slot {j} left the card")
+            same_bytes(g, table[src], f"neighbor_allgather rank {r} slot {j}")
+            same_bytes(e, blocks[src][chan[(src, r)].pop(0)],
+                       f"neighbor_alltoall rank {r} slot {j}")
+    out["neighbor"] = {"table": [N, MB // 4], "blocks": [N, 4, MB // 16],
+                       "d2h_copies": 0, "launches": d}
+
+    # world rank 7 fails: the 7-rank comm's allreduces and bcast
+    ft_state.mark_failed(7)
+    shrunk = world.shrink()
+    require(shrunk.size == 7 and shrunk.epoch == 1
+            and owner(shrunk, "allreduce_array") == "RingCollModule",
+            f"shrink gave {shrunk}")
+    for mb, regime in ((4, "fused"), (16, "seg")):
+        x = operands(torch.float32, (7, mb * MB // 4), gen)
+        plain = (rc.all_reduce_fused_plain(x, 7, "sum") if regime == "fused"
+                 else rc.all_reduce_seg_plain(x, 7, "sum", SEG))
+        got, d = launch_delta(lambda: shrunk.allreduce_array(x))
+        what = f"shrunken comm (n = 7) allreduce {mb} MB/rank"
+        require(d == {f"all_reduce_{regime}": 1}, f"{what} launched {d}")
+        same_bits(got, plain, what)
+        done.append(f"{what}: all_reduce_{regime}")
+    x = operands(torch.float32, (7, 16 * MB // 4), gen)
+    got, d = launch_delta(lambda: shrunk.bcast_array(x, 6))
+    require(d == {"bcast": 1}, f"shrunken bcast launched {d}")
+    same_bytes(got, rc.bcast_plain(x, 7, 6), "shrunken comm bcast")
+    done.append("shrunken comm (n = 7) bcast 16 MB/rank: bcast")
+    # a revoked dup turns allreduce_array away, launching nothing; the
+    # world's own calls launch what they did before the failure
+    dup = world.dup()
+    dup.revoke()
+    try:
+        dup.allreduce_array(x4)
+        raise AssertionError("a revoked dup's allreduce_array ran")
+    except RevokedError:
+        pass
+    _, world_after = launch_delta(lambda: world.allreduce_array(x4))
+    require(world_after == world_before == {"all_reduce_fused": 1},
+            f"the world's allreduce_array launched {world_before} before and "
+            f"{world_after} after the failure")
+    torch.cuda.synchronize()
+    launched = counts()
+    for key in ("all_reduce_fused", "all_reduce_seg", "bcast"):
+        require(launched[key] > 0, f"{key} never launched in this phase")
+    out["launches"] = {k: v for k, v in launched.items() if v}
+    out["done"] = done
+
+    out["captured_movers_after_shrink"] = check_captured_movers(gen)
+    rt.finalize()
+    ft_state.reset_for_testing()
+
+    # the probe's host cost on the default world (coll/builtin's slot, as
+    # the observability phase measures it): allreduce_array with the probe,
+    # the parent's body without it, and the slot itself, in turns (the card
+    # spins meanwhile), then is_revoked alone
+    ring_defaults()
+    world = ompi_tpu_torch.init()
+    require(owner(world, "allreduce_array") == "BuiltinCollModule",
+            "the default owner of allreduce_array is not coll/builtin")
+    small = operands(torch.float32, (N, 512), gen)
+    slot = world.c_coll["allreduce_array"]
+    ways = {"method": lambda: world.allreduce_array(small),
+            "parent_body": lambda: parent_allreduce_array(
+                world, small, ompi_tpu_torch.SUM),
+            "slot": lambda: slot(world, small, ompi_tpu_torch.SUM)}
+    per = {k: [] for k in ways}
+    for _ in range(2 * OBS_ROUNDS + 1):
+        for name, fn in ways.items():
+            per[name].append(host_us(fn, OBS_HOST_CALLS))
+    calls = 200_000
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        world.is_revoked()
+    probe_us = (time.perf_counter() - t0) / calls * 1e6
+    med = {k: statistics.median(v) for k, v in per.items()}
+    out["allreduce_array_host_us"] = {
+        "median": med, "rounds": per, "is_revoked_us": probe_us,
+        "probe_us": med["method"] - med["parent_body"],
+        "method_minus_slot": med["method"] - med["slot"],
+        "shape": [N, 512], "calls_a_round": OBS_HOST_CALLS}
+    require(probe_us <= 1.0, f"is_revoked costs {probe_us:.3f} us a call")
+    rt.finalize()
+    for name in settings:
+        del os.environ[f"OTPU_MCA_coll_ring_{name}"]
+
+    # tpurun -n 4 --enable-recovery jobs of card tensors: rank 1 dies
+    detector = ["--mca", "ft_detector", "1", "--mca", "ft_detector_period",
+                "0.2", "--mca", "ft_detector_timeout", "1.5"]
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp, "ft_job.py")
+        script.write_text(FT_JOB)
+        jobs = {}
+        for mode, args in (("sm", []), ("tcp", ["--fake-nodes", "2"]),
+                           ("detector", detector)):
+            lines, stderr, wall = tpurun_job(4, [
+                "--enable-recovery", *args, sys.executable, str(script),
+                mode], timeout=180)
+            res = [job_result(lines, r) for r in (0, 2, 3)]
+            digests = {x["digest"] for x in res}
+            require(len(digests) == 1, f"{mode}: survivors' digests differ")
+            for x in res:
+                require(x["agree_failed_flag"] == 1 and x["agree_flag"] == 1
+                        and x["shrunk"] == [3, 1, [0, 2, 3]]
+                        and x["first"] == 6.0, f"{mode} rank {x['rank']}: {x}")
+            if mode == "sm":
+                require(res[0]["exposed_after"] == 0,
+                        f"the dead puller's RGET exposure stayed: {res[0]}")
+                require(res[1]["next_send_ok"], "rank 0's next send failed")
+            if mode != "detector":
+                require("rank 1 failed (exit 9)" in stderr,
+                        f"{mode}: the launcher reported no failure: {stderr}")
+            jobs[mode] = {
+                "detect_s": [x["detect_s"] for x in res],
+                "agree_raise_s": [x["agree_raise_s"] for x in res],
+                "agree_s": [x["agree_s"] for x in res],
+                "shrink_s": [x["shrink_s"] for x in res],
+                "digest": digests.pop()[:16], "wall_s": wall}
+        out["jobs_4"] = jobs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"topology_ft": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -3821,6 +4127,7 @@ def main() -> int:
     host_transports(smi)
     one_sided(smi)
     observability(smi, gen, main_launched, comm_launched)
+    topology_ft(smi, gen)
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))

@@ -15,7 +15,9 @@ tensor handed to either is staged to the host.
 One-sided communication (``Win`` over mca/osc: osc/device's window on
 the card in the device world, osc/rdma's mapped segments or osc/pt2pt's
 agent between processes) and the MPI environment (``init_thread``,
-``wtime``, error handlers, user error classes) come as in the reference.
+``wtime``, error handlers, user error classes) come as in the reference,
+and so do process topologies and ULFM fault tolerance (``Comm.revoke``,
+``shrink``, ``agree``; ``tpurun --enable-recovery``).
 ``ompi_tpu_torch.parallel`` runs the reference's flagship
 training step (dp × pp × sp × tp) on the same virtual ranks, its ring
 attention's block update a hand-written CUDA C++ kernel.  Each kernel has a

@@ -30,10 +30,32 @@ staged through ``torch_acc.to_host`` (the reference's ``np.asarray`` of a
 Error handlers (``comm.py:195-203``): a comm starts with
 ERRORS_ARE_FATAL, a comm made from it inherits its handler, and
 ``call_errhandler`` invokes it.  ``idup`` is the dup with a request born
-complete (``comm.py:948``).  Not ported yet: ``split_type`` and
-``create_from_group`` (the instance layer), the partitioned forms
-(``mca/part``), topologies, attributes, intercommunicators and fault
-tolerance beyond ``agree``.
+complete (``comm.py:948``).
+
+Process topologies (``comm.py:1022``, ``:1110-1430``): ``split_type``
+(``Rte.locality_color``), ``topo_test``, ``cart_create`` (with ``reorder``:
+node-major order, decided by a collective MIN in the multi-process world),
+``cart_map``, ``graph_map``, the ``cart_*`` accessors, ``cart_sub``,
+``graph_create``, ``dist_graph_create_adjacent`` and the neighbor
+collectives with their ``i*`` forms.  In the device world the topology
+constructors pass the whole colour table to ``split``, and the neighbor
+collectives read a table whose leading axis indexes ranks: a numpy table
+gives numpy rows, as the reference's ``np.asarray`` does, and a tensor table
+gives clones of its rows on its own device, with no host copy (the
+reference turns a ``jax.Array`` into numpy).  In the multi-process world a
+tensor is staged through ``torch_acc.to_host``, as point-to-point does.
+
+ULFM (``comm.py:1551-1608``): every comm carries an FT ``epoch`` (a shrink
+bumps it), ``revoke``, ``shrink``, ``agree``, ``get_failed``,
+``ack_failed``, ``ft_scope`` and ``is_revoked``.  ``_check_state`` probes
+the global revocation set with a prebuilt ``(scope, cid, epoch)`` key
+through a cached module reference, so a revocation flooded in from another
+rank reaches every call (``allreduce_array``'s fast path inlines the same
+probe), and a named point-to-point peer that has failed raises
+``ProcFailedError`` before any staging.  Both errors go through the comm's
+error handler.  Not ported yet: ``create_from_group`` (the instance
+layer), the partitioned forms (``mca/part``), attributes and
+intercommunicators.
 """
 from __future__ import annotations
 
@@ -51,6 +73,21 @@ from ompi_tpu_torch.api.request import CompletedRequest, Request
 from ompi_tpu_torch.api.status import ANY_SOURCE, ANY_TAG, PROC_NULL, Status
 from ompi_tpu_torch.datatype import Datatype, from_numpy_dtype
 
+_ft_state_mod = None
+
+
+def _ft_state():
+    """Cached ``ft.state`` module reference (the import is lazy to avoid a
+    cycle, and a ``sys.modules`` lookup per ``_check_state`` would cost the
+    fast path)."""
+    global _ft_state_mod
+    if _ft_state_mod is None:
+        from ompi_tpu_torch.ft import state
+
+        _ft_state_mod = state
+    return _ft_state_mod
+
+
 #: collective function slots a coll module can fill (the entry points of
 #: ``ompi_tpu/api/comm.py:COLL_FUNCTIONS`` ported so far)
 COLL_FUNCTIONS = (
@@ -64,7 +101,7 @@ COLL_FUNCTIONS = (
     "reduce_scatter_array", "alltoall_array", "ppermute_array",
     "psum_scatter_array", "reduce_array", "gather_array", "scatter_array",
     "allgatherv_array", "alltoallv_array", "scan_array", "exscan_array",
-    "persistent_coll", "device_barrier", "agree")
+    "persistent_coll", "device_barrier", "agree", "iagree")
 
 _torch_acc = None
 
@@ -75,12 +112,7 @@ def host_buffer(buf) -> np.ndarray:
     ``jax.Array`` does in the reference (point-to-point and coll/basic)."""
     if isinstance(buf, np.ndarray):
         return buf
-    global _torch_acc
-    if _torch_acc is None:
-        from ompi_tpu_torch.mca.accelerator import torch_acc
-
-        _torch_acc = torch_acc
-    if _torch_acc.is_device_array(buf):
+    if _acc().is_device_array(buf):
         arr = _torch_acc.to_host(buf)
         arr.flags.writeable = False
         return arr
@@ -100,6 +132,25 @@ def as_buffer(buf) -> tuple[np.ndarray, int, Datatype]:
     return arr, arr.size, from_numpy_dtype(arr.dtype)
 
 
+def _acc():
+    """The cached ``torch_acc`` module (imported at first use)."""
+    global _torch_acc
+    if _torch_acc is None:
+        from ompi_tpu_torch.mca.accelerator import torch_acc
+
+        _torch_acc = torch_acc
+    return _torch_acc
+
+
+def _row_copy(table, r: int):
+    """Row ``r`` of a device-world table, copied: a tensor's row stays on
+    its device (a clone, no host copy); anything else becomes a numpy copy,
+    as the reference's ``np.asarray`` does."""
+    if _acc().is_device_array(table):
+        return table[r].clone()
+    return np.array(np.asarray(table[r]), copy=True)
+
+
 class Comm:
     # comm_compare results (``mpi.h`` MPI_IDENT family)
     IDENT = 0
@@ -110,19 +161,25 @@ class Comm:
     #: read this flag as the reference's do
     is_inter = False
 
-    def __init__(self, group: Group, cid: int, rte, name: str = "") -> None:
+    def __init__(self, group: Group, cid: int, rte, name: str = "",
+                 epoch: int = 0, parent: Optional["Comm"] = None) -> None:
         self.group = group
         self.cid = cid
+        self.epoch = epoch  # FT epoch: revoked CIDs can't be confused on reuse
         self.rte = rte
         self.name = name or f"comm#{cid}"
         self.c_coll: dict[str, Any] = {}
         self.coll_modules: list = []
         self.info = Info()
+        self.topo = None          # set by the topo constructors
         self.revoked = False
         self.freed = False
         self.pml = None           # selected pml module (set at creation)
         self.errhandler: Errhandler = ERRORS_ARE_FATAL
+        self._rev_key = None      # lazy (ft_scope, cid, epoch) probe key
         self._rank = group.rank_of(rte.my_world_rank) if rte else 0
+        if parent is not None:
+            self.errhandler = parent.errhandler
 
     @property
     def rank(self) -> int:
@@ -174,15 +231,23 @@ class Comm:
         raise error  # ERRORS_RETURN handler already raised; fatal aborts
 
     def _check_state(self, peer: Optional[int] = None) -> None:
-        # NOTE: allreduce_array inlines the peer=None predicate on its
-        # fast path
+        # NOTE: allreduce_array inlines the peer=None predicate (freed +
+        # is_revoked) on its fast path: mirror any new comm-wide check
+        # added here into that method too
         if self.freed:
             raise MpiError(ErrorClass.ERR_COMM, "communicator was freed")
-        if self.revoked:
-            raise RevokedError(f"{self.name} revoked")
+        if self.is_revoked():
+            self._err(RevokedError(f"{self.name} revoked"))
         if peer is not None and peer not in (ANY_SOURCE, PROC_NULL):
             if not 0 <= peer < self.size:
                 raise MpiError(ErrorClass.ERR_RANK, f"invalid rank {peer}")
+            # ULFM early liveness check (send.c:84): a point-to-point peer
+            # only, never the collective fast path
+            if _ft_state().is_failed(self.group.world_rank(peer)):
+                from ompi_tpu_torch.api.errors import ProcFailedError
+
+                self._err(ProcFailedError(f"peer {peer} has failed",
+                                          (peer,)))
 
     def _coll(self, name: str):
         fn = self.c_coll.get(name)
@@ -206,7 +271,8 @@ class Comm:
         of its own (``comm_dup`` + ``coll_base_comm_select``)."""
         self._check_state()
         newcomm = Comm(self.group, self._next_cid(), self.rte,
-                       name=f"{self.name}~dup")
+                       name=f"{self.name}~dup", epoch=self.epoch,
+                       parent=self)
         newcomm.info = self.info.dup()
         self._finish_create(newcomm)
         return newcomm
@@ -267,9 +333,16 @@ class Comm:
                          if c == my_color)
         ranks = [self.group.world_rank(r) for _, r in members]
         newcomm = Comm(Group(ranks), cids[my_color], self.rte,
-                       name=f"{self.name}~split")
+                       name=f"{self.name}~split", epoch=self.epoch,
+                       parent=self)
         self._finish_create(newcomm)
         return newcomm
+
+    def split_type(self, split_type: str = "shared", key=0) -> "Comm":
+        """``MPI_Comm_split_type``: 'shared' = the same node (the device
+        world is one card: one colour for every rank)."""
+        color = self.rte.locality_color(split_type)
+        return self.split(color, key)
 
     def create(self, group: Group) -> Optional["Comm"]:
         """``MPI_Comm_create``: a CID is taken whether or not the
@@ -278,7 +351,8 @@ class Comm:
         cid = self._next_cid()
         if group.rank_of(self.rte.my_world_rank) < 0:
             return None
-        newcomm = Comm(group, cid, self.rte, name=f"{self.name}~create")
+        newcomm = Comm(group, cid, self.rte, name=f"{self.name}~create",
+                       epoch=self.epoch, parent=self)
         self._finish_create(newcomm)
         return newcomm
 
@@ -296,7 +370,8 @@ class Comm:
         else:
             cid = self._agree_cid_group(group, tag)
         newcomm = Comm(group, cid, self.rte,
-                       name=f"{self.name}~create_group")
+                       name=f"{self.name}~create_group", epoch=self.epoch,
+                       parent=self)
         self._finish_create(newcomm)
         return newcomm
 
@@ -563,12 +638,28 @@ class Comm:
                               op: op_mod.Op = op_mod.SUM) -> Request:
         return self._icompleted(self.reduce_scatter_block, sendbuf, op)
 
+    def ineighbor_allgather(self, sendbuf) -> Request:
+        return self._icompleted(self.neighbor_allgather, sendbuf)
+
+    def ineighbor_allgatherv(self, sendbuf) -> Request:
+        return self._icompleted(self.neighbor_allgatherv, sendbuf)
+
+    def ineighbor_alltoall(self, sendbufs) -> Request:
+        return self._icompleted(self.neighbor_alltoall, sendbufs)
+
+    def ineighbor_alltoallv(self, sendbufs) -> Request:
+        return self._icompleted(self.neighbor_alltoallv, sendbufs)
+
+    def ineighbor_alltoallw(self, sendbufs, recvtypes=None) -> Request:
+        return self._icompleted(self.neighbor_alltoallw, sendbufs,
+                                recvtypes)
+
     # device-array collectives (tensors with a leading rank axis) ----------
     def allreduce_array(self, x, op: op_mod.Op = op_mod.SUM):
         # THE hot call of the framework (DP gradient sync): inline the state
         # check and skip the _coll indirection — one dict probe on the
         # per-comm vtable, then straight into the module fast path
-        if self.freed or self.revoked:
+        if self.freed or self.is_revoked():
             self._check_state()
         fn = self.c_coll.get("allreduce_array")
         if fn is None:
@@ -856,6 +947,356 @@ class Comm:
         payload = np.zeros(int(hdr[0]), dtype=np.uint8)
         self.recv(payload, st.source, tag)
         return pickle.loads(payload.tobytes())
+
+    # -- process topologies (``ompi/mca/topo``) -------------------------
+    def topo_test(self) -> str:
+        """``MPI_Topo_test``: "cart" | "graph" | "dist_graph" |
+        "undefined"."""
+        if self.topo is None:
+            return "undefined"
+        return self.topo.kind
+
+    def _device_world(self) -> bool:
+        return self.rte is not None and self.rte.is_device_world
+
+    def cart_create(self, dims, periods=None,
+                    reorder: bool = False) -> Optional["Comm"]:
+        """``MPI_Cart_create``: ranks past the grid get None
+        (``MPI_COMM_NULL``).  ``reorder=True`` in the multi-process world
+        orders ranks by node (the treematch mapping) when every rank knows
+        its peers' nodes, decided by a collective MIN; the device world's
+        rows are already in order."""
+        from ompi_tpu_torch.mca.topo import CartTopo
+
+        dims = list(dims)
+        if periods is None:
+            periods = [False] * len(dims)
+        grid = int(np.prod(dims)) if dims else 1
+        if grid > self.size:
+            raise MpiError(ErrorClass.ERR_DIMS,
+                           f"grid {dims} larger than comm size {self.size}")
+        if self._device_world():
+            color = np.array([0 if r < grid else -1
+                              for r in range(self.size)])
+            key = np.arange(self.size)
+        else:
+            color = 0 if self.rank < grid else -1
+            key = self.rank
+            if reorder:
+                # the decision is collective: a rank with unresolved
+                # locality must not fall back alone while its peers
+                # reorder (grid membership would diverge)
+                order = self._node_major_order()
+                ok = 1 if order is not None else 0
+                all_ok = int(np.asarray(self.allreduce(
+                    np.array([ok], np.int64), op_mod.MIN)).ravel()[0])
+                if all_ok and order is not None:
+                    key = order.index(self.rank)
+                    color = 0 if key < grid else -1
+        sub = self.split(color, key)
+        if sub is None:
+            return None
+        sub.topo = CartTopo(dims, periods)
+        sub.name = f"{self.name}~cart"
+        return sub
+
+    def cart_map(self, dims, periods=None) -> int:
+        """``MPI_Cart_map``: the rank this process would get in a reordered
+        cart over ``dims``; UNDEFINED when it would be left out."""
+        from ompi_tpu_torch.api.status import UNDEFINED
+
+        dims = list(dims)
+        grid = int(np.prod(dims)) if dims else 1
+        if grid > self.size:
+            raise MpiError(ErrorClass.ERR_DIMS,
+                           f"grid {dims} larger than comm size {self.size}")
+        order = self._node_major_order()
+        newrank = order.index(self.rank) if order is not None else self.rank
+        return newrank if newrank < grid else UNDEFINED
+
+    def graph_map(self, index, edges) -> int:
+        """``MPI_Graph_map``: the base component's identity mapping."""
+        from ompi_tpu_torch.api.status import UNDEFINED
+
+        return self.rank if self.rank < len(index) else UNDEFINED
+
+    def _node_major_order(self) -> Optional[list]:
+        """Comm ranks sorted by (node, rank); None if a node is unknown."""
+        rte = self.rte
+        if rte is None:
+            return None
+        nodes = [rte.node_of(w) for w in self.group.world_ranks]
+        if any(n is None for n in nodes):
+            return None
+        return sorted(range(self.size), key=lambda r: (str(nodes[r]), r))
+
+    def cart_coords(self, rank: Optional[int] = None) -> list:
+        self._require_topo("cart")
+        return self.topo.coords_of(self.rank if rank is None else rank)
+
+    def cart_rank(self, coords) -> int:
+        self._require_topo("cart")
+        return self.topo.rank_of(coords)
+
+    def cart_shift(self, direction: int, disp: int = 1) -> tuple:
+        self._require_topo("cart")
+        return self.topo.shift(self.rank, direction, disp)
+
+    def cart_get(self) -> tuple:
+        self._require_topo("cart")
+        return (list(self.topo.dims), list(self.topo.periods),
+                self.cart_coords())
+
+    def cart_sub(self, remain_dims) -> Optional["Comm"]:
+        """``MPI_Cart_sub``: keep the axes where ``remain_dims`` is true;
+        one colour a combination of the dropped coordinates."""
+        self._require_topo("cart")
+        from ompi_tpu_torch.mca.topo import CartTopo
+
+        coords = self.cart_coords()
+        dropped = tuple(c for c, keep in zip(coords, remain_dims)
+                        if not keep)
+
+        def color_of(rank: int) -> int:
+            c0 = 0
+            for c, dim, keep in zip(self.topo.coords_of(rank),
+                                    self.topo.dims, remain_dims):
+                if not keep:
+                    c0 = c0 * dim + c
+            return c0
+
+        if self._device_world():
+            color = np.array([color_of(r) for r in range(self.size)])
+            key = np.arange(self.size)
+        else:
+            color, key = color_of(self.rank), self.rank
+        sub = self.split(color, key)
+        if sub is None:
+            return None
+        sub.topo = CartTopo(
+            [d for d, keep in zip(self.topo.dims, remain_dims) if keep],
+            [p for p, keep in zip(self.topo.periods, remain_dims) if keep])
+        sub.name = f"{self.name}~sub{dropped}"
+        return sub
+
+    def graph_create(self, index, edges,
+                     reorder: bool = False) -> Optional["Comm"]:
+        from ompi_tpu_torch.mca.topo import GraphTopo
+
+        nnodes = len(index)
+        if self._device_world():
+            color = np.array([0 if r < nnodes else -1
+                              for r in range(self.size)])
+            key = np.arange(self.size)
+        else:
+            color, key = (0 if self.rank < nnodes else -1), self.rank
+        sub = self.split(color, key)
+        if sub is None:
+            return None
+        sub.topo = GraphTopo(index, edges)
+        sub.name = f"{self.name}~graph"
+        return sub
+
+    def dist_graph_create_adjacent(self, sources, destinations,
+                                   sourceweights=None, destweights=None,
+                                   reorder: bool = False) -> "Comm":
+        from ompi_tpu_torch.mca.topo import DistGraphTopo
+
+        sub = self.dup()
+        sub.topo = DistGraphTopo(sources, destinations, sourceweights,
+                                 destweights)
+        sub.name = f"{self.name}~distgraph"
+        return sub
+
+    def _require_topo(self, kind: str) -> None:
+        if self.topo is None or self.topo.kind != kind:
+            raise MpiError(ErrorClass.ERR_TOPOLOGY,
+                           f"{self.name} has no {kind} topology")
+
+    def _require_any_topo(self) -> None:
+        if self.topo is None:
+            raise MpiError(ErrorClass.ERR_TOPOLOGY,
+                           f"{self.name} has no topology")
+
+    # neighbor collectives (``coll_base_neighbor_*``): point-to-point over
+    # the topology's (sources, destinations); reserved tags -3, -4, -6
+    def neighbor_allgather(self, sendbuf) -> list:
+        self._require_any_topo()
+        srcs, dsts = self.topo.neighbors(self.rank)
+        if self._device_world():
+            # the table's leading axis indexes ranks
+            return [None if s == PROC_NULL else _row_copy(sendbuf, s)
+                    for s in srcs]
+        arr = np.ascontiguousarray(host_buffer(sendbuf))
+        reqs = [self.isend(arr, d, tag=-3) for d in dsts if d != PROC_NULL]
+        out = []
+        for s in srcs:
+            if s == PROC_NULL:
+                out.append(None)
+            else:
+                buf = np.empty_like(arr)
+                self.recv(buf, s, tag=-3)
+                out.append(buf)
+        from ompi_tpu_torch.api.request import waitall
+
+        waitall(reqs)
+        return out
+
+    def _device_channels(self) -> dict:
+        """The device world's (src, dst) channels: ``sendbufs[r][k]`` is
+        rank r's block for its k-th destination, and each channel queues
+        its blocks' k, paired with inbound slots FIFO (the per-source order
+        message passing gives, right even where a neighbor appears
+        twice)."""
+        from collections import defaultdict, deque
+
+        chan: dict = defaultdict(deque)
+        for r in range(self.size):
+            _, r_dsts = self.topo.neighbors(r)
+            for k, d in enumerate(r_dsts):
+                if d != PROC_NULL:
+                    chan[(r, d)].append(k)
+        return chan
+
+    def neighbor_alltoall(self, sendbufs) -> list:
+        self._require_any_topo()
+        srcs, dsts = self.topo.neighbors(self.rank)
+        if self._device_world():
+            chan = self._device_channels()
+            return [None if s == PROC_NULL else _row_copy(
+                        sendbufs[s], chan[(s, self.rank)].popleft())
+                    for s in srcs]
+        if len(sendbufs) != len(dsts):
+            raise MpiError(ErrorClass.ERR_ARG,
+                           f"need {len(dsts)} send buffers, got "
+                           f"{len(sendbufs)}")
+        reqs = []
+        template = None  # every block has one size (MPI neighbor semantics)
+        for d, buf in zip(dsts, sendbufs):
+            if d != PROC_NULL:
+                arr = np.ascontiguousarray(host_buffer(buf))
+                template = arr
+                reqs.append(self.isend(arr, d, tag=-4))
+        out = []
+        for s in srcs:
+            if s == PROC_NULL:
+                out.append(None)
+            elif template is None:
+                raise MpiError(ErrorClass.ERR_ARG,
+                               "cannot size receive blocks: no real "
+                               "destination buffer to mirror")
+            else:
+                buf = np.empty_like(template)
+                self.recv(buf, s, tag=-4)
+                out.append(buf)
+        from ompi_tpu_torch.api.request import waitall
+
+        waitall(reqs)
+        return out
+
+    # the v/w forms: per-neighbor sizes (and dtypes for w) ride the object
+    # channel, FIFO per (src, dst) pair like the fixed-size forms
+    def neighbor_allgatherv(self, sendbuf) -> list:
+        self._require_any_topo()
+        srcs, dsts = self.topo.neighbors(self.rank)
+        if self._device_world():
+            # table[r] is rank r's buffer, of any size
+            return [None if s == PROC_NULL else _row_copy(sendbuf, s)
+                    for s in srcs]
+        from ompi_tpu_torch.api.request import waitall
+
+        arr = np.ascontiguousarray(host_buffer(sendbuf))
+        reqs = [r for d in dsts if d != PROC_NULL
+                for r in self.isend_obj(arr, d, tag=-6)]
+        out = [None if s == PROC_NULL else self.recv_obj(s, tag=-6)
+               for s in srcs]
+        waitall(reqs)
+        return out
+
+    def neighbor_alltoallv(self, sendbufs) -> list:
+        self._require_any_topo()
+        srcs, dsts = self.topo.neighbors(self.rank)
+        if self._device_world():
+            chan = self._device_channels()
+            return [None if s == PROC_NULL else _row_copy(
+                        sendbufs[s], chan[(s, self.rank)].popleft())
+                    for s in srcs]
+        if len(sendbufs) != len(dsts):
+            raise MpiError(ErrorClass.ERR_ARG,
+                           f"need {len(dsts)} send buffers, got "
+                           f"{len(sendbufs)}")
+        from ompi_tpu_torch.api.request import waitall
+
+        reqs = [r for b, d in zip(sendbufs, dsts) if d != PROC_NULL
+                for r in self.isend_obj(
+                    np.ascontiguousarray(host_buffer(b)), d, tag=-6)]
+        out = [None if s == PROC_NULL else self.recv_obj(s, tag=-6)
+               for s in srcs]
+        waitall(reqs)
+        return out
+
+    def neighbor_alltoallw(self, sendbufs, recvtypes=None) -> list:
+        """Per-neighbor buffers AND per-neighbor receive dtypes (numpy
+        blocks only)."""
+        out = self.neighbor_alltoallv(sendbufs)
+        if recvtypes is None:
+            return out
+        typed = []
+        for j, b in enumerate(out):
+            if b is None:
+                typed.append(None)
+                continue
+            rt_ = recvtypes[j] if isinstance(recvtypes, (list, tuple)) \
+                else recvtypes
+            typed.append(np.ascontiguousarray(b).reshape(-1)
+                         .view(np.uint8).view(np.dtype(rt_)))
+        return typed
+
+    # -- ULFM (``ompi/mpiext/ftmpi``) ------------------------------------
+    def revoke(self) -> None:
+        from ompi_tpu_torch.ft import revoke as ft_revoke
+
+        ft_revoke.revoke(self)
+
+    def shrink(self) -> "Comm":
+        from ompi_tpu_torch.ft import shrink as ft_shrink
+
+        return ft_shrink.shrink(self)
+
+    def get_failed(self) -> Group:
+        failed = [r for r in self.group.world_ranks
+                  if _ft_state().is_failed(r)]
+        return Group(failed)
+
+    def ack_failed(self, num_to_ack: Optional[int] = None) -> int:
+        """``MPIX_Comm_ack_failed``: acknowledged ranks stop tripping
+        ``agree`` into ProcFailedError.  Returns the number acknowledged."""
+        failed = [r for r in self.group.world_ranks
+                  if _ft_state().is_failed(r)]
+        if num_to_ack is not None:
+            failed = failed[:num_to_ack]
+        self._acked_failed = frozenset(failed) | getattr(
+            self, "_acked_failed", frozenset())
+        return len(self._acked_failed)
+
+    @property
+    def ft_scope(self) -> str:
+        """Revocation scope: job-local CIDs are scoped to the job; bridge
+        CIDs (>= 2^20) share one scope."""
+        if self.cid >= (1 << 20):
+            return "#bridge"
+        return str(getattr(self.rte, "job", "0"))
+
+    def is_revoked(self) -> bool:
+        if not self.revoked:
+            # the hot path (every _check_state): a prebuilt key and the
+            # cached module reference, one set-membership probe
+            key = self._rev_key
+            if key is None:
+                key = self._rev_key = (self.ft_scope, self.cid, self.epoch)
+            if _ft_state().is_revoked_key(key):
+                self.revoked = True
+        return self.revoked
 
     def release_coll_modules(self) -> None:
         """Tear down per-comm coll module state (``free``, and runtime

@@ -42,7 +42,10 @@ Observability (``sm.py:347-411``): the header build is the ``send.queue``
 stage, the ring write (sm's wire) a ``btl_ringpush`` span of category
 ``btl`` with its log2 histogram and the ``send.wire`` stage, and the
 frame's unpickle the ``recv.parse`` stage, each behind its module flag.
-Not copied: the chaos hooks.
+Under ULFM, ``flush`` drops the frames queued to a rank the FT state holds
+failed (``sm.py:530-540``), so a survivor's finalize never waits on the
+dead; a live peer that stops draining still fails the rank.  Not copied:
+the chaos hooks.
 """
 from __future__ import annotations
 
@@ -458,12 +461,22 @@ class SmBtl(Btl):
         frags are packed, so a frame can still wait here for ring space
         that only its receiver's progress frees (bounded window).  Frames
         still queued after ``timeout`` (default :data:`FLUSH_TIMEOUT_S`)
-        would never reach their peer: that is an error, not a quiet exit."""
+        would never reach their peer: that is an error, not a quiet exit.
+        Frames to a rank the FT state holds failed are undeliverable and
+        dropped, as the reference's ``close`` skips them (``sm.py:530-540``);
+        a live but stuck peer still fails the rank."""
         import time as _time
+
+        from ompi_tpu_torch.ft import state as ft_state
 
         deadline = _time.monotonic() + (
             FLUSH_TIMEOUT_S if timeout is None else timeout)
-        while any(len(f) for f in self._pending.values()):
+        while True:
+            with self._tx_lock:
+                for r in [r for r in self._pending if ft_state.is_failed(r)]:
+                    del self._pending[r]
+            if not any(len(f) for f in self._pending.values()):
+                return
             if _time.monotonic() >= deadline:
                 stuck = {r: len(f) for r, f in self._pending.items() if len(f)}
                 raise MpiError(ErrorClass.ERR_OTHER,

@@ -47,11 +47,18 @@ trace instant under its counter's name.  While set up the btl publishes
 its out-queue depth as the ``tcp`` telemetry source
 (:meth:`TcpBtl._telemetry_stats`); ``close`` withdraws it.
 
-Not copied: the chaos hooks (``chaos.wire_send``/``wire_recv``, injected
-resets and corruption; ROADMAP A 4), and the FT side (``_drain_suspects``
-into ``ft/propagator``, best-effort FT sends with their connect backoff
-and ``est_only``, the ``abort`` event a wire fault posts; A 4).  btl/tcp
-has no one-sided triple
+The FT side (``tcp.py:336-391``, ``:415-459``, ``:574-590``, ``:816``,
+``:891``): a connection that dies mid-traffic (reset, unexpected EOF, a
+hard write error) records its peer as a suspect under ``_conns_lock``;
+``_drain_suspects`` hands the suspects to ``ft/propagator.wire_suspicion``
+with no lock held, after every send and at the top of every progress
+call, so both receive lanes (the selector and the native reactor) drain
+them.  FT control frames (``proto`` ``ft_*``) are best-effort: a failed
+connect puts the peer in a 10 s backoff that only they honour, and a frame
+flagged ``est_only`` (the detector's tombstone flood) rides an established
+connection or none.  Not copied: the chaos hooks (``chaos.wire_send`` /
+``wire_recv``, injected resets and corruption; ROADMAP A 4.4) and the
+``abort`` event a wire fault posts.  btl/tcp has no one-sided triple
 (``rdma`` False): ob1's RGET rung reaches it only as the receiver-requested
 FRAG stream of ``pml_ob1_rget_emulate``.
 """
@@ -211,6 +218,11 @@ class TcpBtl(Btl):
         self._addr_cache: dict[int, tuple] = {}
         self._locks_guard = threading.Lock()
         self._connect_locks: dict[int, threading.Lock] = {}  # per peer
+        self._connect_backoff: dict[int, float] = {}   # rank -> retry-after
+        # peers whose connection died mid-traffic, pending hand-off to the
+        # FT detector as suspicions: filled under _conns_lock in
+        # _drop_conn, drained lock-free by send and progress
+        self._suspects: list[int] = []
 
     def register_vars(self, fw) -> None:
         self.register_var(
@@ -303,7 +315,7 @@ class TcpBtl(Btl):
         return Endpoint(self, world_rank)
 
     # -- send path -------------------------------------------------------
-    def _connect(self, rank: int) -> _Conn:
+    def _connect(self, rank: int, best_effort: bool = False) -> _Conn:
         conns = self._by_rank.get(rank)
         if conns:
             return self._pick(rank, conns)
@@ -313,6 +325,14 @@ class TcpBtl(Btl):
             conns = self._by_rank.get(rank)
             if conns:
                 return self._pick(rank, conns)
+            # a failed connect's backoff gates only BEST-EFFORT traffic (FT
+            # heartbeats and floods): a dead host blackholes SYNs, and a
+            # blocking retry a tick would stall the sender for the connect
+            # timeout.  Application sends always attempt the connect
+            until = self._connect_backoff.get(rank, 0.0)
+            if best_effort and time.monotonic() < until:
+                raise ConnectionError(
+                    f"rank {rank} connect in backoff until {until:.1f}")
             addr = self._addr_cache.get(rank)
             if addr is None:
                 addr = self._rte.modex_get(rank, "btl_tcp_addr")
@@ -340,12 +360,15 @@ class TcpBtl(Btl):
                         except OSError:
                             pass
                     if not conns:
+                        self._connect_backoff[rank] = \
+                            time.monotonic() + 10.0
                         raise
                     break   # some links up: run with what connected
                 conn = _Conn(sock, rank)
                 sock.setblocking(False)
                 self._register_conn(conn)
                 conns.append(conn)
+            self._connect_backoff.pop(rank, None)
             # MERGE, never assign: the handshake path may have appended
             # accepted reply rails for this rank concurrently
             with self._conns_lock:
@@ -374,7 +397,21 @@ class TcpBtl(Btl):
             # pickle header can outgrow the fast header, so the built
             # frame is re-checked below
             raise self._frame_too_large(nbytes)
-        conn = self._connect(ep.world_rank)
+        # FT control traffic is best-effort: it honours the connect backoff
+        # and, when flagged, rides only an ALREADY-established connection
+        # (a shutdown tombstone flood must not block connecting to a
+        # possibly-dead peer)
+        meta = frag.meta or {}
+        if meta.get("est_only"):
+            conns = self._by_rank.get(ep.world_rank)
+            if not conns:
+                raise ConnectionError(
+                    f"no established connection to rank {ep.world_rank}")
+            conn = self._pick(ep.world_rank, conns)
+        else:
+            conn = self._connect(
+                ep.world_rank,
+                best_effort=str(meta.get("proto", "")).startswith("ft_"))
         # payload as a flat byte view
         payload = frag.data
         if not isinstance(payload, (bytes, bytearray, memoryview)):
@@ -455,6 +492,21 @@ class TcpBtl(Btl):
                         sanitizer.fail(
                             "btl/tcp out-queue still aliases a borrowed "
                             "payload after send() returned")
+        self._drain_suspects()
+
+    def _drain_suspects(self) -> None:
+        """Fire deferred wire-reset suspicions (recorded by ``_drop_conn``
+        under ``_conns_lock``, delivered here with no lock held: the report
+        floods CTL frames over other connections and must not nest under
+        transport locks)."""
+        if not self._suspects:
+            return
+        with self._conns_lock:
+            pending, self._suspects = self._suspects, []
+        from ompi_tpu_torch.ft import propagator
+
+        for rank in pending:
+            propagator.wire_suspicion(rank)
 
     @staticmethod
     def _frame_too_large(nbytes: int) -> ValueError:
@@ -649,6 +701,7 @@ class TcpBtl(Btl):
     @hot_path
     def progress(self) -> int:
         events = 0
+        self._drain_suspects()
         if self._reactor and not self._sel.get_map():
             # native-reactor lane: every socket lives on the epoll thread
             # and records arrive via reactor_mod.drain (a sibling progress
@@ -714,6 +767,11 @@ class TcpBtl(Btl):
                 conns.remove(conn)
                 if not conns:
                     self._by_rank.pop(conn.rank, None)
+            # a peer reset or unexpected EOF mid-traffic: a suspicion for
+            # the FT detector (drained outside the lock; a no-op in jobs
+            # without one).  A teardown-time close never reaches here:
+            # close() clears _by_rank wholesale
+            self._suspects.append(conn.rank)
 
     @staticmethod
     def _need(inbuf) -> int:

@@ -9,6 +9,7 @@ multi-process communicator (``tpurun``) takes the reference's vote: ``sync``
 50 (off unless its barrier count is set), ``han`` 40 (hierarchical, across
 nodes), ``sm_coll`` 35 (a mapped segment on single-node comms, with the
 native core), ``tuned`` 30 (the decision ladder over ``algorithms``' menus),
+``ftagree`` 30 (the fault-tolerant ``agree``),
 ``adapt`` 28 (off by default), ``libnbc`` 25 (the ``i*`` schedules) and
 ``basic`` 10 (linear, over point-to-point); ``demo`` interposes when its
 priority is raised.  ``quant`` is a config home (the codec and its ladder),

@@ -21,9 +21,11 @@ ladders; coll/basic only when nothing else is selected).  Priority 35,
 between tuned (30) and han (40); it declines in the device world, on a
 comm that spans nodes, and without the native core (``:259-280``).  A
 tensor is staged to the host once, at a slot's entry.  The segment's name
-carries the port's prefix (``otpt_csm``).  Not copied: the FT branch of
-the counter wait (a failed member turns the wait into ``ProcFailedError``,
-``:157-172``; ROADMAP A 4).
+carries the port's prefix (``otpt_csm``).  A failed member turns a
+counter wait into ``ProcFailedError`` (``sm_coll.py:150-176``; checked
+every 2048 spins) instead of a hang, and no local view of the segment
+outlives a slot's wait, so a survivor that caught the error unmaps the
+segment without a ``BufferError``.
 """
 from __future__ import annotations
 
@@ -147,16 +149,31 @@ class SmCollModule:
             self._seg = None
 
     # -- shared-counter helpers ------------------------------------------
-    def _wait_at_least(self, off: int, target: int) -> None:
-        """Spin until the shared counter reaches ``target``."""
+    def _wait_at_least(self, off: int, target: int,
+                       comm=None) -> None:
+        """Spin until the shared counter reaches ``target``; a failed comm
+        member turns the wait into ProcFailedError instead of a hang (the
+        basic algorithms get this from pml request completion)."""
+        from ompi_tpu_torch.ft import state as ft_state
         from ompi_tpu_torch.runtime.progress import progress
 
+        spins = 0
         while self._native.atomic_load_u64(self._addr + off) < target:
+            spins += 1
             # keep the transports moving: a peer may be unable to reach
             # this collective until our queued btl output (pending
             # rendezvous frags) drains — spinning without progress would
             # deadlock the pair
             progress()
+            if comm is not None and spins % 2048 == 0:
+                dead = [r for r in comm.group.world_ranks
+                        if ft_state.is_failed(r)]
+                if dead:
+                    from ompi_tpu_torch.api.errors import ProcFailedError
+
+                    raise ProcFailedError(
+                        f"peer(s) {dead} failed during a coll/sm "
+                        f"operation", tuple(dead))
             time.sleep(0)
 
     def _bump(self, off: int) -> None:
@@ -175,7 +192,8 @@ class SmCollModule:
             return self._fallback.barrier(comm)
         self._rounds["bar"] += 1
         self._bump(_BAR_ARRIVE)
-        self._wait_at_least(_BAR_ARRIVE, self._rounds["bar"] * comm.size)
+        self._wait_at_least(_BAR_ARRIVE, self._rounds["bar"] * comm.size,
+                            comm)
 
     def bcast(self, comm, buf, root=0):
         arr = np.ascontiguousarray(staged(buf))
@@ -185,11 +203,11 @@ class SmCollModule:
         rnd, n = self._rounds["bc"], comm.size
         if comm.rank == root:
             # previous round's readers must be done before overwriting
-            self._wait_at_least(_BC_READERS, (rnd - 1) * (n - 1))
+            self._wait_at_least(_BC_READERS, (rnd - 1) * (n - 1), comm)
             self._bc_buf()[:arr.nbytes] = arr.view(np.uint8).reshape(-1)
             self._native.atomic_store_u64(self._addr + _BC_GEN, rnd)
             return arr
-        self._wait_at_least(_BC_GEN, rnd)
+        self._wait_at_least(_BC_GEN, rnd, comm)
         out = np.empty_like(arr)
         out.view(np.uint8).reshape(-1)[:] = self._bc_buf()[:arr.nbytes]
         self._bump(_BC_READERS)
@@ -203,11 +221,14 @@ class SmCollModule:
         rnd, n = self._rounds["ar"], comm.size
         # everyone from the previous round must have finished reading the
         # slots before this round's writes
-        self._wait_at_least(_AR_DONE, (rnd - 1) * n)
-        me = self._slot_buf(comm.rank)
-        me[:arr.nbytes] = arr.view(np.uint8).reshape(-1)
+        self._wait_at_least(_AR_DONE, (rnd - 1) * n, comm)
+        # no local name holds a view of the segment across a wait: a
+        # ProcFailedError's traceback would keep it alive and make the
+        # survivor's unmap fail with BufferError
+        self._slot_buf(comm.rank)[:arr.nbytes] = arr.view(np.uint8) \
+            .reshape(-1)
         self._bump(_AR_ARRIVE)
-        self._wait_at_least(_AR_ARRIVE, rnd * n)
+        self._wait_at_least(_AR_ARRIVE, rnd * n, comm)
         # fold in rank order (non-commutative safe), each rank locally —
         # the coll/sm tradeoff: n-fold small compute for zero messages
         acc = np.array(self._slot_buf(n - 1)[:arr.nbytes]

@@ -31,9 +31,17 @@ reference's order (``:224-478``, ``:604-855``, deferred past the match
 lock), the ``send.pack``, ``recv.deliver`` and ``recv.complete`` stage
 clocks, and ``memchecker.protect_send`` on the RGET and RNDV rungs (a
 numpy send buffer is read-only until the request completes; a tensor is
-staged to the host at the send's entry and not guarded).  Not copied: the
-FT hooks (``ft_state.on_failure``, ``_peer_failed`` with its RGET release
-and the ``ProcFailed``/``Revoked`` completions, ROADMAP A 4.1).
+staged to the host at the send's entry and not guarded).
+
+The FT hooks are the reference's (``ob1.py:137-139``, ``:161-201``,
+``:485-512``): the module listens for failures (``ft_state.on_failure``),
+and ``_peer_failed`` completes every request whose explicit peer died with
+``ProcFailedError`` (ANY_SOURCE receives stay posted), releasing an RGET
+exposure a dead puller never released first, so its segment returns to the
+pool and the sender's numpy buffer is writable again; a card tensor's
+host copy (``as_buffer``'s staging) goes with its request.  A blocking
+probe, which is never a posted request, polls the failure state and the
+revocation set every 2048 spins (``_probe_liveness``).
 """
 from __future__ import annotations
 
@@ -149,6 +157,11 @@ class Ob1Pml:
         self._send_reqs: dict[int, SendRequest] = {}
         self._recv_reqs: dict[int, RecvRequest] = {}
         self.bml = Bml(rte, self._recv_frag)
+        # req_ft.c: a peer's death completes its pending requests in
+        # error instead of leaving their waiters blocked forever
+        from ompi_tpu_torch.ft import state as ft_state
+
+        ft_state.on_failure(self._peer_failed)
         register_ctl_handler("ob1_rget_done", self._on_rget_done)
         register_ctl_handler("ob1_rget_pull", self._on_rget_pull)
 
@@ -168,6 +181,44 @@ class Ob1Pml:
 
     def finalize(self) -> None:
         self.bml.finalize()
+
+    # -- FT request completion (``ompi/request/req_ft.c``) ---------------
+    def _peer_failed(self, world_rank: int) -> None:
+        """Complete pending requests whose explicit peer died, in error.
+
+        ANY_SOURCE receives are left pending (the reference raises
+        ERR_PROC_FAILED_PENDING, a warning, without destroying them)."""
+        from ompi_tpu_torch.api.errors import ProcFailedError
+
+        err = ProcFailedError(f"peer world rank {world_rank} failed",
+                              (world_rank,))
+        victims = []
+        with self._lock:
+            for st in self._match.values():
+                for req in list(st.posted):
+                    if req.source == ANY_SOURCE:
+                        continue
+                    try:
+                        src_w = req.comm.group.world_rank(req.source)
+                    except Exception:
+                        continue
+                    if src_w == world_rank:
+                        st.posted.remove(req)
+                        victims.append(req)
+            for rid, req in list(self._recv_reqs.items()):
+                if req.matched_src == world_rank:
+                    del self._recv_reqs[rid]
+                    victims.append(req)
+            for rid, req in list(self._send_reqs.items()):
+                try:
+                    if req.comm.group.world_rank(req.dest) == world_rank:
+                        del self._send_reqs[rid]
+                        victims.append(req)
+                except Exception:
+                    continue
+        for req in victims:
+            _release_rget(req)   # a dead puller must not leak the segment
+            req.complete(err)
 
     # -- send path (pml_ob1_isend.c:233) --------------------------------
     @hot_path
@@ -425,11 +476,37 @@ class Ob1Pml:
                         _nbytes=frag.total_len or len(frag.data))
         return None
 
+    def _probe_liveness(self, comm, source: int, spins: int) -> None:
+        """Keep a blocking probe out of the one FT hole request completion
+        cannot cover: a probe is never a posted request, so
+        ``_peer_failed`` cannot complete it in error.  ULFM probe
+        semantics: a named failed source raises ERR_PROC_FAILED, a revoked
+        comm ERR_REVOKED; ANY_SOURCE is left pending."""
+        if spins % 2048:
+            return
+        if comm.is_revoked():
+            from ompi_tpu_torch.api.errors import RevokedError
+
+            raise RevokedError(f"{comm.name} revoked during a "
+                               "blocking probe")
+        if source == ANY_SOURCE:
+            return
+        from ompi_tpu_torch.ft import state as ft_state
+
+        src_world = comm.group.world_rank(source)
+        if ft_state.is_failed(src_world):
+            from ompi_tpu_torch.api.errors import ProcFailedError
+
+            raise ProcFailedError(
+                f"peer world rank {src_world} failed during a "
+                "blocking probe", (src_world,))
+
     def probe(self, comm, source: int, tag: int, blocking: bool):
         spc.record("probe" if blocking else "iprobe")
         from ompi_tpu_torch.runtime.progress import progress
 
         probe_req = RecvRequest(self, comm, np.empty(0, np.uint8), source, tag)
+        spins = 0
         while True:
             hit = self._find_unexpected(comm, probe_req, take=False)
             if hit is not None:
@@ -438,11 +515,14 @@ class Ob1Pml:
             if not blocking:
                 hit = self._find_unexpected(comm, probe_req, take=False)
                 return (True, hit[1]) if hit is not None else (False, None)
+            spins += 1
+            self._probe_liveness(comm, source, spins)
 
     def mprobe(self, comm, source: int, tag: int, blocking: bool):
         from ompi_tpu_torch.runtime.progress import progress
 
         probe_req = RecvRequest(self, comm, np.empty(0, np.uint8), source, tag)
+        spins = 0
         while True:
             hit = self._find_unexpected(comm, probe_req, take=True)
             if hit is not None:
@@ -451,6 +531,8 @@ class Ob1Pml:
             if not blocking:
                 return False, None
             progress()
+            spins += 1
+            self._probe_liveness(comm, source, spins)
 
     def _cancel_recv(self, req: RecvRequest) -> bool:
         with self._lock:

@@ -34,9 +34,14 @@ class Rte:
         """Out-of-band barrier + modex publication (``PMIx_Fence``)."""
         raise NotImplementedError
 
+    def locality_color(self, split_type: str) -> int:
+        """``split_type``'s colour of this process: one host (the device
+        world's one card) gives every rank the same."""
+        return 0
+
     def node_of(self, world_rank: int) -> Optional[Any]:
         """Node identity of a peer (None if unknown) — the locality lookup
-        coll/han reads."""
+        coll/han and ``cart_create(reorder=True)`` read."""
         return None
 
     def event_notify(self, event: str, payload: Any) -> None:

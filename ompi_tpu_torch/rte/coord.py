@@ -16,12 +16,24 @@ flight is adopted — so a fence interrupted mid-RPC is applied exactly
 once.  Timeouts are MCA vars (``otpu_coord_*``).  The ``ping`` op answers
 with the server's wall clock (``CoordClient.server_time``, the exchange
 the trace exporter's clock offset reads) and ``CoordServer.collect``
-gathers one key's per-rank values for the launcher's merges.  Not copied:
-spawn and process sets (with dpm, ROADMAP A 4), the recovery scope of
-ULFM, the chaos hooks and the flight-recorder views.
+gathers one key's per-rank values for the launcher's merges.
+
+Fault tolerance (``coord.py:292``, ``:465-487``, ``:612``, ``:768``): a
+``proc_failed`` event, published by the launcher (``tpurun
+--enable-recovery``) or by a rank's propagator, adds the rank to the
+server's failed set, and a fence counts a failed rank as arrived, so
+survivors' fences (the final one included) never wait on the dead.  The
+``del`` op (``CoordClient.delete``) lets agreement rounds retire their keys,
+and ``CoordClient.recovery_scope`` gives the RPCs of a recovery round the
+longer retry ladder of ``otpu_coord_recovery_retry_max`` and
+``otpu_coord_recovery_rpc_timeout``.  Not copied: spawn and process sets
+(with dpm and sessions, ROADMAP A 4.2-4.3; the ``mpi://surviving`` pset a
+failure publishes waits for them), the chaos hooks and the flight-recorder
+views.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import random
@@ -63,6 +75,18 @@ _backoff_var = registry.register(
     "coord", None, "retry_backoff", vtype=VarType.FLOAT, default=0.05,
     help="Base of the reconnect exponential backoff in seconds "
          "(doubled per attempt, jittered, capped at 2s)")
+_recovery_retry_max_var = registry.register(
+    "coord", None, "recovery_retry_max", vtype=VarType.INT, default=24,
+    help="Reconnect-and-retry budget for RPCs issued inside a recovery "
+         "scope (ULFM shrink and agreement rounds): every survivor hits "
+         "the coordination server at once right after a failure, so "
+         "recovery RPCs get a longer ladder than otpu_coord_retry_max.  "
+         "0 inherits otpu_coord_retry_max")
+_recovery_rpc_timeout_var = registry.register(
+    "coord", None, "recovery_rpc_timeout", vtype=VarType.FLOAT,
+    default=0.0,
+    help="Socket-level ceiling on one coordination RPC while inside a "
+         "recovery scope; 0 (the default) inherits otpu_coord_rpc_timeout")
 
 
 def _send_frame(sock: socket.socket, obj: Any) -> None:
@@ -108,6 +132,9 @@ class CoordServer:
         self._fence_expect: dict[str, tuple] = {}
         self._fence_done: set[str] = set()
         self._fence_cond = threading.Condition()
+        #: world ranks a proc_failed event named: a fence counts them as
+        #: arrived
+        self._failed: set[int] = set()
         self._events: list[tuple[int, str, Any]] = []
         self._event_seq = 0
         self._event_cond = threading.Condition()
@@ -224,6 +251,10 @@ class CoordServer:
                 self._kv[(req["rank"], req["key"])] = req["value"]
                 self._kv_cond.notify_all()
             return {"ok": True}
+        if op == "del":
+            with self._kv_cond:
+                self._kv.pop((req["rank"], req["key"]), None)
+            return {"ok": True}
         if op == "put_new":
             # atomic put-if-absent: first writer wins, everyone gets
             # the winning value back
@@ -297,7 +328,7 @@ class CoordServer:
         # caller holds _fence_cond
         arrived = self._fence_ranks.get(fid, set())
         expected = self._fence_expect.get(fid, range(self.nprocs))
-        return all(r in arrived for r in expected)
+        return all(r in arrived or r in self._failed for r in expected)
 
     def _complete_fence_locked(self, fid: str, oneshot: bool = False) -> None:
         # caller holds _fence_cond.  One-shot fences (finalize) record
@@ -316,7 +347,16 @@ class CoordServer:
             self._kv_cond.notify_all()
 
     def publish(self, name: str, payload: Any) -> None:
-        """Server-side event injection."""
+        """Server-side event injection (the launcher's detected failures,
+        and every ``event_pub``).  A ``proc_failed`` event also enters the
+        failed set, and a pending fence the survivors now satisfy
+        completes."""
+        if name == "proc_failed":
+            with self._fence_cond:
+                self._failed.add(int(payload["rank"]))
+                for fid in list(self._fence_ranks):
+                    if self._fence_ranks[fid] and self._fence_satisfied(fid):
+                        self._complete_fence_locked(fid)
         with self._event_cond:
             self._event_seq += 1
             self._events.append((self._event_seq, name, payload))
@@ -381,10 +421,15 @@ class CoordClient:
                            else int(_retry_max_var.value or 0))
         self._backoff = float(_backoff_var.value or 0.05)
         self._rank_label = os.environ.get("OTPU_RANK", "?")
+        #: >0 while inside recovery_scope(): RPCs take the recovery
+        #: retry/timeout budget instead of the steady-state one (plain
+        #: int under the GIL; scopes nest)
+        self._recovery_depth = 0
         self._jitter = random.Random(f"coord-jitter:{self._rank_label}")
         self._cid = uuid.uuid4().hex      # idempotent-retry identity
         self._rid = 0
         self._closed = False
+        self._applied_rto = self._rpc_timeout
         self._sock: Optional[socket.socket] = self._dial()
         self._lock = threading.Lock()
         self._event_since = 0
@@ -404,6 +449,34 @@ class CoordClient:
         if not resp.get("ok"):
             raise RuntimeError(f"coordination error: {resp.get('error')}")
         return resp
+
+    @contextlib.contextmanager
+    def recovery_scope(self):
+        """RPCs issued inside take the recovery budget
+        (``otpu_coord_recovery_retry_max`` /
+        ``otpu_coord_recovery_rpc_timeout``) instead of the steady-state
+        one: right after a failure every survivor hits the server at once.
+        Scopes nest; the budget reverts when the outermost exits."""
+        self._recovery_depth += 1
+        try:
+            yield self
+        finally:
+            self._recovery_depth -= 1
+
+    def _effective_retry_max(self) -> int:
+        if self._recovery_depth > 0:
+            rec = int(_recovery_retry_max_var.value or 0)
+            if rec > 0:
+                # never SHORTER than steady state
+                return max(rec, self._retry_max)
+        return self._retry_max
+
+    def _effective_rpc_timeout(self) -> float:
+        if self._recovery_depth > 0:
+            rto = float(_recovery_rpc_timeout_var.value or 0.0)
+            if rto > 0.0:
+                return rto
+        return self._rpc_timeout
 
     def _rpc_locked(self, req: dict) -> dict:
         """One idempotent RPC round: send, then receive; connection errors
@@ -425,6 +498,13 @@ class CoordClient:
                     self._sock = self._dial()
                     spc.record("coord_reconnects")
                     dialing = False
+                    self._applied_rto = self._rpc_timeout
+                rto = self._effective_rpc_timeout()
+                if rto != self._applied_rto:
+                    # a recovery scope widens the per-RPC ceiling (and the
+                    # first RPC after it narrows it back)
+                    self._sock.settimeout(rto)
+                    self._applied_rto = rto
                 _send_frame(self._sock, req)
                 return _recv_frame(self._sock)
             except TimeoutError:
@@ -440,13 +520,14 @@ class CoordClient:
                     # rank it waits on hung): loud, never retried.  Any
                     # other op is instantaneous server-side, so expiry
                     # means an overloaded coord: retry within the ladder
-                    if op == "fence" or attempts >= self._retry_max:
+                    if op == "fence" \
+                            or attempts >= self._effective_retry_max():
                         show_help("help-coord", "rpc-timeout",
                                   rank=self._rank_label, op=op,
-                                  seconds=self._rpc_timeout)
+                                  seconds=self._applied_rto)
                         raise RuntimeError(
                             f"coordination RPC {op!r} timed out after "
-                            f"{self._rpc_timeout:g}s at rank "
+                            f"{self._applied_rto:g}s at rank "
                             f"{self._rank_label} (otpu_coord_rpc_timeout)")
                 self._retry_or_raise(op, attempts)
                 attempts += 1
@@ -457,7 +538,8 @@ class CoordClient:
     def _retry_or_raise(self, op: str, attempts: int) -> None:
         """Connection-error path: close, back off (exponential +
         deterministic jitter), let the caller retry — or fail loudly once
-        ``otpu_coord_retry_max`` attempts are spent."""
+        ``otpu_coord_retry_max`` attempts are spent (inside a recovery
+        scope, ``otpu_coord_recovery_retry_max``)."""
         from ompi_tpu_torch.base.output import show_help
         from ompi_tpu_torch.runtime import spc
 
@@ -467,8 +549,9 @@ class CoordClient:
         except OSError:
             pass
         self._sock = None
-        if self._closed or attempts >= self._retry_max:
-            if self._retry_max > 0 and not self._closed:
+        budget = self._effective_retry_max()
+        if self._closed or attempts >= budget:
+            if budget > 0 and not self._closed:
                 show_help("help-coord", "reconnect-failed",
                           rank=self._rank_label, op=op,
                           attempts=attempts)
@@ -489,6 +572,9 @@ class CoordClient:
         """Atomic fetch-and-add on a coord counter; returns the old value."""
         return self._rpc(op="fetch_add", rank=rank, key=key,
                          delta=delta)["value"]
+
+    def delete(self, rank: int, key: str) -> None:
+        self._rpc(op="del", rank=rank, key=key)
 
     def get(self, rank: int, key: str, wait: bool = True,
             timeout: Optional[float] = None) -> Any:

@@ -9,11 +9,11 @@ construction raises, as the device world's does.  Tensors a rank hands to
 point-to-point or to a host collective are staged through
 ``torch_acc.to_host``.  Node identity for the hierarchy (coll/han): the
 ``node`` modex key, from ``OTPU_NODE_ID`` (``tpurun --fake-nodes``) or
-else the hostname, read back through the cached ``node_of``.  Not copied:
-dpm's job identity (spawned jobs, parent ranks), ``event_poll``, the
-``hostname`` key and
-``split_type``'s colors (the instance layer), the chaos hook and the
-multi-process device world.
+else the hostname, read back through the cached ``node_of``;
+``split_type("shared")``'s colour is a crc32 of it (``locality_color``,
+stable across processes, unlike ``hash()``).  Not copied: dpm's job
+identity (spawned jobs, parent ranks), the ``hostname`` key, the chaos
+hook and the multi-process device world.
 """
 from __future__ import annotations
 
@@ -92,6 +92,14 @@ class ProcRte(Rte):
                 return None     # not cached: may appear later
             self._node_cache[world_rank] = val
         return self._node_cache[world_rank]
+
+    def locality_color(self, split_type: str) -> int:
+        """'shared' means the same node.  A crc32 of the node identity:
+        builtin ``hash()`` is salted per process, which would give the
+        ranks of one node different colours."""
+        import zlib
+
+        return zlib.crc32(self._node.encode()) % (1 << 30)
 
     def event_notify(self, event: str, payload: Any) -> None:
         self.client.event_publish(event, payload)

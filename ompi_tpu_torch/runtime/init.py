@@ -41,8 +41,19 @@ and publishes the monitoring matrices while the coordination client is
 alive (after the final fence, before the teardown), then stops the
 sampler's and the profiler's threads; each step is guarded, so
 observability never breaks a teardown, and the exit hook's finalize runs
-the same path.  Sessions, hooks, fault tolerance and the flight recorder
-(its arming and its dump at ``abort``) are not ported yet.
+the same path.
+
+Fault tolerance (``ompi_tpu/runtime/init.py:207-219``, ``:291-292``,
+``:328-330``): in the multi-process world, with ``otpu_ft_enable`` (on by
+default), init starts ``ft/propagator``'s event poller, and with
+``otpu_ft_detector`` (off by default) the heartbeat detector too, each a
+daemon thread on a coordination connection of its own (the PMIx
+``PROC_ABORTED`` handler of ``ompi_mpi_init.c:400-402``).  ``finalize``
+stops both right after the final fence (the detector leaves its clean-exit
+tombstone), and the teardown stops them on every other path, the exit
+hook's included; ``reset_for_testing`` clears the failure state.
+Sessions, hooks and the flight recorder (its arming and its dump at
+``abort``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -55,6 +66,14 @@ from typing import Optional
 
 from ompi_tpu_torch.base import mca, var
 from ompi_tpu_torch.base.containers import Bitmap
+from ompi_tpu_torch.base.var import VarType, registry
+
+_ft_enable = registry.register(
+    "ft", None, "enable", vtype=VarType.BOOL, default=True,
+    help="Start the FT event poller (failure and revocation delivery)")
+_ft_detector = registry.register(
+    "ft", None, "detector", vtype=VarType.BOOL, default=False,
+    help="Start the heartbeat ring failure detector")
 
 
 class State(enum.IntEnum):
@@ -196,6 +215,14 @@ def init(device=None, rte=None, argv: Optional[list] = None):
             reserve_cid(0)
             reserve_cid(1)
             _build_world()
+            # the ULFM runtime: event poller + optional heartbeat ring
+            if not _rte.is_device_world \
+                    and getattr(_rte, "client", None) is not None \
+                    and _ft_enable.value:
+                from ompi_tpu_torch.ft import propagator
+
+                propagator.start(_rte,
+                                 with_detector=bool(_ft_detector.value))
         except BaseException:
             _teardown()
             _state = State.NOT_INITIALIZED
@@ -280,11 +307,13 @@ def _teardown() -> None:
         if _rte is not None:
             _rte.finalize()
     finally:
+        from ompi_tpu_torch.ft import propagator
         from ompi_tpu_torch.mca.threads import base as threads_base
         from ompi_tpu_torch.runtime import profile, progress, telemetry
 
-        # the sampler's and the profiler's threads end with the runtime,
-        # whichever path tears it down
+        # the FT threads, the sampler's and the profiler's end with the
+        # runtime, whichever path tears it down
+        propagator.stop()
         telemetry.stop()
         profile.stop()
         threads_base.shutdown_pool(permanent=True)
@@ -328,6 +357,9 @@ def finalize() -> None:
                     fence_final()
                 except Exception:
                     pass   # coord gone / timeout: peers are exiting too
+            from ompi_tpu_torch.ft import propagator
+
+            propagator.stop()
             _publish_observability()
             _teardown()
         finally:
@@ -365,6 +397,9 @@ def reset_for_testing() -> None:
 
     interlib.reset_for_testing()
     finalize()
+    from ompi_tpu_torch.ft import state as ft_state
+
+    ft_state.reset_for_testing()
     with _lock:
         _state = State.NOT_INITIALIZED
 

@@ -25,10 +25,18 @@ payloads into one clock-aligned timeline, ``<trace_dir>/trace_merged.json``
 (``otpu-trace/`` by default), with a skew report, ``trace_skew.txt``,
 beside it, and the monitoring matrices into one job-wide table on stderr.
 
-Not copied yet: hostfiles and launch agents (``tpurun.py:34-83``),
-``--enable-recovery``, process sets (the per-node sets ``--fake-nodes``
-names there too), spawn, the device-world and binding flags, and the
-flight bundle merge (``:255-305``, with the flight recorder, ROADMAP A 4.4).
+``--enable-recovery`` is ULFM's mode (``tpurun.py:128-175``, ``:725-737``,
+mpirun's ``--enable-recovery``): a rank that dies is reported once, as a
+``proc_failed`` event the coordination service publishes (its fences then
+count the rank as arrived), and the job runs on; it fails only if no rank
+ran to a clean exit.  The ranks' ``ft_*`` vars (``--mca ft_detector 1``,
+``ft_detector_period``, ``ft_detector_timeout``) arm the heartbeat ring.
+
+Not copied yet: hostfiles, launch agents and their ``_child_main``
+(``tpurun.py:34-83``, ``:322``; ROADMAP A 4.5), process sets (the
+per-node sets ``--fake-nodes`` names there too), spawn, the device-world
+and binding flags, and the flight bundle merge (``:255-305``, with the
+flight recorder, ROADMAP A 4.4).
 """
 from __future__ import annotations
 
@@ -40,12 +48,16 @@ import threading
 import time
 
 
-def _monitor(procs_list, abort_check=None) -> int:
-    """Poll the ranks: the first nonzero exit ends the job with that code
-    (``ompi_tpu/tools/tpurun.py:_monitor``, without recovery).
+def _monitor(procs_list, rank_of, *, enable_recovery: bool = False,
+             label: str = "tpurun", on_fail=None, abort_check=None) -> int:
+    """Poll the ranks (``ompi_tpu/tools/tpurun.py:_monitor``): without
+    recovery the first nonzero exit ends the job with that code; with
+    recovery each death is reported once via ``on_fail(rank, rc)`` and the
+    job keeps running (it fails only if no rank succeeded).
     ``abort_check()`` may return an exit code for an out-of-band abort
     (the coordination service's MPI_Abort)."""
     exit_code = 0
+    reported: set = set()
     try:
         while True:
             snapshot = list(procs_list)
@@ -58,9 +70,25 @@ def _monitor(procs_list, abort_check=None) -> int:
                     exit_code = code
                     break
             if failed:
-                exit_code = failed[0].returncode
-                break
+                if enable_recovery:
+                    for p in failed:
+                        rank = rank_of(p)
+                        if rank not in reported:
+                            reported.add(rank)
+                            print(f"{label}: rank {rank} failed (exit "
+                                  f"{p.returncode}); continuing "
+                                  "(recovery)", file=sys.stderr)
+                            if on_fail is not None:
+                                on_fail(rank, p.returncode)
+                else:
+                    exit_code = failed[0].returncode
+                    break
             if not alive:
+                if enable_recovery and snapshot and not any(
+                        p.returncode == 0 for p in snapshot):
+                    # recovery mode, but nothing survived to completion
+                    exit_code = next(p.returncode for p in snapshot
+                                     if p.returncode != 0)
                 break
             time.sleep(0.05)
     except KeyboardInterrupt:
@@ -172,6 +200,10 @@ def main(argv=None) -> int:
                          "OTPU_NODE_ID=rank*K//nprocs per rank) so the "
                          "hierarchical coll/han path can be exercised on "
                          "one host, like mpirun --oversubscribe for han")
+    ap.add_argument("--enable-recovery", action="store_true",
+                    help="ULFM mode: a dying rank is reported as a "
+                         "proc_failed event instead of tearing down the job "
+                         "(mpirun --enable-recovery)")
     ap.add_argument("command", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     if not args.command:
@@ -228,7 +260,15 @@ def main(argv=None) -> int:
         t.start()
         pumps.append(t)
 
-    exit_code = _monitor(procs, abort_check=lambda: server.aborted)
+    def publish_failed(rank, rc) -> None:
+        # ULFM: report the death and keep the job running (the
+        # PRRTE-daemon-detects-child-death path of the reference)
+        server.publish("proc_failed", {"rank": rank, "origin": "launcher"})
+
+    exit_code = _monitor(procs, procs.index,
+                         enable_recovery=args.enable_recovery,
+                         label="tpurun", on_fail=publish_failed,
+                         abort_check=lambda: server.aborted)
     _teardown(procs, pumps, exit_code)
     _merge_traces(server)
     _merge_monitoring(server)

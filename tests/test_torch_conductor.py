@@ -141,11 +141,16 @@ def test_agree(worlds, flag):
 
 def test_agree_on_a_revoked_comm(worlds):
     """agree checks only that the comm is not freed: ULFM's recovery
-    primitive runs on a revoked comm, where every collective raises."""
+    primitive runs on a revoked comm, where every collective raises.  The
+    RevokedError goes through the comm's error handler, as the
+    reference's does, so the comm returns errors (a fatal handler aborts:
+    ``test_torch_ft.py::test_a_revoked_comm_under_the_fatal_handler_aborts``)."""
+    from ompi_tpu_torch.api.errhandler import ERRORS_RETURN
     from ompi_tpu_torch.api.errors import RevokedError
 
     _, tw = worlds
     d = tw.dup()
+    d.set_errhandler(ERRORS_RETURN)
     d.revoked = True
     assert d.agree(0b110) == 0b110
     with pytest.raises(RevokedError):

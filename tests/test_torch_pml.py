@@ -349,16 +349,14 @@ def test_a_tensor_receive_buffer_raises_like_the_reference(worlds, posted):
 
 
 NOT_COPIED = {
-    # ob1's FT hooks: the reference completes a dead peer's requests in
-    # error (ft_state.on_failure, ProcFailedError); ROADMAP A 4.1
-    "ft_hooks": lambda pkg: hasattr(
-        __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml,
-        "_peer_failed"),
-    # a dead puller releases the sender's RGET exposure (_peer_failed's
-    # _release_rget); with the FT hooks, A 4.1
-    "rget_ft_release": lambda pkg: "_release_rget" in _source_or_empty(
-        __import__(f"{pkg}.mca.pml.ob1", fromlist=["x"]).Ob1Pml,
-        "_peer_failed"),
+    # the agreement's chaos kill points before its prepare and decision
+    # frames (ft/chaos.py, ROADMAP A 4.4)
+    "agree_kill_points": lambda pkg: "kill_point" in inspect.getsource(
+        __import__(f"{pkg}.ft.agreement", fromlist=["x"])._p2p_send),
+    # shrink publishes the agreed survivors as the mpi://shrunk/<cid>
+    # process set (the coordination service's psets, A 4.2)
+    "shrink_pset": lambda pkg: "pset_publish" in inspect.getsource(
+        __import__(f"{pkg}.ft.shrink", fromlist=["x"]).shrink),
     # the top-level names whose modules are not ported: Session (A 4.2),
     # File (A 5), get_parent and open_port (dpm, A 4.3)
     "top_level_session": lambda pkg: "Session" in __import__(pkg)._API,
@@ -366,28 +364,13 @@ NOT_COPIED = {
     "top_level_dpm": lambda pkg: {"get_parent", "open_port"}
     <= set(__import__(pkg)._API),
     # btl/tcp's chaos hooks (injected drops, delays, resets, corruption on
-    # the wire) and its FT side (_drain_suspects into ft/propagator): A 4
+    # the wire): A 4.4
     "tcp_chaos": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]), "chaos"),
-    "tcp_ft_suspects": lambda pkg: hasattr(
-        __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]).TcpBtl,
-        "_drain_suspects"),
-    # coll/sm's FT branch (a failed member turns the counter wait into
-    # ProcFailedError); coll/inter: with intercommunicators; coll/ftagree:
-    # with fault tolerance (A 4)
-    "coll_sm_ft": lambda pkg: "ProcFailedError" in inspect.getsource(
-        __import__(f"{pkg}.mca.coll.sm_coll",
-                   fromlist=["x"]).SmCollModule._wait_at_least),
+    # coll/inter: with intercommunicators (A 4.3)
     "coll_inter": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.coll.inter") is not None,
-    "coll_ftagree": lambda pkg: importlib.util.find_spec(
-        f"{pkg}.mca.coll.ftagree") is not None,
 }
-
-
-def _source_or_empty(cls, name):
-    fn = getattr(cls, name, None)
-    return inspect.getsource(fn) if fn is not None else ""
 
 
 @pytest.mark.parametrize("what", sorted(NOT_COPIED))
