@@ -319,6 +319,34 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    shrink and allreduce a 1 MB card tensor with equal digests.  One
    ``{"topology_ft": {...}}`` line with the card's name and power limit,
    each job's detection latency, agree and shrink times by rank.
+10. Sessions, process sets and dynamic processes (``sessions_dpm``), with
+   coll/ring raised and the counts set to 0 before and read after: in the
+   device world with no ``init``, ``Session.init()`` (its host ms with a
+   cold and a warm instance), ``group_from_pset("mpi://WORLD")`` and
+   ``Comm.create_from_group`` (host ms, a local CID), then on that comm
+   and on a 4-row ``incl`` group's comm ``allreduce_array`` at 16 and 4 MB
+   a rank launches K4 or K3 once each, bit for bit with the plain
+   versions; ``create_intercomm_from_groups`` of the two halves
+   (``is_inter``, the sizes, coll/inter's slot, ``free``); ``init()``
+   joins the instance (refcount 2) and COMM_WORLD's allreduces launch the
+   same kernels with the same bits (K3 ×3 and K4 ×3 in all); ``finalize``
+   and the session's ``finalize`` in both orders, then a fresh boot.  Then
+   four jobs of card tensors: ``tpurun -n 4 --pset app:0-1 --pset io:2-3
+   --fake-nodes 2``, each rank on a Session with no ``init``: its pset list
+   (names, members, sources; the CPU tests hold it against the JAX
+   package's), ``create_from_group`` over the coordination service (host
+   ms), a 16 MB allreduce on the ``app`` and ``io`` comms and on their
+   intercomm (each side gets the other's sum; host ms), exact; a ``-n 2``
+   parent spawning 2 children (spawn to join ms), a 4 MB parent-child
+   ping-pong, the intercomm's 16 MB allreduce, ``merge`` (ms) and a 16 MB
+   allreduce on the 4-rank merged comm with equal digests; ``-n 4``
+   ``publish_name``/``lookup_name``, ``accept``/``connect``, a 4 MB send
+   across, the intercomm's allreduce and ``merge``; a ``--enable-recovery``
+   ``-n 3`` job whose rank 1 dies: revoke, shrink, spawn a replacement,
+   merge (shrink, spawn and merge ms), a 1 MB allreduce with equal digests,
+   and ``mpi://surviving``, ``mpi://shrunk/<cid>`` and ``mpi://job/job1``
+   in the pset list.  One ``{"sessions_dpm": {...}}`` line with the card's
+   name and power limit.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -4058,6 +4086,460 @@ def topology_ft(smi: str, gen) -> dict:
     return out
 
 
+# -- phase 10: sessions, process sets and dynamic processes ---------------
+
+#: the multi-process jobs of ``sessions_dpm``.  Every rank prints one JSON
+#: object; the tensors live on the card.  Integer-valued float32, so every
+#: sum is exact.
+SESSION_JOB = r"""
+import hashlib, json, time
+import numpy as np, torch
+import ompi_tpu_torch as m
+
+t0 = time.perf_counter()
+s = m.Session.init()                        # boots the instance: cold
+cold_ms = (time.perf_counter() - t0) * 1e3
+t0 = time.perf_counter()
+s2 = m.Session.init()                       # a refcount bump: warm
+warm_ms = (time.perf_counter() - t0) * 1e3
+s2.finalize()
+psets = []
+for name in s.psets():
+    info = s.get_pset_info(name)
+    psets.append([name, info.get("otpu_members"), info.get("otpu_source")])
+world = s.group_from_pset("mpi://WORLD")
+app, io = s.group_from_pset("app"), s.group_from_pset("io")
+t0 = time.perf_counter()
+wc = m.Comm.create_from_group(world, "all")
+agreed_ms = (time.perf_counter() - t0) * 1e3
+r = wc.rank
+ca = m.Comm.create_from_group(app, "app")
+ci = m.Comm.create_from_group(io, "io")
+mine, mg, og = (ca, app, io) if ca is not None else (ci, io, app)
+n = 4 << 20                                 # 16 MB of float32
+base = torch.arange(n, device="cuda", dtype=torch.float32).remainder_(1024)
+x = base + r
+want = lambda ranks: sum(np.arange(n, dtype=np.float32) % 1024 + q
+                         for q in ranks)
+got = np.asarray(mine.allreduce(x))
+ok = bool(np.array_equal(got, want(mg.world_ranks)))
+inter = m.Comm.create_intercomm_from_groups(mg, 0, og, 0, "ai")
+inter.allreduce(x)                           # warm
+times = []
+for _ in range(3):
+    t0 = time.perf_counter()
+    red = np.asarray(inter.allreduce(x))
+    times.append((time.perf_counter() - t0) * 1e3)
+ok_inter = bool(np.array_equal(red, want(og.world_ranks)))
+print(json.dumps({
+    "rank": r, "psets": psets, "cold_ms": cold_ms, "warm_ms": warm_ms,
+    "agreed_ms": agreed_ms, "comm": [mine.size, mine.rank, ok,
+                                     hashlib.sha256(got.tobytes()).hexdigest()],
+    "inter": [inter.is_inter, inter.remote_size, ok_inter,
+              hashlib.sha256(red.tobytes()).hexdigest()],
+    "inter_allreduce_ms": times, "card": x.is_cuda}), flush=True)
+for c in (inter, ca, ci, wc):
+    if c is not None:
+        c.free()
+s.finalize()
+"""
+
+SPAWN_CHILD = r"""
+import hashlib, json
+import numpy as np, torch
+import ompi_tpu_torch as m
+
+w = m.init()
+parent = m.get_parent()
+n = 4 << 20
+if w.rank == 0:
+    buf = np.empty(n // 4, np.float32)      # 4 MB
+    parent.recv(buf, 0, tag=5)
+    parent.send(torch.from_numpy(buf * 2).cuda(), 0, tag=6)
+x = torch.arange(n, device="cuda", dtype=torch.float32).remainder_(512) \
+    + w.group.world_ranks[w.rank]
+red = np.asarray(parent.allreduce(x))
+full = parent.merge(high=True)
+tot = np.asarray(full.allreduce(x))
+print(json.dumps({"rank": full.rank, "world": list(w.group.world_ranks),
+                  "red": hashlib.sha256(red.tobytes()).hexdigest(),
+                  "red_head": red[:2].tolist(),
+                  "merged": [full.size, full.rank],
+                  "digest": hashlib.sha256(tot.tobytes()).hexdigest(),
+                  "card": x.is_cuda}), flush=True)
+m.finalize()
+"""
+
+SPAWN_JOB = r"""
+import hashlib, json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch as m
+
+w = m.init()
+t0 = time.perf_counter()
+inter = w.spawn([sys.executable, sys.argv[1]], 2)
+spawn_ms = (time.perf_counter() - t0) * 1e3
+n = 4 << 20
+ping = None
+if w.rank == 0:
+    y = torch.arange(n // 4, device="cuda", dtype=torch.float32)  # 4 MB
+    back = np.empty(n // 4, np.float32)
+    t0 = time.perf_counter()
+    inter.send(y, 0, tag=5)
+    inter.recv(back, 0, tag=6)
+    ping = [(time.perf_counter() - t0) * 1e3,
+            bool(np.array_equal(back, 2 * np.arange(n // 4,
+                                                    dtype=np.float32)))]
+x = torch.arange(n, device="cuda", dtype=torch.float32).remainder_(512) \
+    + w.group.world_ranks[w.rank]
+t0 = time.perf_counter()
+red = np.asarray(inter.allreduce(x))
+inter_ms = (time.perf_counter() - t0) * 1e3
+t0 = time.perf_counter()
+full = inter.merge(high=False)
+merge_ms = (time.perf_counter() - t0) * 1e3
+tot = np.asarray(full.allreduce(x))
+print(json.dumps({"rank": full.rank, "spawn_ms": spawn_ms, "ping": ping,
+                  "remote": list(inter.remote_group.world_ranks),
+                  "job": inter.spawn_job,
+                  "red": hashlib.sha256(red.tobytes()).hexdigest(),
+                  "red_head": red[:2].tolist(),
+                  "inter_allreduce_ms": inter_ms, "merge_ms": merge_ms,
+                  "merged": [full.size, full.rank],
+                  "digest": hashlib.sha256(tot.tobytes()).hexdigest(),
+                  "card": x.is_cuda}), flush=True)
+m.finalize()
+"""
+
+CONNECT_JOB = r"""
+import hashlib, json
+import numpy as np, torch
+import ompi_tpu_torch as m
+from ompi_tpu_torch import dpm
+
+w = m.init()
+side = w.split(0 if w.rank < 2 else 1)
+if w.rank < 2:
+    port = dpm.open_port(w)
+    if side.rank == 0:
+        dpm.publish_name("smoke-svc", port, w)
+    inter = side.accept(port)
+else:
+    port = dpm.lookup_name("smoke-svc", w, wait=True)
+    inter = side.connect(port)
+n = 1 << 20                                  # 4 MB
+got = None
+if side.rank == 0:
+    if w.rank < 2:
+        buf = np.empty(n, np.float32)
+        inter.recv(buf, 0, tag=1)
+        got = bool(np.array_equal(buf, np.arange(n, dtype=np.float32) + 2))
+    else:
+        inter.send(torch.arange(n, device="cuda", dtype=torch.float32) + 2,
+                   0, tag=1)
+x = torch.full((n,), float(w.rank + 1), device="cuda")
+red = np.asarray(inter.allreduce(x))
+full = inter.merge(high=w.rank >= 2)
+tot = np.asarray(full.allreduce(x))
+w.barrier()
+if w.rank == 0:
+    dpm.unpublish_name("smoke-svc", w)
+print(json.dumps({"rank": w.rank, "got": got, "red": float(red[0]),
+                  "merged": [full.size, full.rank],
+                  "digest": hashlib.sha256(tot.tobytes()).hexdigest(),
+                  "card": x.is_cuda}), flush=True)
+m.finalize()
+"""
+
+RECOVER_CHILD = r"""
+import hashlib, json
+import numpy as np, torch
+import ompi_tpu_torch as m
+
+w = m.init()
+full = m.get_parent().merge(high=True)
+x = torch.full((1 << 18,), float(full.rank + 1), device="cuda")   # 1 MB
+tot = np.asarray(full.allreduce(x))
+print(json.dumps({"rank": full.rank, "merged": [full.size, full.rank],
+                  "first": float(tot[0]), "card": x.is_cuda,
+                  "digest": hashlib.sha256(tot.tobytes()).hexdigest()}),
+      flush=True)
+m.finalize()
+"""
+
+RECOVER_JOB = r"""
+import hashlib, json, os, sys, time
+import numpy as np, torch
+import ompi_tpu_torch as m
+
+w = m.init()
+w.barrier()
+if w.rank == 1:
+    os._exit(9)
+deadline = time.time() + 60
+while not w.get_failed().size:
+    assert time.time() < deadline, "the failure of rank 1 was never detected"
+    time.sleep(0.002)
+w.revoke()
+t0 = time.perf_counter()
+survivors = w.shrink()
+shrink_ms = (time.perf_counter() - t0) * 1e3
+t0 = time.perf_counter()
+inter = survivors.spawn([sys.executable, sys.argv[1]], 1)
+spawn_ms = (time.perf_counter() - t0) * 1e3
+t0 = time.perf_counter()
+full = inter.merge(high=False)
+merge_ms = (time.perf_counter() - t0) * 1e3
+x = torch.full((1 << 18,), float(full.rank + 1), device="cuda")
+tot = np.asarray(full.allreduce(x))
+s = m.Session.init()
+psets = {n: s.get_pset_info(n).get("otpu_members") for n in s.psets()}
+s.finalize()
+print(json.dumps({"rank": full.rank, "survivors": survivors.size,
+                  "shrunk_cid": survivors.cid,
+                  "merged": [full.size, full.rank,
+                             list(full.group.world_ranks)],
+                  "first": float(tot[0]), "psets": psets,
+                  "shrink_ms": shrink_ms, "spawn_ms": spawn_ms,
+                  "merge_ms": merge_ms, "card": x.is_cuda,
+                  "digest": hashlib.sha256(tot.tobytes()).hexdigest()}),
+      flush=True)
+m.finalize()
+"""
+
+#: the pset list every rank of the sessions job must see: the launcher's
+#: world, its two fake nodes and the two --pset sets (a rank's own
+#: mpi://SELF aside)
+SESSION_PSETS = [["mpi://WORLD", "0,1,2,3", "builtin"],
+                 ["app", "0,1", "user"], ["io", "2,3", "user"],
+                 ["mpi://host/node0", "0,1", "host"],
+                 ["mpi://host/node1", "2,3", "host"]]
+
+
+def session_world(gen) -> dict:
+    """The device world built from a Session, with no ``init``: comms from
+    ``mpi://WORLD`` and a 4-row group on the raised ring, an intercomm of
+    the two halves, COMM_WORLD joining the instance, both finalize orders.
+    Returns the line's ``device_world`` object."""
+    import ompi_tpu_torch
+    from ompi_tpu_torch import instance
+    from ompi_tpu_torch.ops import ring_collectives as rc
+    from ompi_tpu_torch.runtime import init as rt
+
+    out = {}
+    x16 = operands(torch.float32, (N, 16 * MB // 4), gen)
+    x4 = operands(torch.float32, (N, 4 * MB // 4), gen)
+    rows = [0, 2, 4, 6]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = ompi_tpu_torch.Session.init()
+    out["session_init_cold_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    s2 = ompi_tpu_torch.Session.init()
+    out["session_init_warm_ms"] = (time.perf_counter() - t0) * 1e3
+    require(not ompi_tpu_torch.initialized() and instance.refcount() == 2,
+            f"a session initialized the world (refcount {instance.refcount()})")
+    s2.finalize()
+    world_g = s.group_from_pset("mpi://WORLD")
+    t0 = time.perf_counter()
+    app = ompi_tpu_torch.Comm.create_from_group(world_g, "app")
+    out["create_from_group_local_ms"] = (time.perf_counter() - t0) * 1e3
+    four = ompi_tpu_torch.Comm.create_from_group(world_g.incl(rows), "four")
+    require(app.cid >= 2 and four.cid >= 2 and app.size == N
+            and four.size == 4
+            and owner(app, "allreduce_array") == "RingCollModule"
+            and owner(four, "allreduce_array") == "RingCollModule",
+            f"session comms {app} {four}")
+    got = {}
+    for comm, name, width in ((app, "app", N), (four, "four", 4)):
+        for x, mb, regime in ((x16, 16, "seg"), (x4, 4, "fused")):
+            xin = x if width == N else x[rows]
+            plain = (rc.all_reduce_seg_plain(xin, width, "sum", SEG)
+                     if regime == "seg"
+                     else rc.all_reduce_fused_plain(xin, width, "sum"))
+            res, d = launch_delta(lambda: comm.allreduce_array(xin))
+            what = f"session comm {name} (n = {width}) allreduce {mb} MB/rank"
+            require(d == {f"all_reduce_{regime}": 1}, f"{what} launched {d}")
+            same_bits(res, plain, what)
+            got[(name, mb)] = res
+    lo, hi = world_g.incl(range(N // 2)), world_g.incl(range(N // 2, N))
+    inter = ompi_tpu_torch.Comm.create_intercomm_from_groups(lo, 0, hi, 0,
+                                                            "halves")
+    require(inter.is_inter and inter.size == inter.remote_size == N // 2
+            and inter.local_comm.size == N // 2
+            and type(inter.c_coll["allreduce"].__self__).__name__
+            == "InterCollModule", f"intercomm of the halves: {inter}")
+    inter.free()
+    require(inter.freed, "the intercomm was not freed")
+    # COMM_WORLD joins the session's instance: the same bits
+    w = ompi_tpu_torch.init()
+    require(instance.refcount() == 2 and w.rte is instance.current().rte,
+            f"init did not join the session (refcount {instance.refcount()})")
+    for x, mb, regime in ((x16, 16, "seg"), (x4, 4, "fused")):
+        res, d = launch_delta(lambda: w.allreduce_array(x))
+        require(d == {f"all_reduce_{regime}": 1},
+                f"COMM_WORLD allreduce {mb} MB/rank launched {d}")
+        same_bits(res, got[("app", mb)],
+                  f"session comm against COMM_WORLD at {mb} MB/rank")
+    torch.cuda.synchronize()
+    launched = counts()
+    out["launches"] = {k: v for k, v in launched.items() if v}
+    require(out["launches"] == {"all_reduce_seg": 3, "all_reduce_fused": 3},
+            f"the session world launched {out['launches']}")
+    app.free()
+    four.free()
+    # both finalize orders, then a fresh boot
+    ompi_tpu_torch.finalize()
+    require(instance.refcount() == 1 and instance.current() is not None,
+            "finalize with a session open tore the runtime down")
+    s.finalize()
+    require(instance.current() is None, "the last release left an instance")
+    s = ompi_tpu_torch.Session.init()
+    ompi_tpu_torch.init()
+    s.finalize()
+    require(instance.refcount() == 1, "session finalize under the world")
+    ompi_tpu_torch.finalize()
+    require(instance.current() is None and rt.finalized(),
+            "the world's finalize after the session's left an instance")
+    t0 = time.perf_counter()
+    s = ompi_tpu_torch.Session.init()
+    out["session_reboot_ms"] = (time.perf_counter() - t0) * 1e3
+    c = ompi_tpu_torch.Comm.create_from_group(
+        s.group_from_pset("mpi://WORLD"), "again")
+    res = c.allreduce_array(x4)
+    same_bits(res, got[("app", 4)], "the re-booted instance's allreduce")
+    c.free()
+    s.finalize()
+    return out
+
+
+def sessions_dpm(smi: str, gen) -> dict:
+    """Sessions, process sets and dynamic processes (phase 10 of the module
+    docstring).  Returns the ``sessions_dpm`` line's object."""
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    settings = {"priority": "95", "bidirectional": "0", "wire16": "0"}
+    for name, value in settings.items():
+        os.environ[f"OTPU_MCA_coll_ring_{name}"] = value
+    out["device_world"] = session_world(gen)
+    ring_defaults()
+    for name in settings:
+        del os.environ[f"OTPU_MCA_coll_ring_{name}"]
+    out.update(dpm_jobs())
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"sessions_dpm": out}))
+    return out
+
+
+def dpm_jobs() -> dict:
+    """The phase's four ``tpurun`` jobs, their tensors on the card: the
+    sessions job's psets, comms and intercomm, spawn and merge,
+    connect/accept, and the recovery loop.  Returns their part of the
+    line's object."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, body in (("session", SESSION_JOB), ("spawn", SPAWN_JOB),
+                           ("child", SPAWN_CHILD), ("connect", CONNECT_JOB),
+                           ("recover", RECOVER_JOB),
+                           ("replacement", RECOVER_CHILD)):
+            paths[name] = Path(tmp, f"{name}.py")
+            paths[name].write_text(body)
+        py = sys.executable
+
+        lines, wall = tpurun(4, ["--pset", "app:0-1", "--pset", "io:2-3",
+                                 "--fake-nodes", "2", py,
+                                 str(paths["session"])], timeout=240)
+        res = [job_result(lines, r) for r in range(4)]
+        for x in res:
+            table = [row for row in x["psets"] if row[0] != "mpi://SELF"]
+            require(sorted(table) == sorted(SESSION_PSETS)
+                    and ["mpi://SELF", str(x["rank"]), "builtin"]
+                    in x["psets"], f"rank {x['rank']} psets {x['psets']}")
+            require(x["comm"][:3] == [2, x["rank"] % 2, True]
+                    and x["inter"][:3] == [True, 2, True]
+                    and x["card"], f"rank {x['rank']}: {x}")
+        for pair in ((0, 1), (2, 3)):
+            require(res[pair[0]]["comm"][3] == res[pair[1]]["comm"][3]
+                    and res[pair[0]]["inter"][3] == res[pair[1]]["inter"][3],
+                    f"ranks {pair}: digests differ")
+        out["sessions_4"] = {
+            "psets": res[0]["psets"],
+            "session_init_cold_ms": [x["cold_ms"] for x in res],
+            "session_init_warm_ms": [x["warm_ms"] for x in res],
+            "create_from_group_agreed_ms": [x["agreed_ms"] for x in res],
+            "inter_allreduce_16MB_ms": [x["inter_allreduce_ms"] for x in res],
+            "digests": [res[0]["comm"][3][:16], res[2]["comm"][3][:16]],
+            "wall_s": wall}
+
+        lines, wall = tpurun(2, [py, str(paths["spawn"]),
+                                 str(paths["child"])], timeout=240)
+        res = [job_result(lines, r) for r in range(4)]
+        require(len({x["digest"] for x in res}) == 1,
+                f"spawn: the merged comm's digests differ: {res}")
+        parents, kids = res[:2], res[2:]
+        require(parents[0]["ping"][1] and all(
+                    x["merged"][:2] == [4, x["rank"]] and x["card"]
+                    for x in res)
+                and all(x["remote"] == [2, 3] and x["job"] == "job1"
+                        for x in parents)
+                and all(x["world"] == [2, 3] for x in kids)
+                and parents[0]["red"] == parents[1]["red"]
+                and kids[0]["red"] == kids[1]["red"]
+                and parents[0]["red_head"] == [2 + 3, 1 + 1 + 2 + 3]
+                and kids[0]["red_head"] == [0 + 1, (1 + 0) + (1 + 1)],
+                f"spawn job: {res}")
+        out["spawn_2x2"] = {
+            "spawn_to_join_ms": [x["spawn_ms"] for x in parents],
+            "pingpong_4MB_ms": parents[0]["ping"][0],
+            "inter_allreduce_16MB_ms": [x["inter_allreduce_ms"]
+                                        for x in parents],
+            "merge_ms": [x["merge_ms"] for x in parents],
+            "digest": res[0]["digest"][:16], "wall_s": wall}
+
+        lines, wall = tpurun(4, [py, str(paths["connect"])], timeout=240)
+        res = [job_result(lines, r) for r in range(4)]
+        require(len({x["digest"] for x in res}) == 1
+                and res[0]["got"] is True
+                and [x["red"] for x in res] == [7.0, 7.0, 3.0, 3.0]
+                and all(x["merged"] == [4, x["rank"]] for x in res),
+                f"connect/accept job: {res}")
+        out["connect_4"] = {"digest": res[0]["digest"][:16], "wall_s": wall}
+
+        lines, stderr, wall = tpurun_job(
+            3, ["--enable-recovery", py, str(paths["recover"]),
+                str(paths["replacement"])], timeout=240)
+        merged = {}
+        for rank, rows in lines.items():
+            objs = [json.loads(x) for x in rows if x.startswith("{")]
+            for obj in objs:
+                merged[obj["rank"]] = obj
+        require(sorted(merged) == [0, 1, 2] and len(
+                    {x["digest"] for x in merged.values()}) == 1
+                and all(x["first"] == 6.0 and x["card"]
+                        for x in merged.values()),
+                f"recovery job: {lines}")
+        for x in (merged[0], merged[1]):
+            require(x["survivors"] == 2
+                    and x["merged"] == [3, x["rank"], [0, 2, 3]]
+                    and x["psets"].get("mpi://surviving") == "0,2"
+                    and x["psets"].get(f"mpi://shrunk/{x['shrunk_cid']}")
+                    == "0,2" and x["psets"].get("mpi://job/job1") == "3",
+                    f"recovery rank {x['rank']}: {x}")
+        require("rank 1 failed (exit 9)" in stderr,
+                f"the launcher reported no failure: {stderr}")
+        out["recover_3"] = {
+            "psets": merged[0]["psets"],
+            "shrink_ms": [merged[r]["shrink_ms"] for r in (0, 1)],
+            "spawn_to_join_ms": [merged[r]["spawn_ms"] for r in (0, 1)],
+            "merge_ms": [merged[r]["merge_ms"] for r in (0, 1)],
+            "digest": merged[0]["digest"][:16], "wall_s": wall}
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -4128,6 +4610,7 @@ def main() -> int:
     one_sided(smi)
     observability(smi, gen, main_launched, comm_launched)
     topology_ft(smi, gen)
+    sessions_dpm(smi, gen)
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))

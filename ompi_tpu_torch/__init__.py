@@ -60,6 +60,10 @@ _API = {
     "Info": "ompi_tpu_torch.api.info",
     "Win": "ompi_tpu_torch.api.win",
     "Status": "ompi_tpu_torch.api.status",
+    "Session": "ompi_tpu_torch.api.session",
+    # dynamic process management (MPI_Comm_get_parent / ports)
+    "get_parent": "ompi_tpu_torch.dpm",
+    "open_port": "ompi_tpu_torch.dpm",
     "reduce_local": "ompi_tpu_torch.api.op",
     # built-in reduction operators (MPI_SUM & friends)
     "SUM": "ompi_tpu_torch.api.op",

@@ -53,13 +53,30 @@ through a cached module reference, so a revocation flooded in from another
 rank reaches every call (``allreduce_array``'s fast path inlines the same
 probe), and a named point-to-point peer that has failed raises
 ``ProcFailedError`` before any staging.  Both errors go through the comm's
-error handler.  Not ported yet: ``create_from_group`` (the instance
-layer), the partitioned forms (``mca/part``), attributes and
-intercommunicators.
+error handler.
+
+Sessions and intercommunicators (``comm.py:104-170``, ``:837-980``,
+``:1464-1545``): ``create_from_group`` builds a comm from a bare group
+with no parent, on the active instance (a Session's or the world's); in the
+device world and as a singleton its CID is local, between processes the
+first member through publishes a bridge-range CID under the coordination
+service's put-if-absent, keyed by (members, tag, invocation), and every
+member adopts it.  ``create_intercomm_from_groups`` builds the local comm
+first, then the intercomm on a CID agreed the same way over the union of
+the groups.  An intercommunicator carries ``remote_group`` (``is_inter``,
+``remote_size``) and ``local_comm``, its local collective channel; a
+point-to-point peer rank indexes the remote group, and coll/inter serves
+its collectives.  ``create_intercomm`` joins two disjoint comms through
+leaders that share a bridge comm; ``spawn``, ``spawn_multiple``,
+``accept``, ``connect`` and ``merge`` are dpm's (``ompi_tpu_torch.dpm``);
+``compare`` compares the local and the remote groups of intercomms.  Not
+ported yet: the partitioned forms (``mca/part``) and attributes.
 """
 from __future__ import annotations
 
 import copy
+import sys
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -112,8 +129,8 @@ def host_buffer(buf) -> np.ndarray:
     ``jax.Array`` does in the reference (point-to-point and coll/basic)."""
     if isinstance(buf, np.ndarray):
         return buf
-    if _acc().is_device_array(buf):
-        arr = _torch_acc.to_host(buf)
+    if is_tensor(buf):
+        arr = _acc().to_host(buf)
         arr.flags.writeable = False
         return arr
     return np.asarray(buf)
@@ -132,6 +149,15 @@ def as_buffer(buf) -> tuple[np.ndarray, int, Datatype]:
     return arr, arr.size, from_numpy_dtype(arr.dtype)
 
 
+def is_tensor(buf) -> bool:
+    """True for a torch tensor (``torch_acc.is_device_array``), without
+    importing ``torch_acc``: a numpy job reaches the accelerator module (and
+    its ``staging`` telemetry source) where the reference reaches
+    ``jax_acc``, at the first staging-pool checkout."""
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(buf, torch.Tensor)
+
+
 def _acc():
     """The cached ``torch_acc`` module (imported at first use)."""
     global _torch_acc
@@ -142,11 +168,35 @@ def _acc():
     return _torch_acc
 
 
+#: per-(members, tag) invocation counters for the sessions-model CID
+#: bootstrap: create_from_group is collective over the group, so every
+#: member's N-th call with the same (members, tag) pairs up; the count keys
+#: successive agreements apart without any pre-existing channel
+_group_cid_seq: dict = {}
+_group_cid_lock = threading.Lock()
+
+
+def _agree_group_cid(client, group, tag: str) -> int:
+    """Coordination-assisted CID agreement for parent-less construction:
+    the first member through publishes a bridge-range CID (globally unique,
+    so no per-member freeness check is needed) by an atomic put-if-absent;
+    every member adopts the winner."""
+    base = (tuple(group.world_ranks), str(tag))
+    with _group_cid_lock:
+        seq = _group_cid_seq.get(base, 0)
+        _group_cid_seq[base] = seq + 1
+    from ompi_tpu_torch import dpm
+
+    proposed = dpm._new_bridge_cid(client)
+    key = f"__group_cid__:{base!r}:{seq}"
+    return int(client.put_new(-1, key, proposed))
+
+
 def _row_copy(table, r: int):
     """Row ``r`` of a device-world table, copied: a tensor's row stays on
     its device (a clone, no host copy); anything else becomes a numpy copy,
     as the reference's ``np.asarray`` does."""
-    if _acc().is_device_array(table):
+    if is_tensor(table):
         return table[r].clone()
     return np.array(np.asarray(table[r]), copy=True)
 
@@ -157,12 +207,10 @@ class Comm:
     CONGRUENT = 1
     SIMILAR = 2
     UNEQUAL = 3
-    #: the port has no intercommunicators yet; the coll components' queries
-    #: read this flag as the reference's do
-    is_inter = False
 
     def __init__(self, group: Group, cid: int, rte, name: str = "",
-                 epoch: int = 0, parent: Optional["Comm"] = None) -> None:
+                 epoch: int = 0, parent: Optional["Comm"] = None,
+                 remote_group: Optional[Group] = None) -> None:
         self.group = group
         self.cid = cid
         self.epoch = epoch  # FT epoch: revoked CIDs can't be confused on reuse
@@ -174,6 +222,7 @@ class Comm:
         self.topo = None          # set by the topo constructors
         self.revoked = False
         self.freed = False
+        self.remote_group = remote_group  # intercommunicator remote side
         self.pml = None           # selected pml module (set at creation)
         self.errhandler: Errhandler = ERRORS_ARE_FATAL
         self._rev_key = None      # lazy (ft_scope, cid, epoch) probe key
@@ -188,6 +237,14 @@ class Comm:
     @property
     def size(self) -> int:
         return self.group.size
+
+    @property
+    def is_inter(self) -> bool:
+        return self.remote_group is not None
+
+    @property
+    def remote_size(self) -> int:
+        return self.remote_group.size if self.remote_group else 0
 
     def world_rank(self, rank: int) -> int:
         return self.group.world_rank(rank)
@@ -239,11 +296,15 @@ class Comm:
         if self.is_revoked():
             self._err(RevokedError(f"{self.name} revoked"))
         if peer is not None and peer not in (ANY_SOURCE, PROC_NULL):
-            if not 0 <= peer < self.size:
+            if not 0 <= peer < (self.remote_size if self.is_inter
+                                else self.size):
                 raise MpiError(ErrorClass.ERR_RANK, f"invalid rank {peer}")
             # ULFM early liveness check (send.c:84): a point-to-point peer
-            # only, never the collective fast path
-            if _ft_state().is_failed(self.group.world_rank(peer)):
+            # only, never the collective fast path; an intercomm peer rank
+            # indexes the remote group
+            peer_world = (self.remote_group if self.is_inter
+                          else self.group).world_rank(peer)
+            if _ft_state().is_failed(peer_world):
                 from ompi_tpu_torch.api.errors import ProcFailedError
 
                 self._err(ProcFailedError(f"peer {peer} has failed",
@@ -292,14 +353,113 @@ class Comm:
         newcomm.info = info.dup()
         return newcomm
 
+    # -- sessions-model construction (MPI-4, ``ompi/communicator``
+    # ``ompi_comm_create_from_group`` / ``ompi_intercomm_create_from_groups``)
+    @classmethod
+    def create_from_group(cls, group: Group, tag: str = "",
+                          info: Optional[Info] = None,
+                          errhandler=None, name: str = "") -> Optional["Comm"]:
+        """``MPI_Comm_create_from_group``: a communicator from a bare group,
+        with NO parent communicator and no ``init`` required; the active
+        instance (opened by a Session or by world init) supplies the pml
+        and the CID machinery.  Collective over the group's members; ``tag``
+        tells apart concurrent creations from overlapping groups (MPI-4's
+        string tag).  Returns None on a process outside the group (the
+        device world's conductor hosts every rank)."""
+        from ompi_tpu_torch import instance as inst_mod
+        from ompi_tpu_torch.runtime import init as rt
+
+        inst = inst_mod.current()
+        if inst is None:
+            raise MpiError(
+                ErrorClass.ERR_SESSION,
+                "no active instance: open a Session (Session.init) or "
+                "call init() before create_from_group")
+        rte = inst.rte
+        if not rte.is_device_world and \
+                group.rank_of(rte.my_world_rank) < 0:
+            return None
+        client = getattr(rte, "client", None)
+        if client is None or rte.is_device_world:
+            cid = rt.next_local_cid()
+        else:
+            cid = _agree_group_cid(client, group, tag)
+            rt.reserve_cid(cid)
+        newcomm = cls(group, cid, rte, name=name or f"from_group~{tag or cid}")
+        if info is not None:
+            newcomm.info = info.dup()
+        if errhandler is not None:
+            newcomm.errhandler = errhandler
+        cls._wire_new_comm(newcomm, inst.pml)
+        return newcomm
+
+    @classmethod
+    def create_intercomm_from_groups(cls, local_group: Group,
+                                     local_leader: int,
+                                     remote_group: Group,
+                                     remote_leader: int, tag: str = "",
+                                     info: Optional[Info] = None,
+                                     errhandler=None) -> Optional["Comm"]:
+        """``MPI_Intercomm_create_from_groups``: an intercommunicator from
+        two disjoint groups with no parent and no bridge comm.  The local
+        comm (the collective channel every intercomm carries) is built
+        first by :meth:`create_from_group`; the bridge CID is agreed through
+        the coordination service under a key both sides derive identically
+        from the UNION of the groups and the tag."""
+        from ompi_tpu_torch import instance as inst_mod
+        from ompi_tpu_torch.runtime import init as rt
+
+        inst = inst_mod.current()
+        if inst is None:
+            raise MpiError(
+                ErrorClass.ERR_SESSION,
+                "no active instance: open a Session (Session.init) or "
+                "call init() before create_intercomm_from_groups")
+        rte = inst.rte
+        overlap = set(local_group.world_ranks) & \
+            set(remote_group.world_ranks)
+        if overlap:
+            raise MpiError(ErrorClass.ERR_GROUP,
+                           f"groups overlap on ranks {sorted(overlap)}")
+        local = cls.create_from_group(local_group, tag=f"{tag}//local",
+                                      info=info)
+        if local is None:
+            return None
+        client = getattr(rte, "client", None)
+        if client is None or rte.is_device_world:
+            cid = rt.next_local_cid()
+        else:
+            union = Group(sorted(set(local_group.world_ranks)
+                                 | set(remote_group.world_ranks)))
+            cid = _agree_group_cid(client, union, f"{tag}//inter")
+            rt.reserve_cid(cid)
+        inter = cls(local_group, cid, rte, name=f"from_groups~{tag or cid}",
+                    remote_group=remote_group)
+        if errhandler is not None:
+            inter.errhandler = errhandler
+        inter.local_comm = local
+        cls._wire_new_comm(inter, local.pml)
+        return inter
+
     def compare(self, other: "Comm") -> int:
-        """``MPI_Comm_compare``: IDENT (same object), CONGRUENT (same group
-        and order, another context), SIMILAR (same members, another order),
-        UNEQUAL."""
+        """``MPI_Comm_compare``: IDENT (same object), CONGRUENT (same
+        group(s) and order, another context), SIMILAR (same members, another
+        order), UNEQUAL.  Intercomms compare the local AND the remote
+        groups; an intercomm never matches an intracomm."""
         if self is other:
             return Comm.IDENT
+        if self.is_inter != other.is_inter:
+            return Comm.UNEQUAL
         mine = list(self.group.world_ranks)
         theirs = list(other.group.world_ranks)
+        if self.is_inter:
+            rm = list(self.remote_group.world_ranks)
+            rt = list(other.remote_group.world_ranks)
+            if mine == theirs and rm == rt:
+                return Comm.CONGRUENT
+            if sorted(mine) == sorted(theirs) and sorted(rm) == sorted(rt):
+                return Comm.SIMILAR
+            return Comm.UNEQUAL
         if mine == theirs:
             return Comm.CONGRUENT
         if sorted(mine) == sorted(theirs):
@@ -435,18 +595,24 @@ class Comm:
                 return agreed
             floor = agreed + 1
 
-    def _finish_create(self, newcomm: "Comm") -> None:
-        """Every new comm (``_wire_new_comm``, ``comm.py:1095``): registered
-        for finalize, the parent's pml attached, then coll selection."""
+    @staticmethod
+    def _wire_new_comm(newcomm: "Comm", pml) -> None:
+        """The one wiring sequence every new comm gets, parented or
+        sessions-model alike (``comm.py:1095``): registered for the
+        teardown, the pml attached, then coll selection."""
         from ompi_tpu_torch.mca.coll.base import comm_select
         from ompi_tpu_torch.runtime import init as rt
 
         rt.register_comm(newcomm)
-        newcomm.errhandler = self.errhandler
-        newcomm.pml = self.pml
-        if self.pml is not None:
-            self.pml.add_comm(newcomm)
+        newcomm.pml = pml
+        if pml is not None:
+            pml.add_comm(newcomm)
         comm_select(newcomm)
+
+    def _finish_create(self, newcomm: "Comm") -> None:
+        """A comm made from this one: its error handler and pml."""
+        newcomm.errhandler = self.errhandler
+        Comm._wire_new_comm(newcomm, self.pml)
 
     def free(self) -> None:
         """``MPI_Comm_free``: release the coll modules, drop the pml's
@@ -1251,6 +1417,85 @@ class Comm:
             typed.append(np.ascontiguousarray(b).reshape(-1)
                          .view(np.uint8).view(np.dtype(rt_)))
         return typed
+
+    # -- dynamic process management (``ompi/dpm``) -----------------------
+    def spawn(self, command, maxprocs: int, root: int = 0) -> "Comm":
+        from ompi_tpu_torch import dpm
+
+        return dpm.spawn(self, command, maxprocs, root)
+
+    def spawn_multiple(self, commands, maxprocs, root: int = 0) -> "Comm":
+        from ompi_tpu_torch import dpm
+
+        return dpm.spawn_multiple(self, commands, maxprocs, root)
+
+    def create_intercomm(self, local_leader: int, bridge_comm: "Comm",
+                         remote_leader: int, tag: int = 0) -> "Comm":
+        """``MPI_Intercomm_create``: join two disjoint comms into an
+        intercommunicator through leaders that share ``bridge_comm``
+        (``ompi/communicator/comm.c`` ``ompi_intercomm_create``).
+
+        The leaders exchange membership and a proposed CID over the bridge
+        (MAX wins), then EVERY member of both groups confirms the winner is
+        locally free (per-process CID bitmaps diverge); on a conflict both
+        sides re-propose above it."""
+        from ompi_tpu_torch.runtime import init as rt
+
+        self._check_state()
+        btag = -(1 << 22) - (int(tag) % (1 << 20))
+        remote = None
+        floor = 0
+        while True:
+            if self.rank == local_leader:
+                proposed = rt.candidate_cid(floor)
+                bridge_comm.send_obj(
+                    {"cid": proposed,
+                     "ranks": list(self.group.world_ranks)},
+                    remote_leader, tag=btag)
+                theirs = bridge_comm.recv_obj(remote_leader, tag=btag)
+                payload = {"cid": max(int(proposed), int(theirs["cid"])),
+                           "remote": theirs["ranks"]}
+            else:
+                payload = None
+            payload = self.bcast_obj(payload, root=local_leader)
+            cid = int(payload["cid"])
+            remote = payload["remote"]
+            ok = 1 if rt.is_cid_free(cid) else 0
+            grp_ok = int(np.asarray(self.allreduce(
+                np.array([ok], np.int64), op_mod.MIN)).ravel()[0])
+            if self.rank == local_leader:
+                bridge_comm.send_obj(grp_ok, remote_leader, tag=btag)
+                their_ok = int(bridge_comm.recv_obj(remote_leader,
+                                                    tag=btag))
+                both = min(grp_ok, their_ok)
+            else:
+                both = None
+            both = int(self.bcast_obj(both, root=local_leader))
+            if both:
+                break
+            floor = cid + 1
+        rt.reserve_cid(cid)
+        inter = Comm(self.group, cid, self.rte, name=f"{self.name}~inter",
+                     epoch=self.epoch, parent=self,
+                     remote_group=Group([int(r) for r in remote]))
+        inter.local_comm = self
+        self._finish_create(inter)
+        return inter
+
+    def accept(self, port: str, root: int = 0) -> "Comm":
+        from ompi_tpu_torch import dpm
+
+        return dpm.accept(self, port, root)
+
+    def connect(self, port: str, root: int = 0) -> "Comm":
+        from ompi_tpu_torch import dpm
+
+        return dpm.connect(self, port, root)
+
+    def merge(self, high: bool = False) -> "Comm":
+        from ompi_tpu_torch import dpm
+
+        return dpm.merge(self, high)
 
     # -- ULFM (``ompi/mpiext/ftmpi``) ------------------------------------
     def revoke(self) -> None:

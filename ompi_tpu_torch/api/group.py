@@ -22,6 +22,13 @@ class Group:
         if len(set(self._ranks)) != len(self._ranks):
             raise MpiError(ErrorClass.ERR_GROUP, "duplicate ranks in group")
 
+    @classmethod
+    def from_session_pset(cls, session, pset_name: str) -> "Group":
+        """``MPI_Group_from_session_pset``: the group behind a named
+        process set of an open session (the sessions-model entry into
+        group land: no communicator needed yet)."""
+        return session.group_from_pset(pset_name)
+
     # -- accessors -------------------------------------------------------
     @property
     def size(self) -> int:

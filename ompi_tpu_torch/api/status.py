@@ -1,9 +1,6 @@
 """MPI_Status equivalent (``ompi/include/mpi.h.in`` MPI_Status +
-``ompi/mpi/c`` get_count/get_elements semantics).
-
-Copy of ``ompi_tpu/api/status.py`` without ``ROOT``, the intercommunicator
-sentinel (the port has no intercommunicators).
-"""
+``ompi/mpi/c`` get_count/get_elements semantics).  Copy of
+``ompi_tpu/api/status.py``."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,6 +10,7 @@ from ompi_tpu_torch.api.errors import ErrorClass
 ANY_SOURCE = -1
 ANY_TAG = -1
 PROC_NULL = -2
+ROOT = -4          # intercomm collective root sentinel (MPI_ROOT)
 UNDEFINED = -32766
 
 

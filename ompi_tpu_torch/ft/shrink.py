@@ -8,9 +8,10 @@ communicator cannot be confused with the revoked or damaged parent
 knowledge is the agreement: the survivors and ``next_local_cid``.  In the
 multi-process world two ``agree_kv`` rounds over the coordination service:
 the union of failed sets with the MAX of proposed CIDs, then a check that
-the MAX is free on every survivor (re-proposed above it otherwise).  Not
-copied: the ``mpi://shrunk/<cid>`` process-set publish (with the
-coordination service's psets, ROADMAP A 4.2).
+the MAX is free on every survivor (re-proposed above it otherwise).  Every
+survivor then publishes the agreed survivors as the dynamic pset
+``mpi://shrunk/<cid>`` (``shrink.py:76``), so a recovery loop or a fresh
+session rebuilds from it by name.
 """
 from __future__ import annotations
 
@@ -67,6 +68,17 @@ def shrink(comm):
                    name=f"{comm.name}~shrink", epoch=comm.epoch + 1,
                    parent=comm)
     comm._finish_create(newcomm)
+    # dynamic pset: the agreed surviving set under a stable name
+    # (Group_from_session_pset + Comm_create_from_group instead of
+    # threading the survivor list through application state).  Every
+    # survivor publishes the same agreed value; the write is idempotent.
+    client = getattr(comm.rte, "client", None)
+    if client is not None:
+        try:
+            client.pset_publish(f"mpi://shrunk/{cid}", survivors,
+                                source="dynamic")
+        except Exception:
+            pass   # coord gone: shrink itself already succeeded
     return newcomm
 
 

@@ -293,7 +293,10 @@ class SmBtl(Btl):
             .replace(".", "_")
         pid = os.getpid() & 0xffff
         names = {}
-        for src in range(rte.world_size):
+        # inbound rings for my job's peers (global ranks under dpm); a
+        # cross-job peer has no ring and `reachable` declines it, so btl/tcp
+        # carries the bridge
+        for src in getattr(rte, "job_ranks", range(rte.world_size)):
             if src == me:
                 continue
             name = f"{NAME_PREFIX}_{job}_{src}_{me}_{pid}"

@@ -11,7 +11,8 @@ nodes), ``sm_coll`` 35 (a mapped segment on single-node comms, with the
 native core), ``tuned`` 30 (the decision ladder over ``algorithms``' menus),
 ``ftagree`` 30 (the fault-tolerant ``agree``),
 ``adapt`` 28 (off by default), ``libnbc`` 25 (the ``i*`` schedules) and
-``basic`` 10 (linear, over point-to-point); ``demo`` interposes when its
-priority is raised.  ``quant`` is a config home (the codec and its ladder),
+``basic`` 10 (linear, over point-to-point); an intercommunicator takes
+``inter`` 45 (the two-group protocol over its local comm) in place of the
+intracomm modules; ``demo`` interposes when its priority is raised.  ``quant`` is a config home (the codec and its ladder),
 as ``tuned`` is for the device cells.
 """

@@ -18,11 +18,10 @@ from __future__ import annotations
 import numpy as np
 
 from ompi_tpu_torch.api import op as op_mod
-from ompi_tpu_torch.api.comm import host_buffer
+from ompi_tpu_torch.api.comm import host_buffer, is_tensor
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
-from ompi_tpu_torch.mca.accelerator import torch_acc
 
 _TAG_BASE = 16
 _TAG_SPACE = 1 << 20
@@ -37,7 +36,7 @@ def staged(buf):
     """``buf`` with a tensor staged to the host (read-only numpy, as the
     reference's ``np.asarray`` of a ``jax.Array``); anything else as given.
     The host collective modules call it once, at a slot's entry."""
-    return host_buffer(buf) if torch_acc.is_device_array(buf) else buf
+    return host_buffer(buf) if is_tensor(buf) else buf
 
 
 def coll_tag(comm) -> int:
@@ -316,8 +315,8 @@ class BasicCollComponent(Component):
     def comm_query(self, comm):
         if comm.rte is not None and comm.rte.is_device_world:
             return None  # conductor model handles host collectives there
-        if comm.size == 1:
-            return None  # self_coll handles it
+        if comm.size == 1 or comm.is_inter:
+            return None  # intercomms take coll/inter's two-group protocol
         return self._prio.value, BasicCollModule()
 
 

@@ -26,11 +26,11 @@ from __future__ import annotations
 import numpy as np
 
 from ompi_tpu_torch.api import op as op_mod
+from ompi_tpu_torch.api.comm import is_tensor
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.api.request import CompletedRequest
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base.var import VarType
-from ompi_tpu_torch.mca.accelerator import torch_acc
 
 
 def _fold(op: op_mod.Op, stack: np.ndarray) -> np.ndarray:
@@ -57,7 +57,7 @@ class ConductorModule:
     def __init__(self, comm) -> None:
         pass
 
-    _is_device = staticmethod(torch_acc.is_device_array)
+    _is_device = staticmethod(is_tensor)
 
     # -- blocking host collectives --------------------------------------
     def barrier(self, comm) -> None:
@@ -203,6 +203,8 @@ class ConductorModule:
 
     # helpers ------------------------------------------------------------
     def _stack(self, comm, sendbuf) -> np.ndarray:
+        from ompi_tpu_torch.mca.accelerator import torch_acc
+
         arr = torch_acc.to_host(sendbuf)
         if arr.ndim == 0 or arr.shape[0] != comm.size:
             raise ValueError(

@@ -81,7 +81,7 @@ class SelfCollComponent(Component):
     priority = 75
 
     def comm_query(self, comm):
-        if comm.size == 1:
+        if comm.size == 1 and not comm.is_inter:
             return self.priority, SelfCollModule()
         return None
 

@@ -21,7 +21,8 @@ ladders; coll/basic only when nothing else is selected).  Priority 35,
 between tuned (30) and han (40); it declines in the device world, on a
 comm that spans nodes, and without the native core (``:259-280``).  A
 tensor is staged to the host once, at a slot's entry.  The segment's name
-carries the port's prefix (``otpt_csm``).  A failed member turns a
+is the reference's, job-qualified (``<prefix>_csm_<coord>_<job>_<cid>``),
+with the port's prefix (``otpt``).  A failed member turns a
 counter wait into ``ProcFailedError`` (``sm_coll.py:150-176``; checked
 every 2048 spins) instead of a hang, and no local view of the segment
 outlives a slot's wait, so a survivor that caught the error unmaps the
@@ -86,7 +87,9 @@ class SmCollModule:
         tag = os.environ.get("OTPU_COORD", "l").replace(":", "_") \
             .replace(".", "_")
         rte = comm.rte
-        name = f"{NAME_PREFIX}_csm_{tag}_{comm.cid}"
+        # job-qualified: a spawned job's cid-0 world must not collide with
+        # the parent job's
+        name = f"{NAME_PREFIX}_csm_{tag}_{getattr(rte, 'job', '0')}_{comm.cid}"
         try:
             if comm.rank == 0:
                 shm = shared_memory.SharedMemory(name=name, create=True,

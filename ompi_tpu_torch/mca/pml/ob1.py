@@ -64,6 +64,12 @@ from ompi_tpu_torch.runtime import memchecker, peruse, profile, spc, trace
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
 
+def _peers(comm):
+    """The group a point-to-point peer rank indexes: an intercomm's remote
+    group, else the comm's own."""
+    return comm.remote_group if comm.is_inter else comm.group
+
+
 class SendRequest(Request):
     def __init__(self, pml, comm, buf, dest: int, tag: int):
         super().__init__()
@@ -199,7 +205,7 @@ class Ob1Pml:
                     if req.source == ANY_SOURCE:
                         continue
                     try:
-                        src_w = req.comm.group.world_rank(req.source)
+                        src_w = _peers(req.comm).world_rank(req.source)
                     except Exception:
                         continue
                     if src_w == world_rank:
@@ -211,7 +217,7 @@ class Ob1Pml:
                     victims.append(req)
             for rid, req in list(self._send_reqs.items()):
                 try:
-                    if req.comm.group.world_rank(req.dest) == world_rank:
+                    if _peers(req.comm).world_rank(req.dest) == world_rank:
                         del self._send_reqs[rid]
                         victims.append(req)
                 except Exception:
@@ -232,7 +238,7 @@ class Ob1Pml:
         spc.record("isend")
         req = SendRequest(self, comm, buf, dest, tag)
         _t0 = trace.now() if trace.enabled else 0
-        dst_world = comm.group.world_rank(dest)
+        dst_world = _peers(comm).world_rank(dest)
         src_world = comm.world_rank(comm.rank)
         ep = self.bml.endpoint(dst_world)
         if ep is None:
@@ -436,7 +442,7 @@ class Ob1Pml:
             st = self._match.setdefault(key, _MatchState())
             # check the unexpected queue first (arrival order)
             for i, frag in enumerate(st.unexpected):
-                comm_src = comm.group.rank_of(frag.src)
+                comm_src = _peers(comm).rank_of(frag.src)
                 if req.matches(frag, comm_src):
                     st.unexpected.pop(i)
                     if peruse.active():
@@ -467,7 +473,7 @@ class Ob1Pml:
         with self._lock:
             st = self._match.setdefault(key, _MatchState())
             for i, frag in enumerate(st.unexpected):
-                comm_src = comm.group.rank_of(frag.src)
+                comm_src = _peers(comm).rank_of(frag.src)
                 if probe_req.matches(frag, comm_src):
                     if take:
                         st.unexpected.pop(i)
@@ -493,7 +499,7 @@ class Ob1Pml:
             return
         from ompi_tpu_torch.ft import state as ft_state
 
-        src_world = comm.group.world_rank(source)
+        src_world = _peers(comm).world_rank(source)
         if ft_state.is_failed(src_world):
             from ompi_tpu_torch.api.errors import ProcFailedError
 
@@ -596,7 +602,7 @@ class Ob1Pml:
             events.append((peruse.MSG_ARRIVED, frag.cid,
                            dict(source=frag.src, tag=frag.tag)))
         for i, req in enumerate(st.posted):
-            comm_src = req.comm.group.rank_of(frag.src)
+            comm_src = _peers(req.comm).rank_of(frag.src)
             if req.matches(frag, comm_src):
                 st.posted.pop(i)
                 spc.record("matched_msgs")
@@ -620,7 +626,7 @@ class Ob1Pml:
         if events is None:
             events = []
         _pt = profile.now() if profile.enabled else 0
-        comm_src = req.comm.group.rank_of(frag.src)
+        comm_src = _peers(req.comm).rank_of(frag.src)
         req.matched_src = frag.src
         if trace.flow_enabled:
             # the flow key off the match header (MATCH/RNDV/RGET all carry

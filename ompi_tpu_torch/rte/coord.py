@@ -26,10 +26,17 @@ survivors' fences (the final one included) never wait on the dead.  The
 ``del`` op (``CoordClient.delete``) lets agreement rounds retire their keys,
 and ``CoordClient.recovery_scope`` gives the RPCs of a recovery round the
 longer retry ladder of ``otpu_coord_recovery_retry_max`` and
-``otpu_coord_recovery_rpc_timeout``.  Not copied: spawn and process sets
-(with dpm and sessions, ROADMAP A 4.2-4.3; the ``mpi://surviving`` pset a
-failure publishes waits for them), the chaos hooks and the flight-recorder
-views.
+``otpu_coord_recovery_rpc_timeout``.
+
+Process sets and spawn (``coord.py:377-415``, ``:443-460``, ``:778-796``):
+a registry of named psets (the PMIx ``PMIX_PSET_NAMES`` role) that the
+launcher fills at job start (``mpi://WORLD``, one ``mpi://host/<node>``
+set a node, ``tpurun --pset`` sets) and that spawn (``mpi://job/<id>``), a
+failure (``mpi://surviving``: the world less every known failure) and
+shrink (``mpi://shrunk/<cid>``) update; the ``spawn`` op allocates fresh
+global ranks past every rank handed out so far and hands the launch to the
+launcher's registered handler (``set_spawn_handler``, PMIx_Spawn's role).
+Not copied: the chaos hooks and the flight-recorder views.
 """
 from __future__ import annotations
 
@@ -118,6 +125,19 @@ class CoordServer:
     condition is held: one slow-reading client must not stall every
     fence, KV or event operation job-wide."""
 
+    #: lock-discipline contract: each service table mutates only under its
+    #: condition or lock (the reference's ``_guarded_by``, ``coord.py:118``)
+    _guarded_by = {
+        "_kv": "_kv_cond", "_psets": "_kv_cond",
+        "_next_rank": "_kv_cond", "_spawn_seq": "_kv_cond",
+        "_fence_ranks": "_fence_cond", "_fence_gen": "_fence_cond",
+        "_fence_done": "_fence_cond", "_fence_expect": "_fence_cond",
+        "_failed": "_fence_cond",
+        "_events": "_event_cond", "_event_seq": "_event_cond",
+        "_conns": "_conns_lock",
+        "_rpc_cache": "_rpc_cond", "_inflight": "_rpc_cond",
+    }
+
     #: replay-cache depth per client: the client serializes requests, so
     #: only the newest rid can be retried — a couple of spares absorb
     #: the abandoned-timeout-then-reset corner without unbounded growth
@@ -139,6 +159,12 @@ class CoordServer:
         self._event_seq = 0
         self._event_cond = threading.Condition()
         self._aborted: Optional[int] = None
+        # process-set registry (MPI-4 psets; the PMIx_Get PMIX_PSET_NAMES
+        # role): name -> {"members": [ranks], "source": str}
+        self._psets: dict[str, dict] = {}
+        self._next_rank = nprocs          # global rank allocator (dpm spawn)
+        self._spawn_handler = None        # set by the launcher (tpurun)
+        self._spawn_seq = 0
         # idempotent-retry replay cache: client uuid -> {rid: response}.
         # A retried rid already processed is answered from here; one
         # still being processed is adopted (the retry thread waits for
@@ -316,6 +342,42 @@ class CoordServer:
             with self._fence_cond:
                 self._fence_cond.notify_all()
             return {"ok": True}
+        if op == "spawn":
+            # MPI_Comm_spawn's PMIx_Spawn analog: allocate fresh global
+            # ranks, hand the launch to the launcher's registered handler
+            # (it owns process management)
+            if self._spawn_handler is None:
+                return {"ok": False,
+                        "error": "no spawn support (launcher too old?)"}
+            n = int(req["n"])
+            with self._kv_cond:
+                ranks = list(range(self._next_rank, self._next_rank + n))
+                self._next_rank += n
+                self._spawn_seq += 1
+                job = f"job{self._spawn_seq}"
+            try:
+                self._spawn_handler(req["cmd"], ranks, job,
+                                    req.get("env") or {})
+                # dynamic pset: the new job is addressable by name before
+                # it builds any communicator
+                self.publish_pset(f"mpi://job/{job}", ranks, source="spawn")
+                return {"ok": True, "ranks": ranks, "job": job}
+            except Exception as exc:
+                return {"ok": False, "error": str(exc)}
+        if op == "pset_pub":
+            self.publish_pset(req["name"], req["members"],
+                              req.get("source", "user"))
+            return {"ok": True}
+        if op == "pset_list":
+            with self._kv_cond:
+                rows = [{"name": n, "size": len(e["members"]),
+                         "source": e["source"]}
+                        for n, e in sorted(self._psets.items())]
+            return {"ok": True, "psets": rows}
+        if op == "pset_get":
+            with self._kv_cond:
+                entry = self._psets.get(req["name"])
+            return {"ok": True, "pset": entry}
         if op == "ping":
             # "time" is the server's wall clock: ranks estimate their
             # offset to it (min-RTT, the mpisync estimator) so per-rank
@@ -340,6 +402,21 @@ class CoordServer:
         self._fence_gen[fid] = self._fence_gen.get(fid, 0) + 1
         self._fence_cond.notify_all()
 
+    def set_spawn_handler(self, fn) -> None:
+        """The launcher registers how to exec spawned ranks:
+        ``fn(cmd, global_ranks, job_id, extra_env)``."""
+        self._spawn_handler = fn
+
+    def publish_pset(self, name: str, members,
+                     source: str = "launcher") -> None:
+        """(Re)publish a named process set: launcher-side at job start,
+        server-side for the dynamic sets (spawn, failure)."""
+        with self._kv_cond:
+            self._psets[str(name)] = {
+                "members": [int(m) for m in members],
+                "source": str(source)}
+            self._kv_cond.notify_all()
+
     def kv_put(self, rank: int, key: str, value: Any) -> None:
         """Launcher-side KV injection."""
         with self._kv_cond:
@@ -349,14 +426,23 @@ class CoordServer:
     def publish(self, name: str, payload: Any) -> None:
         """Server-side event injection (the launcher's detected failures,
         and every ``event_pub``).  A ``proc_failed`` event also enters the
-        failed set, and a pending fence the survivors now satisfy
-        completes."""
+        failed set, a pending fence the survivors now satisfy completes,
+        and ``mpi://surviving`` is republished."""
         if name == "proc_failed":
             with self._fence_cond:
                 self._failed.add(int(payload["rank"]))
+                failed_now = set(self._failed)
                 for fid in list(self._fence_ranks):
                     if self._fence_ranks[fid] and self._fence_satisfied(fid):
                         self._complete_fence_locked(fid)
+            # dynamic pset: the named surviving set the ULFM recovery loop
+            # rebuilds from (the world less every known failure)
+            with self._kv_cond:
+                world = self._psets.get("mpi://WORLD", {}).get(
+                    "members", list(range(self.nprocs)))
+            self.publish_pset(
+                "mpi://surviving",
+                [r for r in world if r not in failed_now], source="dynamic")
         with self._event_cond:
             self._event_seq += 1
             self._events.append((self._event_seq, name, payload))
@@ -582,6 +668,25 @@ class CoordClient:
             timeout = float(_get_timeout_var.value)
         return self._rpc(op="get", rank=rank, key=key, wait=wait,
                          timeout=timeout)["value"]
+
+    def pset_publish(self, name: str, members, source: str = "user") -> None:
+        """Publish or replace a named process set (the dynamic psets)."""
+        self._rpc(op="pset_pub", name=name, members=[int(m) for m in members],
+                  source=source)
+
+    def pset_list(self) -> list:
+        """[{name, size, source}] of every advertised process set."""
+        return self._rpc(op="pset_list")["psets"]
+
+    def pset_get(self, name: str) -> Optional[dict]:
+        """{members, source} of a named pset, or None when unknown."""
+        return self._rpc(op="pset_get", name=name)["pset"]
+
+    def spawn(self, cmd: list, n: int, env: Optional[dict] = None) -> tuple:
+        """Ask the launcher to start ``n`` new ranks; returns
+        (global_ranks, job_id)."""
+        r = self._rpc(op="spawn", cmd=list(cmd), n=n, env=env or {})
+        return list(r["ranks"]), r["job"]
 
     def fence(self, fence_id: str, *, rank: int, expect=None) -> None:
         """Enter a named fence as ``rank`` (mandatory: the server's

@@ -11,9 +11,16 @@ point-to-point or to a host collective are staged through
 ``node`` modex key, from ``OTPU_NODE_ID`` (``tpurun --fake-nodes``) or
 else the hostname, read back through the cached ``node_of``;
 ``split_type("shared")``'s colour is a crc32 of it (``locality_color``,
-stable across processes, unlike ``hash()``).  Not copied: dpm's job
-identity (spawned jobs, parent ranks), the ``hostname`` key, the chaos
-hook and the multi-process device world.
+stable across processes, unlike ``hash()``).
+
+dpm's job identity (``proc.py:44-101``): a spawned job has its own
+COMM_WORLD of GLOBAL ranks the coordination service allocated
+(``OTPU_JOB``, ``OTPU_JOB_RANKS``), its parent's ranks and bridge CID
+(``OTPU_PARENT_RANKS``, ``OTPU_PARENT_CID``), announces itself with the
+``__spawn_join__:<job>`` key as soon as its coordination connection is up,
+and scopes its fence ids by job with explicit membership; the primary job
+is job "0" with ranks 0..nprocs-1.  Not copied: the ``hostname`` key, the
+chaos hook and the multi-process device world.
 """
 from __future__ import annotations
 
@@ -33,13 +40,27 @@ class ProcRte(Rte):
         self.device = cudaenv.resolve_device(device)
         self.my_world_rank = int(os.environ["OTPU_RANK"])
         self.world_size = int(os.environ["OTPU_NPROCS"])
-        self.job_ranks = list(range(self.world_size))
+        # dpm job identity: a spawned job's COMM_WORLD is built from the
+        # GLOBAL ranks the coordination service allocated
+        self.job = os.environ.get("OTPU_JOB", "0")
+        jr = os.environ.get("OTPU_JOB_RANKS", "")
+        self.job_ranks = ([int(x) for x in jr.split(",")] if jr
+                          else list(range(self.world_size)))
+        pr = os.environ.get("OTPU_PARENT_RANKS", "")
+        self.parent_ranks = [int(x) for x in pr.split(",")] if pr else None
+        self.parent_cid = int(os.environ.get("OTPU_PARENT_CID", "-1"))
         self.client = CoordClient()
         # node identity for the hierarchy (coll/han): hostname by default,
         # OTPU_NODE_ID when the launcher partitions ranks into fake nodes
         # (tpurun --fake-nodes)
         self._node = os.environ.get("OTPU_NODE_ID", socket.gethostname())
         self.modex_put("node", self._node)
+        if self.job != "0":
+            # dpm join handshake: a spawned rank announces that it reached
+            # the runtime as soon as its coordination connection is up, so
+            # the parent's spawn tells "children booting" from "a child died
+            # during join" (ERR_SPAWN)
+            self.modex_put(f"__spawn_join__:{self.job}", 1)
         self._node_cache: dict = {}
         self._fence_counter = 0
 
@@ -54,7 +75,9 @@ class ProcRte(Rte):
 
     def fence(self) -> None:
         self._fence_counter += 1
-        self.client.fence(f"0:f{self._fence_counter}",
+        # job-scoped fence ids with explicit membership: a spawned job's
+        # fences never collide with the primary job's
+        self.client.fence(f"{self.job}:f{self._fence_counter}",
                           rank=self.my_world_rank, expect=self.job_ranks)
 
     def fence_final(self, timeout: Optional[float] = None) -> None:
@@ -70,7 +93,7 @@ class ProcRte(Rte):
             timeout = float(_final_timeout_var.value)
         c = CoordClient(timeout=timeout, retries=0)
         try:
-            c.fence_oneshot("0:final", rank=self.my_world_rank,
+            c.fence_oneshot(f"{self.job}:final", rank=self.my_world_rank,
                             expect=self.job_ranks)
         finally:
             try:

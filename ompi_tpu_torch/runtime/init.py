@@ -1,26 +1,31 @@
 """Init/finalize state machine (``ompi/runtime/ompi_mpi_init.c`` flow).
 
-Port of the boot of ``ompi_tpu/runtime/init.py`` and of the instance
-layer's (``ompi_tpu/instance/__init__.py:119-135``): apply ``--mca``
-arguments, bring up the rte (the device world, or under ``tpurun`` the
-multi-process ``ProcRte``), start the SPC counters, select the pml
-(``ompi_mpi_init.c:630``), fence the modex (``:682-701``), build COMM_WORLD
-(cid 0) and COMM_SELF (cid 1) with the pml attached, build every peer's
-endpoint list outside the device world (eager ``add_procs``,
-``ompi_mpi_init.c:833``), and run their per-comm coll selection.
+Port of ``ompi_tpu/runtime/init.py``: world-model ``init`` acquires the
+default instance (``ompi_tpu_torch.instance``, ``init.py:131-160``), whose
+boot is shared and refcounted with MPI-4 Sessions: any number of open
+sessions plus the world boot the runtime ONCE, and the last release tears
+it down.  This module owns what stays world-model specific: COMM_WORLD
+(cid 0, the job's ranks) and COMM_SELF (cid 1) with the pml attached, every
+peer's endpoint list outside the device world (eager ``add_procs``,
+``ompi_mpi_init.c:833``), their per-comm coll selection, the FT threads,
+and the CID space.  The world lives on the card unless ``device`` names
+another device (``device="cpu"``: the CPU lane the tests run on); with no
+card and no explicit device, ``init`` raises.
 
 The CID space is the reference's bitmap: ``next_local_cid`` is a local
 find-and-set (the device world's agreement, one process backs every rank);
 the multi-process world agrees on a CID with ``candidate_cid``,
-``is_cid_free`` and ``reserve_cid`` (``Comm._next_cid``).  A freed CID
-stays set (``retire_cid``: never reused).  ``finalize`` drains the btls'
-queued sends, fences the ranks (``fence_final``; the reference fences
-first and leaves queued frames to its native reactor's thread), releases
-the coll modules of every comm made since
-``init``, finalizes the pml and the rte, closes the work pool and the MCA
-frameworks and clears the CID space, so the next ``init`` selects afresh.
-While a library holds an interlib registration, ``finalize`` returns and
-the runtime stays up (``ompi_tpu/runtime/init.py:285-290``).
+``is_cid_free`` and ``reserve_cid`` (``Comm._next_cid``), and dpm's bridge
+CIDs come from the coordination service.  A freed CID stays set
+(``retire_cid``: never reused); a never-used bridge CID of a failed spawn
+goes back (``release_cid``).  ``finalize`` releases the world's reference:
+when it is the last, the instance drains the btls' queued sends, fences the
+ranks (``fence_final``), exports the trace, releases the coll modules of
+every comm still alive, finalizes the pml and the rte, and clears the CID
+space; with a session open the runtime stays up and COMM_WORLD is gone.
+``init`` after ``finalize`` acquires the instance again (the MPI-4
+relaxation).  While a library holds an interlib registration,
+``finalize`` returns and the runtime stays up (``init.py:285-290``).
 
 The first init arms an exit hook (``atexit``, ``init.py:226-229``): a rank
 that returns without ``finalize`` still drains its queued sends, fences and
@@ -30,30 +35,15 @@ publishes an ``abort`` event and exits with the code (mpirun's launcher
 then ends the job), and ``get_world_if_initialized`` gives COMM_WORLD
 without an implicit init.
 
-The observability runtime rides the same boot and teardown as the
-reference's instance (``ompi_tpu/instance/__init__.py:64-165``,
-``:241-271``): ``coord_connect``, ``modex_fence`` and ``instance_boot``
-spans of category ``boot``, ``trace.init``, pml/monitoring's interposition
-of the selected pml, the telemetry sampler (when the job has a coordination
-client and ``otpu_telemetry_interval_ms`` is positive) and the sampling
-profiler (``otpu_profile_interval_ms``).  ``finalize`` exports the trace
-and publishes the monitoring matrices while the coordination client is
-alive (after the final fence, before the teardown), then stops the
-sampler's and the profiler's threads; each step is guarded, so
-observability never breaks a teardown, and the exit hook's finalize runs
-the same path.
-
-Fault tolerance (``ompi_tpu/runtime/init.py:207-219``, ``:291-292``,
-``:328-330``): in the multi-process world, with ``otpu_ft_enable`` (on by
-default), init starts ``ft/propagator``'s event poller, and with
-``otpu_ft_detector`` (off by default) the heartbeat detector too, each a
-daemon thread on a coordination connection of its own (the PMIx
-``PROC_ABORTED`` handler of ``ompi_mpi_init.c:400-402``).  ``finalize``
-stops both right after the final fence (the detector leaves its clean-exit
-tombstone), and the teardown stops them on every other path, the exit
-hook's included; ``reset_for_testing`` clears the failure state.
-Sessions, hooks and the flight recorder (its arming and its dump at
-``abort``) are not ported yet.
+Fault tolerance (``ompi_tpu/runtime/init.py:207-219``, ``:291-292``): in
+the multi-process world, with ``otpu_ft_enable`` (on by default), init
+starts ``ft/propagator``'s event poller, and with ``otpu_ft_detector`` (off
+by default) the heartbeat detector too, each a daemon thread on a
+coordination connection of its own (the PMIx ``PROC_ABORTED`` handler of
+``ompi_mpi_init.c:400-402``).  ``finalize`` stops both, and the instance's
+teardown stops them on every other path; ``reset_for_testing`` clears the
+failure state.  Hooks and the flight recorder (its dump at ``abort``) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -64,7 +54,6 @@ import threading
 import weakref
 from typing import Optional
 
-from ompi_tpu_torch.base import mca, var
 from ompi_tpu_torch.base.containers import Bitmap
 from ompi_tpu_torch.base.var import VarType, registry
 
@@ -90,7 +79,8 @@ _world = None
 _self = None
 _rte = None
 _pml = None
-#: live comms made since init (COMM_WORLD included): finalize releases them
+#: live comms made since the boot (COMM_WORLD included): the instance's
+#: teardown releases them
 _comms: "weakref.WeakSet" = weakref.WeakSet()
 _cid_map = Bitmap(64)
 _cid_lock = threading.Lock()
@@ -106,7 +96,14 @@ def finalized() -> bool:
 
 
 def get_rte():
-    return _rte
+    """The world's rte, else the booted instance's (a sessions-only
+    process), else None."""
+    if _rte is not None:
+        return _rte
+    from ompi_tpu_torch import instance as inst_mod
+
+    inst = inst_mod.current()
+    return inst.rte if inst is not None else None
 
 
 def get_world_if_initialized():
@@ -159,14 +156,29 @@ def retire_cid(cid: int) -> None:
 
 
 def clear_cid_space() -> None:
+    """Reset the CID bitmap: the instance's last release (the CID space is
+    instance-scoped: session-built comms and world comms share it)."""
     with _cid_lock:
         _cid_map.clear_all()
 
 
 def register_comm(comm) -> None:
-    """Record a comm so that finalize releases its coll modules."""
+    """Record a comm so that the instance's teardown releases its coll
+    modules."""
     with _lock:
         _comms.add(comm)
+
+
+def live_comms() -> list:
+    """The comms made since the boot that are still alive."""
+    with _lock:
+        return list(_comms)
+
+
+def forget_comms() -> None:
+    """Clear the record (the instance's teardown)."""
+    with _lock:
+        _comms.clear()
 
 
 def init(device=None, rte=None, argv: Optional[list] = None):
@@ -174,7 +186,10 @@ def init(device=None, rte=None, argv: Optional[list] = None):
 
     The world lives on the card unless ``device`` names another device
     (``device="cpu"``: the CPU lane the tests run on).  With no card and no
-    explicit device it raises; it never falls back to the CPU.
+    explicit device it raises; it never falls back to the CPU.  With a
+    session open the instance is already booted and its rte and device
+    decide (``device`` is then ignored, as the reference ignores
+    ``devices``).
     """
     global _state, _world, _self, _rte, _pml, _atexit_armed
     with _lock:
@@ -182,38 +197,18 @@ def init(device=None, rte=None, argv: Optional[list] = None):
             return _world
         if _state is State.FINALIZE_STARTED:
             raise RuntimeError("cannot init while finalize is running")
+        # FINALIZE_COMPLETED falls through: MPI-4 allows init, finalize,
+        # init (the instance decides whether a real re-boot is needed)
         _state = State.INIT_STARTED
+        from ompi_tpu_torch import instance as inst_mod
+
         try:
-            # (re)apply --mca arguments and OTPU_MCA_* environment values to
-            # every registered var: each init reads the settings anew
-            var.registry.parse_cli(list(argv or ()))
-            from ompi_tpu_torch.rte.base import detect
-            from ompi_tpu_torch.runtime import trace
-
-            t_boot = trace.now()
-            # the rte's construction is the coordination service's connect
-            t0 = trace.now()
-            _rte = rte if rte is not None else detect(device)
-            trace.span("coord_connect", "boot", t0)
-            from ompi_tpu_torch.mca.threads import base as threads_base
-            from ompi_tpu_torch.runtime import monitoring, spc
-
-            spc.init()
-            trace.init()
-            threads_base.reopen_pool()
-            # pml selection (ompi_mpi_init.c:630), then the modex fence
-            # that publishes its btls' endpoints (:682-701)
-            comp = mca.framework(
-                "pml", "point-to-point messaging layer").select()
-            if comp is None:
-                raise RuntimeError("no pml component available")
-            # pml/monitoring interposition (per-peer traffic matrices)
-            _pml = monitoring.maybe_wrap_pml(comp.get_module(_rte))
-            t0 = trace.now()
-            _rte.fence()
-            trace.span("modex_fence", "boot", t0)
-            reserve_cid(0)
-            reserve_cid(1)
+            inst = inst_mod.acquire(argv=argv, device=device, rte=rte)
+        except BaseException:
+            _state = State.NOT_INITIALIZED
+            raise
+        try:
+            _rte, _pml = inst.rte, inst.pml
             _build_world()
             # the ULFM runtime: event poller + optional heartbeat ring
             if not _rte.is_device_world \
@@ -224,20 +219,14 @@ def init(device=None, rte=None, argv: Optional[list] = None):
                 propagator.start(_rte,
                                  with_detector=bool(_ft_detector.value))
         except BaseException:
-            _teardown()
+            # a failed world must not leak the instance reference
+            for comm in (_world, _self):
+                if comm is not None:
+                    comm.release_coll_modules()
+            _world = _self = _rte = _pml = None
             _state = State.NOT_INITIALIZED
+            inst_mod.release()
             raise
-        var.mark_runtime_initialized(True)
-        from ompi_tpu_torch.runtime import interlib, profile, telemetry
-
-        interlib.note_main_thread(force=True)
-        # the live telemetry sampler needs the coordination client; the
-        # sampling profiler needs none (both are no-ops unless their
-        # vars arm them)
-        if getattr(_rte, "client", None) is not None:
-            telemetry.start(_rte)
-        profile.start(_rte)
-        trace.span("instance_boot", "boot", t_boot)
         _state = State.INIT_COMPLETED
         if not _atexit_armed:
             _atexit_armed = True
@@ -247,14 +236,16 @@ def init(device=None, rte=None, argv: Optional[list] = None):
 
 def _build_world() -> None:
     """WORLD/SELF with the pml attached (``ompi_tpu/runtime/init.py:
-    159-200``); caller holds ``_lock``."""
+    159-200``); caller holds ``_lock``.  A dpm-spawned job's COMM_WORLD is
+    its own rank set (global ranks the coordination service allocated),
+    not 0..size-1."""
     global _world, _self
     from ompi_tpu_torch.api.comm import Comm
     from ompi_tpu_torch.api.group import Group
     from ompi_tpu_torch.mca.coll.base import comm_select
 
-    _world = Comm(Group(range(_rte.world_size)), cid=0, rte=_rte,
-                  name="COMM_WORLD")
+    _world = Comm(Group(getattr(_rte, "job_ranks", range(_rte.world_size))),
+                  cid=0, rte=_rte, name="COMM_WORLD")
     _self = Comm(Group([_rte.my_world_rank]), cid=1, rte=_rte,
                  name="COMM_SELF")
     for comm in (_world, _self):
@@ -294,38 +285,12 @@ def init_thread(required: int = 0, device=None, rte=None, argv=None):
     return world, interlib.query_thread()
 
 
-def _teardown() -> None:
-    """Release what init acquired, in the reference's order (pml, rte,
-    work pool, frameworks, CID space); every step runs even if one
-    before it failed."""
-    global _world, _self, _rte, _pml
-    try:
-        for comm in list(_comms):
-            comm.release_coll_modules()
-        if _pml is not None:
-            _pml.finalize()
-        if _rte is not None:
-            _rte.finalize()
-    finally:
-        from ompi_tpu_torch.ft import propagator
-        from ompi_tpu_torch.mca.threads import base as threads_base
-        from ompi_tpu_torch.runtime import profile, progress, telemetry
-
-        # the FT threads, the sampler's and the profiler's end with the
-        # runtime, whichever path tears it down
-        propagator.stop()
-        telemetry.stop()
-        profile.stop()
-        threads_base.shutdown_pool(permanent=True)
-        mca.close_all()
-        progress.reset_for_testing()
-        clear_cid_space()
-        _comms.clear()
-        _world = _self = _rte = _pml = None
-
-
 def finalize() -> None:
-    global _state
+    """Drop the world's instance reference.  The final drain and fence run
+    only when this release tears the runtime down: with a session open the
+    process and its segments live on, and they run at the last release."""
+    global _state, _world, _self, _rte, _pml
+    from ompi_tpu_torch import instance as inst_mod
     from ompi_tpu_torch.runtime import interlib
 
     with _lock:
@@ -337,50 +302,27 @@ def finalize() -> None:
             return
         _state = State.FINALIZE_STARTED
         try:
-            # drain the btls' queued sends first: a completed send's frames
-            # may still wait for ring space that only the receiver frees,
-            # and the fence below blocks this rank's progress (with them
-            # queued, the receiver would wait out the fence's timeout).
-            # Frames that cannot be delivered fail this rank (after the
-            # teardown releases its segments), so the launcher ends the job
-            try:
-                _pml.bml.flush()
-            except BaseException:
-                _teardown()
-                raise
-            # pre-teardown synchronisation (ompi_mpi_finalize's barrier)
-            # before any shared segment is released: a fast rank must not
-            # unlink rings a slower peer still drains
-            fence_final = getattr(_rte, "fence_final", None)
-            if fence_final is not None:
+            inst = inst_mod.current()
+            if inst is not None and inst_mod.refcount() <= 1:
                 try:
-                    fence_final()
-                except Exception:
-                    pass   # coord gone / timeout: peers are exiting too
+                    inst._fence_final()
+                except BaseException:
+                    # frames that cannot be delivered fail this rank, after
+                    # the teardown released its segments
+                    inst_mod.release()
+                    raise
             from ompi_tpu_torch.ft import propagator
 
             propagator.stop()
-            _publish_observability()
-            _teardown()
+            # the built-in comms the user never frees (the reference
+            # destroys WORLD/SELF in ompi_mpi_finalize the same way)
+            for comm in (_world, _self):
+                if comm is not None and not comm.freed:
+                    comm.release_coll_modules()
+            inst_mod.release()
         finally:
-            var.mark_runtime_initialized(False)
+            _world = _self = _rte = _pml = None
             _state = State.FINALIZE_COMPLETED
-
-
-def _publish_observability() -> None:
-    """The trace export and the monitoring publish, while the coordination
-    client is still alive (the clock offset and the KV need it); each is
-    guarded: observability must never break a teardown."""
-    from ompi_tpu_torch.runtime import monitoring, trace
-
-    try:
-        trace.finalize_export(_rte)
-    except Exception:
-        pass
-    try:
-        monitoring.finalize_publish(_rte)
-    except Exception:
-        pass
 
 
 def _atexit_finalize() -> None:
@@ -397,6 +339,11 @@ def reset_for_testing() -> None:
 
     interlib.reset_for_testing()
     finalize()
+    # drain the session references a test may have leaked: the instance
+    # must not survive into the next test's boot
+    from ompi_tpu_torch import instance as inst_mod
+
+    inst_mod.reset_for_testing()
     from ompi_tpu_torch.ft import state as ft_state
 
     ft_state.reset_for_testing()

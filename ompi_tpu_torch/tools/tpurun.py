@@ -32,9 +32,20 @@ count the rank as arrived), and the job runs on; it fails only if no rank
 ran to a clean exit.  The ranks' ``ft_*`` vars (``--mca ft_detector 1``,
 ``ft_detector_period``, ``ft_detector_timeout``) arm the heartbeat ring.
 
+Process sets (``tpurun.py:83-108``, ``:540-560``): the launcher publishes
+``mpi://WORLD``, one ``mpi://host/<node>`` set a node (the ``--fake-nodes``
+partition, else the host name) and each ``--pset NAME:RANKS`` (a comma list
+with ranges, ``workers:0,2-3``) into the coordination service, where a
+Session lists them before any communicator exists.  Spawn
+(``tpurun.py:637-661``): the launcher registers the coordination service's
+spawn handler, which starts the new global ranks as a job of their own
+(``OTPU_JOB``, ``OTPU_JOB_RANKS``, ``OTPU_NPROCS`` its size, the parent's
+ranks and bridge CID) with the job's environment, one argv for every rank
+or one a rank (``spawn_multiple``), and the fake-node id ``rank % K``.
+
 Not copied yet: hostfiles, launch agents and their ``_child_main``
-(``tpurun.py:34-83``, ``:322``; ROADMAP A 4.5), process sets (the
-per-node sets ``--fake-nodes`` names there too), spawn, the device-world
+(``tpurun.py:34-83``, ``:322``; ROADMAP A 4.5), the serving flags
+(``--router-ranks``, ``--worker-ranks``, ``--pool``; A 7), the device-world
 and binding flags, and the flight bundle merge (``:255-305``, with the
 flight recorder, ROADMAP A 4.4).
 """
@@ -42,10 +53,38 @@ from __future__ import annotations
 
 import argparse
 import os
+import socket
 import subprocess
 import sys
 import threading
 import time
+
+
+def _parse_pset(spec: str, nprocs: int) -> tuple:
+    """``--pset NAME:RANKS`` → (name, [ranks]); RANKS is a comma list
+    with ranges, e.g. ``workers:0,2-3``."""
+    name, sep, ranks_s = spec.partition(":")
+    if not sep or not name or not ranks_s:
+        raise SystemExit(f"tpurun: bad --pset {spec!r} "
+                         "(expected NAME:RANKS, e.g. workers:0,2-3)")
+    ranks: list = []
+    for tok in ranks_s.split(","):
+        a, dash, b = tok.partition("-")
+        try:
+            lo = int(a)
+            hi = int(b) if dash else lo
+        except ValueError:
+            raise SystemExit(f"tpurun: bad rank token {tok!r} in "
+                             f"--pset {spec!r}")
+        if hi < lo:
+            raise SystemExit(f"tpurun: reversed range {tok!r} in "
+                             f"--pset {spec!r}")
+        ranks.extend(range(lo, hi + 1))
+    bad = [r for r in ranks if not 0 <= r < nprocs]
+    if bad or len(set(ranks)) != len(ranks):
+        raise SystemExit(f"tpurun: --pset {spec!r} ranks invalid for a "
+                         f"{nprocs}-rank job")
+    return name, ranks
 
 
 def _monitor(procs_list, rank_of, *, enable_recovery: bool = False,
@@ -204,6 +243,12 @@ def main(argv=None) -> int:
                     help="ULFM mode: a dying rank is reported as a "
                          "proc_failed event instead of tearing down the job "
                          "(mpirun --enable-recovery)")
+    ap.add_argument("--pset", action="append", default=[],
+                    metavar="NAME:RANKS",
+                    help="Publish a user process set (MPI-4 pset) under "
+                         "NAME with the given ranks (comma list with "
+                         "ranges: 'workers:0,2-3'); sessions resolve it "
+                         "via Session.group_from_pset")
     ap.add_argument("command", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     if not args.command:
@@ -216,6 +261,21 @@ def main(argv=None) -> int:
 
     server = CoordServer(args.nprocs, port=args.coord_port)
     host, port = server.addr
+    # process-set registry (MPI-4 psets, served to sessions by the
+    # coordination service): the builtin world set, one set per node, and
+    # the user sets.  mpi://SELF stays client-resolved (its membership is
+    # per-process).
+    server.publish_pset("mpi://WORLD", range(args.nprocs), source="builtin")
+    node_ranks: dict = {}
+    for rank in range(args.nprocs):
+        node = (f"node{rank * args.fake_nodes // args.nprocs}"
+                if args.fake_nodes > 0 else socket.gethostname())
+        node_ranks.setdefault(node, []).append(rank)
+    for node, ranks_on in node_ranks.items():
+        server.publish_pset(f"mpi://host/{node}", ranks_on, source="host")
+    for spec_s in args.pset:
+        pname, pranks = _parse_pset(spec_s, args.nprocs)
+        server.publish_pset(pname, pranks, source="user")
 
     env_base = dict(os.environ)
     # Ranks must be able to import ompi_tpu_torch however tpurun itself was
@@ -232,6 +292,7 @@ def main(argv=None) -> int:
         env_base["OTPU_MCA_" + name.removeprefix("otpu_")] = value
 
     procs: list[subprocess.Popen] = []
+    proc_rank: dict = {}            # Popen -> global rank
     pumps: list[threading.Thread] = []
 
     def _pump(rank: int, stream) -> None:
@@ -239,14 +300,49 @@ def main(argv=None) -> int:
             sys.stdout.write(f"[{rank}] " + line.decode(errors="replace"))
             sys.stdout.flush()
 
+    def _launch(rank: int, env: dict, argv) -> subprocess.Popen:
+        p = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT)
+        proc_rank[p] = rank       # before append: the monitor loop reads
+        procs.append(p)           # proc_rank for any proc it can see
+        t = threading.Thread(target=_pump, args=(rank, p.stdout),
+                             daemon=True)
+        t.start()
+        pumps.append(t)
+        return p
+
+    def _spawn_handler(spawn_cmd, ranks, job, extra_env) -> None:
+        """MPI_Comm_spawn's execution: the new global ranks start as a job
+        of their own (their own COMM_WORLD) on the same coordination
+        service.  ``spawn_cmd`` is one argv (every rank runs it) or one
+        argv a rank (MPI_Comm_spawn_multiple: one child world, several
+        executables)."""
+        per_rank = (list(spawn_cmd)
+                    if spawn_cmd and isinstance(spawn_cmd[0], (list, tuple))
+                    else [list(spawn_cmd)] * len(ranks))
+        if len(per_rank) != len(ranks):
+            raise ValueError(
+                f"spawn got {len(per_rank)} argvs for {len(ranks)} ranks")
+        for i, rank in enumerate(ranks):
+            env = dict(env_base)
+            env.update({k: str(v) for k, v in extra_env.items()})
+            env["OTPU_RANK"] = str(rank)
+            env["OTPU_JOB"] = job
+            env["OTPU_JOB_RANKS"] = ",".join(str(r) for r in ranks)
+            env["OTPU_NPROCS"] = str(len(ranks))
+            if args.fake_nodes > 0:
+                env["OTPU_NODE_ID"] = f"node{rank % args.fake_nodes}"
+            _launch(rank, env, list(per_rank[i]))
+
+    server.set_spawn_handler(_spawn_handler)
+
     for rank in range(args.nprocs):
         env = dict(env_base)
         env["OTPU_RANK"] = str(rank)
         if args.fake_nodes > 0:
             env["OTPU_NODE_ID"] = f"node{rank * args.fake_nodes // args.nprocs}"
         try:
-            p = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT)
+            _launch(rank, env, cmd)
         except OSError as exc:
             print(f"tpurun: cannot launch {cmd[0]!r}: {exc}",
                   file=sys.stderr)
@@ -254,18 +350,13 @@ def main(argv=None) -> int:
                 q.kill()
             server.close()
             return 127
-        procs.append(p)
-        t = threading.Thread(target=_pump, args=(rank, p.stdout),
-                             daemon=True)
-        t.start()
-        pumps.append(t)
 
     def publish_failed(rank, rc) -> None:
         # ULFM: report the death and keep the job running (the
         # PRRTE-daemon-detects-child-death path of the reference)
         server.publish("proc_failed", {"rank": rank, "origin": "launcher"})
 
-    exit_code = _monitor(procs, procs.index,
+    exit_code = _monitor(procs, proc_rank.__getitem__,
                          enable_recovery=args.enable_recovery,
                          label="tpurun", on_fail=publish_failed,
                          abort_check=lambda: server.aborted)

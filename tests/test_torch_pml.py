@@ -353,24 +353,39 @@ NOT_COPIED = {
     # frames (ft/chaos.py, ROADMAP A 4.4)
     "agree_kill_points": lambda pkg: "kill_point" in inspect.getsource(
         __import__(f"{pkg}.ft.agreement", fromlist=["x"])._p2p_send),
-    # shrink publishes the agreed survivors as the mpi://shrunk/<cid>
-    # process set (the coordination service's psets, A 4.2)
-    "shrink_pset": lambda pkg: "pset_publish" in inspect.getsource(
-        __import__(f"{pkg}.ft.shrink", fromlist=["x"]).shrink),
-    # the top-level names whose modules are not ported: Session (A 4.2),
-    # File (A 5), get_parent and open_port (dpm, A 4.3)
-    "top_level_session": lambda pkg: "Session" in __import__(pkg)._API,
+    # the top-level name whose module is not ported: File (A 5)
     "top_level_file": lambda pkg: "File" in __import__(pkg)._API,
-    "top_level_dpm": lambda pkg: {"get_parent", "open_port"}
-    <= set(__import__(pkg)._API),
     # btl/tcp's chaos hooks (injected drops, delays, resets, corruption on
     # the wire): A 4.4
     "tcp_chaos": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]), "chaos"),
-    # coll/inter: with intercommunicators (A 4.3)
+}
+
+#: reference behaviour a later slice copied (the sessions and dpm slice):
+#: present in both packages now
+COPIED = {
+    # shrink publishes the agreed survivors as the mpi://shrunk/<cid>
+    # process set (the coordination service's psets)
+    "shrink_pset": lambda pkg: "pset_publish" in inspect.getsource(
+        __import__(f"{pkg}.ft.shrink", fromlist=["x"]).shrink),
+    # the top-level Session
+    "top_level_session": lambda pkg: "Session" in __import__(pkg)._API,
+    # the top-level get_parent and open_port (dpm)
+    "top_level_dpm": lambda pkg: {"get_parent", "open_port"}
+    <= set(__import__(pkg)._API),
+    # coll/inter, the intercommunicators' collectives
     "coll_inter": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.coll.inter") is not None,
 }
+
+
+@pytest.mark.parametrize("what", sorted(COPIED))
+def test_copied_now(what):
+    """Reference behaviour the port now copies: present in both packages
+    (its behaviour is held by ``test_torch_session.py`` and
+    ``test_torch_dpm.py``)."""
+    has = COPIED[what]
+    assert has("ompi_tpu") and has("ompi_tpu_torch")
 
 
 @pytest.mark.parametrize("what", sorted(NOT_COPIED))

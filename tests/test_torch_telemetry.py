@@ -10,8 +10,8 @@ against a coordination server in this process, publishes samples into its
 KV space under the reference's key on its own client and stops cleanly.
 One ``tpurun -n 2`` job a package with coll/tuned's ladder, the stage clocks,
 the sampling profiler and the sampler on reads back its own published
-sample: the same sample keys and the same stage names (``coll.decide`` and
-``coll.alg`` among them) in both.  Every subprocess has its own
+sample, one taken after its traffic: the same sample keys and the same
+stage names (``coll.decide`` and ``coll.alg`` among them) in both.  Every subprocess has its own
 ``timeout=``.
 """
 import json
@@ -235,17 +235,24 @@ if r == 0:
 else:
     w.recv(buf, source=0, tag=1)
 client = CoordClient()
+# a sample taken after the traffic above: its seq is past the last one
+# published before this read
+raw = client.get(r, telemetry._KV_KEY, wait=False)
+after = json.loads(raw).get("seq", 0) + 1 if raw else 0
 sample = {}
+waited = False
 deadline = time.time() + 20
 while time.time() < deadline:
     raw = client.get(r, telemetry._KV_KEY, wait=False)
     sample = json.loads(raw) if raw else {}
-    if sample.get("seq", 0) >= 2 and "profile" in sample \
+    if sample.get("seq", 0) >= max(2, after) and "profile" in sample \
             and (profile.profiler_stats() or {}).get("samples", 0) >= 3:
+        waited = True
         break
     time.sleep(0.05)
 client.close()
 print(json.dumps({
+    "waited": waited,
     "keys": sorted(sample),
     "stages": sorted(profile.stage_stats()),
     "profile_keys": sorted(sample.get("profile", {})),
@@ -296,6 +303,8 @@ def job(tmp_path_factory):
             if line.startswith("[") and "] {" in line:
                 rank, _, rest = line.partition("] ")
                 lines.setdefault(int(rank[1:]), []).append(json.loads(rest))
+        for rank in (0, 1):
+            assert lines[rank][0]["waited"], (pkg, rank, lines[rank][0])
         out[pkg] = lines
     return out
 

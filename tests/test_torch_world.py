@@ -298,7 +298,8 @@ def test_components_come_from_the_port(torch_world):
     coll = coll_framework()
     assert sorted(coll.components) == [
         "adapt", "basic", "builtin", "conductor", "demo", "ftagree", "han",
-        "libnbc", "quant", "ring", "self_coll", "sm_coll", "sync", "tuned"]
+        "inter", "libnbc", "quant", "ring", "self_coll", "sm_coll", "sync",
+        "tuned"]
     op_fw = op_base._framework()
     assert sorted(op_fw.components) == ["builtin", "cuda_vpu"]
     pml_fw, btl_fw = mca.framework("pml"), mca.framework("btl")
