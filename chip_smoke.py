@@ -347,6 +347,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and ``mpi://surviving``, ``mpi://shrunk/<cid>`` and ``mpi://job/job1``
    in the pset list.  One ``{"sessions_dpm": {...}}`` line with the card's
    name and power limit.
+11. Train through failure (``train_through_failure``; no kernel is added):
+   (a) the training path's checkpoint in the device world, on the
+   training path's mesh and scale with the counts set to 0 before and
+   read after: 2 steps, ``parallel.checkpoint.save`` of the parameters,
+   ``load`` back onto the card (each leaf byte-equal to the saved one), 2
+   more steps, beside 4 uninterrupted steps from the same start: the same
+   launches (K21 ×16 each) and the losses within 1e-5; save and load ms.
+   (b) ``tpurun -n 4 --enable-recovery --mca otpu_chaos_spec
+   'kill:rank=2,step=7'`` of ``ElasticTrainer`` in respawn mode, its 2^20
+   float64 parameters on the card, 15 steps, a checkpoint every 5 through
+   MPI-IO, a global batch of 24: width 4 at the end, the parameters bit for
+   bit against ``reference_run`` from the restored checkpoint, the
+   ``elastic_*`` phases in the merged trace, the killed rank's
+   ``chaos-kill`` dump in the flight bundle; the recovery's phase ms.  (c)
+   the same job across ``--fake-nodes 2`` with wire faults, seed ``SEED``:
+   under ``drop:p=0.02;delay:ms=2,p=0.05;corrupt:p=0.01`` it finishes bit
+   for bit with exit 0, or it fails loudly with an attributed crc error —
+   never with other parameters; under ``drop:p=0.02;delay:ms=2,p=0.05``
+   it must finish, exit 0, width 4, bit for bit, with (b)'s checks.  (d)
+   a ``-n 4`` MPI-IO job of card tensors: a 64 MB dense float32 file
+   written by ``write_at_all`` through 2 x 2 subarray views, read back
+   collectively (bytes equal, and the dense file checked by rank 0), under
+   ``io_ompio_fcoll`` static and dynamic with two aggregators; write and
+   read MB/s.  One ``{"train_through_failure": {...}}`` line with the
+   card's name and power limit.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -3011,6 +3036,16 @@ def tpurun_job(n: int, argv: list, timeout: int = 240,
                env: dict = None) -> tuple:
     """:func:`tpurun` that also returns the launcher's standard error:
     ({rank: lines}, stderr, wall seconds)."""
+    r, lines, wall = tpurun_any(n, argv, timeout, env)
+    require(r.returncode == 0, f"tpurun -n {n} {argv} exited {r.returncode}:"
+            f"\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return lines, r.stderr, wall
+
+
+def tpurun_any(n: int, argv: list, timeout: int = 240,
+               env: dict = None) -> tuple:
+    """Run a job under the port's tpurun whatever its exit code:
+    (CompletedProcess, {rank: lines}, wall seconds)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.tools.tpurun",
                         "-n", str(n), *argv], capture_output=True, text=True,
@@ -3021,9 +3056,7 @@ def tpurun_job(n: int, argv: list, timeout: int = 240,
         if line.startswith("["):
             rank, _, rest = line.partition("] ")
             lines.setdefault(int(rank[1:]), []).append(rest)
-    require(r.returncode == 0, f"tpurun -n {n} {argv} exited {r.returncode}:"
-            f"\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    return lines, r.stderr, wall
+    return r, lines, wall
 
 
 def job_result(lines: dict, rank: int) -> dict:
@@ -4540,6 +4573,283 @@ def dpm_jobs() -> dict:
     return out
 
 
+ELASTIC_JOB = r"""
+import json, sys, time
+import numpy as np
+import ompi_tpu_torch as m
+from ompi_tpu_torch.parallel.elastic import ElasticTrainer
+
+w = m.init()
+tr = ElasticTrainer(w, ckpt_dir=sys.argv[1], model_size=int(sys.argv[2]),
+                    global_batch=24, ckpt_every=5, respawn=True)
+t0 = time.perf_counter()
+tr.train(15)
+train_s = time.perf_counter() - t0
+if tr.comm.rank == 0:
+    np.save(sys.argv[1] + "/final.npy", tr.w.cpu().numpy())
+    print(json.dumps({"rank": 0, "step": tr.step,
+                      "world_size": tr.comm.size, "card": tr.w.is_cuda,
+                      "recoveries": tr.recoveries, "train_s": train_s}),
+          flush=True)
+m.finalize()
+"""
+
+IO_JOB = r"""
+import hashlib, json, sys, time
+import numpy as np, torch
+import ompi_tpu_torch as m
+from ompi_tpu_torch.api.file import File
+from ompi_tpu_torch.datatype import core
+
+G, B = 4096, 2048       # a 4096 x 4096 float32 array (64 MB), 2 x 2 blocks
+
+
+def block_of(rank):
+    gen = torch.Generator(device="cuda").manual_seed(1234 + rank)
+    return torch.randn((B, B), generator=gen, device="cuda")
+
+
+w = m.init()
+r = w.rank
+gi, gj = divmod(r, 2)
+block = block_of(r)
+f32 = core.from_numpy_dtype(np.float32)
+ft = core.subarray([G, G], [B, B], [gi * B, gj * B], core.ORDER_C, f32)
+f = File.open(w, sys.argv[1], "c+")
+f.set_view(0, f32, ft)
+torch.cuda.synchronize()
+w.barrier()
+t0 = time.perf_counter()
+wrote = f.write_at_all(0, block)
+write_s = time.perf_counter() - t0
+back = np.zeros((B, B), np.float32)
+w.barrier()
+t0 = time.perf_counter()
+f.read_at_all(0, back)
+read_s = time.perf_counter() - t0
+alg = f.io_module.last_fcoll_alg
+f.close()
+same = back.tobytes() == block.cpu().numpy().tobytes()
+dense = None
+if r == 0:
+    whole = np.fromfile(sys.argv[1], np.float32).reshape(G, G)
+    dense = all(whole[i * B:(i + 1) * B, j * B:(j + 1) * B].tobytes()
+                == block_of(2 * i + j).cpu().numpy().tobytes()
+                for i in range(2) for j in range(2))
+print(json.dumps({"rank": r, "wrote": wrote, "same": same, "dense": dense,
+                  "card": block.is_cuda, "alg": alg, "write_s": write_s,
+                  "read_s": read_s}), flush=True)
+m.finalize()
+"""
+
+#: the trainer's parameter vector in the phase's jobs: 2^20 float64 (8 MB
+#: of state, an 8 MB allreduce a step)
+ELASTIC_MODEL = 1 << 20
+#: the wire faults of the fake-node job, with the kill, under one seed
+WIRE_SPEC = "drop:p=0.02;delay:ms=2,p=0.05;corrupt:p=0.01"
+#: the same without corruption: the job must finish, bit for bit
+WIRE_LOSS_SPEC = "drop:p=0.02;delay:ms=2,p=0.05"
+ELASTIC_PHASES = ("elastic_detect", "elastic_revoke", "elastic_agree",
+                  "elastic_shrink", "elastic_respawn", "elastic_restore",
+                  "elastic_resume")
+
+
+def checkpoint_step(tmp: str) -> dict:
+    """Part (a): the training step's device-world checkpoint.  On the
+    training path's mesh and scale, with the counts set to 0 before and
+    read after: 2 steps, ``checkpoint.save`` of the parameters, ``load``
+    back onto the card (byte-equal), 2 more steps; then 4 uninterrupted
+    steps from the same start, which must launch the same K21 count and
+    reach the same losses within the step's band."""
+    from ompi_tpu_torch.parallel import checkpoint, dryrun
+
+    per_step = k21_per_step(STEP_MESHES["default"])
+    step, (params, x), _ = dryrun.make_step_and_args(lr=STEP_LR)
+    torch.cuda.synchronize()
+    reset_counts()
+    p, losses = params, []
+    for _ in range(2):
+        p, loss = step(p, x)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(tmp, p)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = checkpoint.load(tmp)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    require(sorted(back) == sorted(p), f"loaded leaves {sorted(back)}")
+    for k in p:
+        require(back[k].is_cuda, f"leaf {k} loaded on {back[k].device}")
+        same_bits(back[k], p[k], f"checkpoint leaf {k}")
+    q = back
+    for _ in range(2):
+        q, loss = step(q, x)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    resumed = counts()
+    reset_counts()
+    r, straight_losses = params, []
+    for _ in range(4):
+        r, loss = step(r, x)
+        straight_losses.append(float(loss))
+    torch.cuda.synchronize()
+    straight = counts()
+    require(resumed == straight and resumed["flash_block"] == 4 * per_step,
+            f"resumed run launched {resumed}, uninterrupted {straight}, "
+            f"want {4 * per_step} of K21")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, straight_losses))
+    require(rel <= 1e-5 and all(np.isfinite(losses)),
+            f"resumed losses {losses} vs {straight_losses} ({rel:.3e})")
+    for k in q:
+        same_bits(q[k], r[k], f"resumed parameter {k}")
+    nbytes = sum(t.numel() * t.element_size() for t in p.values())
+    return {"leaves": len(p), "state_MB": nbytes / MB, "save_ms": save_ms,
+            "load_ms": load_ms,
+            "launches": {k: v for k, v in resumed.items() if v},
+            "losses": losses, "loss_rel_diff": rel, "params_bit_equal": True}
+
+
+def same_as_reference(tmp: Path, resume_step: int) -> bool:
+    """Whether the job's final parameters equal ``reference_run`` from the
+    checkpoint the recovery restored, bit for bit."""
+    from ompi_tpu_torch.parallel import checkpoint, elastic
+
+    tree = checkpoint.load(str(tmp / "ckpt" / f"step{resume_step:06d}"),
+                           device="cpu")
+    want = elastic.reference_run(tree["w"].numpy(), resume_step, 15, 24)
+    got = np.load(tmp / "ckpt" / "final.npy")
+    return got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def elastic_result(tmp: Path, r, lines: dict, wall: float) -> dict:
+    """The respawn job's checks: width 4, the final parameters bit for bit
+    against ``reference_run`` from the restored checkpoint, the recovery's
+    phase spans in the merged trace, the killed rank's flight dump."""
+    tail = (r.stdout + r.stderr)[-4000:]
+    res = job_result(lines, 0)
+    require(res["step"] == 15 and res["world_size"] == 4 and res["card"],
+            f"elastic job: {res}\n{tail}")
+    rec = res["recoveries"][0]
+    require(rec["detect_step"] == 7 and rec["resume_step"] == 5
+            and set(rec["failed"]) <= {2} and "respawn_ms" in rec,
+            f"elastic recovery: {rec}\n{tail}")
+    require(same_as_reference(tmp, rec["resume_step"]),
+            "the elastic run's parameters differ from reference_run")
+    names = {e.get("name") for e in json.loads(
+        (tmp / "trace" / "trace_merged.json").read_text())["traceEvents"]}
+    missing = [n for n in ELASTIC_PHASES if n not in names]
+    require(not missing, f"merged trace lacks {missing}")
+    bundle = json.loads((tmp / "crash" / "bundle.json").read_text())
+    require(bundle["dumps"]["2"]["reason"] == "chaos-kill"
+            and "rank 2 failed (exit 7)" in r.stderr,
+            f"flight bundle: {sorted((r, d['reason']) for r, d in bundle['dumps'].items())}")
+    out = {k: v for k, v in rec.items() if k.endswith("_ms")}
+    out.update({"detect_to_resume_ms": rec["total_ms"],
+                "bundle_reasons": {r: d["reason"]
+                                   for r, d in bundle["dumps"].items()},
+                "train_s": res["train_s"], "wall_s": wall})
+    return out
+
+
+def train_through_failure(smi: str, gen) -> dict:
+    """Train through failure (phase 11 of the module docstring).  Returns
+    the ``train_through_failure`` line's object."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    py = sys.executable
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out["checkpoint_step"] = checkpoint_step(str(tmp / "step"))
+        paths = {}
+        for name, body in (("elastic", ELASTIC_JOB), ("io", IO_JOB)):
+            paths[name] = tmp / f"{name}.py"
+            paths[name].write_text(body)
+
+        job = tmp / "respawn"
+        r, lines, wall = tpurun_any(
+            4, ["--enable-recovery",
+                "--mca", "otpu_chaos_spec", "kill:rank=2,step=7",
+                "--mca", "otpu_trace_enable", "1",
+                "--mca", "otpu_trace_dir", str(job / "trace"),
+                "--mca", "otpu_flight_dir", str(job / "crash"),
+                py, str(paths["elastic"]), str(job / "ckpt"),
+                str(ELASTIC_MODEL)], timeout=300)
+        require(r.returncode == 0, f"the respawn job exited {r.returncode}:"
+                f"\n{(r.stdout + r.stderr)[-4000:]}")
+        out["elastic_respawn_4"] = elastic_result(job, r, lines, wall)
+
+        # (c) across two emulated nodes with wire faults, one seed: c1 adds
+        # corruption (finishes bit for bit, or fails on an attributed crc
+        # error, never with other parameters); c2 has drop and delay only,
+        # and must finish bit for bit at width 4
+        for name, spec in (("elastic_wire_chaos_4", WIRE_SPEC),
+                           ("elastic_wire_loss_4", WIRE_LOSS_SPEC)):
+            job = tmp / name
+            spec = f"kill:rank=2,step=7;{spec}"
+            r, lines, wall = tpurun_any(
+                4, ["--fake-nodes", "2", "--enable-recovery",
+                    "--mca", "otpu_chaos_spec", spec,
+                    "--mca", "otpu_chaos_seed", str(SEED),
+                    "--mca", "otpu_trace_enable", "1",
+                    "--mca", "otpu_trace_dir", str(job / "trace"),
+                    "--mca", "otpu_flight_dir", str(job / "crash"),
+                    py, str(paths["elastic"]), str(job / "ckpt"),
+                    str(ELASTIC_MODEL)], timeout=300)
+            text = r.stdout + r.stderr
+            if r.returncode == 0 or "corrupt" not in spec:
+                require(r.returncode == 0, f"the {name} job exited "
+                        f"{r.returncode}:\n{text[-4000:]}")
+                wire = elastic_result(job, r, lines, wall)
+                wire["outcome"] = "finished bit-exact"
+            else:
+                require("failed its crc32" in text
+                        and "corrupted on the wire" in text,
+                        f"the {name} job failed without an attributed crc "
+                        f"error (exit {r.returncode}):\n{text[-3000:]}")
+                printed = [json.loads(x) for x in lines.get(0, [])
+                           if x.startswith("{")]
+                if printed:
+                    # a result printed before the trip: never other
+                    # parameters than the reference's
+                    rec = printed[0]["recoveries"][0]
+                    require(same_as_reference(job, rec["resume_step"]),
+                            f"the {name} job printed parameters that "
+                            f"differ from reference_run")
+                wire = {"outcome": "failed loudly: crc32",
+                        "exit": r.returncode, "wall_s": wall,
+                        "printed_a_result": bool(printed),
+                        "crc_errors": text.count("failed its crc32")}
+            wire["spec"] = spec
+            wire["seed"] = SEED
+            out[name] = wire
+
+        for fcoll in ("static", "dynamic"):
+            lines, wall = tpurun(
+                4, ["--mca", "io_ompio_fcoll", fcoll,
+                    "--mca", "io_ompio_num_aggregators", "2", py,
+                    str(paths["io"]), str(tmp / f"dense_{fcoll}.dat")],
+                timeout=240)
+            res = [job_result(lines, r) for r in range(4)]
+            require(all(x["same"] and x["card"] and x["alg"] == fcoll
+                        and x["wrote"] == 16 * MB for x in res)
+                    and res[0]["dense"] is True,
+                    f"MPI-IO job ({fcoll}): {res}")
+            write_s = max(x["write_s"] for x in res)
+            read_s = max(x["read_s"] for x in res)
+            out[f"mpiio_64MB_{fcoll}"] = {
+                "write_MB_s": 64 / write_s, "read_MB_s": 64 / read_s,
+                "write_s_by_rank": [x["write_s"] for x in res],
+                "read_s_by_rank": [x["read_s"] for x in res],
+                "wall_s": wall}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"train_through_failure": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -4611,6 +4921,7 @@ def main() -> int:
     observability(smi, gen, main_launched, comm_launched)
     topology_ft(smi, gen)
     sessions_dpm(smi, gen)
+    train_through_failure(smi, gen)
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))

@@ -17,7 +17,10 @@ the card in the device world, osc/rdma's mapped segments or osc/pt2pt's
 agent between processes) and the MPI environment (``init_thread``,
 ``wtime``, error handlers, user error classes) come as in the reference,
 and so do process topologies and ULFM fault tolerance (``Comm.revoke``,
-``shrink``, ``agree``; ``tpurun --enable-recovery``).
+``shrink``, ``agree``; ``tpurun --enable-recovery``), seeded fault injection
+(``ft/chaos``) with the crash-time flight recorder, MPI-IO (``File``) and
+the elastic trainer that checkpoints through it and recovers from a lost
+rank (``parallel/elastic``).
 ``ompi_tpu_torch.parallel`` runs the reference's flagship
 training step (dp × pp × sp × tp) on the same virtual ranks, its ring
 attention's block update a hand-written CUDA C++ kernel.  Each kernel has a
@@ -59,6 +62,7 @@ _API = {
     "Op": "ompi_tpu_torch.api.op",
     "Info": "ompi_tpu_torch.api.info",
     "Win": "ompi_tpu_torch.api.win",
+    "File": "ompi_tpu_torch.api.file",
     "Status": "ompi_tpu_torch.api.status",
     "Session": "ompi_tpu_torch.api.session",
     # dynamic process management (MPI_Comm_get_parent / ports)

@@ -23,9 +23,11 @@ coll/ftagree picks from (``otpu_coll_ftagree_algorithm``):
   by an earlier root).
 
 Each instance is an ``ft`` trace span named after its algorithm
-(``_traced_agree``).  Not copied: the chaos kill points before the
-``prepare`` and ``decision`` frames (``agree_prepare``, ``agree_decision``;
-with ``ft/chaos.py``, ROADMAP A 4.4).
+(``_traced_agree``).  Chaos kill points sit before the ``prepare`` and
+``decision`` frames (``agree_prepare``, ``agree_decision``,
+``agreement.py:441-448``): ``kill:site=agree_prepare,count=k`` dies before
+sending prepare frame k+1, the cascading-takeover windows ERA's
+early-return tables exist for.
 """
 from __future__ import annotations
 
@@ -439,6 +441,13 @@ def _p2p_send(rte, dst_world: int, op: str, instance: tuple,
     import pickle
 
     import numpy as np
+
+    from ompi_tpu_torch.ft import chaos
+
+    if chaos.enabled and op in ("prepare", "decision"):
+        # protocol-phase kill points: 'kill:site=agree_prepare,count=k'
+        # dies before sending prepare frame #(k+1)
+        chaos.kill_point("agree_" + op)
 
     from ompi_tpu_torch.mca.bml import resolve_bml
     from ompi_tpu_torch.mca.btl.base import CTL, Frag

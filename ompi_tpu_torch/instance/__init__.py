@@ -25,16 +25,20 @@ on the card unless the caller names another device, or under ``tpurun`` the
 multi-process ``ProcRte``) inside a ``coord_connect`` span, the SPC
 counters, ``trace.init``, the work pool, the main-thread anchor, pml
 selection with pml/monitoring's interposition, the modex fence inside a
-``modex_fence`` span, the reserved CIDs, the telemetry sampler and the
+``modex_fence`` span, the reserved CIDs, the flight recorder's arming
+(``flight.arm``, with a coordination client), the telemetry sampler and the
 sampling profiler, all inside an ``instance_boot`` span of category
 ``boot``.  The reference's ``jax_distributed_init`` span and its
 multi-process device world (``:167-219``) are not ported.  The teardown
 (``:221-313``) is one-shot: the final fence (the port first drains the
 btls' queued sends, and frames that cannot be delivered fail the rank
-after the teardown), the trace export and the monitoring publish while the
-coordination client lives, the coll modules of every comm still alive,
+after the teardown), the trace export, the flight recorder's survivor
+post-mortem (``maybe_dump_postmortem``: a job that saw peer failures dumps
+its recovery) and the monitoring publish while the coordination client
+lives, the coll modules of every comm still alive,
 the pml and the rte, then the ground state (threads, pool, frameworks,
-progress, CID space) whatever failed before.
+progress, CID space, the flight recorder disarmed) whatever failed
+before.
 """
 from __future__ import annotations
 
@@ -72,8 +76,8 @@ class Instance:
     def _boot(self, argv=None, device=None, rte=None) -> None:
         from ompi_tpu_torch.mca.threads import base as threads_base
         from ompi_tpu_torch.rte.base import detect
-        from ompi_tpu_torch.runtime import (interlib, monitoring, profile,
-                                            spc, telemetry, trace)
+        from ompi_tpu_torch.runtime import (flight, interlib, monitoring,
+                                            profile, spc, telemetry, trace)
 
         # (re)apply --mca arguments and OTPU_MCA_* environment values to
         # every registered var: each boot reads the settings anew
@@ -107,10 +111,11 @@ class Instance:
         rt.reserve_cid(0)
         rt.reserve_cid(1)
         mark_runtime_initialized(True)
-        # the live telemetry sampler needs the coordination client; the
-        # sampling profiler needs none (both are no-ops unless their vars
-        # arm them)
+        # the live telemetry sampler and the crash-time flight recorder
+        # need the coordination client; the sampling profiler needs none
+        # (all are no-ops unless their vars or triggers arm them)
         if getattr(self.rte, "client", None) is not None:
+            flight.arm(self.rte)
             telemetry.start(self.rte)
         profile.start(self.rte)
         trace.span("instance_boot", "boot", t_boot)
@@ -153,13 +158,15 @@ class Instance:
                 error = exc
             from ompi_tpu_torch.ft import propagator
             from ompi_tpu_torch.runtime import init as rt
-            from ompi_tpu_torch.runtime import monitoring, trace
+            from ompi_tpu_torch.runtime import flight, monitoring, trace
 
             propagator.stop()
-            # the trace export and the monitoring publish need the
-            # coordination client (KV publish, clock offset): before the
-            # rte's finalize
+            # the trace export, the survivor post-mortem (a job that saw
+            # peer failures: its ring now holds the whole recovery) and
+            # the monitoring publish need the coordination client (KV
+            # publish, clock offset): before the rte's finalize
             for publish in (trace.finalize_export,
+                            flight.maybe_dump_postmortem,
                             monitoring.finalize_publish):
                 try:
                     publish(self.rte)
@@ -184,12 +191,14 @@ class Instance:
             from ompi_tpu_torch.ft import propagator
             from ompi_tpu_torch.mca.threads import base as threads_base
             from ompi_tpu_torch.runtime import init as rt
-            from ompi_tpu_torch.runtime import profile, progress, telemetry
+            from ompi_tpu_torch.runtime import (flight, profile, progress,
+                                                telemetry)
 
             # the FT threads, the sampler's and the profiler's end with the
             # runtime, whichever path tears it down
             propagator.stop()
             telemetry.stop()
+            flight.disarm()
             profile.stop()
             threads_base.shutdown_pool(permanent=True)
             mca.close_all()

@@ -5,7 +5,8 @@ reference's ``opal/mca/btl/btl.h:1158``: ``btl_send`` active messages)
 with the descriptor machinery collapsed to a :class:`Frag` dataclass, which
 carries coll/quant's wire codec stamp (``qcodec``), and the ``rdma`` flag
 of the one-sided RMA triple (``prepare_src``/``get``/``put``), which
-btl/sm offers and pml/ob1's RGET rung reads.
+btl/sm offers and pml/ob1's RGET rung reads.  ``loss_ok`` says which
+fragments chaos may drop or duplicate.
 """
 from __future__ import annotations
 
@@ -30,6 +31,16 @@ ACK = "ack"              # receiver matched an rndv: pull the rest
 FRAG = "frag"            # rndv continuation fragment
 RGET = "rget"            # RDMA-get protocol: sender exposes, receiver pulls
 CTL = "ctl"              # control (FT heartbeats, monitoring, osc)
+
+
+def loss_ok(frag) -> bool:
+    """Whether chaos may drop or duplicate ``frag``: a best-effort CTL frame
+    (the FT protocols' heartbeats, floods, revocations and agreement frames,
+    built to tolerate loss and duplication), but never one whose sender set
+    ``meta["reliable"]`` (ob1's RGET control frames, which complete a
+    transfer that has no retransmit).  The reference offers every CTL
+    frame, so a dropped RGET frame leaves its send pending for ever there."""
+    return frag.kind == CTL and not (frag.meta or {}).get("reliable")
 
 
 @dataclass

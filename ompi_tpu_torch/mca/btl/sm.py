@@ -44,8 +44,16 @@ stage, the ring write (sm's wire) a ``btl_ringpush`` span of category
 frame's unpickle the ``recv.parse`` stage, each behind its module flag.
 Under ULFM, ``flush`` drops the frames queued to a rank the FT state holds
 failed (``sm.py:530-540``), so a survivor's finalize never waits on the
-dead; a live peer that stops draining still fails the rank.  Not copied:
-the chaos hooks.
+dead; a live peer that stops draining still fails the rank.
+
+Chaos (``sm.py:335-349``, ``:412-417``): a send consults
+``chaos.wire_send("sm", ...)`` (drop and dup on best-effort CTL frames
+only, ``btl.base.loss_ok``; delay on any), and each frame popped from a
+ring ``chaos.wire_recv`` with the frame's real class (drop withholds a CTL
+delivery, dup delivers it twice, delay sleeps).  sm rides host memory, not a
+wire: no corruption and no reset.  Both ring lanes (the native core's and
+numpy's) deliver through the same Python drain, so the hooks cover both;
+each sits behind ``if chaos.enabled``.
 """
 from __future__ import annotations
 
@@ -62,7 +70,9 @@ import numpy as np
 from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.base.containers import Fifo
 from ompi_tpu_torch.base.var import VarType
-from ompi_tpu_torch.mca.btl.base import Btl, Endpoint, Frag, owned_bytes
+from ompi_tpu_torch.ft import chaos
+from ompi_tpu_torch.mca.btl.base import Btl, Endpoint, Frag, loss_ok, \
+    owned_bytes
 from ompi_tpu_torch.runtime import profile, trace
 from ompi_tpu_torch.runtime.hotpath import hot_path
 
@@ -366,6 +376,16 @@ class SmBtl(Btl):
 
     @hot_path
     def send(self, ep: Endpoint, frag: Frag) -> None:
+        chaos_dup = False
+        if chaos.enabled:
+            rule = chaos.wire_send("sm", loss_ok(frag))
+            if rule is not None:
+                fault = rule["fault"]
+                if fault == "drop":
+                    return          # best-effort CTL frame lost
+                if fault == "delay":
+                    chaos.sleep_ms(rule)
+                chaos_dup = fault == "dup"
         # stage clock: the header build is send.queue; the ring write
         # itself (the sm "wire") is send.wire
         _pt = profile.now() if profile.enabled else 0
@@ -374,6 +394,11 @@ class SmBtl(Btl):
             profile.stage_span("send.queue", _pt)
         with self._tx_lock:
             ring = self._ring_to(ep.world_rank, ep.addr)
+            if chaos_dup:
+                # framing-level duplicate of an idempotent CTL frame
+                if not ring.push_frame(hdr, frag.data):
+                    self._pending.setdefault(ep.world_rank, Fifo()).push(
+                        (hdr, owned_bytes(frag.data)))
             # the ring write is sm's "wire": traced like tcp's btl_sendmsg
             _t0 = trace.now() if (trace.enabled or profile.enabled) else 0
             if not ring.push_frame(hdr, frag.data):
@@ -430,6 +455,16 @@ class SmBtl(Btl):
                             frag = _unframe(buf)
                             if profile.enabled:
                                 profile.stage_span("recv.parse", _pt)
+                            if chaos.enabled:
+                                rule = chaos.wire_recv("sm", loss_ok(frag))
+                                if rule is not None:
+                                    fault = rule["fault"]
+                                    if fault == "delay":
+                                        chaos.sleep_ms(rule)
+                                    elif fault == "drop":
+                                        continue   # delivery withheld
+                                    elif fault == "dup":
+                                        self._recv_cb(_unframe(buf))
                             self._recv_cb(frag)
                             events += 1
             finally:

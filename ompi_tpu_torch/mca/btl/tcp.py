@@ -21,11 +21,11 @@ pickle headers coexist on one connection)::
 
 The fast header covers eager MATCH (empty meta) and the RNDV continuation
 FRAG (``{"req_id": int}``); anything else falls back to pickle.  The crc
-variants are armed on the send side under ``OTPU_SANITIZE``; the receiver
-verifies whatever arrives checksummed.  The quant variant is stamped per
-fragment by pml/ob1 (``Frag.qcodec``, only it still knows the bytes are
-float32) when ``otpu_coll_quant_wire`` is set, and the receive parse decodes
-back to the ORIGINAL bytes.
+variants are armed on the send side under chaos (``otpu_chaos_spec``) or
+``OTPU_SANITIZE``; the receiver verifies whatever arrives checksummed.  The
+quant variant is stamped per fragment by pml/ob1 (``Frag.qcodec``, only it
+still knows the bytes are float32) when ``otpu_coll_quant_wire`` is set, and
+the receive parse decodes back to the ORIGINAL bytes.
 
 Send path: the out-queue is a deque of memoryviews drained by
 ``socket.sendmsg`` scatter-gather; a borrowed payload (``Frag.borrowed``)
@@ -56,11 +56,19 @@ call, so both receive lanes (the selector and the native reactor) drain
 them.  FT control frames (``proto`` ``ft_*``) are best-effort: a failed
 connect puts the peer in a 10 s backoff that only they honour, and a frame
 flagged ``est_only`` (the detector's tombstone flood) rides an established
-connection or none.  Not copied: the chaos hooks (``chaos.wire_send`` /
-``wire_recv``, injected resets and corruption; ROADMAP A 4.4) and the
-``abort`` event a wire fault posts.  btl/tcp has no one-sided triple
-(``rdma`` False): ob1's RGET rung reaches it only as the receiver-requested
-FRAG stream of ``pml_ob1_rget_emulate``.
+connection or none.  A wire-integrity trip posts an ``abort`` event, so
+the launcher tears the job down with the diagnostic on record.
+
+Chaos (``tcp.py:421-565``, ``:709-715``, ``:761-765``, ``:937-946``): each
+send consults ``chaos.wire_send`` (drop and dup on best-effort CTL frames
+only, ``btl.base.loss_ok``; delay; a connection reset; corruption flipped
+into a header byte AFTER the crc is computed), and each received frame
+``chaos.wire_recv`` on every lane where frames reach Python: the selector's
+scratch parse, the reactor's FAST records (delay only: a crc-armed frame
+never takes the FAST lane) and its RAW records (delay and corruption before
+the crc check).  Every hook sits behind ``if chaos.enabled``.  btl/tcp has
+no one-sided triple (``rdma`` False): ob1's RGET rung reaches it only as
+the receiver-requested FRAG stream of ``pml_ob1_rget_emulate``.
 """
 from __future__ import annotations
 
@@ -79,8 +87,9 @@ import numpy as np
 
 from ompi_tpu_torch.base.output import register_help, show_help
 from ompi_tpu_torch.base.var import VarType
+from ompi_tpu_torch.ft import chaos
 from ompi_tpu_torch.mca.btl.base import ACK, CTL, FRAG, MATCH, RGET, \
-    RNDV, Btl, Endpoint, Frag
+    RNDV, Btl, Endpoint, Frag, loss_ok
 from ompi_tpu_torch.mca.coll import quant as quant_mod
 from ompi_tpu_torch.runtime import profile, reactor as reactor_mod, \
     sanitizer, spc, trace
@@ -113,10 +122,10 @@ _QHDR = struct.Struct("!BIH")
 
 
 def _cksum_armed() -> bool:
-    """Frame checksumming is opt-in: the sanitizer's hard-assertion mode
-    arms it (the reference's chaos arming waits for ROADMAP A 4); the
-    default fast path never pays the crc."""
-    return sanitizer.enabled
+    """Frame checksumming is opt-in: chaos (corruption is being
+    *injected*) or the sanitizer hard-assertion mode arms it; the default
+    fast path never pays the crc."""
+    return chaos.enabled or sanitizer.enabled
 
 
 # fast header: cid, src, dst (u32), tag (i32), seq (i64), kind (u8),
@@ -389,6 +398,16 @@ class TcpBtl(Btl):
 
     @hot_path
     def send(self, ep: Endpoint, frag: Frag) -> None:
+        chaos_rule = None
+        if chaos.enabled:
+            chaos_rule = chaos.wire_send("tcp", loss_ok(frag))
+            if chaos_rule is not None:
+                fault = chaos_rule["fault"]
+                if fault == "drop":
+                    return          # best-effort CTL frame lost
+                if fault == "delay":
+                    chaos.sleep_ms(chaos_rule)
+                    chaos_rule = None
         nbytes = getattr(frag.data, "nbytes", None)
         if nbytes is None:
             nbytes = len(frag.data)
@@ -412,6 +431,23 @@ class TcpBtl(Btl):
             conn = self._connect(
                 ep.world_rank,
                 best_effort=str(meta.get("proto", "")).startswith("ft_"))
+        if chaos_rule is not None and chaos_rule["fault"] == "reset":
+            # injected connection reset: shutdown (the receive lane sees
+            # an EOF and runs the normal teardown, which also routes the
+            # reset into the detector as a suspicion).  A best-effort CTL
+            # frame is silently lost, exactly like a real reset;
+            # application traffic fails loudly.
+            try:
+                conn.sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            self._drop_conn(conn)
+            self._drain_suspects()
+            if frag.kind == CTL:
+                return
+            raise ConnectionError(
+                f"chaos: injected connection reset to rank "
+                f"{ep.world_rank}")
         # payload as a flat byte view
         payload = frag.data
         if not isinstance(payload, (bytes, bytearray, memoryview)):
@@ -465,6 +501,13 @@ class TcpBtl(Btl):
             if frame_len > _MAX_FRAME:
                 raise self._frame_too_large(frame_len)
             head = _LEN.pack(frame_len) + bytes((htype,)) + qhdr + hdr
+        if chaos_rule is not None and chaos_rule["fault"] == "corrupt":
+            # on-the-wire bit rot, injected AFTER the checksum was computed
+            # (the armed receiver catches it loudly); flips a header byte
+            # so the caller's payload memory stays pristine
+            mangled = bytearray(head)
+            mangled[-1] ^= 0x01
+            head = bytes(mangled)
         with conn.send_lock:
             conn.outq.append(memoryview(head))
             conn.out_bytes += len(head)
@@ -492,6 +535,16 @@ class TcpBtl(Btl):
                         sanitizer.fail(
                             "btl/tcp out-queue still aliases a borrowed "
                             "payload after send() returned")
+        if chaos_rule is not None and chaos_rule["fault"] == "dup":
+            # duplicate delivery of a best-effort CTL frame (a framing-level
+            # retransmit): the FT protocols riding CTL are idempotent
+            with conn.send_lock:
+                conn.outq.append(memoryview(head))
+                conn.out_bytes += len(head)
+                if len(payload):
+                    conn.outq.append(memoryview(bytes(payload)))
+                    conn.out_bytes += len(payload)
+                self._flush_locked(conn)
         self._drain_suspects()
 
     def _drain_suspects(self) -> None:
@@ -615,6 +668,13 @@ class TcpBtl(Btl):
         memoryview is borrowed drain-buffer scratch, valid until the next
         drain."""
         if etype == _R_FAST:
+            if chaos.enabled:
+                # recv-side chaos on the fast lane: delay only — corrupt
+                # targets checksummed frames, and those never arrive here
+                # (htype & _H_CK_BASE diverts to the RAW lane)
+                rule = chaos.wire_recv("tcp", False)
+                if rule is not None and rule["fault"] == "delay":
+                    chaos.sleep_ms(rule)
             _pt = profile.now() if profile.enabled else 0
             (cid, src, dst, tag, seq, code, total_len, offset,
              req_id) = _FAST.unpack_from(payload, 0)
@@ -655,7 +715,16 @@ class TcpBtl(Btl):
         """Slow-lane record: the native side forwards any frame that is
         not a plain fast header (crc-armed, quantized, pickle, handshake,
         unknown kind byte) VERBATIM, into the same ``_parse_frame`` the
-        selector lane uses."""
+        selector lane uses, after the same recv-side chaos hook."""
+        if chaos.enabled:
+            rule = chaos.wire_recv("tcp", False)
+            if rule is not None:
+                if rule["fault"] == "delay":
+                    chaos.sleep_ms(rule)
+                elif rule["fault"] == "corrupt" \
+                        and len(frame) > 1 + _CKSUM.size + 1 \
+                        and frame[0] & _H_CK_BASE:
+                    frame[1 + _CKSUM.size] ^= 0x01
         _pt = profile.now() if profile.enabled else 0
         frag = self._parse_frame(conn, frame, borrowed=True)
         if profile.enabled:
@@ -813,6 +882,21 @@ class TcpBtl(Btl):
                     break
                 frame = view[pos + _LEN.size:pos + _LEN.size + fl]
                 pos += _LEN.size + fl
+                if chaos.enabled:
+                    # recv-side faults on tcp are delay + corrupt only
+                    # (loss_ok=False): the frag class is unknown before
+                    # parse, and loss faults are the SEND side's job
+                    rule = chaos.wire_recv("tcp", False)
+                    if rule is not None:
+                        if rule["fault"] == "delay":
+                            chaos.sleep_ms(rule)
+                        elif rule["fault"] == "corrupt" \
+                                and fl > 1 + _CKSUM.size + 1 \
+                                and frame[0] & _H_CK_BASE:
+                            # pre-verify bit rot in the recv scratch, only
+                            # on checksummed frames (an unarmed sender's
+                            # frame would corrupt silently)
+                            frame[1 + _CKSUM.size] ^= 0x01
                 _pt = profile.now() if profile.enabled else 0
                 frag = self._parse_frame(conn, frame, borrowed=True)
                 if profile.enabled:
@@ -933,20 +1017,25 @@ class TcpBtl(Btl):
             f"({nbytes} bytes, want {want:#x} got {got:#x}): wire "
             "corruption detected", peer, nbytes)
 
-    @staticmethod
-    def _wire_fault(counter: str, message: str, peer: int = -1,
+    def _wire_fault(self, counter: str, message: str, peer: int = -1,
                     nbytes: int = 0) -> None:
         """Shared tail of a wire-integrity trip (crc mismatch, a quant
         frame that does not decode, a framing desync), each under its own
-        counter: counted, trace-instant'ed, then SanitizeError raised.
-        The progress loop re-raises SanitizeError, so the waiting caller dies loudly and the
-        launcher tears the job down with the rank's exit code (the
-        reference also posts an ``abort`` event for its FT listeners,
-        ROADMAP A 4)."""
+        counter: counted, trace-instant'ed, abort event posted, then
+        SanitizeError raised.  Raising from the progress thread alone
+        could leave the job hanging; the abort event (and the progress
+        loop re-raising SanitizeError) lets the launcher tear the job down
+        with the diagnostic on record."""
         spc.record(counter)
         if trace.enabled:
             trace.instant(counter, "btl",
                           args={"peer": peer, "nbytes": nbytes})
+        if self._rte is not None:
+            try:
+                self._rte.event_notify("abort",
+                                       {"code": 1, "why": counter})
+            except Exception:
+                pass
         raise sanitizer.SanitizeError(message)
 
     def flush(self, timeout: float = 30.0) -> None:
@@ -1027,4 +1116,4 @@ register_help(
     "does not verify (expected {want}, computed {got}): the bytes were "
     "corrupted on the wire.  The job is being aborted — silent corruption "
     "must never reach the application.  (Checksums are armed under "
-    "OTPU_SANITIZE.)")
+    "chaos injection and OTPU_SANITIZE.)")

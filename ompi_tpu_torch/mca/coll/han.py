@@ -16,8 +16,12 @@ slow inter-node links carry the minimum number of bytes:
 The sub-communicators select their own coll modules (tuned ladders), so the
 composition reuses the whole algorithm menu per level.  They are built
 lazily, with the multi-process ``split``, on a slot's first use, and freed
-by ``comm_unquery`` (``Comm.free`` and finalize).  A tensor given to a slot
-is staged to the host once, at the slot's entry, and results are numpy.
+by ``comm_unquery`` (``Comm.free`` and finalize).  Unlike the reference,
+a revocation of the comm revokes its sub-communicators too
+(``ft_state.link_revocation``), so a member blocked in one level on a live
+peer that has left the collective to recover is released, as ULFM's revoke
+requires.  A tensor given to a slot is staged to the host once, at the
+slot's entry, and results are numpy.
 
 Node identity comes from the RTE modex ("node" key: ``OTPU_NODE_ID`` or the
 hostname), so ``tpurun --fake-nodes K`` exercises the hierarchy on one host
@@ -39,7 +43,13 @@ from ompi_tpu_torch.api import op as op_mod
 from ompi_tpu_torch.base.mca import Component
 from ompi_tpu_torch.base import cudaenv
 from ompi_tpu_torch.base.var import VarType
+from ompi_tpu_torch.ft import state as ft_state
 from ompi_tpu_torch.mca.coll.basic import BasicCollModule, coll_tag, staged
+
+
+def _rev_key(comm) -> tuple:
+    """A comm's revocation key (``ft_state.mark_revoked``'s)."""
+    return (comm.ft_scope, comm.cid, comm.epoch)
 
 
 class HanModule:
@@ -93,6 +103,13 @@ class HanModule:
             # leaders: one rank per node (low rank 0); None elsewhere
             self._leaders = comm.split(
                 0 if self._low_rank_of[me] == 0 else -1, key=me)
+            # a revocation of comm reaches the sub-comms its collectives
+            # block on (ULFM): a member waiting there on a live peer that
+            # has left to recover is released
+            ft_state.link_revocation(
+                _rev_key(comm), [_rev_key(c) for c in
+                                 (self._low, self._up, self._leaders)
+                                 if c is not None])
         finally:
             self._building = False
         return True
@@ -283,6 +300,8 @@ class HanModule:
     # shadowed by a higher-priority non-FT composition.
 
     def comm_unquery(self, comm) -> None:
+        if self._low is not None:
+            ft_state.unlink_revocation(_rev_key(comm))
         for sub in (self._low, self._up, self._leaders):
             if sub is not None:
                 sub.free()

@@ -24,7 +24,10 @@ tensor is staged to the host once, at a slot's entry.  The segment's name
 is the reference's, job-qualified (``<prefix>_csm_<coord>_<job>_<cid>``),
 with the port's prefix (``otpt``).  A failed member turns a
 counter wait into ``ProcFailedError`` (``sm_coll.py:150-176``; checked
-every 2048 spins) instead of a hang, and no local view of the segment
+every 2048 spins) instead of a hang; unlike the reference, a revoked
+comm turns it into ``RevokedError`` (ULFM's revoke completes the comm's
+pending operations; coll/han's sub-comms are revoked with their parent),
+and no local view of the segment
 outlives a slot's wait, so a survivor that caught the error unmaps the
 segment without a ``BufferError``.
 """
@@ -177,6 +180,11 @@ class SmCollModule:
                     raise ProcFailedError(
                         f"peer(s) {dead} failed during a coll/sm "
                         f"operation", tuple(dead))
+                if comm.is_revoked():
+                    from ompi_tpu_torch.api.errors import RevokedError
+
+                    raise RevokedError(f"{comm.name} revoked during a "
+                                       "coll/sm operation")
             time.sleep(0)
 
     def _bump(self, off: int) -> None:

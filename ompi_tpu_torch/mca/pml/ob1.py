@@ -41,7 +41,15 @@ exposure a dead puller never released first, so its segment returns to the
 pool and the sender's numpy buffer is writable again; a card tensor's
 host copy (``as_buffer``'s staging) goes with its request.  A blocking
 probe, which is never a posted request, polls the failure state and the
-revocation set every 2048 spins (``_probe_liveness``).
+revocation set every 2048 spins (``_probe_liveness``).  Unlike the
+reference, a revocation completes the comm's pending requests (posted and
+matched receives, ANY_SOURCE ones too, and sends awaiting their ACK) with
+``RevokedError`` (``_comm_revoked``, registered with ``ft_state.on_revoke``),
+as ULFM's revoke requires: a rank blocked in a receive from a peer that
+has left to recover is released.  The RGET control frames
+(``ob1_rget_done``, ``ob1_rget_pull``) carry ``meta["reliable"]``: they
+complete a transfer that has no retransmit, so chaos never drops or
+duplicates them (``btl.base.loss_ok``).
 """
 from __future__ import annotations
 
@@ -168,6 +176,7 @@ class Ob1Pml:
         from ompi_tpu_torch.ft import state as ft_state
 
         ft_state.on_failure(self._peer_failed)
+        ft_state.on_revoke(self._comm_revoked)
         register_ctl_handler("ob1_rget_done", self._on_rget_done)
         register_ctl_handler("ob1_rget_pull", self._on_rget_pull)
 
@@ -224,6 +233,37 @@ class Ob1Pml:
                     continue
         for req in victims:
             _release_rget(req)   # a dead puller must not leak the segment
+            req.complete(err)
+
+    def _comm_revoked(self, job: str, cid: int, epoch: int) -> None:
+        """Complete every pending request of the revoked comm in error
+        (ULFM's revoke: ``MPI_ERR_REVOKED`` for the comm's pending
+        operations)."""
+        from ompi_tpu_torch.api.errors import RevokedError
+
+        def on_it(req) -> bool:
+            c = getattr(req, "comm", None)
+            return (c is not None and c.cid == cid and c.epoch == epoch
+                    and str(c.ft_scope) == str(job))
+
+        victims = []
+        with self._lock:
+            for st in self._match.values():
+                for req in list(st.posted):
+                    if on_it(req):
+                        st.posted.remove(req)
+                        victims.append(req)
+            for table in (self._recv_reqs, self._send_reqs):
+                for rid, req in list(table.items()):
+                    if on_it(req):
+                        del table[rid]
+                        victims.append(req)
+        if not victims:
+            return
+        err = RevokedError(f"communicator cid {cid} (epoch {epoch}) "
+                           "revoked with the request pending")
+        for req in victims:
+            _release_rget(req)
             req.complete(err)
 
     # -- send path (pml_ob1_isend.c:233) --------------------------------
@@ -696,7 +736,7 @@ class Ob1Pml:
             self._rget_fail(req, frag, events)
             return
         done = Frag(frag.cid, frag.dst, frag.src, -1, 0, CTL,
-                    meta={"proto": "ob1_rget_done",
+                    meta={"proto": "ob1_rget_done", "reliable": True,
                           "req_id": frag.meta["req_id"]})
         key = frag.meta.get("key")
         if error is not None and key is None:
@@ -753,7 +793,7 @@ class Ob1Pml:
         # continuation machinery (completion in _recv_data_frag)
         self._recv_reqs[req.req_id] = req
         ep.btl.send(ep, Frag(frag.cid, frag.dst, frag.src, -1, 0, CTL,
-                             meta={"proto": "ob1_rget_pull",
+                             meta={"proto": "ob1_rget_pull", "reliable": True,
                                    "req_id": frag.meta["req_id"],
                                    "peer_req": req.req_id}))
 

@@ -36,7 +36,17 @@ failure (``mpi://surviving``: the world less every known failure) and
 shrink (``mpi://shrunk/<cid>``) update; the ``spawn`` op allocates fresh
 global ranks past every rank handed out so far and hands the launch to the
 launcher's registered handler (``set_spawn_handler``, PMIx_Spawn's role).
-Not copied: the chaos hooks and the flight-recorder views.
+
+Chaos and the flight recorder (``coord.py:267-281``, ``:493-508``,
+``:579-608``, ``:650-689``): the client consults ``chaos.coord_stall``
+before each send (a ``stall`` sleeps) and ``chaos.coord_disconnect`` after
+it (the socket is closed with the reply lost, so the retry above must be
+answered from the replay cache, exactly once); a server armed in its own
+process stalls a fresh request after its replay claim.  The client keeps
+its last 64 RPCs (``recent_rpcs``) and the server a wall-clock stamp a
+published event, both read by the flight recorder: a rank's dump carries
+the first, ``CoordServer.flight_view`` (events, failed ranks, psets) sits
+beside the dumps in ``tpurun``'s bundle.
 """
 from __future__ import annotations
 
@@ -49,7 +59,7 @@ import struct
 import threading
 import time
 import uuid
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Optional
 
 from ompi_tpu_torch.base.var import VarType, registry
@@ -134,6 +144,7 @@ class CoordServer:
         "_fence_done": "_fence_cond", "_fence_expect": "_fence_cond",
         "_failed": "_fence_cond",
         "_events": "_event_cond", "_event_seq": "_event_cond",
+        "_event_times": "_event_cond",
         "_conns": "_conns_lock",
         "_rpc_cache": "_rpc_cond", "_inflight": "_rpc_cond",
     }
@@ -157,6 +168,10 @@ class CoordServer:
         self._failed: set[int] = set()
         self._events: list[tuple[int, str, Any]] = []
         self._event_seq = 0
+        # wall-clock stamp per event seq: the poll wire format stays (seq,
+        # name, payload); the flight bundle reads the times through
+        # flight_view() instead
+        self._event_times: dict[int, float] = {}
         self._event_cond = threading.Condition()
         self._aborted: Optional[int] = None
         # process-set registry (MPI-4 psets; the PMIx_Get PMIX_PSET_NAMES
@@ -223,6 +238,7 @@ class CoordServer:
                     resp = self._replay_or_claim(cid, rid)
                     if resp is None:
                         try:
+                            self._maybe_stall(req)
                             resp = self._handle(req)
                         except Exception as exc:
                             # a malformed request must not strand its
@@ -268,6 +284,22 @@ class CoordServer:
             while len(self._rpc_cache) > 4096:
                 self._rpc_cache.popitem(last=False)
             self._rpc_cond.notify_all()
+
+    def _maybe_stall(self, req: dict) -> None:
+        """Chaos seam: a ``stall`` rule armed IN THIS PROCESS delays the
+        server's processing of a fresh (non-replayed) request, the
+        overloaded-coordinator model the client's timeout-retry path is
+        tested against.  Jobs arm chaos in the ranks, never in the
+        launcher, so only an in-process chaos-armed test reaches it.
+        Consulted AFTER the replay-cache claim: an adopted retry must not
+        burn a firing."""
+        from ompi_tpu_torch.ft import chaos
+
+        if not chaos.enabled:
+            return
+        rule = chaos.coord_stall("server:" + str(req.get("op")))
+        if rule is not None:
+            chaos.sleep_ms(rule)
 
     def _handle(self, req: dict) -> dict:
         """Process one request; returns the response frame."""
@@ -446,7 +478,24 @@ class CoordServer:
         with self._event_cond:
             self._event_seq += 1
             self._events.append((self._event_seq, name, payload))
+            self._event_times[self._event_seq] = time.time()
             self._event_cond.notify_all()
+
+    def flight_view(self) -> dict:
+        """The coordination service's own post-mortem view — timestamped
+        event log, known-failed ranks, advertised psets — merged into the
+        flight-recorder bundle next to the per-rank dumps."""
+        with self._event_cond:
+            events = [{"seq": s, "name": n, "payload": p,
+                       "t": self._event_times.get(s)}
+                      for s, n, p in self._events]
+        with self._fence_cond:
+            failed = sorted(self._failed)
+        with self._kv_cond:
+            psets = {n: e["members"] for n, e in self._psets.items()}
+        return {"events": events, "failed": failed, "psets": psets,
+                "nprocs": self.nprocs, "aborted": self._aborted,
+                "t": time.time()}
 
     def collect(self, key: str) -> dict:
         """{rank: value} of every KV entry published under ``key``: the
@@ -519,6 +568,9 @@ class CoordClient:
         self._sock: Optional[socket.socket] = self._dial()
         self._lock = threading.Lock()
         self._event_since = 0
+        # rolling last-N RPC ring for the flight recorder: (wall time, op,
+        # rid, ok), one deque append an RPC, read at crash time
+        self._recent: deque = deque(maxlen=64)
 
     def _dial(self) -> socket.socket:
         sock = socket.create_connection(self._addr,
@@ -531,10 +583,22 @@ class CoordClient:
             self._rid += 1
             req["_cid"] = self._cid
             req["_rid"] = self._rid
-            resp = self._rpc_locked(req)
+            try:
+                resp = self._rpc_locked(req)
+            except BaseException:
+                self._recent.append((time.time(), str(req.get("op")),
+                                     self._rid, False))
+                raise
+            self._recent.append((time.time(), str(req.get("op")),
+                                 self._rid, bool(resp.get("ok"))))
         if not resp.get("ok"):
             raise RuntimeError(f"coordination error: {resp.get('error')}")
         return resp
+
+    def recent_rpcs(self) -> list:
+        """Last-N completed/failed RPCs as ``[t_wall, op, rid, ok]`` rows
+        (the flight recorder's coordination-activity tail)."""
+        return [list(e) for e in self._recent]
 
     @contextlib.contextmanager
     def recovery_scope(self):
@@ -565,11 +629,12 @@ class CoordClient:
         return self._rpc_timeout
 
     def _rpc_locked(self, req: dict) -> dict:
-        """One idempotent RPC round: send, then receive; connection errors
-        reconnect with exponential backoff + jitter and retry the SAME
-        request (the server's replay cache makes the retry
-        duplicate-safe)."""
+        """One idempotent RPC round: send, (maybe an injected fault),
+        receive; connection errors reconnect with exponential backoff +
+        jitter and retry the SAME request (the server's replay cache makes
+        the retry duplicate-safe)."""
         from ompi_tpu_torch.base.output import show_help
+        from ompi_tpu_torch.ft import chaos
         from ompi_tpu_torch.runtime import spc
 
         op = str(req.get("op"))
@@ -591,7 +656,20 @@ class CoordClient:
                     # first RPC after it narrows it back)
                     self._sock.settimeout(rto)
                     self._applied_rto = rto
+                if chaos.enabled:
+                    rule = chaos.coord_stall(op)
+                    if rule is not None:
+                        chaos.sleep_ms(rule)
                 _send_frame(self._sock, req)
+                if chaos.enabled and chaos.coord_disconnect(op):
+                    # injected mid-RPC reset: the request reached the
+                    # server, the reply is lost — the retry below must be
+                    # answered duplicate-safe from the replay cache
+                    try:
+                        self._sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+                    self._sock.close()
                 return _recv_frame(self._sock)
             except TimeoutError:
                 if not dialing:

@@ -19,8 +19,11 @@ COMM_WORLD of GLOBAL ranks the coordination service allocated
 (``OTPU_PARENT_RANKS``, ``OTPU_PARENT_CID``), announces itself with the
 ``__spawn_join__:<job>`` key as soon as its coordination connection is up,
 and scopes its fence ids by job with explicit membership; the primary job
-is job "0" with ranks 0..nprocs-1.  Not copied: the ``hostname`` key, the
-chaos hook and the multi-process device world.
+is job "0" with ranks 0..nprocs-1.  ``chaos.install(rank=...)`` arms
+fault injection before the first coordination RPC (``proc.py:39-43``), so
+a chaos spec covers the wire-up fences too; it is a no-op with
+``otpu_chaos_spec`` empty.  Not copied: the ``hostname`` key and the
+multi-process device world.
 """
 from __future__ import annotations
 
@@ -40,6 +43,12 @@ class ProcRte(Rte):
         self.device = cudaenv.resolve_device(device)
         self.my_world_rank = int(os.environ["OTPU_RANK"])
         self.world_size = int(os.environ["OTPU_NPROCS"])
+        # arm deterministic fault injection BEFORE the first coord RPC: a
+        # chaos spec must cover the wire-up fences too (no-op when
+        # otpu_chaos_spec is empty)
+        from ompi_tpu_torch.ft import chaos
+
+        chaos.install(rank=self.my_world_rank)
         # dpm job identity: a spawned job's COMM_WORLD is built from the
         # GLOBAL ranks the coordination service allocated
         self.job = os.environ.get("OTPU_JOB", "0")

@@ -42,8 +42,9 @@ by default) the heartbeat detector too, each a daemon thread on a
 coordination connection of its own (the PMIx ``PROC_ABORTED`` handler of
 ``ompi_mpi_init.c:400-402``).  ``finalize`` stops both, and the instance's
 teardown stops them on every other path; ``reset_for_testing`` clears the
-failure state.  Hooks and the flight recorder (its dump at ``abort``) are
-not ported yet.
+failure state.  ``abort`` writes the flight recorder's ``abort`` dump
+before it publishes the event (``init.py:339-343``).  Not ported: the
+reference's hooks framework (ROADMAP A 8).
 """
 from __future__ import annotations
 
@@ -355,6 +356,12 @@ def abort(obj, errorcode: int = 1) -> None:
     """``MPI_Abort``: tear down the job."""
     print(f"[ompi_tpu_torch] MPI_Abort on {obj!r} with code {errorcode}",
           file=sys.stderr, flush=True)
+    try:
+        from ompi_tpu_torch.runtime import flight
+
+        flight.dump("abort", detail=f"code {errorcode} on {obj!r}")
+    except Exception:
+        pass
     if _rte is not None:
         _rte.event_notify("abort", {"code": errorcode})
     sys.exit(errorcode)

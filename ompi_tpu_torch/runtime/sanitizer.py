@@ -16,8 +16,10 @@ at import from the environment (``tpurun``'s ranks inherit it); every check
 site is on an error path or behind ``if sanitizer.enabled``.  Tests may flip
 ``sanitizer.enabled`` directly (consumers read it at use time).  The
 staging pool's release checks (a non-contiguous buffer, a double release)
-and the memchecker's guard (forced on under the mode) read it too.  Not
-copied: the flight recorder's crash dump on a trip (ROADMAP A 4.4).
+and the memchecker's guard (forced on under the mode) read it too.  A trip
+writes the flight recorder's ``sanitize`` dump on a thread of its own
+(``sanitizer.py:59``): ``fail`` fires inside hot paths holding locks, and
+the dump dials the coordination service for a clock offset.
 """
 from __future__ import annotations
 
@@ -32,4 +34,18 @@ class SanitizeError(AssertionError):
 
 
 def fail(msg: str) -> None:
+    try:
+        # crash-time post-mortem (a no-op unless the flight recorder is
+        # armed), off the caller's thread: the dump's seconds of blocking
+        # coordination I/O must not run under the caller's locks
+        import threading
+
+        from ompi_tpu_torch.runtime import flight
+
+        threading.Thread(target=flight.dump, args=("sanitize",),
+                         kwargs={"detail": msg},
+                         name="otpu-flight-sanitize",
+                         daemon=True).start()
+    except Exception:
+        pass
     raise SanitizeError(msg)

@@ -10,8 +10,9 @@ fastpath counters (coll/algorithms' schedule cache, coll/tuned's eager
 lane, the accelerator's staging pool) and the host transports' (btl/tcp,
 the native reactor, coll/quant's wire stage) and the observability
 runtime's (the telemetry sampler's publishes, the profiler's ticks, the
-trace's flow halves).  The reference's other counters (the per-collective
-call counts, serving, chaos) come with the modules that record them.
+trace's flow halves) and fault injection's (each chaos fault, the flight
+recorder's dumps).  The reference's other counters (the per-collective
+call counts, serving) come with the modules that record them.
 """
 from __future__ import annotations
 
@@ -42,6 +43,11 @@ _COUNTERS = (
     # (runtime/profile), and the trace's message-flow halves
     # (runtime/trace flow_start/flow_finish)
     "telemetry_samples", "profile_samples", "flow_starts", "flow_finishes",
+    # chaos (ft/chaos): every injected fault is counted, so a chaos run
+    # self-documents what it actually injected; the flight recorder's dumps
+    "chaos_drop", "chaos_delay", "chaos_dup", "chaos_corrupt",
+    "chaos_reset", "chaos_stall", "chaos_disconnect", "chaos_kill",
+    "flight_dumps",
 )
 
 _pvars = {}

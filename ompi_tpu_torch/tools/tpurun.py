@@ -23,7 +23,12 @@ At the job's end the launcher merges what the ranks published into the
 coordination service at their finalize (``tpurun.py:177-253``): the trace
 payloads into one clock-aligned timeline, ``<trace_dir>/trace_merged.json``
 (``otpu-trace/`` by default), with a skew report, ``trace_skew.txt``,
-beside it, and the monitoring matrices into one job-wide table on stderr.
+beside it, the monitoring matrices into one job-wide table on stderr, and
+the flight recorder's dumps (``tpurun.py:253-305``): every dump a rank
+published under the ``otpu_flight`` key (a chaos-killed rank's, an
+aborting rank's, a survivor's post-mortem) with the coordination service's
+own ``flight_view``, clock-aligned into ``<otpu_flight_dir>/bundle.json``
+(``otpu-crash/`` by default).
 
 ``--enable-recovery`` is ULFM's mode (``tpurun.py:128-175``, ``:725-737``,
 mpirun's ``--enable-recovery``): a rank that dies is reported once, as a
@@ -45,9 +50,8 @@ or one a rank (``spawn_multiple``), and the fake-node id ``rank % K``.
 
 Not copied yet: hostfiles, launch agents and their ``_child_main``
 (``tpurun.py:34-83``, ``:322``; ROADMAP A 4.5), the serving flags
-(``--router-ranks``, ``--worker-ranks``, ``--pool``; A 7), the device-world
-and binding flags, and the flight bundle merge (``:255-305``, with the
-flight recorder, ROADMAP A 4.4).
+(``--router-ranks``, ``--worker-ranks``, ``--pool``; A 7), and the
+device-world and binding flags.
 """
 from __future__ import annotations
 
@@ -225,6 +229,60 @@ def _merge_monitoring(server) -> None:
             payloads, server.nprocs), file=sys.stderr)
 
 
+def _gather_flight(server) -> None:
+    """Flight-recorder gather: crashing and surviving ranks publish their
+    post-mortem dumps into the coordination KV; the launcher merges them
+    with the coordination service's own timestamped event view into one
+    clock-aligned bundle (the victim's last trace events ordered against
+    the survivors' recovery spans on the coordination clock)."""
+    import json
+
+    from ompi_tpu_torch.runtime import flight as flight_mod
+
+    raw = server.collect(flight_mod._KV_KEY)
+    if not raw:
+        return
+    dumps = {}
+    for rank in sorted(raw):
+        try:
+            dumps[rank] = json.loads(raw[rank])
+        except (TypeError, ValueError):
+            print(f"tpurun: rank {rank} published an unreadable flight "
+                  "dump", file=sys.stderr)
+    if not dumps:
+        return
+    # clock-aligned merged event tail: each dump's trace tail wrapped as a
+    # per-rank payload and run through THE timeline merger (one alignment
+    # implementation, shared with _merge_traces)
+    from ompi_tpu_torch.runtime import trace
+
+    merged = trace.merge_timelines([
+        {"traceEvents": d.get("trace_tail", []),
+         "metadata": {"rank": rank,
+                      "clock_offset_us": d.get("clock_offset_us", 0.0)}}
+        for rank, d in dumps.items()])
+    bundle = {
+        "dumps": {str(r): d for r, d in dumps.items()},
+        "coord": server.flight_view(),
+        "merged_tail": merged,
+        "clock": "coord-server",
+    }
+    fdir = next(iter(dumps.values())).get("flight_dir", "otpu-crash")
+    try:
+        os.makedirs(fdir, exist_ok=True)
+        path = os.path.join(fdir, "bundle.json")
+        with open(path, "w") as f:
+            json.dump(bundle, f)
+    except OSError as exc:
+        print(f"tpurun: cannot write flight bundle: {exc}",
+              file=sys.stderr)
+        return
+    reasons = ", ".join(f"rank {r}: {d.get('reason')}"
+                        for r, d in sorted(dumps.items()))
+    print(f"tpurun: flight-recorder bundle of {len(dumps)} dump(s) "
+          f"({reasons}) -> {path}", file=sys.stderr)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="tpurun",
@@ -363,6 +421,7 @@ def main(argv=None) -> int:
     _teardown(procs, pumps, exit_code)
     _merge_traces(server)
     _merge_monitoring(server)
+    _gather_flight(server)
     server.close()
     if exit_code:
         print(f"tpurun: job terminated with exit code {exit_code}",

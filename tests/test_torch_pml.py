@@ -349,20 +349,16 @@ def test_a_tensor_receive_buffer_raises_like_the_reference(worlds, posted):
 
 
 NOT_COPIED = {
-    # the agreement's chaos kill points before its prepare and decision
-    # frames (ft/chaos.py, ROADMAP A 4.4)
-    "agree_kill_points": lambda pkg: "kill_point" in inspect.getsource(
-        __import__(f"{pkg}.ft.agreement", fromlist=["x"])._p2p_send),
-    # the top-level name whose module is not ported: File (A 5)
-    "top_level_file": lambda pkg: "File" in __import__(pkg)._API,
-    # btl/tcp's chaos hooks (injected drops, delays, resets, corruption on
-    # the wire): A 4.4
-    "tcp_chaos": lambda pkg: hasattr(
-        __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]), "chaos"),
+    # the sender-based message logging protocol (pml/vprotocol): A 4.6
+    "pml_vprotocol": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.mca.pml.vprotocol") is not None,
+    # partitioned communication (mca/part with persist and pcoll): A 5
+    "part": lambda pkg: importlib.util.find_spec(f"{pkg}.mca.part")
+    is not None,
 }
 
-#: reference behaviour a later slice copied (the sessions and dpm slice):
-#: present in both packages now
+#: reference behaviour a later slice copied (the sessions and dpm slice,
+#: then the train-through-failure slice): present in both packages now
 COPIED = {
     # shrink publishes the agreed survivors as the mpi://shrunk/<cid>
     # process set (the coordination service's psets)
@@ -376,14 +372,25 @@ COPIED = {
     # coll/inter, the intercommunicators' collectives
     "coll_inter": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.coll.inter") is not None,
+    # the agreement's chaos kill points before its prepare and decision
+    # frames (ft/chaos.py)
+    "agree_kill_points": lambda pkg: "kill_point" in inspect.getsource(
+        __import__(f"{pkg}.ft.agreement", fromlist=["x"])._p2p_send),
+    # the top-level File (MPI-IO)
+    "top_level_file": lambda pkg: "File" in __import__(pkg)._API,
+    # btl/tcp's chaos hooks (injected drops, delays, resets, corruption on
+    # the wire)
+    "tcp_chaos": lambda pkg: hasattr(
+        __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]), "chaos"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(COPIED))
 def test_copied_now(what):
     """Reference behaviour the port now copies: present in both packages
-    (its behaviour is held by ``test_torch_session.py`` and
-    ``test_torch_dpm.py``)."""
+    (its behaviour is held by ``test_torch_session.py``,
+    ``test_torch_dpm.py``, ``test_torch_chaos.py`` and
+    ``test_torch_io.py``)."""
     has = COPIED[what]
     assert has("ompi_tpu") and has("ompi_tpu_torch")
 
