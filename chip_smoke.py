@@ -356,9 +356,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    launches (K21 ×16 each) and the losses within 1e-5; save and load ms.
    (b) ``tpurun -n 4 --enable-recovery --mca otpu_chaos_spec
    'kill:rank=2,step=7'`` of ``ElasticTrainer`` in respawn mode, its 2^20
-   float64 parameters on the card, 15 steps, a checkpoint every 5 through
-   MPI-IO, a global batch of 24: width 4 at the end, the parameters bit for
-   bit against ``reference_run`` from the restored checkpoint, the
+   float64 parameters on the card, ``ELASTIC_STEPS`` (10) steps, a
+   checkpoint every 5 through MPI-IO, a global batch of 24: width 4 at the
+   end, the parameters bit for bit against ``reference_run`` from zeros
+   over every step and from the restored checkpoint, the
    ``elastic_*`` phases in the merged trace, the killed rank's
    ``chaos-kill`` dump in the flight bundle; the recovery's phase ms.  (c)
    the same job across ``--fake-nodes 2`` with wire faults, seed ``SEED``:
@@ -369,9 +370,39 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    a ``-n 4`` MPI-IO job of card tensors: a 64 MB dense float32 file
    written by ``write_at_all`` through 2 x 2 subarray views, read back
    collectively (bytes equal, and the dense file checked by rank 0), under
-   ``io_ompio_fcoll`` static and dynamic with two aggregators; write and
-   read MB/s.  One ``{"train_through_failure": {...}}`` line with the
+   ``io_ompio_fcoll`` static and then dynamic in one job, with two
+   aggregators; write and read MB/s.  One ``{"train_through_failure": {...}}`` line with the
    card's name and power limit.
+12. Message logging, partitioned communication and the MoE host trainer
+   (``partitioned_logging``; no kernel is added): (a) in the device world
+   ``Comm.pallreduce_init`` over gradient buckets of float32, 8 ranks wide,
+   16, 16, 4 and 4 MB a rank, released late-first by ``pready``, two
+   epochs (the second rebinding fresh buckets), on the default components
+   and again with coll/ring raised, the counts set to 0 before and read
+   after each: ``partitioned_coll`` is coll/builtin's both times and no
+   ring kernel is launched; each bucket's result bit-equal to coll/builtin's
+   one-shot ``allreduce_array`` and within the band of the float64 sum;
+   ``parrived`` read (in CUDA's sync-debug "error" mode: it must not
+   synchronize) before and after a ``torch.cuda.synchronize()``: False
+   before it (the card still spins, so a ``parrived`` that did not query
+   its bucket's event would show), True after it; the host µs of each ``pready`` beside its bucket's device ms
+   (CUDA events, the card spinning while the host releases them).  (b)
+   ``tpurun -n 3 --fake-nodes 2``: partitioned transfers of a 16 MB numpy
+   buffer in 64 partitions from rank 0 over sm (to rank 1) and over tcp
+   (to rank 2, the other node), with ``otpu_part_persist_min_partitions``
+   1 and 8 in turns: MB/s and ``part_msgs``, every transfer bit for bit.
+   (c) a ``tpurun -n 3`` job logging card tensors (256 KB each) with
+   payloads over two communicators, rank 1 killed between its two
+   receives of round 2, then every rank replayed from the logs: every
+   rank's pml is ``ReplayPml`` and it consumed exactly the sends and
+   receives of its log, and the final states are bit for bit against the
+   recurrence.  (d) ``python -m
+   ompi_tpu_torch.parallel.moe`` under ``tpurun -n 3 --enable-recovery
+   --mca otpu_chaos_spec 'kill:rank=2,step=5'``, its expert table on the
+   card: the two survivors re-shard the experts and end bit for bit on
+   ``reference_moe_run`` from zeros over all 12 steps, and on it from the
+   restored checkpoint.  One ``{"partitioned_logging": {...}}`` line
+   with the card's name and power limit.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -382,12 +413,15 @@ kernel may spill), and of K21 (``flash_block``): each of the eight
 ``flash_block_kernel`` instances must have ``FFMA``, ``LDS.128`` and
 ``LDGSTS`` (the ``cp.async`` copies) and no spills.
 
-Prints one JSON line per kernel, the ``{"kernels": [...]}`` line, and last
+Prints one JSON line per kernel, a ``{"phase_s": {...}}`` line with the
+wall seconds of each part of the run, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
 before printing anything.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import functools
 import json
 import math
 import os
@@ -3194,15 +3228,27 @@ HAN_EPS = {0: {"1": "sm", "2": "tcp", "3": "tcp"},
            3: {"0": "tcp", "1": "tcp", "2": "sm"}}
 
 
-def pack_figure() -> dict:
-    """The convertor's pack of a 16 MB strided float32 vector (every other
-    element of 32 MB), through the native core (a whole-element job above
-    ``_POOL_PACK_MIN`` fans out over ``threads/native``'s workers) beside
-    the numpy lane, bytes equal before either is timed; median ms of 5."""
+def strided_type():
+    """``pack_figure``'s datatype, every other float32 of 32 MB, with the
+    convertor's description of it built (the datatype engine's Python
+    takes ~30 s of host time for these 4M elements; ``main`` builds it in
+    a thread while nvcc runs, and nothing is timed until it is done)."""
     from ompi_tpu_torch.datatype import convertor as cv
     from ompi_tpu_torch.datatype import core
 
     dt = core.vector(4 * MB, 1, 2, core.FLOAT32)
+    cv.Convertor(dt, 1)
+    return dt
+
+
+def pack_figure(dt) -> dict:
+    """The convertor's pack of a 16 MB strided float32 vector (``dt``, every
+    other element of 32 MB), through the native core (a whole-element job
+    above ``_POOL_PACK_MIN`` fans out over ``threads/native``'s workers)
+    beside the numpy lane, bytes equal before either is timed; median ms
+    of 5."""
+    from ompi_tpu_torch.datatype import convertor as cv
+
     mem = np.random.default_rng(SEED).standard_normal(
         8 * MB).astype(np.float32).view(np.uint8)
 
@@ -3226,7 +3272,7 @@ def pack_figure() -> dict:
     return out
 
 
-def host_transports(smi: str) -> dict:
+def host_transports(smi: str, strided, sm_native: dict) -> dict:
     """The host transports on the card's machine: the native core and its
     reactor must be there (a job that falls back to the pure-Python lane is
     a failure, not a quieter row); the ``-n 2`` ping-pong over btl/sm and
@@ -3234,7 +3280,9 @@ def host_transports(smi: str) -> dict:
     and with ``OTPU_NATIVE_DISABLE=1``, in this run; coll/sm's allreduce
     and bcast of 1 MB card tensors at ``-n 4`` beside coll/tuned (``--mca
     coll ^sm_coll``); the quantized wire's 4 MB allreduce across ``--fake-
-    nodes 2``; the convertor's pack of a 16 MB strided vector.  One
+    nodes 2``; the convertor's pack of a 16 MB strided vector (the datatype
+    ``strided``).  The sm ping-pong with the native core on is
+    ``host_tier``'s job, the same command: ``sm_native`` is its result.  One
     ``host_transports`` line."""
     import tempfile
 
@@ -3259,9 +3307,12 @@ def host_transports(smi: str) -> dict:
                 ("sm_native", "sm", [], {}), ("sm_pure", "sm", [], pure),
                 ("tcp_native", "tcp", ["--mca", "btl", "tcp,self"], {}),
                 ("tcp_pure", "tcp", ["--mca", "btl", "tcp,self"], pure)):
-            lines, wall = tpurun(2, [*args, sys.executable, str(ping)],
-                                 env=env)
-            res = job_result(lines, 0)
+            if name == "sm_native":
+                res, wall = sm_native, sm_native["wall_s"]
+            else:
+                lines, wall = tpurun(2, [*args, sys.executable, str(ping)],
+                                     env=env)
+                res = job_result(lines, 0)
             on = not env
             require(res["btl"] == btl and res["native"] is on
                     and res["reactor"] is on,
@@ -3304,7 +3355,7 @@ def host_transports(smi: str) -> dict:
             "rel_err": max(x["rel_err"] for x in ranks),
             "wire_bytes_by_rank": [x["wire"] for x in ranks],
             "wall_s": wall}
-    out["pack_16MB_strided"] = pack_figure()
+    out["pack_16MB_strided"] = pack_figure(strided)
     log(json.dumps({"host_transports": out}))
     return out
 
@@ -4583,7 +4634,7 @@ w = m.init()
 tr = ElasticTrainer(w, ckpt_dir=sys.argv[1], model_size=int(sys.argv[2]),
                     global_batch=24, ckpt_every=5, respawn=True)
 t0 = time.perf_counter()
-tr.train(15)
+tr.train(int(sys.argv[3]))
 train_s = time.perf_counter() - t0
 if tr.comm.rank == 0:
     np.save(sys.argv[1] + "/final.npy", tr.w.cpu().numpy())
@@ -4599,6 +4650,7 @@ import hashlib, json, sys, time
 import numpy as np, torch
 import ompi_tpu_torch as m
 from ompi_tpu_torch.api.file import File
+from ompi_tpu_torch.base.var import registry
 from ompi_tpu_torch.datatype import core
 
 G, B = 4096, 2048       # a 4096 x 4096 float32 array (64 MB), 2 x 2 blocks
@@ -4615,36 +4667,43 @@ gi, gj = divmod(r, 2)
 block = block_of(r)
 f32 = core.from_numpy_dtype(np.float32)
 ft = core.subarray([G, G], [B, B], [gi * B, gj * B], core.ORDER_C, f32)
-f = File.open(w, sys.argv[1], "c+")
-f.set_view(0, f32, ft)
-torch.cuda.synchronize()
-w.barrier()
-t0 = time.perf_counter()
-wrote = f.write_at_all(0, block)
-write_s = time.perf_counter() - t0
-back = np.zeros((B, B), np.float32)
-w.barrier()
-t0 = time.perf_counter()
-f.read_at_all(0, back)
-read_s = time.perf_counter() - t0
-alg = f.io_module.last_fcoll_alg
-f.close()
-same = back.tobytes() == block.cpu().numpy().tobytes()
-dense = None
-if r == 0:
-    whole = np.fromfile(sys.argv[1], np.float32).reshape(G, G)
-    dense = all(whole[i * B:(i + 1) * B, j * B:(j + 1) * B].tobytes()
-                == block_of(2 * i + j).cpu().numpy().tobytes()
-                for i in range(2) for j in range(2))
-print(json.dumps({"rank": r, "wrote": wrote, "same": same, "dense": dense,
-                  "card": block.is_cuda, "alg": alg, "write_s": write_s,
-                  "read_s": read_s}), flush=True)
+for fcoll in sys.argv[2:]:
+    path = f"{sys.argv[1]}_{fcoll}.dat"
+    f = File.open(w, path, "c+")
+    registry.set("otpu_io_ompio_fcoll", fcoll)     # read at each collective
+    f.set_view(0, f32, ft)
+    torch.cuda.synchronize()
+    w.barrier()
+    t0 = time.perf_counter()
+    wrote = f.write_at_all(0, block)
+    write_s = time.perf_counter() - t0
+    back = np.zeros((B, B), np.float32)
+    w.barrier()
+    t0 = time.perf_counter()
+    f.read_at_all(0, back)
+    read_s = time.perf_counter() - t0
+    alg = f.io_module.last_fcoll_alg
+    f.close()
+    same = back.tobytes() == block.cpu().numpy().tobytes()
+    dense = None
+    if r == 0:
+        whole = np.fromfile(path, np.float32).reshape(G, G)
+        dense = all(whole[i * B:(i + 1) * B, j * B:(j + 1) * B].tobytes()
+                    == block_of(2 * i + j).cpu().numpy().tobytes()
+                    for i in range(2) for j in range(2))
+    print(json.dumps({"rank": r, "fcoll": fcoll, "wrote": wrote,
+                      "same": same, "dense": dense, "card": block.is_cuda,
+                      "alg": alg, "write_s": write_s, "read_s": read_s}),
+          flush=True)
 m.finalize()
 """
 
 #: the trainer's parameter vector in the phase's jobs: 2^20 float64 (8 MB
 #: of state, an 8 MB allreduce a step)
 ELASTIC_MODEL = 1 << 20
+#: the elastic jobs' steps: the kill at step 7 resumes from step 5's
+#: checkpoint, and 5 steps after it finish the run
+ELASTIC_STEPS = 10
 #: the wire faults of the fake-node job, with the kill, under one seed
 WIRE_SPEC = "drop:p=0.02;delay:ms=2,p=0.05;corrupt:p=0.01"
 #: the same without corruption: the job must finish, bit for bit
@@ -4711,25 +4770,39 @@ def checkpoint_step(tmp: str) -> dict:
             "losses": losses, "loss_rel_diff": rel, "params_bit_equal": True}
 
 
+@functools.lru_cache(maxsize=None)
+def elastic_reference(step: int) -> bytes:
+    """The bytes of ``reference_run`` from zeros (where the trainer starts)
+    to ``step``."""
+    from ompi_tpu_torch.parallel import elastic
+
+    return elastic.reference_run(np.zeros(ELASTIC_MODEL), 0, step,
+                                 24).tobytes()
+
+
 def same_as_reference(tmp: Path, resume_step: int) -> bool:
-    """Whether the job's final parameters equal ``reference_run`` from the
-    checkpoint the recovery restored, bit for bit."""
-    from ompi_tpu_torch.parallel import checkpoint, elastic
+    """Whether the job's final parameters equal ``reference_run`` from zeros
+    over every step, and the checkpoint the recovery restored equals it at
+    that step, bit for bit (so the run from the checkpoint is held too)."""
+    from ompi_tpu_torch.parallel import checkpoint
 
     tree = checkpoint.load(str(tmp / "ckpt" / f"step{resume_step:06d}"),
                            device="cpu")
-    want = elastic.reference_run(tree["w"].numpy(), resume_step, 15, 24)
     got = np.load(tmp / "ckpt" / "final.npy")
-    return got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    return (got.dtype == np.float64
+            and tree["w"].numpy().tobytes() == elastic_reference(resume_step)
+            and got.tobytes() == elastic_reference(ELASTIC_STEPS))
 
 
 def elastic_result(tmp: Path, r, lines: dict, wall: float) -> dict:
     """The respawn job's checks: width 4, the final parameters bit for bit
-    against ``reference_run`` from the restored checkpoint, the recovery's
+    against ``reference_run`` from zeros and from the restored checkpoint,
+    the recovery's
     phase spans in the merged trace, the killed rank's flight dump."""
     tail = (r.stdout + r.stderr)[-4000:]
     res = job_result(lines, 0)
-    require(res["step"] == 15 and res["world_size"] == 4 and res["card"],
+    require(res["step"] == ELASTIC_STEPS and res["world_size"] == 4
+            and res["card"],
             f"elastic job: {res}\n{tail}")
     rec = res["recoveries"][0]
     require(rec["detect_step"] == 7 and rec["resume_step"] == 5
@@ -4777,7 +4850,7 @@ def train_through_failure(smi: str, gen) -> dict:
                 "--mca", "otpu_trace_dir", str(job / "trace"),
                 "--mca", "otpu_flight_dir", str(job / "crash"),
                 py, str(paths["elastic"]), str(job / "ckpt"),
-                str(ELASTIC_MODEL)], timeout=300)
+                str(ELASTIC_MODEL), str(ELASTIC_STEPS)], timeout=300)
         require(r.returncode == 0, f"the respawn job exited {r.returncode}:"
                 f"\n{(r.stdout + r.stderr)[-4000:]}")
         out["elastic_respawn_4"] = elastic_result(job, r, lines, wall)
@@ -4798,7 +4871,7 @@ def train_through_failure(smi: str, gen) -> dict:
                     "--mca", "otpu_trace_dir", str(job / "trace"),
                     "--mca", "otpu_flight_dir", str(job / "crash"),
                     py, str(paths["elastic"]), str(job / "ckpt"),
-                    str(ELASTIC_MODEL)], timeout=300)
+                    str(ELASTIC_MODEL), str(ELASTIC_STEPS)], timeout=300)
             text = r.stdout + r.stderr
             if r.returncode == 0 or "corrupt" not in spec:
                 require(r.returncode == 0, f"the {name} job exited "
@@ -4827,13 +4900,18 @@ def train_through_failure(smi: str, gen) -> dict:
             wire["seed"] = SEED
             out[name] = wire
 
-        for fcoll in ("static", "dynamic"):
-            lines, wall = tpurun(
-                4, ["--mca", "io_ompio_fcoll", fcoll,
-                    "--mca", "io_ompio_num_aggregators", "2", py,
-                    str(paths["io"]), str(tmp / f"dense_{fcoll}.dat")],
-                timeout=240)
-            res = [job_result(lines, r) for r in range(4)]
+        # (d) both fcolls in turns in one job (the var is read at each
+        # collective call)
+        fcolls = ("static", "dynamic")
+        lines, wall = tpurun(
+            4, ["--mca", "io_ompio_num_aggregators", "2", py,
+                str(paths["io"]), str(tmp / "dense"), *fcolls], timeout=240)
+        out["mpiio_job_wall_s"] = wall
+        for fcoll in fcolls:
+            res = [next((json.loads(x) for x in lines.get(r, [])
+                         if x.startswith("{") and json.loads(x).get(
+                             "fcoll") == fcoll), None) for r in range(4)]
+            require(None not in res, f"MPI-IO job ({fcoll}): {lines}")
             require(all(x["same"] and x["card"] and x["alg"] == fcoll
                         and x["wrote"] == 16 * MB for x in res)
                     and res[0]["dense"] is True,
@@ -4843,10 +4921,362 @@ def train_through_failure(smi: str, gen) -> dict:
             out[f"mpiio_64MB_{fcoll}"] = {
                 "write_MB_s": 64 / write_s, "read_MB_s": 64 / read_s,
                 "write_s_by_rank": [x["write_s"] for x in res],
-                "read_s_by_rank": [x["read_s"] for x in res],
-                "wall_s": wall}
+                "read_s_by_rank": [x["read_s"] for x in res]}
     out["phase_s"] = time.perf_counter() - t_phase
     log(json.dumps({"train_through_failure": out}))
+    return out
+
+
+#: the partitioned allreduce's gradient buckets, MB a rank (float32, 8
+#: ranks wide), in production order; ``pready`` releases them late-first
+PART_BUCKETS_MB = (16, 16, 4, 4)
+
+
+def pallreduce_epochs(world, gen) -> dict:
+    """Two epochs of ``world.pallreduce_init`` over ``PART_BUCKETS_MB``
+    (the second rebinding fresh buckets), the counts set to 0 before and
+    read after; each bucket checked against coll/builtin's one-shot
+    ``allreduce_array`` (bit for bit) and the float64 sum (the band)."""
+    from ompi_tpu_torch.ops import ring_collectives as rc
+
+    builtin = world.c_coll["partitioned_coll"].__self__
+    epochs = [[operands(torch.float32, (N, mb * MB // 4), gen)
+               for mb in PART_BUCKETS_MB] for _ in range(2)]
+    torch.cuda.synchronize()
+    reset_counts()
+    req = world.pallreduce_init(epochs[0])
+    rows, results = [], []
+    for e, buckets in enumerate(epochs):
+        req.start(buckets if e else None)
+        timed = []
+        # the card spins while the host releases the buckets: the host µs
+        # of a pready holds no device time, and the events bracket the
+        # bucket's reduction alone
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        for i in reversed(range(len(buckets))):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            t0 = time.perf_counter()
+            req.pready(i)
+            host = (time.perf_counter() - t0) * 1e6
+            ev1.record()
+            timed.append((i, host, ev0, ev1))
+        # parrived queries the bucket's event: a synchronizing call raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            before = [req.parrived(i) for i in range(len(buckets))]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # the card still spins (~50 ms against the host's few preadys), so
+        # every bucket is pending: a parrived that ignored its event shows
+        require(not any(before), f"epoch {e}: parrived before the spin "
+                f"ended {before}")
+        torch.cuda.synchronize()
+        after = [req.parrived(i) for i in range(len(buckets))]
+        require(all(after) and req.complete_flag,
+                f"epoch {e}: parrived after a synchronize {after}")
+        req.wait()
+        results.append(list(req.result))
+        rows.append({"parrived_before_sync": before,
+                     "parrived_after_sync": after,
+                     "buckets": [{"bucket": i, "MB": PART_BUCKETS_MB[i],
+                                  "pready_host_us": host,
+                                  "device_ms": a.elapsed_time(b)}
+                                 for i, host, a, b in timed]})
+    launched = {k: v for k, v in counts().items() if v}
+    ring = {k: v for k, v in launched.items() if k in rc.launches}
+    require(not ring, f"pready launched ring kernels {ring}")
+    for e, (buckets, got) in enumerate(zip(epochs, results)):
+        for i, (b, r) in enumerate(zip(buckets, got)):
+            what = f"epoch {e} bucket {i}"
+            require(isinstance(r, torch.Tensor) and r.is_cuda,
+                    f"{what}: result {type(r)}")
+            same_bits(r, builtin.allreduce_array(world, b),
+                      f"{what} against coll/builtin's allreduce_array")
+            exact = b.double().sum(0)
+            bad = ((r.double() - exact).abs()
+                   > sum_tolerance(b).double()).sum()
+            require(int(bad) == 0 and bool(torch.isfinite(r).all()),
+                    f"{what}: {int(bad)} elements outside the float64 band")
+    return {"partitioned_coll": owner(world, "partitioned_coll"),
+            "allreduce_array": owner(world, "allreduce_array"),
+            "launches": launched, "ring_launches_from_pready": sum(
+                ring.values()), "epochs": rows}
+
+
+#: the partitioned transfers: ``-n 3 --fake-nodes 2``, rank 0 sends 16 MB of
+#: float64 in 64 partitions to rank 1 (its node: btl/sm) and to rank 2 (the
+#: other node: btl/tcp), readied in production order; ``min_partitions`` 1
+#: and 8 in turns (the sender reads the var at each start), five rounds;
+#: every transfer bit for bit
+PART_XFER = r"""
+import json, sys, time
+import numpy as np
+import ompi_tpu_torch as m
+from ompi_tpu_torch.base.var import registry
+from ompi_tpu_torch.runtime import spc
+
+w = m.init()
+P, n = 64, 16 * (1 << 20) // 8
+x = np.zeros(n)
+y = np.zeros(n)
+if w.rank == 0:
+    reqs = {p: w.psend_init(x, P, dest=p, tag=5) for p in (1, 2)}
+else:
+    reqs = {0: w.precv_init(y, P, source=0, tag=5)}
+btl = {p: w.pml.bml.endpoint(p).btl.name for p in range(3) if p != w.rank}
+out = {"rank": w.rank, "btl": btl}
+for rnd in range(5):
+    for peer in (1, 2):
+        for minp in (1, 8):
+            registry.set("otpu_part_persist_min_partitions", minp)
+            x[:] = np.arange(n, dtype=np.float64) * (rnd + 1) + minp + peer
+            w.barrier()
+            if w.rank in (0, peer):
+                req = reqs[peer if w.rank == 0 else 0]
+                m0 = spc.read("part_msgs")
+                t0 = time.perf_counter()
+                req.start()
+                if w.rank == 0:
+                    for p in range(P):
+                        req.pready(p)
+                req.wait()
+                dt = time.perf_counter() - t0
+                row = out.setdefault(f"{btl[peer if w.rank == 0 else 0]}"
+                                     f"_min_{minp}", {"s": [], "msgs": [],
+                                                      "exact": True})
+                row["s"].append(dt)
+                row["msgs"].append(spc.read("part_msgs") - m0)
+                if w.rank != 0:
+                    row["exact"] = row["exact"] and bool(np.array_equal(y, x))
+            w.barrier()
+print(json.dumps(out), flush=True)
+m.finalize()
+"""
+
+#: the replay job: a ring over ``w`` and its dup ``d``, card-tensor
+#: payloads of 256 KB; the even ranks emit w then d, the odd ones d then
+#: w, and each consumes in the other order, so every pairing crosses
+#: channels; rank 1 dies between its two receives of round 2
+VP_JOB = r"""
+import os
+import numpy as np
+import torch
+import ompi_tpu_torch
+
+niter = int(os.environ["VP_NITER"])
+die = os.environ.get("VP_DIE", "") == "1"
+w = ompi_tpu_torch.init()
+d = w.dup()
+n, r = w.size, w.rank
+nxt, prv = (r + 1) % n, (r - 1) % n
+k = 32768
+state = torch.arange(k, dtype=torch.float64, device="cuda") * 1e-3 + r + 1
+for it in range(niter):
+    a = 0.5 * state + float(it)
+    b = 0.25 * state - float(it)
+    if r % 2 == 0:
+        q1 = w.isend(a, dest=nxt, tag=7)
+        q2 = d.isend(b, dest=nxt, tag=7)
+    else:
+        q2 = d.isend(b, dest=nxt, tag=7)
+        q1 = w.isend(a, dest=nxt, tag=7)
+    in_a, in_b = np.empty(k), np.empty(k)
+    if prv % 2 == 0:
+        d.recv(in_b, source=prv, tag=7)
+        if die and r == 1 and it == 2:
+            os._exit(9)
+        w.recv(in_a, source=prv, tag=7)
+    else:
+        w.recv(in_a, source=prv, tag=7)
+        d.recv(in_b, source=prv, tag=7)
+    q1.wait()
+    q2.wait()
+    state = (0.3 * state + 0.6 * torch.from_numpy(in_a).cuda()
+             - 0.2 * torch.from_numpy(in_b).cuda() + float(it))
+np.save(os.environ["VP_OUT"] + f".{r}.npy", state.cpu().numpy())
+pml = w.pml
+print(f"PML {type(pml).__name__} {getattr(pml, '_si', -1)} "
+      f"{getattr(pml, '_ri', -1)}", flush=True)
+print(f"DONE {r} {state.is_cuda}", flush=True)
+ompi_tpu_torch.finalize()
+"""
+
+
+def pml_line(lines: dict, rank: int) -> tuple:
+    """``VP_JOB``'s ``PML`` line of a rank: (the pml's class, sends verified
+    against the log, receives replayed from it), -1 where it keeps none."""
+    line = next((x for x in lines.get(rank, []) if x.startswith("PML ")), "")
+    require(bool(line), f"rank {rank} printed no PML line: {lines.get(rank)}")
+    name, si, ri = line.split()[1:]
+    return name, int(si), int(ri)
+
+
+def vp_expected(niter: int, n: int = 3) -> list:
+    """``VP_JOB``'s recurrence on the CPU: the same float64 operations."""
+    k = 32768
+    states = [torch.arange(k, dtype=torch.float64) * 1e-3 + r + 1
+              for r in range(n)]
+    for it in range(niter):
+        prev = list(states)
+        for r in range(n):
+            p = prev[(r - 1) % n]
+            states[r] = (0.3 * prev[r] + 0.6 * (0.5 * p + float(it))
+                         - 0.2 * (0.25 * p - float(it)) + float(it))
+    return [s.numpy() for s in states]
+
+
+#: the MoE trainer's job: 8 experts of 1024 float64 weights, 512 tokens a
+#: step, top-2, 12 steps, a checkpoint every 4
+MOE_CONF = {"steps": 12, "n_experts": 8, "expert_dim": 1024,
+            "tokens_per_step": 512, "ckpt_every": 4, "seed": SEED}
+
+
+def partitioned_logging(smi: str, gen) -> dict:
+    """Message logging, partitioned communication and the MoE host trainer
+    (phase 12 of the module docstring).  Returns the
+    ``partitioned_logging`` line's object."""
+    import tempfile
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mca.coll.base import coll_framework
+    from ompi_tpu_torch.mca.pml.vprotocol import read_log
+    from ompi_tpu_torch.parallel import checkpoint, moe
+    from ompi_tpu_torch.runtime import init as rt
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    py = sys.executable
+    coll_framework().open()              # coll/ring's vars, for its defaults
+    # (a) the device path, default components and coll/ring raised
+    for name, prio in (("default", None), ("ring_raised", "95")):
+        ring_defaults()
+        if prio is not None:
+            os.environ["OTPU_MCA_coll_ring_priority"] = prio
+        world = ompi_tpu_torch.init()
+        res = pallreduce_epochs(world, gen)
+        require(res["partitioned_coll"] == "BuiltinCollModule"
+                and res["allreduce_array"] == ("RingCollModule" if prio
+                                               else "BuiltinCollModule"),
+                f"{name}: partitioned_coll {res['partitioned_coll']}, "
+                f"allreduce_array {res['allreduce_array']}")
+        rt.finalize()
+        out[f"pallreduce_8x40MB_{name}"] = res
+    ring_defaults()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (b) the partitioned transfers over sm and over tcp, one job
+        xfer = tmp / "part_xfer.py"
+        xfer.write_text(PART_XFER)
+        lines, wall = tpurun(3, ["--fake-nodes", "2", py, str(xfer)],
+                             timeout=120)
+        res = [job_result(lines, r) for r in range(3)]
+        require(res[0]["btl"] == {"1": "sm", "2": "tcp"}
+                and res[1]["btl"]["0"] == "sm"
+                and res[2]["btl"]["0"] == "tcp",
+                f"the partitioned transfers' links: {[x['btl'] for x in res]}")
+        for name, recv in (("sm", res[1]), ("tcp", res[2])):
+            row = {}
+            for minp in (1, 8):
+                key = f"{name}_min_{minp}"
+                sent = res[0][key]["msgs"]
+                require(recv[key]["exact"] and all(
+                    m == 64 // minp for m in sent),
+                    f"{name} min_partitions {minp}: exact "
+                    f"{recv[key]['exact']}, part_msgs {sent}")
+                row[f"min_partitions_{minp}"] = {
+                    "MB_s_by_round": [16 / t for t in recv[key]["s"]],
+                    "MB_s_median": 16 / statistics.median(recv[key]["s"]),
+                    "part_msgs": sent[0]}
+            out[f"part_xfer_16MB_{name}"] = row
+        out["part_xfer_wall_s"] = wall
+        # (c) vprotocol: log card tensors, kill rank 1 mid-round, replay
+        vp = tmp / "vp_job.py"
+        vp.write_text(VP_JOB)
+        logdir = tmp / "vp_logs"
+        r, lines, wall_a = tpurun_any(
+            3, ["--enable-recovery",
+                "--mca", "vprotocol_pessimist_log", str(logdir),
+                "--mca", "vprotocol_pessimist_log_payloads", "1",
+                "--mca", "ft_detector", "true",
+                "--mca", "ft_detector_period", "0.2",
+                "--mca", "ft_detector_timeout", "1.5", py, str(vp)],
+            timeout=120, env={"VP_NITER": "3", "VP_DIE": "1",
+                              "VP_OUT": str(tmp / "vp_a")})
+        done = [ln for rank in lines.values() for ln in rank
+                if ln.startswith("DONE")]
+        require(sorted(done) == ["DONE 0 True", "DONE 2 True"]
+                and not (tmp / "vp_a.1.npy").exists(),
+                f"the logging job: {done}\n{r.stderr[-3000:]}")
+        logging = {rank: pml_line(lines, rank) for rank in (0, 2)}
+        require(all(v[0] == "PessimistPml" for v in logging.values()),
+                f"the logging job's pml: {logging}")
+        log_bytes = sum(f.stat().st_size for f in logdir.iterdir())
+        lines, wall_b = tpurun(
+            3, ["--enable-recovery", "--mca", "vprotocol_pessimist_replay",
+                str(logdir), py, str(vp)], timeout=120,
+            env={"VP_NITER": "5", "VP_DIE": "0", "VP_OUT": str(tmp / "vp_b")})
+        # every rank ran under ReplayPml and consumed its whole log: a live
+        # rerun of the (deterministic) job would end in the same states
+        replayed = {}
+        for rank in range(3):
+            events = read_log(str(logdir), rank)
+            logged = (sum(e["kind"] == "send" for e in events),
+                      sum(e["kind"] == "recv" for e in events))
+            replayed[rank] = pml_line(lines, rank)
+            require(all(logged) and replayed[rank] == ("ReplayPml", *logged),
+                    f"rank {rank} replayed {replayed[rank]}, its log holds "
+                    f"{logged} sends and receives")
+        want = vp_expected(5)
+        for rank in range(3):
+            got = np.load(tmp / f"vp_b.{rank}.npy")
+            require(got.tobytes() == want[rank].tobytes(),
+                    f"rank {rank}'s state after the replay differs")
+        out["vprotocol_3_replay"] = {
+            "log_MB": log_bytes / MB, "log_wall_s": wall_a,
+            "replay_wall_s": wall_b, "final_states_bit_exact": True,
+            "replayed_sends_recvs_by_rank": {
+                r: list(v[1:]) for r, v in replayed.items()}}
+        # (d) MoeTrainer: chaos kill at step 5, re-shard over the survivors
+        conf = dict(MOE_CONF, ckpt_dir=str(tmp / "moe_ckpt"))
+        r, lines, wall = tpurun_any(
+            3, ["--enable-recovery", "--mca", "otpu_chaos_spec",
+                "kill:rank=2,step=5", py, "-m", "ompi_tpu_torch.parallel.moe",
+                json.dumps(conf)], timeout=120)
+        text = r.stdout + r.stderr
+        rep = next((json.loads(ln.split("MOE ", 1)[1])
+                    for ln in lines.get(0, []) if ln.startswith("MOE ")), None)
+        require(r.returncode == 0 and rep is not None,
+                f"the MoE job exited {r.returncode}:\n{text[-3000:]}")
+        rec = rep["recoveries"][0] if rep["recoveries"] else {}
+        require(rep["world_size"] == 2 and rep["step"] == 12
+                and rec.get("failed") == [2] and rep["experts"] == [0, 4],
+                f"the MoE job's report: world {rep['world_size']}, "
+                f"experts {rep['experts']}, recoveries {rep['recoveries']}")
+        tree = checkpoint.load(str(tmp / "moe_ckpt" /
+                                   f"step{rec['resume_step']:06d}"),
+                               device="cpu")
+        E, D = MOE_CONF["n_experts"], MOE_CONF["expert_dim"]
+        got = np.array(rep["w"], np.float64).tobytes()
+        # from zeros over every step, as the trainer starts (so the saved
+        # and restored slabs are held too), and from the checkpoint
+        for w0, start in ((np.zeros(E * D), 0),
+                          (tree["w"].numpy(), rec["resume_step"])):
+            ref = moe.reference_moe_run(
+                w0, start, MOE_CONF["steps"],
+                tokens=MOE_CONF["tokens_per_step"], n_experts=E,
+                expert_dim=D, seed=SEED)
+            require(got == ref.tobytes(), f"the MoE job's experts differ "
+                    f"from reference_moe_run from step {start}")
+        out["moe_3_kill"] = {
+            "experts_after": rep["experts"], "dispatched": rep["dispatched"],
+            "dropped": rep["dropped"], "imbalance_max": rep["imbalance_max"],
+            **{k: v for k, v in rec.items() if k.endswith("_ms")},
+            "bit_exact": True, "wall_s": wall}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"partitioned_logging": out}))
     return out
 
 
@@ -4869,6 +5299,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    strided = pool.submit(strided_type)       # host Python beside the nvccs
     _build.build_all()
     log(f"nvcc build of {', '.join(_build.LIBRARIES)}: "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4904,24 +5336,40 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    err = check_kernels(gen)
-    main_launched = main_path(gen)
-    comm_launched, _ = comm_path(gen)
+    phase_s = {"build_and_report": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return result
+
+    err = timed("check_kernels", check_kernels, gen)
+    main_launched = timed("main_path", main_path, gen)
+    comm_launched, _ = timed("comm_path", comm_path, gen)
     launched = {k: v + comm_launched.get(k, 0)
                 for k, v in main_launched.items()}
     os.environ["OTPU_MODEL_SCALE"] = "64"
-    trained = training_path()
-    moe_launched = moe_path(gen)
-    rows = measure(gen, launched, err)
-    rows.append(measure_flash(gen, trained["flash_block"], err))
-    rows += measure_fused_matmul(gen, moe_launched, err)
-    host_tier(gen, smi)
-    host_transports(smi)
-    one_sided(smi)
-    observability(smi, gen, main_launched, comm_launched)
-    topology_ft(smi, gen)
-    sessions_dpm(smi, gen)
-    train_through_failure(smi, gen)
+    trained = timed("training_path", training_path)
+    moe_launched = timed("moe_path", moe_path, gen)
+    strided = timed("strided_type_wait", strided.result)
+    pool.shutdown()
+    rows = timed("measure", measure, gen, launched, err)
+    rows.append(timed("measure_flash", measure_flash, gen,
+                      trained["flash_block"], err))
+    rows += timed("measure_fused_matmul", measure_fused_matmul, gen,
+                  moe_launched, err)
+    tier = timed("host_tier", host_tier, gen, smi)
+    timed("host_transports", host_transports, smi, strided,
+          tier["pingpong_2"])
+    timed("one_sided", one_sided, smi)
+    timed("observability", observability, smi, gen, main_launched,
+          comm_launched)
+    timed("topology_ft", topology_ft, smi, gen)
+    timed("sessions_dpm", sessions_dpm, smi, gen)
+    timed("train_through_failure", train_through_failure, smi, gen)
+    timed("partitioned_logging", partitioned_logging, smi, gen)
+    log(json.dumps({"phase_s": {"card": smi, **phase_s}}))
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))
     log(json.dumps({"kernels": rows}))

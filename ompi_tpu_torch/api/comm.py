@@ -69,8 +69,14 @@ point-to-point peer rank indexes the remote group, and coll/inter serves
 its collectives.  ``create_intercomm`` joins two disjoint comms through
 leaders that share a bridge comm; ``spawn``, ``spawn_multiple``,
 ``accept``, ``connect`` and ``merge`` are dpm's (``ompi_tpu_torch.dpm``);
-``compare`` compares the local and the remote groups of intercomms.  Not
-ported yet: the partitioned forms (``mca/part``) and attributes.
+``compare`` compares the local and the remote groups of intercomms.
+
+The partitioned forms (``comm.py:677-722``): ``psend_init`` and
+``precv_init`` build ``mca/part/persist``'s requests over the pml, and
+``pallreduce_init`` binds one handle a bucket through the
+``partitioned_coll`` slot (coll/builtin's, as only coll/xla has it in the
+reference), else runs the host allreduce at each ``pready``.  Not ported
+yet: attributes.
 """
 from __future__ import annotations
 
@@ -118,7 +124,8 @@ COLL_FUNCTIONS = (
     "reduce_scatter_array", "alltoall_array", "ppermute_array",
     "psum_scatter_array", "reduce_array", "gather_array", "scatter_array",
     "allgatherv_array", "alltoallv_array", "scan_array", "exscan_array",
-    "persistent_coll", "device_barrier", "agree", "iagree")
+    "persistent_coll", "partitioned_coll", "device_barrier", "agree",
+    "iagree")
 
 _torch_acc = None
 
@@ -1036,6 +1043,52 @@ class Comm:
             return PersistentP2P(
                 lambda: CompletedRequest(Status(source=PROC_NULL, tag=ANY_TAG)))
         return PersistentP2P(lambda: self.pml.irecv(self, buf, source, tag))
+
+    # -- partitioned point-to-point (MPI-4 ``MPI_Psend_init`` family) ----
+    def psend_init(self, buf, partitions: int, dest: int,
+                   tag: int = 0) -> Request:
+        """``MPI_Psend_init``: a partitioned persistent send.  After
+        ``start()``, each of the ``partitions`` equal slices of ``buf`` (a
+        C-contiguous ndarray) is released for transfer by ``req.pready(p)``
+        (or ``pready_range``/``pready_list``); the request completes once
+        every partition was readied and sent.  Ready runs are aggregated
+        onto fewer wire messages under the
+        ``otpu_part_persist_min_partitions`` var (``mca/part/persist``)."""
+        from ompi_tpu_torch.mca.part import part_module
+
+        self._check_state(dest)
+        return part_module().psend_init(self, buf, partitions, dest, tag)
+
+    def precv_init(self, buf, partitions: int, source: int,
+                   tag: int = 0) -> Request:
+        """``MPI_Precv_init``: the receive side of a partitioned pairing.
+        ``req.parrived(p)`` reports per-partition arrival — exact even when
+        the sender used a different partition count (byte-framed wire
+        protocol).  Wildcards are not supported (MPI-4)."""
+        from ompi_tpu_torch.mca.part import part_module
+
+        self._check_state(source)
+        return part_module().precv_init(self, buf, partitions, source, tag)
+
+    def pallreduce_init(self, buckets, op: op_mod.Op = op_mod.SUM) -> Request:
+        """Partitioned persistent allreduce (the ``MPI_Pallreduce_init``
+        analog): each entry of ``buckets`` is bound once as its own
+        persistent allreduce (the ``partitioned_coll`` slot);
+        ``req.pready(i)`` releases bucket i, on the device path one launch
+        that does not wait for the card, so bucket i's reduction overlaps
+        the computation still producing bucket i+1.  ``req.parrived(i)``
+        tests bucket completion without synchronizing; after all preadys
+        the request is complete and ``req.result[i]`` holds bucket i's
+        reduction.  On host comms without a device binding each pready runs
+        the blocking allreduce (every rank must pready in the same order)."""
+        self._check_state()
+        from ompi_tpu_torch.mca.part.pcoll import PartitionedCollRequest
+
+        fn = self.c_coll.get("partitioned_coll")
+        handles = fn(self, "allreduce", buckets, op) \
+            if fn is not None else None
+        return PartitionedCollRequest(self, "allreduce", buckets, (op,),
+                                      handles)
 
     def sendrecv_replace(self, buf, dest: int, source: int = ANY_SOURCE,
                          sendtag: int = 0, recvtag: int = ANY_TAG) -> Status:

@@ -7,9 +7,13 @@ Copy of ``ompi_tpu/api/request.py`` (after the reference's
 is born complete (the stream is its progress engine); a host request
 (pml/ob1's sends and receives) completes from the progress engine, which
 ``wait`` and ``test`` drive.  ``GeneralizedRequest`` is
-``MPI_Grequest_start``'s user-completed request.  Not copied: the
-partitioned hooks (``pready``/``parrived``, with ``mca/part``) and the FT
-completion of ``req_ft.c``.
+``MPI_Grequest_start``'s user-completed request.  The partitioned hooks
+(``pready``, ``pready_range``, ``pready_list``, ``parrived``,
+``parrived_range``) raise ``ERR_REQUEST`` on any request but the
+partitioned ones of ``mca/part``, which override their side; ``start_all``
+takes classic and partitioned requests mixed.  ``_TYPESTATE`` is the
+reference's request automaton as data.  Not copied: the FT completion of
+``req_ft.c``.
 """
 from __future__ import annotations
 
@@ -27,6 +31,29 @@ class RequestState(enum.Enum):
     ACTIVE = "active"
     COMPLETE = "complete"
     CANCELLED = "cancelled"
+
+
+#: the request lifecycle automaton (the reference's typestate contract,
+#: ``ompi_tpu/api/request.py:31-46``, held equal to it by a test):
+#: persistent requests cycle inactive -> start -> active -> wait/test ->
+#: inactive and end with free; Pready marks partitions on an ACTIVE
+#: partitioned SEND request only; Parrived is observable on the receive
+#: side only
+_TYPESTATE = {
+    "create_inactive": ["send_init", "recv_init", "psend_init",
+                        "precv_init", "pallreduce_init"],
+    "create_active": ["isend", "irecv"],
+    "send_side": ["send_init", "psend_init", "isend", "pallreduce_init"],
+    "partitioned": ["psend_init", "precv_init", "pallreduce_init"],
+    "start": ["start"],
+    "start_many": ["start_all", "startall"],
+    "complete": ["wait", "test", "get_status", "on_complete"],
+    "complete_many": ["waitall", "waitany", "waitsome", "testall",
+                      "testany", "testsome"],
+    "free": ["free"],
+    "pready": ["pready", "pready_range", "pready_list"],
+    "parrived": ["parrived", "parrived_range"],
+}
 
 
 def _progress() -> int:
@@ -157,6 +184,37 @@ class Request:
 
     def free(self) -> None:
         self.state = RequestState.INACTIVE
+
+    # -- MPI-4 partitioned communication (``mca/part``) ------------------
+    # The partitioned request classes (part/persist's PsendRequest and
+    # PrecvRequest, pcoll's request) override their side; on any other
+    # request these calls are erroneous and say so.
+    def pready(self, partition) -> None:
+        raise MpiError(ErrorClass.ERR_REQUEST,
+                       "Pready on a non-partitioned request")
+
+    def pready_range(self, partition_low: int, partition_high: int) -> None:
+        """``MPI_Pready_range``: inclusive [low, high] like the standard."""
+        for p in range(int(partition_low), int(partition_high) + 1):
+            self.pready(p)
+
+    def pready_list(self, partitions) -> None:
+        """``MPI_Pready_list``."""
+        for p in partitions:
+            self.pready(p)
+
+    def parrived(self, partition) -> bool:
+        raise MpiError(ErrorClass.ERR_REQUEST,
+                       "Parrived on a non-partitioned request")
+
+    def parrived_range(self, partition_low: int,
+                       partition_high: int) -> bool:
+        """Have ALL partitions in the inclusive [low, high] range arrived?
+        (No standard analog: a receiver partitioned finer than its sender
+        tests one sender partition as a run of its own.)"""
+        return all(self.parrived(p)
+                   for p in range(int(partition_low),
+                                  int(partition_high) + 1))
 
     def _raise_if_error(self) -> None:
         if self.error is not None:

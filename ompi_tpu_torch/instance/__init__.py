@@ -24,10 +24,11 @@ The boot (``:64-165``): the ``--mca`` arguments, the rte (the device world,
 on the card unless the caller names another device, or under ``tpurun`` the
 multi-process ``ProcRte``) inside a ``coord_connect`` span, the SPC
 counters, ``trace.init``, the work pool, the main-thread anchor, pml
-selection with pml/monitoring's interposition, the modex fence inside a
-``modex_fence`` span, the reserved CIDs, the flight recorder's arming
-(``flight.arm``, with a coordination client), the telemetry sampler and the
-sampling profiler, all inside an ``instance_boot`` span of category
+selection with pml/monitoring's and vprotocol's interpositions, the modex
+fence inside a ``modex_fence`` span, the reserved CIDs, the flight
+recorder's arming (``flight.arm``, with a coordination client), the
+telemetry sampler and the sampling profiler, all inside an
+``instance_boot`` span of category
 ``boot``.  The reference's ``jax_distributed_init`` span and its
 multi-process device world (``:167-219``) are not ported.  The teardown
 (``:221-313``) is one-shot: the final fence (the port first drains the
@@ -94,11 +95,16 @@ class Instance:
         threads_base.reopen_pool()
         interlib.note_main_thread(force=True)
         # pml selection (ompi_mpi_init.c:630) with pml/monitoring's
-        # interposition (per-peer traffic matrices)
+        # interposition (per-peer traffic matrices), then vprotocol's
+        # outside it (message-event logging, or replay: a replayed receive
+        # never reaches monitoring)
         comp = mca.framework("pml", "point-to-point messaging layer").select()
         if comp is None:
             raise RuntimeError("no pml component available")
-        self.pml = monitoring.maybe_wrap_pml(comp.get_module(self.rte))
+        from ompi_tpu_torch.mca.pml import vprotocol
+
+        self.pml = vprotocol.maybe_wrap_pml(
+            monitoring.maybe_wrap_pml(comp.get_module(self.rte)), self.rte)
         # the modex fence that publishes the btls' endpoints (:682-701)
         t0 = trace.now()
         self.rte.fence()

@@ -257,6 +257,11 @@ class TcpBtl(Btl):
             return False
         if getattr(rte, "client", None) is None:
             return False   # no coordination service: nobody can dial in
+        # a boot after a teardown in one process is another job: its peers'
+        # addresses and the round-robin cursors start anew (close keeps
+        # them, as the reference's does)
+        self._addr_cache.clear()
+        self._rr.clear()
         self._rte = rte
         self._listener = socket.create_server(("127.0.0.1", 0), backlog=64)
         self._listener.setblocking(False)
@@ -1056,7 +1061,10 @@ class TcpBtl(Btl):
         from ompi_tpu_torch.runtime import telemetry
 
         telemetry.unregister_source("tcp")
-        self.flush()
+        # queued outbound bytes go to the kernel first, within 30 s (the
+        # same delivered-but-unsent exit hazard as btl/sm's close; the
+        # reference's inline drain, which bml's pre-fence flush shares)
+        self.flush(30.0)
         from ompi_tpu_torch.runtime import progress as progress_mod
 
         # reactor-owned fds leave the epoll set before their sockets close
@@ -1098,9 +1106,6 @@ class TcpBtl(Btl):
             except OSError:
                 pass
             self._listener = None
-        self._rte = None
-        self._addr_cache.clear()
-        self._rr.clear()
 
 
 COMPONENT = TcpBtl()

@@ -90,6 +90,9 @@ template and returns a ``PersistentColl`` (``xla.py:60-93``) bound to the
 cached callable, as the reference binds its cached program; a collective
 with no cached callable (the copies, and an allreduce on a comm with a
 budget, whose codec is picked per call) is bound to its slot.
+``partitioned_coll`` (``xla.py:685-692``) binds one such handle a bucket
+for ``Comm.pallreduce_init``; only this module has the slot, as only
+coll/xla has it in the reference, so a raised coll/ring leaves it here.
 
 Every slot call records one device collective and its input's bytes in the
 SPC counters (``spc.bump_device``, ``xla.py:150-185``), as do the binding
@@ -635,6 +638,14 @@ class BuiltinCollModule:
             return PersistentColl(fn, coll, lambda x: self._check(comm, x))
         return PersistentColl(fn, coll, lambda x: self._check(comm, x),
                               template.nbytes)
+
+    def partitioned_coll(self, comm, coll: str, buckets, *args):
+        """Device side of the partitioned persistent collective
+        (``Comm.pallreduce_init``, ``xla.py:685-692``): one bound handle a
+        bucket, so each ``Pready`` costs one SPC bump and one launch that
+        does not wait for the card."""
+        return [self.persistent_coll(comm, coll, b, *args)
+                for b in buckets]
 
 
 class BuiltinCollComponent(Component):

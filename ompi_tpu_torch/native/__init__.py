@@ -7,11 +7,12 @@ locks and atomics, the worker pool of ``threads/native`` and the epoll
 progress reactor of ``runtime/reactor``.
 
 The library is compiled at first use with ``g++ -O3 -shared -fPIC
--std=c++17 -pthread`` into ``ompi_tpu_torch/build/`` (listed in
-``.gitignore``), its file name carrying a hash of the source and the flags,
-under an exclusive file lock so that the ranks of a job and parallel test
-workers build it once.  The reference builds into the system temp dir
-instead.
+-std=c++17 -pthread`` into the directory ``OTPU_NATIVE_CACHE`` names when
+it is set, as the reference's does, else into ``ompi_tpu_torch/build/``
+(listed in ``.gitignore``; the reference's default is the system temp dir),
+its file name carrying a hash of the source and the flags, under an
+exclusive file lock so that the ranks of a job and parallel test workers
+build it once.
 
 ``OTPU_NATIVE_DISABLE`` (any non-empty value) keeps every caller on its
 pure-Python lane, as if the toolchain were absent.  A build that fails is
@@ -46,19 +47,26 @@ _U8P = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _has_reactor = False
 
 
+def build_dir() -> Path:
+    """Where the library is built: ``OTPU_NATIVE_CACHE`` when it is set
+    (``ompi_tpu/native/__init__.py:30-37``), else :data:`BUILD_DIR`."""
+    cache = os.environ.get("OTPU_NATIVE_CACHE")
+    return Path(cache) if cache else BUILD_DIR
+
+
 def library_path() -> Path:
-    """``build/libotpu_native-<hash>.so``: the hash covers the source and
-    the compiler flags, so a changed source is rebuilt."""
+    """``<build dir>/libotpu_native-<hash>.so``: the hash covers the source
+    and the compiler flags, so a changed source is rebuilt."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     h.update(_SRC.read_bytes())
-    return BUILD_DIR / f"libotpu_native-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libotpu_native-{h.hexdigest()[:16]}.so"
 
 
 def _build(so: Path) -> None:
     """Compile the library into ``so`` unless it exists; one builder at a
-    time across processes (``flock`` on ``build/otpu_native.lock``)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "otpu_native.lock", "w") as lockf:
+    time across processes (``flock`` on ``otpu_native.lock`` beside it)."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    with open(so.parent / "otpu_native.lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if so.exists():
             return

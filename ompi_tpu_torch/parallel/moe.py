@@ -23,36 +23,89 @@ tier (``:445-778``):
   recording ``n * n`` ``quant_encodes`` and ``quant_decodes`` SPC counts
   as the reference does (``moe.py:726``, ``:730``).
 
-Not ported yet (they need the fault-tolerance tier):
-``MoeTrainer``, ``main`` and the ``moe`` telemetry source, and with them
-the six ``otpu_moe_*`` vars only the trainer reads (``n_experts``,
-``top_k``, ``drop_policy``, ``hot_expert``, ``hot_boost``,
-``compute_us_per_token``); the device tier reads ``capacity_factor``.
+- **The host trainer** (:class:`MoeTrainer`, ``moe.py:257-443``) subclasses
+  ``parallel/elastic.ElasticTrainer``: token payloads move with
+  ``comm.alltoallv`` and refreshed expert slabs with ``comm.allgatherv``
+  (ranks owning no experts contribute zero-length buffers), inside the
+  ``moe_dispatch`` and ``moe_combine`` spans.  Expert ownership is
+  ``partition(rank, size, n_experts)`` of the CURRENT comm every step, so a
+  chaos kill and shrink re-shards the experts over the survivors
+  (``respawn=False``); the integer gradients and dyadic gates keep the run
+  bit-identical to :func:`reference_moe_run`.  The parameter table is the
+  trainer's float64 tensor on the rank's device; the plan and the rows are
+  numpy, each owner's update goes to the device once a step.  It feeds the
+  ``moe`` telemetry source and the ``moe_*`` SPC counters, and reads the
+  six ``otpu_moe_*`` vars only it uses (``n_experts``, ``top_k``,
+  ``drop_policy``, ``hot_expert``, ``hot_boost``,
+  ``compute_us_per_token``); the device tier reads ``capacity_factor``.
+  :func:`main` runs one rank: ``python -m ompi_tpu_torch.parallel.moe
+  '<json>'`` under the port's ``tpurun``.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
+import time
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 from ompi_tpu_torch.base import cudaenv
 from ompi_tpu_torch.base.var import VarType, registry
 from ompi_tpu_torch.parallel import axes as axes_mod
-from ompi_tpu_torch.parallel.elastic import (DEFAULT_LR, _P1, _P2, _P3,
-                                             grad_field)
+from ompi_tpu_torch.parallel.elastic import (DEFAULT_LR, ElasticTrainer, _P1,
+                                             _P2, _P3, grad_field, partition)
 from ompi_tpu_torch.parallel.mesh import EXPERT_AXIS, MeshSpec, make_mesh
 from ompi_tpu_torch.parallel.model import gelu
+from ompi_tpu_torch.runtime import spc, telemetry, trace
+
+_n_experts_var = registry.register(
+    "moe", None, "n_experts", vtype=VarType.INT, default=8,
+    help="Number of experts in the MoE layer (host trainer default; "
+         "the device tier derives it from the mesh spec)")
+
+_top_k_var = registry.register(
+    "moe", None, "top_k", vtype=VarType.INT, default=2,
+    help="Experts each token routes to; gate weights are the dyadic "
+         "ladder 1/2, 1/4, ... with the tail 2^-k folded into the top "
+         "expert so they sum to exactly 1 (combines stay bit-exact)")
 
 _capacity_factor_var = registry.register(
     "moe", None, "capacity_factor", vtype=VarType.FLOAT, default=1.25,
     help="Per-expert capacity = ceil(factor * tokens * top_k / "
-         "n_experts); tokens routed past a full expert are dropped "
-         "(they keep the residual path)")
+         "n_experts); tokens routed past a full expert follow "
+         "otpu_moe_drop_policy")
+
+_drop_policy_var = registry.register(
+    "moe", None, "drop_policy", vtype=VarType.STRING, default="drop",
+    enum_values={"drop": 0, "error": 1},
+    help="Over-capacity token policy: 'drop' (counted in "
+         "moe_dropped_tokens, token keeps its residual path) or "
+         "'error' (raise ERR_TRUNCATE — for runs where any drop is a "
+         "configuration bug)")
+
+_hot_expert_var = registry.register(
+    "moe", None, "hot_expert", vtype=VarType.INT, default=-1,
+    help="Designated hot expert for designed-imbalance runs (-1 = "
+         "none): tokens selected by otpu_moe_hot_boost route their "
+         "top-1 here, skewing load for critical-path/imbalance tests")
+
+_hot_boost_var = registry.register(
+    "moe", None, "hot_boost", vtype=VarType.FLOAT, default=0.0,
+    help="Fraction (0..1) of tokens deterministically biased toward "
+         "otpu_moe_hot_expert")
+
+_pace_var = registry.register(
+    "moe", None, "compute_us_per_token", vtype=VarType.INT, default=0,
+    help="Host-trainer pacing: microseconds of simulated expert "
+         "compute per RECEIVED token, so the hot expert's home rank "
+         "is measurably the straggler (otpu_analyze --critical-path "
+         "acceptance); 0 disables")
 
 
 # -- gating: a pure, hash-seeded function of (step, tokens, experts) -----
@@ -182,6 +235,217 @@ def reference_moe_run(w0: np.ndarray, from_step: int, to_step: int, *,
                 * a.weight
         w -= lr * upd
     return w.ravel()
+
+
+# -- telemetry: the "moe" live source ------------------------------------
+
+_TELEM = {"steps": 0, "dispatch_tokens": 0, "dropped_tokens": 0,
+          "n_experts": 0, "capacity": 0, "imbalance": 0.0,
+          "world_size": 0}
+
+
+def _telem_snapshot() -> dict:
+    return dict(_TELEM)
+
+
+def _imbalance_high_water(imb: float) -> None:
+    """Publish the load-imbalance factor as a monotonic high-water in
+    milli-units — the SPC plane is append-only counters, so a gauge is
+    expressed as read + delta-record."""
+    milli = int(round(float(imb) * 1000))
+    cur = spc.read("moe_imbalance_max")
+    if milli > cur:
+        spc.record("moe_imbalance_max", milli - cur)
+
+
+# -- the host trainer: expert-sharded, elastic, bit-exact ----------------
+
+class MoeTrainer(ElasticTrainer):
+    """Expert-parallel trainer that trains through failure.
+
+    The model is ``(n_experts, expert_dim)`` expert weights (the trainer's
+    float64 tensor on the rank's device); every rank holds the full (small)
+    table but OWNS the contiguous expert range ``partition(rank, size,
+    n_experts)`` — owners apply updates, everyone else receives the
+    refreshed slabs through the ragged ``allgatherv`` combine.  Ownership
+    is recomputed from the live comm each step, so recovery's shrink
+    re-shards the experts over the survivors with no extra code path."""
+
+    def __init__(self, comm, ckpt_dir: str, n_experts: int = None,
+                 expert_dim: int = 8, tokens_per_step: int = 64,
+                 top_k: int = None, capacity_factor: float = None,
+                 drop_policy: str = None, lr: float = DEFAULT_LR,
+                 ckpt_every: int = 5, seed: int = 0,
+                 hot_expert: int = None, hot_boost: float = None,
+                 compute_us_per_token: int = None, device=None):
+        self.n_experts = int(n_experts if n_experts is not None
+                             else _n_experts_var.value)
+        self.expert_dim = int(expert_dim)
+        self.top_k = int(top_k if top_k is not None
+                         else _top_k_var.value)
+        self.capacity_factor = float(
+            capacity_factor if capacity_factor is not None
+            else _capacity_factor_var.value)
+        self.drop_policy = str(drop_policy if drop_policy is not None
+                               else _drop_policy_var.value)
+        if self.drop_policy not in ("drop", "error"):
+            raise MpiError(ErrorClass.ERR_ARG,
+                           f"otpu_moe_drop_policy={self.drop_policy!r} "
+                           "(want 'drop' or 'error')")
+        self.hot_expert = int(hot_expert if hot_expert is not None
+                              else _hot_expert_var.value)
+        self.hot_boost = float(hot_boost if hot_boost is not None
+                               else _hot_boost_var.value)
+        self.compute_us_per_token = int(
+            compute_us_per_token if compute_us_per_token is not None
+            else _pace_var.value)
+        super().__init__(comm, ckpt_dir,
+                         model_size=self.n_experts * self.expert_dim,
+                         global_batch=int(tokens_per_step), lr=lr,
+                         ckpt_every=ckpt_every, respawn=False,
+                         seed=seed, device=device)
+        self.capacity = capacity_for(self.global_batch, self.n_experts,
+                                     self.top_k, self.capacity_factor)
+        self._dispatched = 0
+        self._dropped = 0
+        self._imb_max = 0.0
+        _TELEM.update(n_experts=self.n_experts, capacity=self.capacity)
+        telemetry.register_source("moe", _telem_snapshot)
+
+    # -- expert ownership ------------------------------------------------
+    def my_experts(self) -> tuple:
+        """[lo, hi) expert range this rank owns under the CURRENT comm
+        — the single source of re-shard truth after a shrink."""
+        return partition(self.comm.rank, self.comm.size, self.n_experts)
+
+    # -- checkpoint at expert boundaries ---------------------------------
+    def _checkpoint(self) -> None:
+        from ompi_tpu_torch.parallel import checkpoint
+
+        t0 = time.perf_counter_ns()
+        path = self._ckpt_path(self.step)
+        elo, ehi = self.my_experts()
+        d = self.expert_dim
+        tree = {
+            "w": checkpoint.Shard(self.w[elo * d:ehi * d], [elo * d],
+                                  [self.model_size]),
+            "step": np.array([self.step], np.int64),
+        }
+        checkpoint.save(path, tree, comm=self.comm)
+        self.comm.barrier()
+        if self.comm.rank == 0:
+            with open(os.path.join(path, "COMPLETE"), "w") as f:
+                f.write(str(self.step))
+        if trace.enabled:
+            trace.span("elastic_checkpoint", "ft", t0,
+                       args={"step": self.step,
+                             "experts": [elo, ehi]})
+
+    # -- one expert-parallel step ----------------------------------------
+    def _train_step(self) -> None:
+        E, d, k = self.n_experts, self.expert_dim, self.top_k
+        T = self.global_batch
+        me, size = self.comm.rank, self.comm.size
+        plan = plan_step(self.step, T, E, k, self.capacity_factor,
+                         self.seed, self.hot_expert, self.hot_boost)
+        if plan.dropped and self.drop_policy == "error":
+            raise MpiError(
+                ErrorClass.ERR_TRUNCATE,
+                f"step {self.step}: {len(plan.dropped)} tokens over "
+                f"capacity {plan.capacity} with "
+                "otpu_moe_drop_policy=error")
+        tlo, thi = partition(me, size, T)
+        mine = [a for a in plan.kept if tlo <= a.token < thi]
+        my_dropped = sum(1 for t, _ in plan.dropped if tlo <= t < thi)
+        imb = plan.imbalance()
+        spc.record("moe_dispatch_tokens", len(mine))
+        if my_dropped:
+            spc.record("moe_dropped_tokens", my_dropped)
+        _imbalance_high_water(imb)
+        self._dispatched += len(mine)
+        self._dropped += my_dropped
+        self._imb_max = max(self._imb_max, imb)
+        _TELEM.update(steps=_TELEM["steps"] + 1,
+                      dispatch_tokens=_TELEM["dispatch_tokens"]
+                      + len(mine),
+                      dropped_tokens=_TELEM["dropped_tokens"]
+                      + my_dropped,
+                      imbalance=imb, world_size=size)
+
+        # dispatch: weighted token-gradient rows to each expert's home
+        # rank, in plan order — NO metadata rides the wire, the receiver
+        # recomputes the plan and knows every row's expert
+        send = []
+        for dest in range(size):
+            delo, dehi = partition(dest, size, E)
+            rows = [token_grad(self.step, a.token, d, self.seed)
+                    * a.weight
+                    for a in mine if delo <= a.expert < dehi]
+            send.append(np.concatenate(rows) if rows
+                        else np.zeros(0, np.float64))
+        t0 = trace.now() if trace.enabled else 0
+        recv = self.comm.alltoallv(send)
+        if trace.enabled:
+            trace.span("moe_dispatch", "coll", t0,
+                       args={"step": self.step, "rows": len(mine)})
+
+        # owner side: fold received rows into my expert slice, exactly
+        elo, ehi = self.my_experts()
+        upd = np.zeros((max(0, ehi - elo), d), np.float64)
+        n_recv = 0
+        for src in range(size):
+            slo, shi = partition(src, size, T)
+            expected = [a for a in plan.kept
+                        if slo <= a.token < shi and elo <= a.expert < ehi]
+            blk = np.asarray(recv[src])
+            rows = (blk if blk.dtype == np.float64
+                    else blk.view(np.float64)).reshape(-1, d)
+            if rows.shape[0] != len(expected):
+                raise MpiError(
+                    ErrorClass.ERR_TRUNCATE,
+                    f"step {self.step}: rank {src} sent "
+                    f"{rows.shape[0]} rows, plan says {len(expected)} "
+                    "— gating diverged across processes")
+            for a, row in zip(expected, rows):
+                upd[a.expert - elo] += row
+            n_recv += len(expected)
+        if self.compute_us_per_token and n_recv:
+            # simulated expert compute ∝ received load: the hot expert's
+            # home rank becomes the designed straggler
+            time.sleep(self.compute_us_per_token * n_recv / 1e6)
+        we = self.w.view(E, d)
+        if ehi > elo:
+            # lr is a power of two: lr * upd is exact on the host, and the
+            # device applies one IEEE subtraction an element, as numpy does
+            we[elo:ehi] -= torch.from_numpy(self.lr * upd).to(self.device)
+
+        # combine: owners publish refreshed expert slabs; expert-less
+        # ranks contribute zero-length buffers (the ragged edge case)
+        t0 = trace.now() if trace.enabled else 0
+        blocks = self.comm.allgatherv(cudaenv.to_numpy(we[elo:ehi]).ravel())
+        if trace.enabled:
+            trace.span("moe_combine", "coll", t0,
+                       args={"step": self.step,
+                             "experts": [elo, ehi]})
+        for r in range(size):
+            rlo, rhi = partition(r, size, E)
+            if rhi <= rlo or r == me:
+                continue
+            blk = np.asarray(blocks[r])
+            blk = (blk if blk.dtype == np.float64
+                   else blk.view(np.float64)).reshape(rhi - rlo, d)
+            we[rlo:rhi] = torch.from_numpy(blk).to(self.device)
+        self.step += 1
+
+    def report(self) -> dict:
+        rep = super().report()
+        elo, ehi = self.my_experts()
+        rep.update({"n_experts": self.n_experts, "top_k": self.top_k,
+                    "capacity": self.capacity, "experts": [elo, ehi],
+                    "dispatched": self._dispatched,
+                    "dropped": self._dropped,
+                    "imbalance_max": round(self._imb_max, 6)})
+        return rep
 
 
 # -- device tier: expert-sharded FFN over the expert mesh axis ----------
@@ -513,3 +777,33 @@ def run_quant_dispatch_check(nranks: int = 4, sizes=(1 << 14, 1 << 16),
 
     return dryrun.run_tolerance_check("alltoallv", approx, exact_fn=exact,
                                       sizes=sizes, nranks=nranks, band=band)
+
+
+# -- worker entry --------------------------------------------------------
+
+def main(argv: Optional[list] = None) -> int:
+    """``python -m ompi_tpu_torch.parallel.moe '<json-conf>'`` — one
+    self-contained expert-parallel training rank (``tpurun`` jobs launch
+    these).  The conf holds ``steps``, ``ckpt_dir`` and the trainer's
+    keywords (``"device": "cpu"`` for a rank without a card).  Rank 0
+    prints ``MOE <report-json>``."""
+    import sys
+
+    import ompi_tpu_torch
+
+    args = sys.argv[1:] if argv is None else list(argv)
+    conf = json.loads(args[0]) if args else {}
+    steps = int(conf.pop("steps", 8))
+    ckpt_dir = conf.pop("ckpt_dir")
+    ompi_tpu_torch.init(device=conf.get("device"))
+    w = ompi_tpu_torch.COMM_WORLD
+    trainer = MoeTrainer(w, ckpt_dir, **conf)
+    trainer.train(steps)
+    if trainer.comm.rank == 0:
+        print("MOE " + json.dumps(trainer.report()))
+    ompi_tpu_torch.finalize()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,8 +11,9 @@ lane, the accelerator's staging pool) and the host transports' (btl/tcp,
 the native reactor, coll/quant's wire stage) and the observability
 runtime's (the telemetry sampler's publishes, the profiler's ticks, the
 trace's flow halves) and fault injection's (each chaos fault, the flight
-recorder's dumps).  The reference's other counters (the per-collective
-call counts, serving) come with the modules that record them.
+recorder's dumps) and partitioned communication's and the MoE trainer's.
+The reference's other counters (the per-collective call counts, serving)
+come with the modules that record them.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ _COUNTERS = (
     "bytes_sent", "bytes_received",
     "unexpected_msgs", "out_of_sequence_msgs", "matched_msgs",
     "rget_msgs", "striped_msgs",
+    # partitioned communication (mca/part): Pready and Parrived calls, the
+    # wire messages the aggregation left, and the partitioned bytes
+    "part_pready", "part_parrived", "part_msgs", "part_bytes",
     "device_collectives", "device_bytes",
     "coord_reconnects", "coord_rpc_retries",
     "quant_encodes", "quant_decodes",
@@ -48,6 +52,12 @@ _COUNTERS = (
     "chaos_drop", "chaos_delay", "chaos_dup", "chaos_corrupt",
     "chaos_reset", "chaos_stall", "chaos_disconnect", "chaos_kill",
     "flight_dumps",
+    # MoE expert parallelism (parallel/moe's MoeTrainer): tokens entering
+    # the ragged dispatch, tokens dropped by the capacity policy, and the
+    # high-water per-step load-imbalance factor in milli-units (a gauge
+    # kept as a monotonic high-water so the counter plane stays
+    # append-only)
+    "moe_dispatch_tokens", "moe_dropped_tokens", "moe_imbalance_max",
 )
 
 _pvars = {}

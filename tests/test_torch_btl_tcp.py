@@ -407,3 +407,81 @@ def test_the_vars_are_the_references():
                           multi_select=True).open()
             var = registry.lookup(name)
         assert var is not None and var.value == default, name
+
+
+class _RecordingSock:
+    """A socket stand-in that records its close."""
+
+    def __init__(self, fd, events):
+        self._fd = fd
+        self._events = events
+
+    def fileno(self):
+        return self._fd
+
+    def close(self):
+        self._events.append(("close", self._fd))
+
+
+@pytest.mark.parametrize("pkg", ["torch", "jax"])
+def test_close_drains_then_closes_and_keeps_the_peer_tables(pkg,
+                                                            monkeypatch):
+    """``close`` as the reference's (``ompi_tpu/mca/btl/tcp.py:1121-1130``):
+    queued frames reach the peer before the socket closes (a 30 s drain),
+    the reactor lane's fds leave the epoll set before their sockets close,
+    and ``_rte``, ``_addr_cache`` and ``_rr`` are kept."""
+    import selectors
+
+    mod = tcp_mod if pkg == "torch" else jtcp
+    a, b = socket.socketpair()
+    a.setblocking(False)
+    b.settimeout(5)
+    btl = mod.TcpBtl()
+    conn = mod._Conn(a, rank=1)
+    payload = bytes(range(256)) * 64
+    conn.outq.append(memoryview(payload))
+    conn.out_bytes = len(payload)
+    btl._by_rank[1] = [conn]
+    btl._sel.register(a, selectors.EVENT_READ, conn)
+    events = []
+    rconn = mod._Conn(_RecordingSock(9999, events), rank=2)
+    btl._reactor = True
+    btl._rconns[9999] = rconn
+    monkeypatch.setattr(mod.reactor_mod, "remove",
+                        lambda fd: events.append(("remove", fd)))
+    rte = object()
+    btl._rte, btl._addr_cache[1], btl._rr[1] = rte, ("127.0.0.1", 9), 3
+    btl.close()
+    got = b""
+    while True:
+        chunk = b.recv(1 << 16)
+        if not chunk:
+            break
+        got += chunk
+    b.close()
+    assert got == payload
+    assert events == [("remove", 9999), ("close", 9999)]
+    assert not btl._rconns and not btl._reactor and not btl._by_rank
+    assert (btl._rte, btl._addr_cache, btl._rr) == \
+        (rte, {1: ("127.0.0.1", 9)}, {1: 3})
+
+
+def test_a_new_setup_starts_its_peer_tables_anew(monkeypatch):
+    """A boot after a teardown in one process is another job: ``setup``
+    clears the previous job's addresses and round-robin cursors (close
+    keeps them, as the reference's does; the reference would dial a stale
+    address on a re-init)."""
+    from types import SimpleNamespace
+
+    monkeypatch.setattr(tcp_mod.reactor_mod, "engage", lambda: False)
+    published = {}
+    rte = SimpleNamespace(is_device_world=False, client=object(),
+                          modex_put=published.__setitem__)
+    btl = tcp_mod.TcpBtl()
+    btl._addr_cache[1], btl._rr[1] = ("127.0.0.1", 9), 3
+    try:
+        assert btl.setup(rte)
+        assert btl._addr_cache == {} and btl._rr == {}
+        assert btl._rte is rte and "btl_tcp_addr" in published
+    finally:
+        btl.close()

@@ -13,9 +13,15 @@ Same numpy inputs go through both packages.  Bands, stated per comparison:
   magnitude (loss: relative), as the two packages take their matmuls' sums
   in other orders.  Measured: ~1e-7;
 * ``expert_ffn_fused``: the fused cell (K20's plain version) against the
-  unfused einsum within 2e-4, the reference's own test's band.
+  unfused einsum within 2e-4, the reference's own test's band;
+* ``MoeTrainer``: bit-exact — the trainer in one process against the
+  reference's (parameters, report, counters, the ``moe`` telemetry source,
+  the checkpoint files byte for byte), and a ``tpurun -n 3`` job killed at
+  step 5 that re-shards over the two survivors and ends on the JAX
+  package's ``reference_moe_run`` from the restored checkpoint.
 """
 import math
+import os
 
 import jax
 import numpy as np
@@ -38,11 +44,12 @@ from ompi_tpu_torch.parallel import axes, dryrun, elastic, moe
 from ompi_tpu_torch.parallel.mesh import AXES, EXPERT_AXIS, MeshSpec, make_mesh
 from test_torch_world import jax_world, ring_worlds, torch_world  # noqa: F401
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EP_SPEC = dict(dp=2, ep=4)
 MOE_AXES = AXES + (EXPERT_AXIS,)
 MOE_DIMS = (2, 1, 1, 1, 4)
 #: the var the device tier reads, and those only the host trainer reads
-#: (``MoeTrainer``, not ported yet: the port registers them with it)
+#: (``MoeTrainer``)
 VARS = ("capacity_factor",)
 TRAINER_VARS = ("n_experts", "top_k", "drop_policy", "hot_expert",
                 "hot_boost", "compute_us_per_token")
@@ -81,10 +88,12 @@ def test_vars_match_reference(name):
 
 @pytest.mark.parametrize("name", TRAINER_VARS)
 def test_trainer_vars_wait_for_the_trainer(name):
-    """ROADMAP C: a var the port would accept and never read is not
-    registered; it comes with ``MoeTrainer``, its reader."""
-    assert jreg.lookup(f"otpu_moe_{name}") is not None
-    assert treg.lookup(f"otpu_moe_{name}") is None
+    """The vars only ``MoeTrainer`` reads came with it: the reference's
+    type, default, enum and help."""
+    j, t = jreg.lookup(f"otpu_moe_{name}"), treg.lookup(f"otpu_moe_{name}")
+    assert j is not None and t is not None
+    assert (t.vtype.value, t.default, t.enum_values, t.help) == \
+        (j.vtype.value, j.default, j.enum_values, j.help)
 
 
 @pytest.mark.parametrize("args", [
@@ -586,3 +595,209 @@ def test_moe_step_on_card_matches_cpu():
     want = moe.run_moe_training_step(device="cpu")
     for g, w in zip(got, want):
         assert abs(g - w) <= 1e-5 * abs(w)
+
+
+# -- the host trainer (MoeTrainer) ------------------------------------------
+
+TRAINER_CASES = {
+    "drops": dict(n_experts=6, expert_dim=8, tokens_per_step=24, top_k=2,
+                  capacity_factor=0.9, ckpt_every=4, seed=3),
+    "hot": dict(n_experts=4, expert_dim=5, tokens_per_step=20, top_k=1,
+                capacity_factor=2.0, ckpt_every=3, seed=1, hot_expert=2,
+                hot_boost=0.6),
+    "top3": dict(n_experts=8, expert_dim=3, tokens_per_step=16, top_k=3,
+                 capacity_factor=1.25, ckpt_every=5, seed=0),
+}
+
+
+def _one_rank(pkg, monkeypatch):
+    from ompi_tpu_torch.rte.coord import CoordServer
+
+    srv = CoordServer(1)
+    monkeypatch.setenv("OTPU_COORD", f"{srv.addr[0]}:{srv.addr[1]}")
+    monkeypatch.setenv("OTPU_RANK", "0")
+    monkeypatch.setenv("OTPU_NPROCS", "1")
+    rt = __import__(f"{pkg}.runtime.init", fromlist=["x"])
+    rt.reset_for_testing()
+    return srv, rt
+
+
+@pytest.mark.parametrize("case", sorted(TRAINER_CASES))
+def test_moe_trainer_in_process_matches_the_reference(tmp_path, monkeypatch,
+                                                      case):
+    """One rank of each package (a one-rank ``ProcRte`` world): train 9
+    steps with expert-boundary checkpoints, restore the latest and replay.
+    The parameters bit for bit (and ``reference_moe_run``'s), the report,
+    the ``moe_*`` counter deltas, the ``moe`` telemetry snapshot and the
+    checkpoint files byte for byte."""
+    import ompi_tpu
+    import ompi_tpu_torch
+
+    conf = TRAINER_CASES[case]
+    got, files = {}, {}
+    for pkg in ("ompi_tpu_torch", "ompi_tpu"):
+        srv, rt = _one_rank(pkg, monkeypatch)
+        mod = moe if pkg == "ompi_tpu_torch" else jmoe
+        spc = __import__(f"{pkg}.runtime.spc", fromlist=["x"])
+        try:
+            if pkg == "ompi_tpu_torch":
+                w = ompi_tpu_torch.init(device="cpu")
+                tr = moe.MoeTrainer(w, str(tmp_path / pkg), device="cpu",
+                                    **conf)
+            else:
+                w = ompi_tpu.init()
+                tr = jmoe.MoeTrainer(w, str(tmp_path / pkg), **conf)
+            names = ("moe_dispatch_tokens", "moe_dropped_tokens")
+            c0 = {k: spc.read(k) for k in names}
+            first = tr.train(9)
+            delta = {k: spc.read(k) - c0[k] for k in names}
+            step = tr.latest_complete_step()
+            tr._restore(step)
+            again = tr.train(9)
+            if pkg == "ompi_tpu_torch":
+                assert isinstance(first, torch.Tensor) \
+                    and first.dtype == torch.float64
+                first, again = first.numpy(), again.numpy()
+            snap = mod._telem_snapshot()
+            rep = tr.report()
+            got[pkg] = (first.tobytes(), step, again.tobytes(), rep, delta,
+                        {k: snap[k] for k in ("n_experts", "capacity",
+                                              "imbalance", "world_size")},
+                        spc.read("moe_imbalance_max") > 0)
+        finally:
+            rt.reset_for_testing()
+            srv.close()
+    assert got["ompi_tpu_torch"] == got["ompi_tpu"]
+    kw = {k: conf[k] for k in ("top_k", "capacity_factor", "seed")}
+    kw.update({k: conf[k] for k in ("hot_expert", "hot_boost") if k in conf})
+    want = jmoe.reference_moe_run(
+        np.zeros(conf["n_experts"] * conf["expert_dim"]), 0, 9,
+        tokens=conf["tokens_per_step"], n_experts=conf["n_experts"],
+        expert_dim=conf["expert_dim"], **kw)
+    first, step, again, rep, delta, *_ = got["ompi_tpu_torch"]
+    assert first == want.tobytes() == again
+    assert rep["experts"] == [0, conf["n_experts"]]
+    plans = [moe.plan_step(s, conf["tokens_per_step"], conf["n_experts"],
+                           **kw) for s in range(9)]
+    assert delta == {"moe_dispatch_tokens": sum(len(p.kept) for p in plans),
+                     "moe_dropped_tokens": sum(len(p.dropped)
+                                               for p in plans)}
+    for d in sorted(os.listdir(tmp_path / "ompi_tpu")):
+        for leaf in ("manifest.json", "w.bin", "step.bin", "COMPLETE"):
+            assert (tmp_path / "ompi_tpu_torch" / d / leaf).read_bytes() == \
+                (tmp_path / "ompi_tpu" / d / leaf).read_bytes(), (d, leaf)
+
+
+def test_moe_trainer_errors_as_the_reference(tmp_path, monkeypatch):
+    """A bogus drop policy is refused before the trainer touches its comm,
+    and ``drop_policy='error'`` turns a drop into ``ERR_TRUNCATE``, in both
+    packages."""
+    import ompi_tpu
+    import ompi_tpu_torch
+
+    got = {}
+    for pkg in ("ompi_tpu_torch", "ompi_tpu"):
+        mod = moe if pkg == "ompi_tpu_torch" else jmoe
+        errors = __import__(f"{pkg}.api.errors", fromlist=["x"])
+        with pytest.raises(errors.MpiError) as bogus:
+            mod.MoeTrainer(None, "unused", drop_policy="bogus")
+        srv, rt = _one_rank(pkg, monkeypatch)
+        try:
+            w = ompi_tpu_torch.init(device="cpu") \
+                if pkg == "ompi_tpu_torch" else ompi_tpu.init()
+            extra = {"device": "cpu"} if pkg == "ompi_tpu_torch" else {}
+            tr = mod.MoeTrainer(w, str(tmp_path / pkg), n_experts=6,
+                                expert_dim=8, tokens_per_step=24,
+                                capacity_factor=0.9, drop_policy="error",
+                                seed=3, **extra)
+            with pytest.raises(errors.MpiError) as trunc:
+                tr.train(9)
+            got[pkg] = (bogus.value.error_class.name, str(bogus.value),
+                        trunc.value.error_class.name, str(trunc.value))
+        finally:
+            rt.reset_for_testing()
+            srv.close()
+    assert got["ompi_tpu_torch"] == got["ompi_tpu"]
+    assert got["ompi_tpu"][::2] == ("ERR_ARG", "ERR_TRUNCATE")
+
+
+def test_moe_spans_name_the_references(tmp_path, monkeypatch):
+    """The trainer's ``moe_dispatch``/``moe_combine`` spans (category
+    ``coll``) and its checkpoint span, in both packages."""
+    import ompi_tpu
+    import ompi_tpu_torch
+
+    got = {}
+    for pkg in ("ompi_tpu_torch", "ompi_tpu"):
+        mod = moe if pkg == "ompi_tpu_torch" else jmoe
+        trace = __import__(f"{pkg}.runtime.trace", fromlist=["x"])
+        reg = __import__(f"{pkg}.base.var", fromlist=["x"]).registry
+        srv, rt = _one_rank(pkg, monkeypatch)
+        reg.set("otpu_trace_enable", True)
+        trace.reset_for_testing()
+        try:
+            w = ompi_tpu_torch.init(device="cpu") \
+                if pkg == "ompi_tpu_torch" else ompi_tpu.init()
+            extra = {"device": "cpu"} if pkg == "ompi_tpu_torch" else {}
+            mod.MoeTrainer(w, str(tmp_path / pkg), n_experts=4,
+                           expert_dim=2, tokens_per_step=8, seed=1,
+                           **extra).train(3)
+            got[pkg] = sorted({(e[1], e[2]) for e in trace._ring
+                               if e is not None and e[1] in (
+                                   "moe_dispatch", "moe_combine",
+                                   "elastic_checkpoint")})
+        finally:
+            reg.set("otpu_trace_enable", False)
+            trace.reset_for_testing()
+            rt.reset_for_testing()
+            srv.close()
+    assert got["ompi_tpu_torch"] == got["ompi_tpu"] == [
+        ("elastic_checkpoint", "ft"), ("moe_combine", "coll"),
+        ("moe_dispatch", "coll")]
+
+
+def test_moe_kill_reshards_over_the_survivors_bit_exact(tmp_path):
+    """``python -m ompi_tpu_torch.parallel.moe`` under the port's
+    ``tpurun -n 3 --enable-recovery`` with ``kill:rank=2,step=5``: the two
+    survivors shrink, re-shard the 6 experts 3 + 3 and finish on the JAX
+    package's ``reference_moe_run`` over all 12 steps from zeros, bit for
+    bit, as the JAX package's own acceptance test holds its trainer; and on
+    the same oracle from the restored checkpoint (read by the JAX package's
+    ``checkpoint.load``), so the saved table is held too."""
+    import json
+    import subprocess
+    import sys
+
+    from ompi_tpu.parallel import checkpoint as jckpt
+
+    conf = {"steps": 12, "ckpt_dir": str(tmp_path / "ckpt"),
+            "n_experts": 6, "expert_dim": 8, "tokens_per_step": 24,
+            "ckpt_every": 4, "seed": 3, "device": "cpu"}
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    for k in ("OTPU_RANK", "OTPU_NPROCS", "OTPU_COORD"):
+        env.pop(k, None)
+    r = subprocess.run(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun", "-n", "3",
+         "--enable-recovery", "--mca", "otpu_chaos_spec", "kill:rank=2,step=5",
+         sys.executable, "-m", "ompi_tpu_torch.parallel.moe",
+         json.dumps(conf)], capture_output=True, text=True, timeout=120,
+        cwd=REPO, env=env)
+    line = next((ln for ln in r.stdout.splitlines() if "MOE " in ln), None)
+    assert r.returncode == 0 and line is not None, \
+        r.stdout[-3000:] + r.stderr[-3000:]
+    rep = json.loads(line.split("MOE ", 1)[1])
+    assert rep["world_size"] == 2 and rep["step"] == 12
+    rec, = rep["recoveries"]
+    assert rec["failed"] == [2] and rec["detect_step"] == 5
+    assert "shrink_ms" in rec and "respawn_ms" not in rec
+    assert rep["experts"] == list(elastic.partition(0, 2, 6)) == [0, 3]
+    got = np.array(rep["w"], np.float64).tobytes()
+    assert got == jmoe.reference_moe_run(
+        np.zeros(6 * 8), 0, 12, tokens=24, n_experts=6, expert_dim=8,
+        seed=3).tobytes()
+    tree = jckpt.load(str(tmp_path / "ckpt" / f"step{rec['resume_step']:06d}"))
+    want = jmoe.reference_moe_run(np.asarray(tree["w"]), rec["resume_step"],
+                                  12, tokens=24, n_experts=6, expert_dim=8,
+                                  seed=3)
+    assert got == want.tobytes()
+    assert "rank 2 failed (exit 7)" in r.stderr

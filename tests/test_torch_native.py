@@ -407,3 +407,25 @@ def test_ctypes_signatures_match_the_source():
         fn = getattr(lib, name)
         assert fn.argtypes is not None and name in src
     assert lib.otpu_ring_peek_len.restype is ctypes.c_int64
+
+
+def test_the_build_lands_in_otpu_native_cache(tmp_path):
+    """``OTPU_NATIVE_CACHE`` names the build directory, as the reference's
+    variable does (``ompi_tpu/native/__init__.py:30-37``); unset, the core
+    builds into ``ompi_tpu_torch/build/``."""
+    code = ("import ompi_tpu_torch.native as n; print(n.available()); "
+            "print(n.library_path())")
+    env = dict(os.environ, OTPU_NATIVE_CACHE=str(tmp_path / "cache"))
+    env.pop("OTPU_NATIVE_DISABLE", None)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=REPO, env=env)
+    assert r.returncode == 0, r.stderr
+    ok, path = r.stdout.split()
+    assert ok == "True" and Path(path).parent == tmp_path / "cache"
+    assert Path(path).is_file() and (tmp_path / "cache" /
+                                     "otpu_native.lock").is_file()
+    env.pop("OTPU_NATIVE_CACHE")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=REPO, env=env)
+    assert Path(r.stdout.split()[1]).parent == \
+        REPO / "ompi_tpu_torch" / "build"

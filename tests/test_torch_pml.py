@@ -349,17 +349,21 @@ def test_a_tensor_receive_buffer_raises_like_the_reference(worlds, posted):
 
 
 NOT_COPIED = {
+    # the serving tier (its KV stream rides part's Pready): A 7
+    "serving": lambda pkg: importlib.util.find_spec(f"{pkg}.serving")
+    is not None,
+}
+
+#: reference behaviour a later slice copied (the sessions and dpm slice,
+#: the train-through-failure slice, then the message logging and
+#: partitioned communication slice): present in both packages now
+COPIED = {
     # the sender-based message logging protocol (pml/vprotocol): A 4.6
     "pml_vprotocol": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.pml.vprotocol") is not None,
     # partitioned communication (mca/part with persist and pcoll): A 5
     "part": lambda pkg: importlib.util.find_spec(f"{pkg}.mca.part")
     is not None,
-}
-
-#: reference behaviour a later slice copied (the sessions and dpm slice,
-#: then the train-through-failure slice): present in both packages now
-COPIED = {
     # shrink publishes the agreed survivors as the mpi://shrunk/<cid>
     # process set (the coordination service's psets)
     "shrink_pset": lambda pkg: "pset_publish" in inspect.getsource(
@@ -389,8 +393,8 @@ COPIED = {
 def test_copied_now(what):
     """Reference behaviour the port now copies: present in both packages
     (its behaviour is held by ``test_torch_session.py``,
-    ``test_torch_dpm.py``, ``test_torch_chaos.py`` and
-    ``test_torch_io.py``)."""
+    ``test_torch_dpm.py``, ``test_torch_chaos.py``, ``test_torch_io.py``,
+    ``test_torch_vprotocol.py`` and ``test_torch_part.py``)."""
     has = COPIED[what]
     assert has("ompi_tpu") and has("ompi_tpu_torch")
 

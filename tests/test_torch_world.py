@@ -162,7 +162,7 @@ def test_unfilled_slots_raise(torch_world):
     from ompi_tpu_torch.api.errors import ErrorClass, MpiError
 
     with pytest.raises(MpiError) as e:
-        torch_world._coll("partitioned_coll")
+        torch_world._coll("reduce_scatter_block")
     assert e.value.error_class is ErrorClass.ERR_UNSUPPORTED_OPERATION
 
 
