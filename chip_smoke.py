@@ -403,6 +403,35 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``reference_moe_run`` from zeros over all 12 steps, and on it from the
    restored checkpoint.  One ``{"partitioned_logging": {...}}`` line
    with the card's name and power limit.
+13. The multi-process device world and the launcher (``device_world_mp``;
+   no kernel is added): (a) ``tpurun -n 2 --device-world --local-devices
+   4`` on the card, every rank booting ``torch.distributed`` (gloo)
+   through the instance.  In each rank, ``Session.init`` with no
+   ``init()``, ``Group.from_session_pset(s, "mpi://WORLD")`` and
+   ``Comm.create_from_group``, whose ``allreduce_array`` slot must be
+   coll/builtin's cross-process module; then, on a 16 MB float32 card
+   tensor a rank (16 MB of int32 for BAND), allreduce SUM, an allreduce
+   through the gather-and-fold path (BAND on int32), ``bcast_array`` from
+   root 1, ``allgather_array``, ``reduce_scatter_array`` and
+   ``device_barrier``: each result on the card and bit for bit against the
+   rank-order fold of both ranks' inputs, which every rank rebuilds from
+   the seed, and each slot's ms (CUDA events around the call, median of
+   10).  After the session's finalize, ``init()`` boots again (reusing the
+   live process group) and each rank runs two steps of the flagship step
+   at ``OTPU_MODEL_SCALE=64``, lr 1e-5, over the global mesh of 2 x 4
+   ranks (dp spans the processes), with the launch counts set to 0 before
+   and read after: K21 exactly 4 a step in each process, the losses
+   descending and within 1e-5 relative of the single-process 8-rank
+   step's (run here before the job, whose host ms are printed beside the
+   job's), the free card memory before the step; then ``finalize``,
+   ``init`` again (the same group) and an allreduce.  (b) ``tpurun
+   --hostfile H --launch-agent local -n 4 --bind-to core --mca
+   hook_comm_method_display 1`` over two emulated hosts of two slots
+   each: an allreduce of a card tensor over the host tier, each rank's
+   ``OTPU_NODE_ID`` and ``os.sched_getaffinity(0)`` (the ranks of a host
+   must hold disjoint sets), and the ``[comm_method]`` matrix.  One
+   ``{"device_world_mp": {...}}`` line with the card's name and power
+   limit and the phase's wall seconds.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -5280,6 +5309,238 @@ def partitioned_logging(smi: str, gen) -> dict:
     return out
 
 
+DW_ELEMS = 16 * MB // 4        # 16 MB of float32 (or int32) a rank
+DW_REPS = 10
+
+DW_JOB = r"""
+import hashlib, json, os, statistics, sys, time
+import torch
+import torch.distributed as dist
+import ompi_tpu_torch as m
+from ompi_tpu_torch.api.errhandler import ERRORS_RETURN
+from ompi_tpu_torch.ops import flash_attention as fa
+from ompi_tpu_torch.parallel import dryrun
+
+SEED, ELEMS, REPS, LR = (int(sys.argv[1]), int(sys.argv[2]),
+                         int(sys.argv[3]), float(sys.argv[4]))
+
+
+def out(**kv):
+    print(json.dumps(kv), flush=True)
+
+
+def inputs(rank):
+    gen = torch.Generator(device="cuda").manual_seed(SEED + rank)
+    f = torch.randint(-64, 64, (ELEMS,), generator=gen, device="cuda") / 4.0
+    i = torch.randint(1, 1 << 20, (ELEMS,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    rs = torch.randint(-64, 64, (2, ELEMS // 2), generator=gen,
+                       device="cuda") / 8.0
+    return {"f": f.float(), "i": i, "rs": rs.float()}
+
+
+def same(got, want, what):
+    # on the card, and bit for bit (float32 compared as its bits)
+    assert got.device.type == "cuda", (what, got.device)
+    assert got.dtype == want.dtype and got.shape == want.shape, (
+        what, got.dtype, got.shape, want.dtype, want.shape)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), what
+
+
+def ms(fn):
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(REPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        dist.barrier()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# (a) the cross-process module, sessions model only
+s = m.Session.init(errhandler=ERRORS_RETURN)
+assert not m.initialized()
+g = m.Group.from_session_pset(s, "mpi://WORLD")
+comm = m.Comm.create_from_group(g, "dw-card")
+slot = comm.c_coll["allreduce_array"]
+while hasattr(slot, "__wrapped__"):
+    slot = slot.__wrapped__
+module = type(slot.__self__).__name__
+assert module == "MpCollModule", module
+me = comm.rank
+x = [inputs(r) for r in range(2)]
+mine = x[me]
+want = {"allreduce_sum": x[1]["f"] + x[0]["f"],
+        "allreduce_band": x[1]["i"] & x[0]["i"],
+        "bcast_root1": x[1]["f"].clone(),
+        "allgather": torch.stack([x[0]["f"], x[1]["f"]]),
+        "reduce_scatter": (x[1]["rs"] + x[0]["rs"])[me:me + 1]}
+calls = {"allreduce_sum": lambda: comm.allreduce_array(mine["f"]),
+         "allreduce_band": lambda: comm.allreduce_array(mine["i"], m.BAND),
+         "bcast_root1": lambda: comm.bcast_array(mine["f"], root=1),
+         "allgather": lambda: comm.allgather_array(mine["f"]),
+         "reduce_scatter": lambda: comm.reduce_scatter_array(mine["rs"])}
+slots_ms = {}
+for name, fn in calls.items():
+    same(fn(), want[name], name)
+    slots_ms[name] = ms(fn)
+barrier = comm.c_coll["device_barrier"]
+barrier(comm)
+slots_ms["device_barrier"] = ms(lambda: barrier(comm))
+out(module=module, slots_ms=slots_ms, bit_exact=True,
+    local_ranks=comm.rte.local_ranks)
+comm.free()
+s.finalize()
+
+# (b) the step over the global mesh, after a fresh boot of the world
+w = m.init()
+group = w.rte.process_group
+free, total = torch.cuda.mem_get_info()
+procs = (dist.get_world_size(), dist.get_rank())
+step, (p, xd), ms_spec = dryrun.make_step_and_args(
+    w.rte.device, None, ranks=len(w.rte.global_ranks), lr=LR, procs=procs)
+for k in fa.launches:
+    fa.launches[k] = 0
+p2, l1 = step(p, xd)
+torch.cuda.synchronize()
+first = dict(fa.launches)
+_, l2 = step(p2, xd)
+torch.cuda.synchronize()
+second = {k: v - first.get(k, 0) for k, v in fa.launches.items()}
+times = []
+for _ in range(6):
+    dist.barrier()
+    t0 = time.perf_counter()
+    step(p, xd)
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+out(loss=[float(l1), float(l2)], k21=[first, second], mesh=ms_spec.sizes(),
+    block=list(w.rte.local_ranks), free_MB_before_step=free / 2 ** 20,
+    total_MB=total / 2 ** 20, step_ms_median=statistics.median(times),
+    step_ms=times)
+m.finalize()
+
+# (c) init, finalize, init: the live group serves the re-boot
+w = m.init()
+assert w.rte.device_world_booted and w.rte.process_group is group
+y = w.allreduce_array(torch.full((4,), float(w.rank + 1), device="cuda"))
+assert y.device.type == "cuda" and y.tolist() == [3.0] * 4, y
+out(reinit_same_group=True)
+m.finalize()
+"""
+
+DW_HOST_JOB = r"""
+import json, os
+import numpy as np
+import torch
+import ompi_tpu_torch as m
+
+w = m.init()
+x = torch.full((1 << 18,), float(w.rank + 1), device="cuda")
+got = np.asarray(w.allreduce(x))
+want = float(sum(range(1, w.size + 1)))
+print(json.dumps({"node": os.environ.get("OTPU_NODE_ID"),
+                  "cpus": sorted(os.sched_getaffinity(0)),
+                  "allreduce_exact": bool((got == want).all())}), flush=True)
+m.finalize()
+"""
+
+
+def device_world_mp(smi: str) -> dict:
+    """The multi-process device world and the launcher (phase 13 of the
+    module docstring).  Returns the ``device_world_mp`` line's object."""
+    import tempfile
+
+    from ompi_tpu_torch.parallel import dryrun
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    py = sys.executable
+    # the single-process 8-rank step of the same spec and seed, first,
+    # while the card is this process's alone
+    step, state, _ = dryrun.make_step_and_args(lr=STEP_LR)
+    new, l1 = step(*state)
+    _, l2 = step(new, state[1])
+    single = [float(l1), float(l2)]
+    single_ms = step_ms({"single_process": (step, state)})["single_process"]
+    del step, state, new
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        job = tmp / "dw_job.py"
+        job.write_text(DW_JOB)
+        lines, wall = tpurun(2, ["--device-world", "--local-devices", "4",
+                                 py, str(job), str(SEED), str(DW_ELEMS),
+                                 str(DW_REPS), str(STEP_LR)], timeout=400)
+        res = {}
+        for rank in range(2):
+            objs = [json.loads(x) for x in lines.get(rank, [])
+                    if x.startswith("{")]
+            res[rank] = {k: v for o in objs for k, v in o.items()}
+            require(res[rank].get("reinit_same_group") is True,
+                    f"rank {rank} did not finish: {lines.get(rank)}")
+        per_step = k21_per_step(STEP_MESHES["default"])
+        for rank, r in res.items():
+            require(r["k21"] == [{"flash_block": per_step}] * 2,
+                    f"rank {rank} launched K21 {r['k21']} in its two steps, "
+                    f"want {per_step} each")
+            a, b = r["loss"]
+            require(math.isfinite(a) and b < a,
+                    f"rank {rank}'s steps do not descend: {r['loss']}")
+            rel = max(abs(g - w) / abs(w) for g, w in zip(r["loss"], single))
+            require(rel <= 1e-5, f"rank {rank}'s losses {r['loss']} differ "
+                    f"from the single-process step's {single} by {rel:.3e}")
+        out["job_2x4"] = {
+            "module": res[0]["module"], "slots_16MB_ms_by_rank": {
+                r: v["slots_ms"] for r, v in res.items()},
+            "slots_bit_exact": all(v["bit_exact"] for v in res.values()),
+            "mesh": res[0]["mesh"], "loss_mp": res[0]["loss"],
+            "loss_single_process": single,
+            "loss_bit_equal": all(v["loss"] == single for v in res.values()),
+            "k21_per_step_by_rank": {r: v["k21"][1]["flash_block"]
+                                     for r, v in res.items()},
+            "step_ms_median_by_rank": {r: v["step_ms_median"]
+                                       for r, v in res.items()},
+            "step_ms_by_rank": {r: v["step_ms"] for r, v in res.items()},
+            "single_process_step_ms": single_ms,
+            "free_MB_before_step_by_rank": {
+                r: v["free_MB_before_step"] for r, v in res.items()},
+            "reinit_same_group": True, "wall_s": wall}
+        # (b) the hostfile job: two emulated hosts, bound ranks, the matrix
+        hosts = tmp / "hosts.txt"
+        hosts.write_text("hostA slots=2\nhostB slots=2\n")
+        host_job = tmp / "dw_host.py"
+        host_job.write_text(DW_HOST_JOB)
+        lines, wall = tpurun(4, ["--hostfile", str(hosts), "--launch-agent",
+                                 "local", "--bind-to", "core", "--mca",
+                                 "hook_comm_method_display", "1", py,
+                                 str(host_job)], timeout=200)
+        ranks = {r: job_result(lines, r) for r in range(4)}
+        matrix = sorted(x for rank in lines.values() for x in rank
+                        if x.startswith("[comm_method]"))
+        require(len(matrix) == 4, f"the comm_method matrix: {matrix}")
+        for host, pair in (("hostA", (0, 1)), ("hostB", (2, 3))):
+            a, b = (ranks[r] for r in pair)
+            require(a["node"] == b["node"] == host
+                    and not set(a["cpus"]) & set(b["cpus"]),
+                    f"{host}'s ranks: {a}, {b}")
+        require(all(v["allreduce_exact"] for v in ranks.values()),
+                f"the host-tier allreduce: {ranks}")
+        out["hostfile_4"] = {"affinity_by_rank": {
+            r: v["cpus"] for r, v in ranks.items()},
+            "nodes": {r: v["node"] for r, v in ranks.items()},
+            "comm_method": matrix, "wall_s": wall}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"device_world_mp": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -5369,6 +5630,7 @@ def main() -> int:
     timed("sessions_dpm", sessions_dpm, smi, gen)
     timed("train_through_failure", train_through_failure, smi, gen)
     timed("partitioned_logging", partitioned_logging, smi, gen)
+    timed("device_world_mp", device_world_mp, smi)
     log(json.dumps({"phase_s": {"card": smi, **phase_s}}))
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))

@@ -29,8 +29,21 @@ fence inside a ``modex_fence`` span, the reserved CIDs, the flight
 recorder's arming (``flight.arm``, with a coordination client), the
 telemetry sampler and the sampling profiler, all inside an
 ``instance_boot`` span of category
-``boot``.  The reference's ``jax_distributed_init`` span and its
-multi-process device world (``:167-219``) are not ported.  The teardown
+``boot``.  Before pml selection come the ``--bind-to core`` binding
+and the ``cpus`` modex (``:99-111``, ``base/hwloc.py``), then the
+multi-process device world inside a ``jax_distributed_init`` span, the
+reference's name, recorded on every boot as the reference records it
+(``:113-117``, ``:167-219``).  The device world boots only under
+``OTPU_DEVICE_WORLD=1`` (``tpurun --device-world``) in the primary job: the
+rendezvous address is ``OTPU_DIST_COORD`` when set, else the coordination
+service's ``DIST_COORD_KEY`` (the launcher publishes it; a 30 s wait, then
+a loud error), and every rank joins ``torch.distributed``'s gloo group
+(``init_process_group("gloo", init_method="tcp://...")``, world size the
+job's rank count, rank its job-local index, an explicit timeout of
+``DEVICE_WORLD_TIMEOUT``).  NCCL would refuse two ranks on one
+card.  A later boot in the same process reuses the live group, as the
+reference reuses a live ``jax.distributed`` client (``:211-214``); the
+group is destroyed only when the process exits.  The teardown
 (``:221-313``) is one-shot: the final fence (the port first drains the
 btls' queued sends, and frames that cannot be delivered fail the rank
 after the teardown), the trace export, the flight recorder's survivor
@@ -44,6 +57,8 @@ before.
 from __future__ import annotations
 
 import atexit
+import datetime
+import os
 import threading
 from typing import Optional
 
@@ -58,6 +73,45 @@ _lock = threading.RLock()
 _refcount = 0
 _instance: Optional["Instance"] = None
 _atexit_armed = False
+
+#: how long the device world's process group waits for its rendezvous
+#: and for each of its collectives (torch.distributed's timeout)
+DEVICE_WORLD_TIMEOUT = datetime.timedelta(seconds=120)
+
+
+def _process_group(addr: str, world_size: int, rank: int):
+    """The job's gloo process group: joined once a process, then reused
+    (a re-init dials nothing).  Destroyed at the process's exit."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size or dist.get_rank() != rank:
+            raise RuntimeError(
+                f"a live process group of {dist.get_world_size()} ranks "
+                f"(rank {dist.get_rank()}) cannot serve a device world of "
+                f"{world_size} (rank {rank})")
+        return dist.group.WORLD
+    host = addr.rpartition(":")[0]
+    if host in ("127.0.0.1", "localhost") \
+            and "GLOO_SOCKET_IFNAME" not in os.environ:
+        # a loopback rendezvous: gloo's own pick would resolve the host
+        # name, which a sealed machine may not map to any interface
+        os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{addr}", world_size=world_size,
+        rank=rank, timeout=DEVICE_WORLD_TIMEOUT)
+    atexit.register(_destroy_process_group)
+    return dist.group.WORLD
+
+
+def _destroy_process_group() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        try:
+            dist.destroy_process_group()
+        except Exception:
+            pass   # a peer already gone must not fail the exit
 
 
 class Instance:
@@ -94,6 +148,23 @@ class Instance:
         # a re-boot after a teardown may use the work pool again
         threads_base.reopen_pool()
         interlib.note_main_thread(force=True)
+        # CPU binding and the topology modex (the reference binds in
+        # PRRTE before exec; here first thing at boot)
+        from ompi_tpu_torch.base import hwloc
+
+        if os.environ.get("OTPU_BIND_POLICY") == "core" and \
+                hasattr(self.rte, "my_world_rank"):
+            local_n = max(1, int(os.environ.get("OTPU_LOCAL_NRANKS", "1")))
+            hwloc.bind_self(hwloc.compute_binding(
+                self.rte.my_world_rank % local_n, local_n))
+        if hasattr(self.rte, "modex_put"):
+            topo = hwloc.host_topology(refresh=True)
+            self.rte.modex_put("cpus", list(topo.cpus_allowed))
+        # the device world's process group (before the modex fence, so the
+        # fence also orders its boot)
+        t0 = trace.now()
+        self._boot_device_world()
+        trace.span("jax_distributed_init", "boot", t0)
         # pml selection (ompi_mpi_init.c:630) with pml/monitoring's
         # interposition (per-peer traffic matrices), then vprotocol's
         # outside it (message-event logging, or replay: a replayed receive
@@ -125,6 +196,40 @@ class Instance:
             telemetry.start(self.rte)
         profile.start(self.rte)
         trace.span("instance_boot", "boot", t_boot)
+
+    def _boot_device_world(self) -> None:
+        """Join the job's process group (opt-in: the launcher sets
+        ``OTPU_DEVICE_WORLD``).  A spawned job would need a rendezvous of
+        its own, so only the primary job boots one."""
+        rte = self.rte
+        if os.environ.get("OTPU_DEVICE_WORLD", "") in ("", "0"):
+            return
+        if rte.is_device_world or getattr(rte, "job", "0") != "0":
+            return
+        # the env override first: a KV wait would stall 30 s before it
+        addr = os.environ.get("OTPU_DIST_COORD")
+        client = getattr(rte, "client", None)
+        if not addr and client is not None:
+            from ompi_tpu_torch.rte.coord import DIST_COORD_KEY
+
+            try:
+                addr = client.get(-1, DIST_COORD_KEY, wait=True,
+                                  timeout=30.0)
+            except Exception:
+                addr = None
+        if not addr:
+            raise RuntimeError(
+                "OTPU_DEVICE_WORLD is set but no rendezvous address was "
+                "published (launch with tpurun --device-world)")
+        from ompi_tpu_torch.base import cudaenv
+
+        procs = list(getattr(rte, "job_ranks", range(rte.world_size)))
+        me = procs.index(rte.my_world_rank)
+        k = cudaenv.virtual_ranks()
+        rte.process_group = _process_group(str(addr), len(procs), me)
+        rte.device_world_booted = True
+        rte.global_ranks = list(range(len(procs) * k))
+        rte.local_ranks = list(range(me * k, (me + 1) * k))
 
     # -- teardown --------------------------------------------------------
     def _fence_final(self) -> None:

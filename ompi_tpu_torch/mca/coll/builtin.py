@@ -101,6 +101,11 @@ tracing is on, each of those launches is an ``xla_<coll>`` span of category
 ``device`` named by its cache key's collective (``xla.py:45-57``): it times
 the launch of the torch program, never the card's work (no synchronize, no
 host read inside it).  With tracing off the slots run as before.
+
+In the multi-process device world (``tpurun --device-world``: the rte's
+``device_world_booted``) ``comm_query`` answers with ``MpCollModule``, the
+twin of ``XlaMpCollModule`` (``xla.py:732-906``, ``:933-947``), whose
+slots cross the processes through the job's ``torch.distributed`` group.
 """
 from __future__ import annotations
 
@@ -648,6 +653,207 @@ class BuiltinCollModule:
                 for b in buckets]
 
 
+#: the process groups of the multi-process device world's communicators,
+#: by the comm's process ranks (made once a process: a second
+#: ``new_group`` over the same ranks would name another group)
+_mp_groups: dict = {}
+_mp_groups_lock = threading.Lock()
+
+#: the ops the process group reduces itself; every other op is gathered
+#: and folded in rank order
+_DIST_OPS = {"sum": "SUM", "amax": "MAX", "amin": "MIN"}
+
+
+def _mp_group(procs: tuple):
+    """The process group over the processes ``procs`` (ranks of the job's
+    group): the job's own group when they are all of it, else one made
+    with ``use_local_synchronization=True``, so that only the members take
+    part (``create_from_group`` is called by members alone; a group made
+    over the default group would wait for the others)."""
+    import torch.distributed as dist
+
+    if len(procs) == dist.get_world_size():
+        return dist.group.WORLD
+    with _mp_groups_lock:
+        group = _mp_groups.get(procs)
+        if group is None:
+            group = _mp_groups[procs] = dist.new_group(
+                list(procs), use_local_synchronization=True)
+        return group
+
+
+class MpCollModule:
+    """coll/builtin for the MULTI-PROCESS device world
+    (``XlaMpCollModule``, ``ompi_tpu/mca/coll/xla.py:732-906``): the
+    communicator's ranks are processes of a ``tpurun --device-world`` job,
+    which joined one ``torch.distributed`` process group at boot, and the
+    slots cross the process boundary through it.
+
+    Data model (the reference's multi-controller one): every member calls
+    the same collective with ITS OWN contribution, no leading rank axis, a
+    tensor on its device (or anything ``np.asarray`` takes, placed there).
+    ``allreduce_array``, ``bcast_array`` and ``allgather_array`` return a
+    new tensor on that device that every member holds (the gather as
+    ``(n, *S)`` in comm rank order); ``reduce_scatter_array`` takes ``(n,
+    *S)`` and returns this member's reduced block as ``(1, *S)``, the
+    reference's addressable shard of its rank-sharded result, and raises
+    ``ERR_BUFFER`` on a wrong leading axis (``xla.py:856-861``).
+
+    SUM, MAX and MIN go through the process group's reduce ops; every other
+    op is the reference's ``_reduce_body`` fallback (``xla.py:794-811``):
+    an all-gather, then the fold in rank order, ``acc = fold(g[i], acc)``,
+    on the device with the op framework's fold for the dtype.  The bcast is
+    the group's broadcast from root's process (root's bytes: the
+    reference's masked psum turns a root's -0.0 into +0.0, which the port
+    does not copy, as for the single-process bcast).  ``device_barrier`` is
+    an allreduce of one float and a synchronize of the current stream.
+    Host slots (``barrier`` among them) stay with the host modules, as in
+    the reference.
+
+    The backend is gloo: NCCL refuses two ranks on one card.  Gloo's
+    all-reduce, broadcast and all-gather take a CUDA tensor directly (gloo
+    stages it through host memory itself), and the slots use only those.
+
+    Hot path: a cached collective is one dict probe, the relaxed
+    ``spc.bump_device`` and the call, under an ``xla_<coll>`` device span
+    while tracing is on."""
+
+    def __init__(self, comm, rte) -> None:
+        procs = tuple(rte.device_world_process(w)
+                      for w in comm.group.world_ranks)  # ValueError: not ours
+        self.n = len(procs)
+        self.device = rte.device
+        self._procs = procs
+        # the process group orders its ranks ascending; comm rank r is
+        # process procs[r], at this position of the group's gather
+        order = sorted(procs)
+        self._slot = [order.index(p) for p in procs]
+        self.rank = comm.rank
+        self.group = _mp_group(tuple(order)) if self.n > 1 else None
+        self._cache: dict = {}
+        self._lock = threading.Lock()
+
+    # -- helpers ---------------------------------------------------------
+    def _place(self, x) -> torch.Tensor:
+        if not isinstance(x, torch.Tensor):
+            return cudaenv.make_world_array(np.asarray(x), self.device)
+        if x.device != self.device:
+            raise MpiError(
+                ErrorClass.ERR_BUFFER,
+                f"device collective on {self.device} got a tensor on "
+                f"{x.device}")
+        return x
+
+    def _gather(self, t: torch.Tensor) -> list:
+        """Every member's ``t``, in comm rank order."""
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        if self.group is None:
+            return [t]
+        bufs = [torch.empty_like(t) for _ in range(self.n)]
+        dist.all_gather(bufs, t, group=self.group)
+        return [bufs[i] for i in self._slot]
+
+    def _reduce_fn(self, op: op_mod.Op, dtype):
+        """The cross-process reduction for op: the group's reduce op, or
+        the gather and the fold in rank order."""
+        import torch.distributed as dist
+
+        name = _DIST_OPS.get(op.torch_reduce)
+        if name is not None:
+            rop = getattr(dist.ReduceOp, name)
+
+            def native(t):
+                out = t.clone()
+                if self.group is not None:
+                    dist.all_reduce(out, op=rop, group=self.group)
+                return out
+            return native
+        fold = op_mod.torch_fold(op, dtype)
+
+        def gathered(t):
+            g = self._gather(t)
+            acc = g[0]
+            for i in range(1, self.n):
+                acc = fold(g[i], acc)
+            return acc.clone() if acc is t else acc
+        return gathered
+
+    def _run(self, coll: str, key, x, make):
+        """The collective under ``key``: one probe, the bump, the call."""
+        fn = self._cache.get(key)
+        if fn is None:
+            with self._lock:
+                fn = self._cache.setdefault(key, make())
+        spc.bump_device(x.nbytes)
+        if trace.enabled:
+            return _traced_dispatch(fn, coll, x.nbytes)(x)
+        return fn(x)
+
+    # -- collective slots ------------------------------------------------
+    def allreduce_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        x = self._place(x)
+        return self._run("allreduce", ("allreduce", op.name, x.dtype), x,
+                         lambda: self._reduce_fn(op, x.dtype))
+
+    def bcast_array(self, comm, x, root: int = 0):
+        import torch.distributed as dist
+
+        x, root = self._place(x), int(root)
+
+        def make():
+            if not 0 <= root < self.n:
+                # no member's axis index is root: every contribution is
+                # masked out, as in the reference
+                return torch.zeros_like
+            if self.group is None:
+                return torch.clone
+            src = self._procs[root]     # broadcast names the job's rank
+
+            def bcast(t):
+                out = t.clone() if self.rank == root else torch.empty_like(t)
+                dist.broadcast(out, src=src, group=self.group)
+                return out
+            return bcast
+
+        return self._run("bcast", ("bcast", root), x, make)
+
+    def allgather_array(self, comm, x):
+        x = self._place(x)
+        return self._run("allgather", ("allgather",), x,
+                         lambda: lambda t: torch.stack(self._gather(t)))
+
+    def reduce_scatter_array(self, comm, x, op: op_mod.Op = op_mod.SUM):
+        x = self._place(x)
+        if x.dim() < 1 or x.shape[0] != self.n:
+            raise MpiError(
+                ErrorClass.ERR_BUFFER,
+                f"reduce_scatter needs a leading rank axis {self.n}, "
+                f"got shape {tuple(x.shape)}")
+
+        def make():
+            full = self._reduce_fn(op, x.dtype)
+            me = self.rank
+            return lambda t: full(t)[me:me + 1]
+
+        return self._run("reduce_scatter",
+                         ("reduce_scatter", op.name, x.dtype), x, make)
+
+    def psum_scatter_array(self, comm, x):
+        return self.reduce_scatter_array(comm, x, op_mod.SUM)
+
+    def device_barrier(self, comm) -> None:
+        tok = self._cache.get("barrier_token")
+        if tok is None:
+            tok = self._cache.setdefault("barrier_token", torch.zeros(
+                1, dtype=torch.float32, device=self.device))
+        self._run("barrier", ("allreduce", "SUM", tok.dtype), tok,
+                  lambda: self._reduce_fn(op_mod.SUM, tok.dtype))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+
 class BuiltinCollComponent(Component):
     name = "builtin"
     priority = 90
@@ -660,8 +866,21 @@ class BuiltinCollComponent(Component):
 
     def comm_query(self, comm):
         rte = comm.rte
-        if rte is None or not rte.is_device_world:
+        if rte is None:
             return None
+        if not rte.is_device_world:
+            # the multi-process device world (xla.py:933-947): the comm's
+            # ranks are processes of a job whose process group booted; the
+            # cross-process module fills the *_array slots only (the host
+            # collectives keep their own modules)
+            if not getattr(rte, "device_world_booted", False) \
+                    or comm.is_inter:
+                return None
+            try:
+                module = MpCollModule(comm, rte)
+            except Exception:
+                return None
+            return self._prio.value, module
         return self._prio.value, BuiltinCollModule(
             comm, rte.device_of(0), comm.size)
 

@@ -8,11 +8,14 @@ compiled by its own ``nvcc`` process, all started together.  A library's
 file name carries a hash of its sources and flags, so a changed source is
 rebuilt and an unchanged one is loaded as it is.  ``nvcc``'s ``-Xptxas -v``
 report (registers, shared memory, spills per kernel) is kept beside each
-library as ``<name>.log``.
+library as ``<name>.log``.  The build runs under an exclusive ``flock`` on
+``build/cuda.lock``: the processes of one job (a multi-process device
+world's ranks) build a missing library once, and the others load it.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -89,10 +92,19 @@ def library_path(name: str) -> Path:
 def build_all() -> None:
     """Compile every library that is missing, one nvcc each, in parallel."""
     todo = {name: library_path(name) for name in LIBRARIES}
-    todo = {name: path for name, path in todo.items() if not path.exists()}
-    if not todo:
+    if all(path.exists() for path in todo.values()):
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "cuda.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        # another process may have built them while this one waited
+        _build({name: path for name, path in todo.items()
+                if not path.exists()})
+
+
+def _build(todo: dict) -> None:
+    if not todo:
+        return
     compiler = nvcc()
     procs = {}
     for name, path in todo.items():

@@ -6,8 +6,21 @@ card unless the caller passes ``device="cpu"`` (with no card and no
 ``device`` it raises, as ``cudaenv.resolve_device`` does).
 ``run_tolerance_check`` is a copy of the reference's (numpy only), the
 band harness of the lossy tiers; ``parallel/moe.run_quant_dispatch_check``
-holds the int8 dispatch to it.  ``run_mp_training_step`` waits for the
-multi-process world.
+holds the int8 dispatch to it.
+
+The multi-process device world (``dryrun.py:140-184``):
+``run_mp_training_step`` runs inside each rank of a ``tpurun
+--device-world`` job.  ``init()`` boots the instance, which joined the
+job's process group, and the check is the reference's: the world booted,
+more than one process, then two descending steps of the flagship step over
+the global mesh of every process's virtual ranks (``otpu_rte_virtual_ranks``
+a process, ``tpurun --local-devices``), each process holding its block
+(``mesh.process_block``) and its cross-process axes going through the
+process group; it prints ``dryrun ok: mesh=... loss a -> b``.
+``dryrun_multichip(n, nprocs)`` is the twin of the multi-process mode of
+``__graft_entry__.dryrun_multichip`` (``__graft_entry__.py:47-70``): it
+launches the port's tpurun with ``--device-world --local-devices n/nprocs``
+and that body in every rank.
 """
 from __future__ import annotations
 
@@ -15,18 +28,25 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.base import cudaenv
-from ompi_tpu_torch.parallel.mesh import MeshSpec, default_axis_sizes, make_mesh
+from ompi_tpu_torch.parallel.mesh import (MeshSpec, default_axis_sizes,
+                                          make_mesh, process_block)
 
 
 def make_step_and_args(device=None, spec=None, layers=None, ranks=None,
-                       use_flash=None, lr=1e-4):
+                       use_flash=None, lr=1e-4, procs=None):
     """Shared flagship-path setup: ``(step, (params, x), spec)`` on a mesh
-    of ``ranks`` virtual ranks (default: the world size)."""
+    of ``ranks`` virtual ranks (default: the world size).  ``procs`` =
+    ``(nprocs, proc)`` places only process ``proc``'s block of that global
+    mesh (the multi-process device world)."""
     from ompi_tpu_torch.parallel.train import (build_train_step, init_params,
                                                model_dims)
 
     n = cudaenv.virtual_ranks() if ranks is None else int(ranks)
-    mesh, mspec = make_mesh(n, spec, device=device)
+    if procs is None:
+        mesh, mspec = make_mesh(n, spec, device=device)
+    else:
+        mesh, mspec = process_block(spec or default_axis_sizes(n), *procs,
+                                    device=device)
     dims = model_dims(mspec, layers)
     step, place = build_train_step(mesh, mspec, lr=lr, layers=layers,
                                    use_flash=use_flash)
@@ -99,8 +119,67 @@ def run_bucket_overlap_check(device=None, spec=None) -> None:
           "bit-identical")
 
 
-def _one_descending_step(device, spec, ranks, lr) -> float:
-    step, state, spec = make_step_and_args(device, spec, ranks=ranks, lr=lr)
+def run_mp_training_step(spec_text: str = "", device=None,
+                         lr: float = 1e-4) -> float:
+    """The multi-process dry run's body, in each rank of a ``tpurun
+    --device-world`` job: two descending steps over the global mesh."""
+    import torch.distributed as dist
+
+    import ompi_tpu_torch
+
+    w = ompi_tpu_torch.init(device=device)
+    rte = w.rte
+    if not getattr(rte, "device_world_booted", False):
+        raise RuntimeError(
+            "device world did not boot (launch with tpurun --device-world)")
+    if dist.get_world_size() < 2:
+        raise RuntimeError(
+            f"expected a multi-process device world, got "
+            f"{dist.get_world_size()} process(es)")
+    loss = _one_descending_step(
+        rte.device, parse_spec(spec_text) if spec_text else None,
+        len(rte.global_ranks), lr,
+        procs=(dist.get_world_size(), dist.get_rank()))
+    ompi_tpu_torch.finalize()
+    return loss
+
+
+def dryrun_multichip(n_ranks: int, nprocs: int, spec: str = "",
+                     device=None, lr: float = 1e-4,
+                     timeout: float = None) -> None:
+    """Launch ``run_mp_training_step`` over ``nprocs`` processes of
+    ``n_ranks // nprocs`` virtual ranks each through the port's tpurun;
+    raises if the job fails."""
+    import os
+    import subprocess
+    import sys
+
+    if nprocs < 2 or n_ranks % nprocs:
+        raise ValueError(f"{n_ranks} ranks do not split over {nprocs} "
+                         "processes")
+    env = dict(os.environ)
+    for k in ("OTPU_RANK", "OTPU_NPROCS", "OTPU_COORD", "OTPU_DEVICE_WORLD",
+              "OTPU_DIST_COORD"):
+        env.pop(k, None)
+    body = ("from ompi_tpu_torch.parallel.dryrun import "
+            f"run_mp_training_step; run_mp_training_step({spec!r}, "
+            f"device={device!r}, lr={lr!r})")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun",
+         "-n", str(nprocs), "--device-world",
+         "--local-devices", str(n_ranks // nprocs),
+         sys.executable, "-c", body],
+        env=env, cwd=root, timeout=timeout)
+    if proc.returncode:
+        raise RuntimeError(
+            f"multi-process dry run failed (exit {proc.returncode})")
+
+
+def _one_descending_step(device, spec, ranks, lr, procs=None) -> float:
+    step, state, spec = make_step_and_args(device, spec, ranks=ranks, lr=lr,
+                                           procs=procs)
     new_state, loss = step(*state)
     loss = float(loss)
     if not np.isfinite(loss):

@@ -7,11 +7,26 @@ returns the layout the port's per-rank tensors carry: every such tensor
 has the mesh axes in front, ``(dp, pp, sp, tp, *local)``, and an
 expert-parallel spec (ep > 1) appends ``expert`` after them, ``(dp, pp, sp,
 tp, expert, *local)``, as the reference's mesh does (``mesh.py:80-83``).
+
+The multi-process device world (``tpurun --device-world``) splits a global
+mesh over the job's processes.  The reference lays the global mesh out
+process-major, ``np.array(devices).reshape(dp, pp, sp, tp)`` over the
+devices in process order (``mesh.py:84``), so process p holds the ranks
+``p·K .. (p+1)·K - 1`` of the row-major rank order (K ranks a process).
+``process_block`` returns that block as a ``Mesh`` whose ``origin`` is the
+global coordinate of its first rank and whose ``local_dims`` are its
+sizes: whole trailing axes, at most one axis cut, and 1 on the leading
+ones.  A layout where a process's ranks are no such box (K not a product
+of whole trailing axes times a divisor of the next) raises
+``ERR_UNSUPPORTED_OPERATION``.  ``ranks()`` lists the global coordinates of
+the block's ranks.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
+import numpy as np
 import torch
 
 from ompi_tpu_torch.base import cudaenv
@@ -74,10 +89,14 @@ def default_axis_sizes(n_devices: int) -> MeshSpec:
 class Mesh:
     """The axis layout of the per-rank tensors: ``shape[a]`` ranks along
     axis ``a`` (in ``names`` order, the leading dims of every per-rank
-    tensor), all on ``device``."""
+    tensor), all on ``device``.  A process-local block of a global mesh
+    also has ``origin``, the global coordinate of its first rank, and
+    ``block``, its sizes: its per-rank tensors carry ``local_dims``."""
 
     shape: dict
     device: torch.device
+    origin: tuple = None
+    block: tuple = None
 
     @property
     def names(self) -> tuple:
@@ -86,7 +105,25 @@ class Mesh:
 
     @property
     def dims(self) -> tuple:
+        """The global mesh's sizes."""
         return tuple(self.shape.values())
+
+    @property
+    def local_dims(self) -> tuple:
+        """The sizes of the ranks held here (the whole mesh, or the
+        process's block)."""
+        return self.dims if self.block is None else tuple(self.block)
+
+    @property
+    def local_origin(self) -> tuple:
+        return (0,) * len(self.shape) if self.origin is None \
+            else tuple(self.origin)
+
+    def ranks(self) -> list:
+        """The global coordinates of the ranks held here, row-major."""
+        return [tuple(o + i for o, i in zip(self.local_origin, idx))
+                for idx in itertools.product(
+                    *(range(b) for b in self.local_dims))]
 
 
 def make_mesh(n_ranks: int, spec: MeshSpec = None, device=None):
@@ -103,3 +140,33 @@ def make_mesh(n_ranks: int, spec: MeshSpec = None, device=None):
     if spec.ep > 1:
         shape[EXPERT_AXIS] = spec.ep
     return Mesh(shape, cudaenv.resolve_device(device)), spec
+
+
+def process_block(spec: MeshSpec, nprocs: int, proc: int, device=None):
+    """``(Mesh, spec)`` for process ``proc`` of ``nprocs`` holding its
+    contiguous block of the global mesh of ``spec`` (process-major, as the
+    reference's ``reshape`` of the global device list)."""
+    from ompi_tpu_torch.api.errors import ErrorClass, MpiError
+
+    mesh, spec = make_mesh(spec.n, spec, device=device)
+    dims = mesh.dims
+    if nprocs < 1 or spec.n % nprocs or not 0 <= proc < nprocs:
+        raise MpiError(ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                       f"a mesh of {spec.n} ranks does not split over "
+                       f"{nprocs} processes")
+    rem, block = spec.n // nprocs, []
+    for d in reversed(dims):
+        if rem % d == 0:
+            block.append(d)             # a whole trailing axis
+            rem //= d
+        elif rem < d and d % rem == 0:
+            block.append(rem)           # the one axis the block cuts
+            rem = 1
+        else:
+            raise MpiError(
+                ErrorClass.ERR_UNSUPPORTED_OPERATION,
+                f"the process blocks of {spec.sizes()} over {nprocs} "
+                "processes are not contiguous in the leading axes")
+    origin = np.unravel_index(proc * (spec.n // nprocs), dims)
+    return dataclasses.replace(mesh, origin=tuple(int(c) for c in origin),
+                               block=tuple(reversed(block))), spec

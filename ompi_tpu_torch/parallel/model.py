@@ -4,7 +4,9 @@ Port of ``ompi_tpu/parallel/model.py``.  The reference's functions run
 inside ``shard_map`` on one device's slice; here every tensor is a
 per-rank tensor ``(dp, pp, sp, tp, *local)`` holding all ranks' slices
 (``parallel/mesh.py``), and each ``jax.lax`` collective is its tensor op
-in ``parallel/axes.py``.  Parameters are dicts of per-rank tensors, as the
+in ``parallel/axes.py``, taken from the axis set ``ax`` the step passes
+(the dense ``axes.DENSE`` by default; the multi-process step's
+``ProcessAxes``).  Parameters are dicts of per-rank tensors, as the
 reference's are dicts of arrays; ``p[name]`` of one block is ``(dp, pp,
 sp, tp, *leaf_local)``.
 
@@ -34,7 +36,7 @@ def gelu(x):
 
 
 def ring_attention(q, k, v, axis: str, n_shards: int, use_flash=None,
-                   causal: bool = False):
+                   causal: bool = False, ax=axes.DENSE):
     """Flash-style ring attention over the sequence-parallel axis.
 
     q/k/v ``(*mesh, b, h_local, s_local, hd)``.  K/V blocks rotate one rank
@@ -60,8 +62,8 @@ def ring_attention(q, k, v, axis: str, n_shards: int, use_flash=None,
     m = q[..., 0] * 0 - math.inf
     num = q * 0
     den = q[..., 0] * 0
-    my = axes.axis_index(q, axis) if n_shards > 1 else torch.zeros(
-        [1] * axes.MESH_NDIM, dtype=torch.long, device=q.device)
+    my = ax.axis_index(q, axis) if n_shards > 1 else torch.zeros(
+        [1] * ax.ndim, dtype=torch.long, device=q.device)
     rows = torch.arange(s_local, device=q.device)
 
     def step_bias(t):
@@ -83,12 +85,12 @@ def ring_attention(q, k, v, axis: str, n_shards: int, use_flash=None,
         else:
             m, num, den = fa.update_twin(q, k, v, m, num, den, bias)
         if n_shards > 1 and t < n_shards - 1:
-            k, v = axes.ppermute_next(k, axis), axes.ppermute_next(v, axis)
+            k, v = ax.ppermute_next(k, axis), ax.ppermute_next(v, axis)
     return num / den[..., None]
 
 
 def ulysses_attention(q, k, v, axis: str, n_shards: int,
-                      causal: bool = False):
+                      causal: bool = False, ax=axes.DENSE):
     """DeepSpeed-Ulysses sequence parallelism: an all-to-all head↔sequence
     reshard instead of the ring's K/V rotation (h_local % n_shards == 0).
     After the reshard each rank holds h_local/n heads over the FULL
@@ -98,11 +100,11 @@ def ulysses_attention(q, k, v, axis: str, n_shards: int,
         return _full_attention(q, k, v, causal)
 
     def scatter_heads(t):   # (b, h_l, s_l, hd) -> (b, h_l/n, s, hd)
-        return axes.all_to_all(t, axis, split_axis=1, concat_axis=2)
+        return ax.all_to_all(t, axis, split_axis=1, concat_axis=2)
 
     o = _full_attention(scatter_heads(q), scatter_heads(k), scatter_heads(v),
                         causal)
-    return axes.all_to_all(o, axis, split_axis=2, concat_axis=1)
+    return ax.all_to_all(o, axis, split_axis=2, concat_axis=1)
 
 
 def _full_attention(q, k, v, causal: bool = False):
@@ -123,7 +125,7 @@ def _cols(h, w):
 
 def attention_block(p, x, *, sp: int, tp: int, n_heads_local: int,
                     sp_impl: str = "ring", causal: bool = False,
-                    use_flash=None):
+                    use_flash=None, ax=axes.DENSE):
     """Sequence-parallel attention with tp-sharded heads; psum output proj.
 
     x ``(*mesh, b, s_local, d)``, replicated over tp.  The head projections
@@ -143,25 +145,26 @@ def attention_block(p, x, *, sp: int, tp: int, n_heads_local: int,
             raise ValueError(
                 f"ulysses needs local heads divisible by sp "
                 f"({n_heads_local} % {sp}); use sp_impl='ring'")
-        o = ulysses_attention(q, k, v, "sp", sp, causal=causal)
+        o = ulysses_attention(q, k, v, "sp", sp, causal=causal, ax=ax)
     else:
         o = ring_attention(q, k, v, "sp", sp, use_flash=use_flash,
-                           causal=causal)
+                           causal=causal, ax=ax)
     o = _cols(o.transpose(-3, -2).flatten(-2), p["wo"])
     if tp > 1:
-        o = axes.psum(o, "tp")
+        o = ax.psum(o, "tp")
     return x + o
 
 
-def mlp_block(p, x, *, tp: int):
+def mlp_block(p, x, *, tp: int, ax=axes.DENSE):
     """Megatron-style tp MLP: column-shard w1, row-shard w2, psum combine."""
     y = _cols(gelu(_cols(rmsnorm(x), p["w1"])), p["w2"])
     if tp > 1:
-        y = axes.psum(y, "tp")
+        y = ax.psum(y, "tp")
     return x + y
 
 
-def moe_block(p, x, *, tp: int, n_experts: int, capacity: int):
+def moe_block(p, x, *, tp: int, n_experts: int, capacity: int,
+              ax=axes.DENSE):
     """Top-1 MoE with experts sharded over tp via all-to-all.
 
     Each tp rank routes its chunk of the local tokens, dispatches to the
@@ -175,7 +178,7 @@ def moe_block(p, x, *, tp: int, n_experts: int, capacity: int):
     mesh = x.shape[:-3]
     xf = rmsnorm(x).reshape(*mesh, b * s_l, d)
     e_l = n_experts // tp
-    chunk = axes.take_own(xf, "tp", 0) if tp > 1 else xf     # (*mesh, tc, d)
+    chunk = ax.take_own(xf, "tp", 0) if tp > 1 else xf     # (*mesh, tc, d)
 
     logits = torch.matmul(chunk, p["wr"])                     # (*mesh, tc, E)
     probs = torch.softmax(logits, dim=-1)
@@ -192,28 +195,30 @@ def moe_block(p, x, *, tp: int, n_experts: int, capacity: int):
     ex_in = torch.einsum("...tec,...td->...ecd", disp, chunk)  # (.., E, cap, d)
     ex_in = ex_in.reshape(*mesh, tp, e_l, capacity, d)
     if tp > 1:
-        ex_in = axes.all_to_all_untiled(ex_in, "tp", 0)
+        ex_in = ax.all_to_all_untiled(ex_in, "tp", 0)
     # (tp, e_l, cap, d): the leading local dim is now the source rank
     ex_in = ex_in.transpose(-4, -3).reshape(*mesh, e_l, tp * capacity, d)
     hid = gelu(torch.einsum("...etd,...edf->...etf", ex_in, p["we1"]))
     ex_out = torch.einsum("...etf,...efd->...etd", hid, p["we2"])
     ex_out = ex_out.reshape(*mesh, e_l, tp, capacity, d).transpose(-4, -3)
     if tp > 1:
-        ex_out = axes.all_to_all_untiled(ex_out, "tp", 0)
+        ex_out = ax.all_to_all_untiled(ex_out, "tp", 0)
     ex_out = ex_out.reshape(*mesh, n_experts, capacity, d)
 
     gate = torch.einsum("...tec,...te->...t", disp, probs)
     out = torch.einsum("...tec,...ecd->...td", disp, ex_out) * gate[..., None]
     if tp > 1:
-        out = axes.all_gather(out, "tp", 0)                   # (*mesh, t, d)
+        out = ax.all_gather(out, "tp", 0)                   # (*mesh, t, d)
     return x + out.reshape(*mesh, b, s_l, d)
 
 
 def transformer_block(p, x, *, sp, tp, n_heads_local, n_experts, capacity,
                       sp_impl: str = "ring", causal: bool = False,
-                      use_flash=None):
+                      use_flash=None, ax=axes.DENSE):
     x = attention_block(p, x, sp=sp, tp=tp, n_heads_local=n_heads_local,
-                        sp_impl=sp_impl, causal=causal, use_flash=use_flash)
-    x = mlp_block(p, x, tp=tp)
-    x = moe_block(p, x, tp=tp, n_experts=n_experts, capacity=capacity)
+                        sp_impl=sp_impl, causal=causal, use_flash=use_flash,
+                        ax=ax)
+    x = mlp_block(p, x, tp=tp, ax=ax)
+    x = moe_block(p, x, tp=tp, n_experts=n_experts, capacity=capacity,
+                  ax=ax)
     return x

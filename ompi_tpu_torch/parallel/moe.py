@@ -605,7 +605,7 @@ def gather_moe_params(params: dict, spec: MeshSpec, mesh) -> dict:
     from ompi_tpu_torch.parallel.train import gather
 
     pspecs = moe_param_specs(spec)
-    return {k: gather(v, pspecs[k], mesh.names) for k, v in params.items()}
+    return {k: gather(v, pspecs[k], mesh) for k, v in params.items()}
 
 
 def run_moe_training_step(device=None, spec: MeshSpec = None,

@@ -22,6 +22,13 @@ one kernel launch serves every rank:
 
 Model dims are derived from the mesh spec so every axis size divides its
 tensor dims, as in the reference.
+
+The step takes its axis set from the mesh (``axes.for_mesh``): the
+collectives over ``mesh.names``, or, on a process's block of a global mesh
+(``mesh.process_block``, the multi-process device world), the set whose
+spanning axes cross the process group.  ``shard`` places a process's
+block only; ``gather`` takes the mesh, as ``shard`` does, and reads a
+whole mesh.
 """
 from __future__ import annotations
 
@@ -172,12 +179,22 @@ def shard(a, spec: tuple, mesh) -> torch.Tensor:
     local = t.shape[len(split):]
     t = t.reshape([mesh.shape[a] if a in at else 1 for a in mesh.names]
                   + list(local))
-    return t.to(mesh.device).expand(*mesh.dims, *local).contiguous()
+    if mesh.block is not None:
+        # a process's block: its slice of each split axis
+        t = t[tuple(slice(o, o + b) if a in at else slice(None)
+                    for a, o, b in zip(mesh.names, mesh.local_origin,
+                                       mesh.local_dims))]
+    return t.to(mesh.device).expand(*mesh.local_dims, *local).contiguous()
 
 
-def gather(t: torch.Tensor, spec: tuple, names: tuple = AXES) -> np.ndarray:
-    """The global array of a per-rank tensor over the mesh axes ``names``
-    (rank 0's copy on the axes it is replicated over)."""
+def gather(t: torch.Tensor, spec: tuple, mesh=None) -> np.ndarray:
+    """The global array of a per-rank tensor over the axes of ``mesh``
+    (default: the dense ``AXES``; rank 0's copy on the axes it is
+    replicated over).  A process's block is not the whole mesh: it
+    raises."""
+    if mesh is not None and mesh.local_dims != mesh.dims:
+        raise ValueError("gather reads a whole mesh, not a process's block")
+    names = AXES if mesh is None else mesh.names
     t = t.detach()[tuple(slice(None) if a in spec else 0 for a in names)]
     kept = [a for a in names if a in spec]
     perm, shape = [], []
@@ -192,10 +209,10 @@ def gather(t: torch.Tensor, spec: tuple, names: tuple = AXES) -> np.ndarray:
     return cudaenv.to_numpy(t.permute(perm).reshape(shape))
 
 
-def gather_params(params: dict) -> dict:
+def gather_params(params: dict, mesh=None) -> dict:
     """Per-rank parameters back as the global numpy arrays."""
     specs = param_specs()
-    return {k: gather(v, specs[k]) for k, v in params.items()}
+    return {k: gather(v, specs[k], mesh) for k, v in params.items()}
 
 
 def _replicated(spec: tuple) -> tuple:
@@ -210,6 +227,8 @@ def build_train_step(mesh, spec: MeshSpec, lr: float = 1e-4,
     per-rank tensors on the mesh's device (``((params, m), x)`` under
     ZeRO-1).  ``use_flash`` is ring attention's switch (None: K21 on the
     card, its plain version on the CPU)."""
+    ax = axes.for_mesh(mesh)
+    nd = ax.ndim
     dims = model_dims(spec, layers)
     tp, sp_n, pp, dp = spec.tp, spec.sp, spec.pp, spec.dp
     M, mb, s_l, d = dims["M"], dims["mb"], dims["s_local"], dims["d"]
@@ -228,13 +247,13 @@ def build_train_step(mesh, spec: MeshSpec, lr: float = 1e-4,
         return transformer_block(
             layer, x_mb, sp=sp_n, tp=tp, n_heads_local=dims["h_local"],
             n_experts=dims["n_experts"], capacity=dims["capacity"],
-            sp_impl=sp_impl, causal=causal, use_flash=use_flash)
+            sp_impl=sp_impl, causal=causal, use_flash=use_flash, ax=ax)
 
     remat = bool(_remat_var.value)
 
     def stage_fn(stage_params, x_mb):
         for i in range(dims["layers_local"]):
-            leaves = [stage_params[k].select(axes.MESH_NDIM, i) for k in names]
+            leaves = [stage_params[k].select(nd, i) for k in names]
             if remat:
                 # recompute the block in the backward instead of storing
                 # its activations
@@ -262,21 +281,20 @@ def build_train_step(mesh, spec: MeshSpec, lr: float = 1e-4,
         """Per-local-layer psum buckets, LATE layer first; an elementwise
         psum over the same ranks makes each bucket bit-identical to its
         slice of the whole-leaf psum."""
-        n = g.shape[axes.MESH_NDIM]
-        parts = [axes.psum(g.select(axes.MESH_NDIM, i), ("dp", "sp"))
+        n = g.shape[nd]
+        parts = [ax.psum(g.select(nd, i), ("dp", "sp"))
                  for i in range(n - 1, -1, -1)]
-        return torch.stack(parts[::-1], dim=axes.MESH_NDIM)
+        return torch.stack(parts[::-1], dim=nd)
 
     def loss_fn(ps, x):
         # activations enter the pipeline in compute_dtype
-        xmb = x.reshape(*x.shape[:axes.MESH_NDIM], M, mb, s_l, d).to(
-            compute_dtype)
-        y = pipeline_apply(stage_fn, ps, xmb, pp=pp)
+        xmb = x.reshape(*x.shape[:nd], M, mb, s_l, d).to(compute_dtype)
+        y = pipeline_apply(stage_fn, ps, xmb, pp=pp, ax=ax)
         # outputs are zero off the last pp stage; count the tp-0 replica
         yf = y.float()
-        local = 0.5 * (yf * yf).sum(dim=tuple(range(axes.MESH_NDIM, yf.dim())))
-        local = torch.where(axes.axis_index(local, "tp") == 0, local, 0.0)
-        return axes.psum(local, AXES).reshape(-1)[0]
+        local = 0.5 * (yf * yf).sum(dim=tuple(range(nd, yf.dim())))
+        local = torch.where(ax.axis_index(local, "tp") == 0, local, 0.0)
+        return ax.psum(local, AXES).reshape(-1)[0]
 
     def step(state, x):
         params, m = state if zero1 else (state, None)
@@ -285,14 +303,14 @@ def build_train_step(mesh, spec: MeshSpec, lr: float = 1e-4,
         grads = torch.autograd.grad(loss, [leaves[k] for k in names])
         with torch.no_grad():
             # each copy's gradient -> the sum over the leaf's copies
-            grads = {k: axes.psum(g, _replicated(pspecs[k]))
+            grads = {k: ax.psum(g, _replicated(pspecs[k]))
                      for k, g in zip(names, grads)}
             if not zero1:
                 for k in names:
                     grads[k] = (bucketed_dp_sync(grads[k]) if bucket_overlap
-                                else axes.psum(grads[k], ("dp", "sp")))
+                                else ax.psum(grads[k], ("dp", "sp")))
                 if tp > 1:
-                    grads["wr"] = axes.psum(grads["wr"], "tp")
+                    grads["wr"] = ax.psum(grads["wr"], "tp")
                 new = {k: params[k] - lr * grads[k] for k in names}
                 return new, loss.detach()
             new, m_new = _zero1_update(params, grads, m)
@@ -302,35 +320,34 @@ def build_train_step(mesh, spec: MeshSpec, lr: float = 1e-4,
         """ZeRO-1: the dp sum rides a reduce-scatter, each dp rank owns
         1/dp of the flat parameter/momentum state, and the updated slices
         come back through an exact masked psum."""
-        grads = {k: axes.psum(g, "sp") for k, g in grads.items()}
+        grads = {k: ax.psum(g, "sp") for k, g in grads.items()}
         if tp > 1:
-            grads["wr"] = axes.psum(grads["wr"], "tp")
-        mesh_shape = grads[names[0]].shape[:axes.MESH_NDIM]
-        gflat = torch.cat([grads[k].flatten(axes.MESH_NDIM) for k in names],
-                          dim=-1)
+            grads["wr"] = ax.psum(grads["wr"], "tp")
+        mesh_shape = grads[names[0]].shape[:nd]
+        gflat = torch.cat([grads[k].flatten(nd) for k in names], dim=-1)
         total = gflat.shape[-1]
         chunk = -(-total // dp)
         gpad = F.pad(gflat, (0, chunk * dp - total))
-        gsl = axes.psum_scatter(gpad.reshape(*mesh_shape, dp, chunk), "dp", 0)
+        gsl = ax.psum_scatter(gpad.reshape(*mesh_shape, dp, chunk), "dp", 0)
         m_new = mu * m + gsl
-        mine = axes.axis_index(gsl, "dp", 1) == torch.arange(
+        mine = ax.axis_index(gsl, "dp", 1) == torch.arange(
             dp, device=gsl.device)                     # (*mesh, dp): slot r
         contrib = torch.where(mine[..., None], (-lr * m_new)[..., None, :],
                               torch.zeros((), device=gsl.device))
-        delta = axes.psum(contrib.reshape(*mesh_shape, dp * chunk), "dp")
+        delta = ax.psum(contrib.reshape(*mesh_shape, dp * chunk), "dp")
         delta = delta[..., :total]
         dtree, at = {}, 0
         for k in names:
-            local = params[k].shape[axes.MESH_NDIM:]
+            local = params[k].shape[nd:]
             size = math.prod(local)
             dtree[k] = delta[..., at:at + size].reshape(*mesh_shape, *local)
             at += size
-        tp0 = axes.axis_index(gsl, "tp", 0) == 0
+        tp0 = ax.axis_index(gsl, "tp", 0) == 0
         for k in names:
             if "tp" not in pspecs[k]:
                 # exact: only tp rank 0 contributes
                 t0 = tp0.reshape(*tp0.shape, *[1] * (dtree[k].dim() - 4))
-                dtree[k] = axes.psum(torch.where(t0, dtree[k], 0.0), "tp")
+                dtree[k] = ax.psum(torch.where(t0, dtree[k], 0.0), "tp")
         return {k: params[k] + dtree[k] for k in names}, m_new
 
     def place(params, x_np):
@@ -338,8 +355,9 @@ def build_train_step(mesh, spec: MeshSpec, lr: float = 1e-4,
         x = shard(x_np, X_SPEC, mesh)
         if zero1:
             # each rank's flat local parameter count, split over dp
-            total = sum(math.prod(v.shape[axes.MESH_NDIM:]) for v in p.values())
-            m0 = torch.zeros(*mesh.dims, -(-total // dp), device=mesh.device)
+            total = sum(math.prod(v.shape[nd:]) for v in p.values())
+            m0 = torch.zeros(*mesh.local_dims, -(-total // dp),
+                             device=mesh.device)
             return (p, m0), x
         return p, x
 

@@ -66,6 +66,11 @@ from ompi_tpu_torch.base.var import VarType, registry
 
 _LEN = struct.Struct("!I")
 
+#: the KV key under which tpurun publishes the multi-process device
+#: world's rendezvous address (``host:port``, on rank 0's host); the
+#: instance's boot reads it
+DIST_COORD_KEY = "__dist_coord__"
+
 _connect_timeout_var = registry.register(
     "coord", None, "connect_timeout", vtype=VarType.FLOAT, default=120.0,
     help="Seconds a rank waits dialing (or re-dialing) the coordination "

@@ -22,8 +22,17 @@ and scopes its fence ids by job with explicit membership; the primary job
 is job "0" with ranks 0..nprocs-1.  ``chaos.install(rank=...)`` arms
 fault injection before the first coordination RPC (``proc.py:39-43``), so
 a chaos spec covers the wire-up fences too; it is a no-op with
-``otpu_chaos_spec`` empty.  Not copied: the ``hostname`` key and the
-multi-process device world.
+``otpu_chaos_spec`` empty.
+
+The multi-process device world (``proc.py:22-33``): when the instance
+boots ``torch.distributed`` over the job's processes (``tpurun
+--device-world``), it sets ``device_world_booted``, the process group
+(``process_group``), and the global and local virtual-rank lists: the job
+of P processes with K virtual ranks each spans ``global_ranks`` = 0..P·K-1,
+of which this process holds the contiguous block ``local_ranks``.
+``device_world_process(world_rank)`` is a world rank's index in the
+process group (its job-local position, the ``rank`` it booted with).  Not
+copied: the ``hostname`` key.
 """
 from __future__ import annotations
 
@@ -38,6 +47,19 @@ from ompi_tpu_torch.rte.coord import CoordClient
 
 class ProcRte(Rte):
     is_device_world = False
+
+    #: the multi-process device world (set by the instance when it boots
+    #: torch.distributed): the process group every member of the job
+    #: joined, and the global and this process's virtual ranks
+    device_world_booted = False
+    process_group = None
+    global_ranks = None
+    local_ranks = None
+
+    def device_world_process(self, world_rank: int) -> int:
+        """The process-group rank of a world rank: its job-local
+        position, the ``rank`` passed to ``init_process_group``."""
+        return self.job_ranks.index(int(world_rank))
 
     def __init__(self, device=None) -> None:
         self.device = cudaenv.resolve_device(device)

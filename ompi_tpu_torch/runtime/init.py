@@ -43,8 +43,10 @@ coordination connection of its own (the PMIx ``PROC_ABORTED`` handler of
 ``ompi_mpi_init.c:400-402``).  ``finalize`` stops both, and the instance's
 teardown stops them on every other path; ``reset_for_testing`` clears the
 failure state.  ``abort`` writes the flight recorder's ``abort`` dump
-before it publishes the event (``init.py:339-343``).  Not ported: the
-reference's hooks framework (ROADMAP A 8).
+before it publishes the event (``init.py:339-343``).  Once the world is
+built and the FT threads run, init invokes the hook framework's ``init``
+point (``init.py:221-222``; ``mca/hook``, whose ``hook/comm_method`` prints
+the transport matrix when ``otpu_hook_comm_method_display`` is set).
 """
 from __future__ import annotations
 
@@ -219,6 +221,10 @@ def init(device=None, rte=None, argv: Optional[list] = None):
 
                 propagator.start(_rte,
                                  with_detector=bool(_ft_detector.value))
+            # post-init interposition (hook/comm_method's matrix)
+            from ompi_tpu_torch.mca.hook import run_hooks
+
+            run_hooks("init", _world)
         except BaseException:
             # a failed world must not leak the instance reference
             for comm in (_world, _self):

@@ -398,7 +398,7 @@ def _block_both(spec: dict, params, x, capacity=None):
     got = moe.moe_ep_block(tp, tx, mesh_axes=axes.MeshAxes(tmesh.names), **kw)
     from ompi_tpu_torch.parallel.train import gather
 
-    return gather(got, moe.X_SPEC, tmesh.names), np.asarray(want)
+    return gather(got, moe.X_SPEC, tmesh), np.asarray(want)
 
 
 @pytest.mark.parametrize("case", ["random", "tied_router", "overflow"])

@@ -355,8 +355,9 @@ NOT_COPIED = {
 }
 
 #: reference behaviour a later slice copied (the sessions and dpm slice,
-#: the train-through-failure slice, then the message logging and
-#: partitioned communication slice): present in both packages now
+#: the train-through-failure slice, the message logging and partitioned
+#: communication slice, then the device world and launcher slice): present
+#: in both packages now
 COPIED = {
     # the sender-based message logging protocol (pml/vprotocol): A 4.6
     "pml_vprotocol": lambda pkg: importlib.util.find_spec(
@@ -386,6 +387,19 @@ COPIED = {
     # the wire)
     "tcp_chaos": lambda pkg: hasattr(
         __import__(f"{pkg}.mca.btl.tcp", fromlist=["x"]), "chaos"),
+    # the multi-process device world's boot in the instance: A 4.8
+    "device_world": lambda pkg: hasattr(importlib.import_module(
+        f"{pkg}.instance").Instance, "_boot_device_world"),
+    # tpurun's hostfiles and launch agents (the child launcher): A 4.5
+    "hostfile": lambda pkg: all(hasattr(importlib.import_module(
+        f"{pkg}.tools.tpurun"), f) for f in ("_parse_hostfile",
+                                              "_assign_ranks", "_child_main")),
+    # the hwloc analog (topology, binding, locality tiers): A 8
+    "hwloc": lambda pkg: importlib.util.find_spec(f"{pkg}.base.hwloc")
+    is not None,
+    # the hook framework and hook/comm_method: A 8
+    "hook": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.mca.hook.comm_method") is not None,
 }
 
 
@@ -394,7 +408,9 @@ def test_copied_now(what):
     """Reference behaviour the port now copies: present in both packages
     (its behaviour is held by ``test_torch_session.py``,
     ``test_torch_dpm.py``, ``test_torch_chaos.py``, ``test_torch_io.py``,
-    ``test_torch_vprotocol.py`` and ``test_torch_part.py``)."""
+    ``test_torch_vprotocol.py``, ``test_torch_part.py``,
+    ``test_torch_device_world.py``, ``test_torch_multihost_launch.py`` and
+    ``test_torch_hwloc.py``)."""
     has = COPIED[what]
     assert has("ompi_tpu") and has("ompi_tpu_torch")
 

@@ -18,9 +18,10 @@ and stage names, every ``pml_msg`` flow start has its finish, and the
 launcher writes the merged timeline and the skew report.  Every subprocess
 has its own ``timeout=``.
 
-The reference's boot records a ``jax_distributed_init`` span; the port's
-device world has no ``jax.distributed`` (its multi-process device world is
-ROADMAP A 4.8), so its boot spans are the other three.
+Both boots record the same four spans, ``jax_distributed_init`` among
+them: the reference's name, kept by the port for the boot of its
+multi-process device world (``torch.distributed``), recorded on every boot
+as the reference records it.
 """
 import json
 import os
@@ -441,8 +442,8 @@ def test_device_world_flows_match(worlds, tmp_path):
 
 
 def test_device_world_boot_spans(tmp_path):
-    """Re-init with tracing on: the boot spans of both packages, less the
-    reference's jax_distributed_init (see the module docstring)."""
+    """Re-init with tracing on: the boot spans of both packages are equal,
+    the device world's ``jax_distributed_init`` among them."""
     from ompi_tpu.runtime import init as jrt
     from ompi_tpu_torch.runtime import init as trt
 
@@ -456,9 +457,9 @@ def test_device_world_boot_spans(tmp_path):
         got = {name: sorted(e["name"] for e in ns.trace.chrome_events()
                             if e["cat"] == "boot")
                for name, ns in PKGS.items()}
-        assert got["jax"] == sorted(got["torch"] + ["jax_distributed_init"])
+        assert got["jax"] == got["torch"]
         assert got["torch"] == ["coord_connect", "instance_boot",
-                                "modex_fence"]
+                                "jax_distributed_init", "modex_fence"]
         # finalize writes this rank's Chrome file into the trace dir
         trt.reset_for_testing()
         payload = json.loads((tmp_path / "trace_rank0.json").read_text())
