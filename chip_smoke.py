@@ -432,6 +432,28 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    must hold disjoint sets), and the ``[comm_method]`` matrix.  One
    ``{"device_world_mp": {...}}`` line with the card's name and power
    limit and the phase's wall seconds.
+14. The serving engine (``serving``; no kernel is added, and none is
+   launched: the toy model and the KV slabs are host numpy, as in the
+   reference).  (a) In the card's device world (``ompi_tpu_torch.init()``),
+   the router and its workers on threads over ``as_rank`` views, each run a
+   seeded Poisson stream through ``PoissonDriver``: a colocated engine of 2
+   workers; a staged prefill → decode pair, the receiver partitioned twice
+   as finely as the sender, with ``kv_codec="int8"`` (the decode stage
+   verifies every block within the codec's band and the phase counts the
+   blocks it verified); and ``spec_k`` 0 then 4 on one seeded stream.  The
+   launch counts set to 0 before and read after: none.  Every request
+   delivered, every token ``toy_token``'s; requests, tokens/s, p50 and p99
+   ms (the trace's log2 histograms) beside the exact p99, and the
+   speculative accepted and rejected counts.  (b) ``tpurun -n 3
+   --router-ranks 0 --worker-ranks 1,2`` running
+   ``ompi_tpu_torch.examples.serving_demo`` on the card: its OK line, and
+   every rank's ``roles()`` the flags' placement.  (c) ``tpurun -n 4
+   --enable-recovery --mca otpu_chaos_spec
+   'kill:rank=2,site=serve_work,count=2'``: rank 2 dies at its third
+   micro-batch, the router shrinks, requeues and delivers all 24 requests
+   (none dropped, none twice, every token exact), requeued > 0; the
+   requeued count and the job's wall seconds.  One ``{"serving": {...}}``
+   line with the card's name and power limit and the phase's wall seconds.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -457,6 +479,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -5541,6 +5564,195 @@ def device_world_mp(smi: str) -> dict:
     return out
 
 
+SERVE_FAIL_JOB = """
+import json
+import ompi_tpu_torch
+from ompi_tpu_torch.serving import ContinuousBatchScheduler, Router, ShardWorker
+from ompi_tpu_torch.serving.worker import toy_token
+
+w = ompi_tpu_torch.init()
+if w.rank == 0:
+    r = Router(w, scheduler=ContinuousBatchScheduler(
+                   max_batch=6, max_batch_tokens=1 << 14), decode_chunk=2)
+    subs = [r.submit(8 + (i % 5), 6 + (i % 7)) for i in range(24)]
+    done = r.serve_until_drained(max_ticks=20000)
+    exact = all(q.tokens == [toy_token(q.rid, i)
+                             for i in range(q.max_new_tokens)] for q in subs)
+    s = ompi_tpu_torch.Session.init()
+    surviving = list(s.group_from_pset("mpi://surviving").world_ranks)
+    s.finalize()
+    r.shutdown()
+    print(json.dumps({"submitted": len(subs), "done": len(done),
+                      "unique": len({q.rid for q in done}), "exact": exact,
+                      "requeued": r.lost_and_requeued,
+                      "workers": r.workers, "surviving": surviving,
+                      "device": str(w.rte.device)}), flush=True)
+else:
+    ShardWorker(w, router=0).serve()
+    print(json.dumps({"worker": w.rank, "ok": True}), flush=True)
+"""
+
+
+def serve_engine(world, name: str, workers: list, router_kw: dict,
+                 driver_kw: dict) -> dict:
+    """One in-process engine run: the workers' serve loops on threads, the
+    router and the Poisson driver on a thread of their own, so a hung tick
+    fails the phase at its time limit instead of holding the card."""
+    from ompi_tpu_torch.runtime import spc
+    from ompi_tpu_torch.serving import (ContinuousBatchScheduler,
+                                        PoissonDriver, Router)
+    from ompi_tpu_torch.serving.worker import toy_token
+
+    loops = [threading.Thread(target=w.serve, daemon=True) for w in workers]
+    for t in loops:
+        t.start()
+    result = {}
+
+    def drive():
+        try:
+            sched = ContinuousBatchScheduler(max_batch=8,
+                                             max_batch_tokens=1 << 14, slots=8)
+            r = Router(world.as_rank(0), scheduler=sched,
+                       workers=[w.comm.rank for w in workers], **router_kw)
+            drv = PoissonDriver(**driver_kw)
+            a0 = spc.read("serve_spec_accepts")
+            r0 = spc.read("serve_spec_rejects")
+            rep = drv.run(r, max_wall_s=90)
+            r.shutdown()
+            done = r.completed()
+            result.update(rep, exact=all(
+                q.tokens == [toy_token(q.rid, i)
+                             for i in range(q.max_new_tokens)]
+                for q in done), submitted=drv.n_requests,
+                spec_accepted=spc.read("serve_spec_accepts") - a0,
+                spec_rejected=spc.read("serve_spec_rejects") - r0)
+        except Exception as e:         # reported by the require below
+            result["error"] = repr(e)
+
+    driver = threading.Thread(target=drive, daemon=True)
+    driver.start()
+    driver.join(timeout=150)
+    require(not driver.is_alive(), f"serving {name}: the engine hung")
+    for t in loops:
+        t.join(timeout=10)
+    require(not any(t.is_alive() for t in loops),
+            f"serving {name}: a worker's serve loop did not stop")
+    require("error" not in result
+            and result.get("requests") == result.get("submitted")
+            == driver_kw["n_requests"] and result["exact"],
+            f"serving {name}: {result}")
+    return result
+
+
+def serving(smi: str) -> dict:
+    """The serving engine (phase 14 of the module docstring).  Returns the
+    ``serving`` line's object."""
+    import tempfile
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mca.part import part_framework
+    from ompi_tpu_torch.runtime import init as rt
+    from ompi_tpu_torch.runtime import spc
+    from ompi_tpu_torch.serving import ShardWorker
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    py = sys.executable
+    # (a) in process, on the card's device world
+    world = ompi_tpu_torch.init()
+    require(world.rte.device.type == "cuda",
+            f"the device world is on {world.rte.device}")
+    part_framework().open()
+    reset_counts()
+    stream = dict(rate_rps=400.0, n_requests=48, prompt_lens=(8, 64),
+                  decode_lens=(4, 24), seed=SEED)
+    out["colocated_2w"] = serve_engine(
+        world, "colocated", [ShardWorker(world.as_rank(r), router=0)
+                             for r in (1, 2)],
+        dict(decode_chunk=4), stream)
+    verified = []
+    pre = ShardWorker(world.as_rank(1), router=0, role="prefill", peer=2,
+                      slots=8, kv_elems=1024, kv_codec="int8")
+    dec = ShardWorker(world.as_rank(2), router=0, role="decode", peer=1,
+                      slots=8, kv_elems=1024, kv_partitions=16,
+                      kv_codec="int8")
+    on_kv = dec._on_kv
+
+    def counted(epoch, batch):
+        on_kv(epoch, batch)            # raises on a block outside the band
+        verified.extend(rid for rid, _ in batch)
+
+    dec._on_kv = counted
+    epochs0 = spc.read("serve_kv_epochs")
+    staged = serve_engine(world, "staged", [pre, dec],
+                          dict(stages=True, decode_chunk=4, kv_elems=1024),
+                          {**stream, "n_requests": 32})
+    require(sorted(verified) == sorted(set(verified))
+            and len(verified) == staged["requests"],
+            f"staged: {len(verified)} KV blocks verified for "
+            f"{staged['requests']} requests")
+    staged.update(kv_blocks_verified=len(verified), kv_codec="int8",
+                  slots=8, receiver_partitions=16,
+                  kv_epochs=spc.read("serve_kv_epochs") - epochs0)
+    out["staged_int8"] = staged
+    ab = {}
+    for k in (0, 4):
+        ab[f"spec_k_{k}"] = serve_engine(
+            world, f"spec_k {k}", [ShardWorker(world.as_rank(1), router=0,
+                                               spec_k=k)],
+            dict(decode_chunk=4), {**stream, "n_requests": 24,
+                                   "seed": SEED + 1})
+    require(ab["spec_k_0"]["tokens"] == ab["spec_k_4"]["tokens"]
+            and ab["spec_k_0"]["spec_accepted"] == 0
+            and ab["spec_k_4"]["spec_accepted"] > 0
+            and ab["spec_k_4"]["spec_rejected"] > 0,
+            f"the speculative A/B: {ab}")
+    out["spec_ab"] = ab
+    launched = {k: v for k, v in counts().items() if v}
+    require(not launched, f"the serving engine launched kernels: {launched}")
+    out["kernel_launches"] = 0
+    rt.finalize()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (b) the demo across three processes, roles from the flags
+        lines, wall = tpurun(3, ["--router-ranks", "0", "--worker-ranks",
+                                 "1,2", py, "-m",
+                                 "ompi_tpu_torch.examples.serving_demo"],
+                             timeout=200)
+        roles = {r: [json.loads(x.split("ROLES ", 1)[1]) for x in lines.get(
+            r, []) if x.startswith("ROLES ")] for r in range(3)}
+        require(all(v == [{"rank": r, "router": 0, "workers": [1, 2]}]
+                    for r, v in roles.items()), f"the demo's roles: {roles}")
+        ok = [json.loads(x.split("SERVING DEMO OK ", 1)[1])
+              for x in lines.get(0, []) if x.startswith("SERVING DEMO OK ")]
+        require(len(ok) == 1 and ok[0]["requests"] == 32,
+                f"the demo's OK line: {lines.get(0)}")
+        out["demo_3proc"] = {"report": ok[0], "roles": roles[0][0],
+                             "wall_s": wall}
+        # (c) serve through failure: rank 2 killed at its third micro-batch
+        job = tmp / "serve_fail.py"
+        job.write_text(SERVE_FAIL_JOB)
+        r, lines, wall = tpurun_any(
+            4, ["--enable-recovery", "--mca", "otpu_chaos_spec",
+                "kill:rank=2,site=serve_work,count=2", py, str(job)],
+            timeout=200)
+        res = job_result(lines, 0)
+        require(res["done"] == res["unique"] == res["submitted"] == 24
+                and res["exact"] and res["requeued"] > 0
+                and res["workers"] == [1, 2] and 2 not in res["surviving"]
+                and res["device"].startswith("cuda"),
+                f"serve through failure: {res}\n{r.stderr[-3000:]}")
+        require(all(job_result(lines, w)["ok"] for w in (1, 3)),
+                f"the surviving workers: {lines}")
+        out["serve_through_failure_4"] = {
+            "dropped": res["submitted"] - res["done"],
+            "requeued": res["requeued"], "exit_code": r.returncode,
+            "wall_s": wall}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"serving": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -5631,6 +5843,7 @@ def main() -> int:
     timed("train_through_failure", train_through_failure, smi, gen)
     timed("partitioned_logging", partitioned_logging, smi, gen)
     timed("device_world_mp", device_world_mp, smi)
+    timed("serving", serving, smi)
     log(json.dumps({"phase_s": {"card": smi, **phase_s}}))
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))

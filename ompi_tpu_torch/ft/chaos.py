@@ -27,10 +27,11 @@ drive injection hooks at three layers —
   (``kill:rank=0,after=1.2``), or at the Nth hit of a named kill point
   (``kill:rank=1,site=agree_prepare,count=2`` — permit ``count`` hits,
   die on the next).  Kill points are planted in the agreement protocol
-  (``agree_prepare``/``agree_decision``) and the elastic trainer
-  (``step``); the serving worker's ``serve_work`` comes with serving
-  (ROADMAP A 7).  ``tpurun --mca
-  otpu_chaos_spec 'kill:rank=2,step=7'`` arms them job-wide.
+  (``agree_prepare``/``agree_decision``), the serving worker's
+  micro-batch (``serve_work``, which is also a pacing point for
+  ``delay:ms=..,site=serve_work``) and the elastic trainer (``step``).
+  ``tpurun --mca otpu_chaos_spec 'kill:rank=2,step=7'`` arms them
+  job-wide.
 
 Spec grammar (round-trips through :func:`parse_spec` /
 :func:`format_spec`)::

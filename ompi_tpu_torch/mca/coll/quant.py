@@ -1,7 +1,7 @@
 """coll/quant — block-scale quantization: the codec and its decision ladder.
 
-Port of ``ompi_tpu/mca/coll/quant.py``, two of its three datapaths and
-the host wire stage:
+Port of ``ompi_tpu/mca/coll/quant.py``, its three datapaths and the host
+wire stage:
 
 * the device tier: the rule that decides, per communicator, whether a
   device collective may run through a lossy block codec, and which.
@@ -35,8 +35,10 @@ for non-commutative reductions (the codec reorders rounding error the way
 a ring reorders operands), and never for exact or non-float32 dtypes.
 
 The host codec's ``quant.encode`` and ``quant.decode`` stage clocks are the
-reference's (``quant.py:116-159``), behind ``profile.enabled``.  Not ported
-yet: the serving KV slabs with ``kv_codec`` (they come with serving).
+reference's (``quant.py:116-159``), behind ``profile.enabled``.  The third
+datapath is the serving KV slabs' (``otpu_coll_quant_kv_codec``,
+:func:`kv_codec`): ``serving/kv_stream.py`` holds each slot as this host
+codec's bytes.
 """
 from __future__ import annotations
 
@@ -379,6 +381,11 @@ class QuantCollComponent(Component):
         self._wire_codec = self.register_var(
             "wire_codec", vtype=VarType.STRING, default="int8",
             help=f"Wire-stage codec: one of {', '.join(CODECS)}")
+        self._kv_codec = self.register_var(
+            "kv_codec", vtype=VarType.STRING, default="",
+            help="Serving KV-slab codec (empty = raw f32 slabs): int8 holds "
+                 "~3.9x more sequences per slab, bf16 2x, within the codec "
+                 "band")
         self._budget_key = self.register_var(
             "budget_key", vtype=VarType.STRING,
             default="otpu_quant_budget", on_set=_set_budget_key,
@@ -408,6 +415,12 @@ def min_bytes() -> int:
 def wire_codec_name() -> str:
     v = getattr(COMPONENT, "_wire_codec", None)
     return str(v.value or "int8") if v is not None else "int8"
+
+
+def kv_codec() -> str:
+    """The serving KV slabs' codec ("" = raw float32 slabs)."""
+    v = getattr(COMPONENT, "_kv_codec", None)
+    return str(v.value or "") if v is not None else ""
 
 
 register_help(

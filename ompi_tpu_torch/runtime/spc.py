@@ -11,9 +11,12 @@ lane, the accelerator's staging pool) and the host transports' (btl/tcp,
 the native reactor, coll/quant's wire stage) and the observability
 runtime's (the telemetry sampler's publishes, the profiler's ticks, the
 trace's flow halves) and fault injection's (each chaos fault, the flight
-recorder's dumps) and partitioned communication's and the MoE trainer's.
-The reference's other counters (the per-collective call counts, serving)
-come with the modules that record them.
+recorder's dumps) and partitioned communication's and the MoE trainer's,
+and the serving engine's (``ompi_tpu_torch/serving``: the scheduler, the
+prefix cache, the front door, speculative decode, the request trace and
+the SLO accountant's).  The reference's other counters (the per-collective
+call counts, the fleet's scale-downs and enlists) come with the modules
+that record them.
 """
 from __future__ import annotations
 
@@ -58,6 +61,23 @@ _COUNTERS = (
     # kept as a monotonic high-water so the counter plane stays
     # append-only)
     "moe_dispatch_tokens", "moe_dropped_tokens", "moe_imbalance_max",
+    # serving (ompi_tpu_torch/serving): the continuous-batching engine's
+    # admissions and evictions per tick, decoded token volume, KV-slab
+    # streaming epochs, requests requeued by serve-through-failure and
+    # autoscale spawns; full prefill passes, prefix-cache hits, router-side
+    # lookup misses and stale hints; the front door's sheds and preemptions
+    # and speculative decode's accepted and rejected draft tokens
+    "serve_requests", "serve_tokens", "serve_ticks", "serve_admitted",
+    "serve_evicted", "serve_requeued", "serve_kv_epochs", "serve_scaleups",
+    "serve_prefills", "serve_prefix_hits", "serve_prefix_misses",
+    "serve_prefix_stale",
+    "serve_shed", "serve_preempt", "serve_spec_accepts",
+    "serve_spec_rejects",
+    # the request trace (runtime/trace's requests layer): requests whose
+    # causal chain was stamped and the stage spans emitted, both flat while
+    # otpu_trace_requests is off; the SLO accountant (runtime/telemetry):
+    # completions within otpu_serving_slo_p99_ms and those breaching it
+    "req_traced", "req_stages", "slo_goodput", "slo_breaches",
 )
 
 _pvars = {}

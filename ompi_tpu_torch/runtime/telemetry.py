@@ -3,9 +3,10 @@
 Copy of ``ompi_tpu/runtime/telemetry.py`` with its imports re-pointed: the
 sample schema, the source names and the coord KV key are the reference's.
 The port's sources are btl/tcp (``tcp``), the staging pool (``staging``),
-the progress engine (``progress``) and the profiler (``profile``); the
-serving, fleet, chaos and MoE sources come with their modules, and
-:class:`SloAccountant` waits for serving's router to feed it.
+the progress engine (``progress``), the profiler (``profile``), the serving
+scheduler (``serving``) and the front door (``frontdoor``); the fleet's
+source comes with ``serving/fleet.py``.  Serving's router feeds
+:class:`SloAccountant` (``slo_observe``) with every completed request.
 
 Every observability surface before this one is post-mortem (otpu-trace
 exports at finalize, monitoring dumps at exit) or in-process (SPC/pvar

@@ -80,11 +80,14 @@ gloo group there.  ``--local-devices K`` sets ``OTPU_MCA_rte_virtual_ranks=K``
 in every rank, the port's counterpart of the reference's virtual device
 count.  The launcher itself stays free of torch.
 
+``--router-ranks`` and ``--worker-ranks`` publish the serving role psets
+``mpi://serving/router`` and ``mpi://serving/workers``
+(``ompi_tpu_torch.serving.roles`` resolves placement from them).
+
 Not copied: ``--with-tpu``, which keeps a TPU attach hook in the ranks'
 environment (the port's ranks see the card already, and there is no such
-hook to strip), and the serving flags ``--router-ranks``,
-``--worker-ranks`` and ``--pool`` (the serving tier, ROADMAP A 7, is not
-ported).
+hook to strip), and the fleet's ``--pool`` (it comes with
+``serving/fleet.py``, ROADMAP A 7).
 """
 from __future__ import annotations
 
@@ -530,6 +533,18 @@ def main(argv=None) -> int:
                          "NAME with the given ranks (comma list with "
                          "ranges: 'workers:0,2-3'); sessions resolve it "
                          "via Session.group_from_pset")
+    ap.add_argument("--router-ranks", default=None, metavar="RANKS",
+                    dest="router_ranks",
+                    help="Serving role flag: publish the given ranks "
+                         "(comma list with ranges) as the "
+                         "'mpi://serving/router' pset — "
+                         "ompi_tpu_torch.serving.roles() resolves placement "
+                         "from it")
+    ap.add_argument("--worker-ranks", default=None, metavar="RANKS",
+                    dest="worker_ranks",
+                    help="Serving role flag: publish the given ranks as "
+                         "the 'mpi://serving/workers' pset (the serving "
+                         "router's model-shard worker table)")
     ap.add_argument("--device-world", action="store_true",
                     dest="device_world",
                     help="Boot a multi-process device world: every rank "
@@ -591,6 +606,12 @@ def main(argv=None) -> int:
     for spec_s in args.pset:
         pname, pranks = _parse_pset(spec_s, args.nprocs)
         server.publish_pset(pname, pranks, source="user")
+    # serving role psets (ompi_tpu_torch.serving.roles), same RANKS syntax
+    for flag, pset_name in ((args.router_ranks, "mpi://serving/router"),
+                            (args.worker_ranks, "mpi://serving/workers")):
+        if flag:
+            _, pranks = _parse_pset(f"serving:{flag}", args.nprocs)
+            server.publish_pset(pset_name, pranks, source="user")
 
     if args.device_world:
         # rank 0's process hosts the rendezvous: advertise the address

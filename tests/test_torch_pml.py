@@ -349,16 +349,20 @@ def test_a_tensor_receive_buffer_raises_like_the_reference(worlds, posted):
 
 
 NOT_COPIED = {
-    # the serving tier (its KV stream rides part's Pready): A 7
-    "serving": lambda pkg: importlib.util.find_spec(f"{pkg}.serving")
+    # the serving fleet (per-model pools, the telemetry-driven autoscaler):
+    # the rest of A 7
+    "fleet": lambda pkg: importlib.util.find_spec(f"{pkg}.serving.fleet")
     is not None,
 }
 
 #: reference behaviour a later slice copied (the sessions and dpm slice,
 #: the train-through-failure slice, the message logging and partitioned
-#: communication slice, then the device world and launcher slice): present
-#: in both packages now
+#: communication slice, the device world and launcher slice, then the
+#: serving engine slice): present in both packages now
 COPIED = {
+    # the serving engine (its KV stream rides part's Pready): A 7
+    "serving_engine": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.serving") is not None,
     # the sender-based message logging protocol (pml/vprotocol): A 4.6
     "pml_vprotocol": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.pml.vprotocol") is not None,
@@ -409,8 +413,9 @@ def test_copied_now(what):
     (its behaviour is held by ``test_torch_session.py``,
     ``test_torch_dpm.py``, ``test_torch_chaos.py``, ``test_torch_io.py``,
     ``test_torch_vprotocol.py``, ``test_torch_part.py``,
-    ``test_torch_device_world.py``, ``test_torch_multihost_launch.py`` and
-    ``test_torch_hwloc.py``)."""
+    ``test_torch_device_world.py``, ``test_torch_multihost_launch.py``,
+    ``test_torch_hwloc.py``, ``test_torch_serving.py``,
+    ``test_torch_prefix_cache.py`` and ``test_torch_frontdoor.py``)."""
     has = COPIED[what]
     assert has("ompi_tpu") and has("ompi_tpu_torch")
 
