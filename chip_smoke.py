@@ -454,6 +454,39 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    (none dropped, none twice, every token exact), requeued > 0; the
    requeued count and the job's wall seconds.  One ``{"serving": {...}}``
    line with the card's name and power limit and the phase's wall seconds.
+15. The serving fleet and the PGAS/tool surfaces (``fleet_pgas``; no kernel
+   is added: the fleet, the symmetric heap, MPI_T and the debugger views
+   compute on the host, as in the reference).  (a) In the card's device
+   world, a ``FleetController`` with the colocated pools ``m_a`` = [1, 2]
+   and ``m_b`` = [3, 4], its four workers on threads over ``as_rank``
+   views: idle ticks retire a rank of each pool into the reserve, then two
+   tenants weighted 2:1 send 48 requests under ``MixedPoissonDriver`` with
+   prompts that share prefix templates, and a p99 SLO of 1e-4 ms
+   re-enlists from the reserve.  Every request delivered with
+   ``toy_token``'s tokens, worker-verified prefix hits > 0, a histogram
+   family per tenant with its p50/p99, ``fleet_scale`` instants for the
+   idle retirements and the enlists, the ``fleet`` telemetry source
+   registered; the launch counts set to 0 before and read after: none.
+   (d) Still in process: an MPI_T cvar write read back (source
+   ``MPI_T``); a pvar session on ``otpu_runtime_spc_device_collectives``
+   whose delta over 5 ``allreduce_array`` calls of card tensors is 5 (those
+   calls launch the ring kernels; the line reports their launches apart);
+   ``debugger.dump()`` listing the world and a dup, with a proc table of
+   every rank naming the card.  (b) ``tpurun -n 5 --enable-recovery --pool
+   m_a:1,2 --pool m_b:3,4 --mca otpu_telemetry_interval_ms 50``: rank 2
+   chaos-killed at its third micro-batch under 24 + 16 requests, and the
+   fleet ticked for 1 s after the last completion (the autoscaler's
+   telemetry sample closes up to one interval after the completions it
+   counts); none dropped, every token exact, requeued > 0, prefix hits > 0,
+   and a p99-driven scale-up spawning ``python -m
+   ompi_tpu_torch.serving.worker cuda`` into its pool, whose rank's
+   ``device`` modex key names the card.
+   (c) ``tpurun -n 4`` of a shmem job: put/get, the atomics, the
+   collectives, a lock and a context checked on every PE against numpy,
+   the heap a host ``uint8`` byte-addressed window, and the smoke readings
+   µs of an 8 B ``p`` and ``g`` to the right neighbour and MB/s of a 4 MB
+   ``put``.  One ``{"fleet_pgas": {...}}`` line with the card's name and
+   power limit and the phase's wall seconds.
 
 The ``build_report`` line (after the build) carries the registers, shared
 memory and spills of the kernels of ``fused_matmul``, ``ring_fused``,
@@ -5753,6 +5786,398 @@ def serving(smi: str) -> dict:
     return out
 
 
+FLEET_SOAK_JOB = """
+import json
+import sys
+import time
+
+import ompi_tpu_torch
+from ompi_tpu_torch.base.var import registry
+from ompi_tpu_torch.runtime import trace
+from ompi_tpu_torch.serving import (FleetController, MixedPoissonDriver,
+                                    ShardWorker)
+from ompi_tpu_torch.serving.worker import toy_token
+
+N_A, N_B = 24, 16
+SETTLE_S = float(sys.argv[1]) if len(sys.argv) > 1 else 1.0
+w = ompi_tpu_torch.init()
+if w.rank == 0:
+    # pools from the --pool psets; an autoscaled worker names the card
+    fleet = FleetController(
+        w, tenants={"ten_a": 2, "ten_b": 1},
+        spawn_argv=[sys.executable, "-m", "ompi_tpu_torch.serving.worker",
+                    "cuda"],
+        autoscale=dict(poll_ticks=2, depth_high=None, cooldown=25,
+                       slo_p99_ms=2.0, max_workers=3, idle_patience=10**9))
+    pools0 = fleet.pool_workers()
+    registry.set("otpu_trace_enable", True)   # the ring outlives the run
+    rep = MixedPoissonDriver({
+        "ten_a": dict(model="m_a", rate_rps=300, n_requests=N_A,
+                      prompt_lens=(4, 16), decode_lens=(4, 10),
+                      prefixes=2, prefix_len=32),
+        "ten_b": dict(model="m_b", rate_rps=200, n_requests=N_B,
+                      prompt_lens=(4, 16), decode_lens=(4, 10),
+                      prefixes=1, prefix_len=16),
+    }, seed=3).run(fleet, max_wall_s=150)
+    ups_during_load = fleet.stats()["autoscale"]["ups"]
+    # the control loop outlives the burst, as a deployed fleet's does: the
+    # autoscaler reads the router's telemetry sample, which closes up to
+    # one sampler interval (50 ms here) after the last completion
+    t_end = time.monotonic() + SETTLE_S
+    while time.monotonic() < t_end:
+        fleet.tick()
+        time.sleep(0.001)
+    done = fleet.completed()
+    ring = [e[6] for e in trace._ring if e is not None
+            and e[1] == "fleet_scale"]
+    ups = [d for d in ring if d.get("dir") == "up"
+           and d.get("signal") in ("p99", "stale_rank")]
+    spawned = [(d["pool"], d["rank"]) for d in ups if d.get("how") == "spawn"]
+    pools = fleet.pool_workers()
+    devices = [w.rte.modex_get(fleet.comm.group.world_rank(r), "device")
+               for _, r in spawned]
+    st = fleet.stats()
+    fleet.shutdown()
+    print(json.dumps({
+        "submitted": N_A + N_B, "done": len(done),
+        "unique": len({q.rid for q in done}),
+        "exact": all(q.tokens == [toy_token(q.rid, i)
+                                  for i in range(q.max_new_tokens)]
+                     for q in done),
+        "requeued": rep["requeued"], "prefix_hits": rep["prefix_hits"],
+        "prefills": rep["prefills"], "ups": ups, "spawned": spawned,
+        "ups_during_load": ups_during_load,
+        "spawned_in_pool": all(r in pools[p] for p, r in spawned),
+        "spawned_devices": devices, "pools_before": pools0,
+        "pools_after": pools, "autoscale": st["autoscale"],
+        "device": str(w.rte.device)}), flush=True)
+else:
+    if w.rank == 2:
+        # permit 2 micro-batches, die on the 3rd: mid-load, results unsent
+        from ompi_tpu_torch.ft import chaos
+        chaos.install_spec("kill:rank=2,site=serve_work,count=2")
+    ShardWorker(w, router=0).serve()
+    print(json.dumps({"worker": w.rank, "ok": True}), flush=True)
+"""
+
+SHMEM_JOB = """
+import json
+import math
+import time
+
+import numpy as np
+
+import ompi_tpu_torch.shmem as shmem
+
+ctx = shmem.init()
+me, n = shmem.my_pe(), shmem.n_pes()
+right, left = (me + 1) % n, (me - 1) % n
+checks = {}
+
+x = shmem.array(4, np.float64)
+x.local[:] = me * 10.0
+shmem.barrier_all()
+checks["get"] = shmem.get(x, 4, right).tolist() == [right * 10.0] * 4
+shmem.barrier_all()
+shmem.p(x, 500.0 + me, left, index=1)
+shmem.barrier_all()
+checks["put"] = x.local[1] == 500.0 + right
+
+c = shmem.calloc(1, np.int64)
+shmem.barrier_all()
+old = shmem.atomic_fetch_add(c, me + 1, 0)
+e = shmem.array(1, np.int64)
+e.local[0] = -1
+shmem.barrier_all()
+prev = shmem.atomic_compare_swap(e, -1, me, 0)
+shmem.barrier_all()
+wins = np.asarray(ctx.world.allgather(
+    np.array([1 if prev == -1 else 0], np.int64)))
+checks["atomics"] = bool(0 <= old <= n * (n + 1) // 2 and wins.sum() == 1
+                         and (me != 0 or c.local[0] == n * (n + 1) // 2))
+
+y = shmem.array(3, np.float64)
+y.local[:] = [me + 1.0, me * 2.0, -me]
+shmem.sum_to_all(y)
+z = shmem.array(1, np.int64)
+z.local[0] = me * me
+col = shmem.collect(z)
+b = shmem.array(3, np.float64)
+b.local[:] = me
+shmem.broadcast(b, root=n - 1)
+pr = shmem.array(1, np.int64)
+pr.local[0] = me + 1
+shmem.prod_to_all(pr)
+checks["collectives"] = bool(
+    np.array_equal(y.local, np.array([n * (n + 1) / 2, n * (n - 1),
+                                      -n * (n - 1) / 2]))
+    and col.tolist() == [i * i for i in range(n)]
+    and b.local.tolist() == [n - 1.0] * 3
+    and pr.local[0] == math.factorial(n))
+
+lock = shmem.calloc(1, np.int64)
+tot = shmem.calloc(1, np.int64)
+shmem.barrier_all()
+for _ in range(3):
+    shmem.set_lock(lock)
+    v = int(shmem.g(tot, 0))
+    shmem.p(tot, v + 1, 0)
+    shmem.quiet()
+    shmem.clear_lock(lock)
+shmem.barrier_all()
+checks["locks"] = me != 0 or int(tot.local[0]) == 3 * n
+
+flags = shmem.calloc(1, np.int64)
+shmem.barrier_all()
+cx = shmem.ctx_create(shmem.Ctx.PRIVATE)
+cx.atomic_add(flags, 1, pe=0)
+cx.quiet()
+shmem.ctx_destroy(cx)
+shmem.barrier_all()
+checks["context"] = me != 0 or int(flags.local[0]) == n
+
+# smoke readings: an 8 B p and g to the right neighbour, a 4 MB put
+w8 = shmem.array(1, np.int64)
+big = shmem.array(1 << 19, np.float64)
+payload = np.random.default_rng(me).standard_normal(1 << 19)
+shmem.barrier_all()
+reps = 200
+t0 = time.perf_counter()
+for i in range(reps):
+    shmem.p(w8, i, right)
+shmem.quiet()
+p_us = (time.perf_counter() - t0) / reps * 1e6
+t0 = time.perf_counter()
+for _ in range(reps):
+    shmem.g(w8, right)
+g_us = (time.perf_counter() - t0) / reps * 1e6
+shmem.barrier_all()
+t0 = time.perf_counter()
+for _ in range(5):
+    shmem.put(big, payload, right)
+shmem.quiet()
+put_s = (time.perf_counter() - t0) / 5
+shmem.barrier_all()
+checks["put_4mb"] = bool(np.array_equal(
+    big.local, np.random.default_rng(left).standard_normal(1 << 19)))
+print(json.dumps({"pe": me, "n": n,
+                  "checks": {k: bool(v) for k, v in checks.items()},
+                  "heap_window": [type(ctx.win.local).__name__,
+                                  str(ctx.win.local.dtype),
+                                  bool(ctx.win.byte_addressed)],
+                  "device": str(ctx.world.rte.device),
+                  "p_8B_us": p_us, "g_8B_us": g_us,
+                  "put_4MB_MBps": (8 << 19) / put_s / 1e6}), flush=True)
+shmem.barrier_all()
+shmem.finalize()
+"""
+
+
+def fleet_in_process(world) -> dict:
+    """(a): the fleet over the card's device world; the router and its four
+    workers on threads over ``as_rank`` views."""
+    from ompi_tpu_torch.base.var import registry
+    from ompi_tpu_torch.runtime import telemetry, trace
+    from ompi_tpu_torch.serving import (FleetController, MixedPoissonDriver,
+                                        PoolSpec, ShardWorker)
+    from ompi_tpu_torch.serving.router import TENANT_HIST_PREFIX
+    from ompi_tpu_torch.serving.worker import toy_token
+
+    workers = [ShardWorker(world.as_rank(r), router=0) for r in (1, 2, 3, 4)]
+    loops = [threading.Thread(target=w.serve, daemon=True) for w in workers]
+    for t in loops:
+        t.start()
+    result = {}
+    registry.set("otpu_trace_enable", True)
+
+    def drive():
+        try:
+            fleet = FleetController(
+                world.as_rank(0),
+                pools=[PoolSpec("m_a", [1, 2], max_batch=6,
+                                max_batch_tokens=1 << 13),
+                       PoolSpec("m_b", [3, 4], max_batch=6,
+                                max_batch_tokens=1 << 13)],
+                tenants={"ten_a": 2, "ten_b": 1},
+                autoscale=dict(poll_ticks=2, idle_patience=3, cooldown=4,
+                               slo_p99_ms=1e-4, min_workers=1,
+                               watch_stale=False))
+            for _ in range(30):          # idle: each pool parks a rank
+                fleet.tick()
+            parked = fleet.stats()["reserve"]
+            rep = MixedPoissonDriver({
+                "ten_a": dict(model="m_a", rate_rps=400.0, n_requests=30,
+                              prompt_lens=(8, 48), decode_lens=(4, 16),
+                              prefixes=3, prefix_len=32),
+                "ten_b": dict(model="m_b", rate_rps=250.0, n_requests=18,
+                              prompt_lens=(8, 48), decode_lens=(4, 16),
+                              prefixes=2, prefix_len=16),
+            }, seed=SEED).run(fleet, max_wall_s=120, check_invariants=True)
+            done = fleet.completed()
+            ring = [e[6] for e in trace._ring if e is not None
+                    and e[1] == "fleet_scale"]
+            hists = sorted({k[0] for k, v in trace.hist_snapshot().items()
+                            if k[0].startswith(TENANT_HIST_PREFIX) and v[0]})
+            source = telemetry._sources.get("fleet") is not None
+            st = fleet.stats()
+            fleet.shutdown()
+            result.update(
+                requests=rep["requests"], done=len(done),
+                exact=all(q.tokens == [toy_token(q.rid, i)
+                                       for i in range(q.max_new_tokens)]
+                          for q in done),
+                prefix_hits=rep["prefix_hits"], prefills=rep["prefills"],
+                tenants={k: {m: v[m] for m in ("requests", "p50_ms", "p99_ms",
+                                                "p99_exact_ms",
+                                                "tokens_per_s")}
+                         for k, v in rep["tenants"].items()},
+                tokens_per_s=rep["tokens_per_s"], tenant_hists=hists,
+                parked_after_idle=parked,
+                retires=[d for d in ring if d["dir"] == "down"
+                         and d["signal"] == "idle"],
+                enlists=[d for d in ring if d["dir"] == "up"
+                         and d.get("how") == "enlist"],
+                pools_after=fleet.pool_workers(), fleet_source=source,
+                autoscale=st["autoscale"])
+        except Exception as e:          # reported by the require below
+            result["error"] = repr(e)
+
+    driver = threading.Thread(target=drive, daemon=True)
+    driver.start()
+    driver.join(timeout=150)
+    registry.set("otpu_trace_enable", False)
+    require(not driver.is_alive(), "fleet_pgas (a): the fleet hung")
+    for t in loops:
+        t.join(timeout=10)
+    require(not any(t.is_alive() for t in loops),
+            "fleet_pgas (a): a worker's serve loop did not stop")
+    require("error" not in result and result["requests"] == result["done"]
+            == 48 and result["exact"] and result["prefix_hits"] > 0
+            and result["tenant_hists"] == [TENANT_HIST_PREFIX + "ten_a",
+                                           TENANT_HIST_PREFIX + "ten_b"]
+            and all(t["p99_ms"] > 0 for t in result["tenants"].values())
+            and result["retires"] and result["enlists"]
+            and result["fleet_source"], f"fleet_pgas (a): {result}")
+    return result
+
+
+def tool_and_debugger(world) -> dict:
+    """(d): MPI_T and the debugger views in the card's device world."""
+    from ompi_tpu_torch.api import tool
+    from ompi_tpu_torch.runtime import debugger
+
+    tool.init_thread()
+    try:
+        i = tool.cvar_get_index("otpu_coll_tuned_allreduce_algorithm")
+        old = tool.cvar_read(i)
+        tool.cvar_write(i, "ring")
+        written = (tool.cvar_read(i), tool.cvar_get_info(i).source_detail)
+        tool.cvar_write(i, old or "")
+        p = tool.pvar_get_index("otpu_runtime_spc_device_collectives")
+        session = tool.pvar_session_create()
+        h = session.handle_alloc(p)
+        x = torch.ones((world.size, 1024), device=world.rte.device)
+        reset_counts()
+        h.start()
+        calls = 5
+        for _ in range(calls):
+            world.allreduce_array(x)
+        torch.cuda.synchronize()
+        delta = h.read()
+        h.stop()
+        allreduce_launches = {k: v for k, v in counts().items() if v}
+        tool.pvar_session_free(session)
+        cats = [tool.category_get_info(k)[0]
+                for k in range(tool.category_get_num())]
+    finally:
+        tool.finalize()
+    dup = world.dup()
+    dup.set_name("fleet_pgas_dup")
+    dump = debugger.dump()
+    names = [r["name"] for r in dump["comms"]]
+    devices = sorted({r["device"] for r in dump["procs"]})
+    dup.free()
+    out = {"cvar_written": list(written), "pvar_calls": calls,
+           "pvar_delta": delta, "allreduce_launches": allreduce_launches,
+           "categories": len(cats), "comms": names,
+           "procs": len(dump["procs"]), "proc_devices": devices,
+           "queue_rows": len(dump["message_queues"])}
+    require(written == ("ring", "MPI_T") and delta == calls
+            and "coll" in cats and "COMM_WORLD" in names
+            and "fleet_pgas_dup" in names and len(dump["procs"]) == world.size
+            and devices and all(d.startswith("cuda") for d in devices),
+            f"fleet_pgas (d): {out}")
+    return out
+
+
+def fleet_pgas(smi: str) -> dict:
+    """The serving fleet and the PGAS/tool surfaces (phase 15 of the module
+    docstring).  Returns the ``fleet_pgas`` line's object."""
+    import ompi_tpu_torch
+    from ompi_tpu_torch.mca.part import part_framework
+    from ompi_tpu_torch.runtime import init as rt
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    py = sys.executable
+    world = ompi_tpu_torch.init()
+    require(world.rte.device.type == "cuda",
+            f"the device world is on {world.rte.device}")
+    part_framework().open()
+    reset_counts()
+    t = time.perf_counter()
+    out["fleet_in_process"] = fleet_in_process(world)
+    out["fleet_in_process"]["wall_s"] = time.perf_counter() - t
+    launched = {k: v for k, v in counts().items() if v}
+    require(not launched, f"the fleet launched kernels: {launched}")
+    out["tool_debugger"] = tool_and_debugger(world)
+    rt.finalize()
+    reset_counts()
+    # (b) across processes: the bounded chaos soak
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        job = Path(tmp, "fleet_soak.py")
+        job.write_text(FLEET_SOAK_JOB)
+        r, lines, wall = tpurun_any(
+            5, ["--enable-recovery", "--pool", "m_a:1,2", "--pool", "m_b:3,4",
+                "--mca", "otpu_telemetry_interval_ms", "50", py, str(job)],
+            timeout=240)
+        res = job_result(lines, 0)
+        require(res["done"] == res["unique"] == res["submitted"] == 40
+                and res["exact"] and res["requeued"] > 0
+                and res["prefix_hits"] > 0
+                and any(d["signal"] == "p99" for d in res["ups"])
+                and res["spawned"] and res["spawned_in_pool"]
+                and all(d.startswith("cuda") for d in res["spawned_devices"])
+                and res["device"].startswith("cuda"),
+                f"fleet_pgas (b): {res}\n{r.stderr[-3000:]}")
+        out["fleet_soak_5"] = dict(res, dropped=res["submitted"] - res["done"],
+                                   exit_code=r.returncode, wall_s=wall)
+        # (c) shmem across four processes
+        job = Path(tmp, "shmem_job.py")
+        job.write_text(SHMEM_JOB)
+        lines, wall = tpurun(4, [py, str(job)], timeout=180)
+        pes = [job_result(lines, pe) for pe in range(4)]
+        require(all(all(p["checks"].values()) and p["n"] == 4
+                    and p["heap_window"] == ["ndarray", "uint8", True]
+                    and p["device"].startswith("cuda") for p in pes),
+                f"fleet_pgas (c): {pes}")
+        out["shmem_4"] = {
+            "checks": sorted(pes[0]["checks"]),
+            "p_8B_us": [p["p_8B_us"] for p in pes],
+            "g_8B_us": [p["g_8B_us"] for p in pes],
+            "put_4MB_MBps": [p["put_4MB_MBps"] for p in pes],
+            "wall_s": wall}
+    launched = {k: v for k, v in counts().items() if v}
+    require(not launched, f"the fleet/shmem jobs launched kernels in this "
+            f"process: {launched}")
+    out["kernel_launches_outside_d"] = 0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"fleet_pgas": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -5844,6 +6269,7 @@ def main() -> int:
     timed("partitioned_logging", partitioned_logging, smi, gen)
     timed("device_world_mp", device_world_mp, smi)
     timed("serving", serving, smi)
+    timed("fleet_pgas", fleet_pgas, smi)
     log(json.dumps({"phase_s": {"card": smi, **phase_s}}))
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))

@@ -75,8 +75,10 @@ The partitioned forms (``comm.py:677-722``): ``psend_init`` and
 ``precv_init`` build ``mca/part/persist``'s requests over the pml, and
 ``pallreduce_init`` binds one handle a bucket through the
 ``partitioned_coll`` slot (coll/builtin's, as only coll/xla has it in the
-reference), else runs the host allreduce at each ``pready``.  Not ported
-yet: attributes.
+reference), else runs the host allreduce at each ``pready``.  Every comm
+joins the weak live-communicator registry at construction
+(``comm.py:75-93``, ``live_comms``), which ``runtime/debugger`` walks.  Not
+ported yet: attributes.
 """
 from __future__ import annotations
 
@@ -199,6 +201,27 @@ def _agree_group_cid(client, group, tag: str) -> int:
     return int(client.put_new(-1, key, proposed))
 
 
+#: live-communicator registry for debugger introspection
+#: (``runtime.debugger.comm_table`` — the handle-table walk of
+#: ``ompi/debuggers/ompi_common_dll.c``).  Weak: registration must not
+#: keep freed communicators alive.
+_live_comms: "weakref.WeakSet" = None  # initialized lazily below
+
+
+def _register_live(comm) -> None:
+    global _live_comms
+    import weakref
+
+    if _live_comms is None:
+        _live_comms = weakref.WeakSet()
+    _live_comms.add(comm)
+
+
+def live_comms() -> list:
+    """Snapshot of live communicators (debugger support)."""
+    return sorted(_live_comms or [], key=lambda c: (c.cid, c.epoch))
+
+
 def _row_copy(table, r: int):
     """Row ``r`` of a device-world table, copied: a tensor's row stays on
     its device (a clone, no host copy); anything else becomes a numpy copy,
@@ -236,6 +259,7 @@ class Comm:
         self._rank = group.rank_of(rte.my_world_rank) if rte else 0
         if parent is not None:
             self.errhandler = parent.errhandler
+        _register_live(self)
 
     @property
     def rank(self) -> int:

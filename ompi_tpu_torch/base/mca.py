@@ -210,6 +210,11 @@ def framework(name: str, description: str = "", multi_select: bool = False) -> F
         return fw
 
 
+def all_frameworks() -> list[Framework]:
+    with _fw_lock:
+        return sorted(_frameworks.values(), key=lambda f: f.name)
+
+
 def close_all() -> None:
     with _fw_lock:
         for fw in _frameworks.values():

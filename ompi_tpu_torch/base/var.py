@@ -8,7 +8,8 @@ environment (``OTPU_MCA_<name>``), the command line (``--mca <name>
 <value>``) and the API, with source tracking.  Both packages read the same
 ``OTPU_MCA_*`` names, each through its own registry.  Performance
 variables (pvars, ``opal/mca/base/mca_base_pvar.c``) back the SPC counters
-(``runtime/spc.py``).
+(``runtime/spc.py``).  MPI_T (``api/tool.py``) enumerates, reads and writes
+both kinds.
 """
 from __future__ import annotations
 
@@ -124,6 +125,10 @@ class Var:
     @property
     def source(self) -> VarSource:
         return self._source
+
+    @property
+    def source_detail(self) -> str:
+        return self._source_detail
 
     def _set(self, raw: Any, source: VarSource, detail: str = "") -> bool:
         """Apply a value if ``source`` outranks the current source."""

@@ -107,11 +107,16 @@ class SmCollModule:
                 if got is False:
                     raise OSError("peer could not create the segment")
                 shm = _attach(got)
-        except OSError as exc:
+        except (OSError, ValueError) as exc:
             # constrained /dev/shm (container defaults are as small as
             # 64MB): surrender the slots to the fallback module instead
             # of failing the communicator.  rank 0 publishes False so
-            # peers don't block on a name that will never appear.
+            # peers don't block on a name that will never appear.  A
+            # re-init in one job reuses the segment's name, and a peer
+            # that reads the previous boot's modex key can map the
+            # segment before rank 0 has sized it: mmap then raises
+            # ValueError ("cannot mmap an empty file"); the vote below
+            # hands that comm to the fallback, as for a missing segment.
             if comm.rank == 0:
                 rte.modex_put(f"coll_sm_{comm.cid}", False)
             show_help("help-coll-sm", "no-segment", comm=comm.name,

@@ -11,7 +11,9 @@ point-to-point or to a host collective are staged through
 ``node`` modex key, from ``OTPU_NODE_ID`` (``tpurun --fake-nodes``) or
 else the hostname, read back through the cached ``node_of``;
 ``split_type("shared")``'s colour is a crc32 of it (``locality_color``,
-stable across processes, unlike ``hash()``).
+stable across processes, unlike ``hash()``).  Each rank also publishes the
+``device`` modex key, its device's name (``cuda:0``, ``cpu``), which the
+reference has no counterpart of.
 
 dpm's job identity (``proc.py:44-101``): a spawned job has its own
 COMM_WORLD of GLOBAL ranks the coordination service allocated
@@ -86,6 +88,9 @@ class ProcRte(Rte):
         # (tpurun --fake-nodes)
         self._node = os.environ.get("OTPU_NODE_ID", socket.gethostname())
         self.modex_put("node", self._node)
+        # the device this rank's world binds to, readable by any peer (a
+        # fleet checks that an autoscaled worker came up on the card)
+        self.modex_put("device", str(self.device))
         if self.job != "0":
             # dpm join handshake: a spawned rank announces that it reached
             # the runtime as soon as its coordination connection is up, so

@@ -13,10 +13,10 @@ runtime's (the telemetry sampler's publishes, the profiler's ticks, the
 trace's flow halves) and fault injection's (each chaos fault, the flight
 recorder's dumps) and partitioned communication's and the MoE trainer's,
 and the serving engine's (``ompi_tpu_torch/serving``: the scheduler, the
-prefix cache, the front door, speculative decode, the request trace and
-the SLO accountant's).  The reference's other counters (the per-collective
-call counts, the fleet's scale-downs and enlists) come with the modules
-that record them.
+prefix cache, the front door, speculative decode, the fleet's scale-downs
+and enlists, the request trace and the SLO accountant's).  The reference's
+other counters (the per-collective call counts) come with the modules that
+record them.
 """
 from __future__ import annotations
 
@@ -65,12 +65,13 @@ _COUNTERS = (
     # admissions and evictions per tick, decoded token volume, KV-slab
     # streaming epochs, requests requeued by serve-through-failure and
     # autoscale spawns; full prefill passes, prefix-cache hits, router-side
-    # lookup misses and stale hints; the front door's sheds and preemptions
+    # lookup misses and stale hints; the fleet's telemetry-policy
+    # scale-downs and re-enlistments; the front door's sheds and preemptions
     # and speculative decode's accepted and rejected draft tokens
     "serve_requests", "serve_tokens", "serve_ticks", "serve_admitted",
     "serve_evicted", "serve_requeued", "serve_kv_epochs", "serve_scaleups",
     "serve_prefills", "serve_prefix_hits", "serve_prefix_misses",
-    "serve_prefix_stale",
+    "serve_prefix_stale", "serve_scaledowns", "serve_enlists",
     "serve_shed", "serve_preempt", "serve_spec_accepts",
     "serve_spec_rejects",
     # the request trace (runtime/trace's requests layer): requests whose

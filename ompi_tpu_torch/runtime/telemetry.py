@@ -4,8 +4,8 @@ Copy of ``ompi_tpu/runtime/telemetry.py`` with its imports re-pointed: the
 sample schema, the source names and the coord KV key are the reference's.
 The port's sources are btl/tcp (``tcp``), the staging pool (``staging``),
 the progress engine (``progress``), the profiler (``profile``), the serving
-scheduler (``serving``) and the front door (``frontdoor``); the fleet's
-source comes with ``serving/fleet.py``.  Serving's router feeds
+scheduler (``serving``), the front door (``frontdoor``) and the fleet's
+control plane (``fleet``, ``serving/fleet.py``).  Serving's router feeds
 :class:`SloAccountant` (``slo_observe``) with every completed request.
 
 Every observability surface before this one is post-mortem (otpu-trace

@@ -1,10 +1,9 @@
 """ompi_tpu_torch.serving — continuous-batching inference over the runtime.
 
-Copy of ``ompi_tpu/serving/`` with its imports re-pointed, all of it but
-the fleet (``serving/fleet.py``): the scheduler, the prefix cache, the KV
-stream, the shard worker, the router, the front door and the drivers.
-Module names, public names, counters, trace spans and flows, telemetry
-sources and MCA vars are the reference's:
+Copy of ``ompi_tpu/serving/`` with its imports re-pointed: the scheduler,
+the prefix cache, the KV stream, the shard worker, the router, the front
+door, the fleet and the drivers.  Module names, public names, counters,
+trace spans and flows, telemetry sources and MCA vars are the reference's:
 
 * a **request router** rank feeding model-shard **worker** ranks over an
   ordinary communicator (:mod:`ompi_tpu_torch.serving.router`,
@@ -27,19 +26,18 @@ sources and MCA vars are the reference's:
   requests — no admitted request is ever dropped;
 * **prefix-cache-aware routing** (:mod:`ompi_tpu_torch.serving.
   prefix_cache`) and the **front door**'s SLO-tiered admission
-  (:mod:`ompi_tpu_torch.serving.frontdoor`).
+  (:mod:`ompi_tpu_torch.serving.frontdoor`);
+* **the fleet** (:mod:`ompi_tpu_torch.serving.fleet`): multiple models and
+  tenants sharing one job — named per-model pools (``mpi://serving/pool/
+  <model>`` psets, ``tpurun --pool``), fair-share weighted-round-robin
+  admission across tenants, prefix-cache-aware routing, one recovery for
+  every pool, and autoscaling driven by the live telemetry plane (per-pool
+  p99 SLO / stale ranks / depth) instead of a queue-depth watermark.
 
 The toy model and the KV slabs stay numpy on the host, as in the
 reference: the engine launches no kernel, on the card or off it.  Its
 comms come from ``ompi_tpu_torch.init()`` (the card's world unless the
 caller names ``device="cpu"``).
-
-Not copied yet: the fleet (``FleetController``, ``FleetAutoscaler``,
-``PoolSpec``, ``pool_specs_from_psets``, ``PSET_POOL_PREFIX``) with
-``tpurun --pool`` and the ``fleet`` telemetry source.  Until it comes,
-this package registers ``otpu_serving_slo_p99_ms`` at import, which the
-reference registers through ``serving/fleet.py``: the front door and the
-SLO accountant (``runtime/telemetry.py``) look it up by name.
 
 Role placement: ``tpurun --router-ranks/--worker-ranks`` publish the
 ``mpi://serving/router`` / ``mpi://serving/workers`` psets; without
@@ -48,21 +46,10 @@ them the lowest comm rank routes and the rest serve shards
 """
 from __future__ import annotations
 
-from ompi_tpu_torch.base.var import VarType, registry
-
 #: role process-set names served by the coordination service (published
 #: by ``tpurun --router-ranks`` / ``--worker-ranks``)
 PSET_ROUTER = "mpi://serving/router"
 PSET_WORKERS = "mpi://serving/workers"
-
-#: the reference's ``serving/fleet.py:83`` registration, kept here until
-#: the fleet is copied (the front door and the SLO accountant read it)
-_slo_var = registry.register(
-    "serving", None, "slo_p99_ms", vtype=VarType.FLOAT, default=0.0,
-    help="Per-pool p99 request-latency SLO in milliseconds, read from "
-         "the live telemetry sample's per-pool histogram delta; an "
-         "interval p99 above it triggers a telemetry-driven scale-up. "
-         "0 (the default) disables the SLO signal")
 
 
 def roles(comm) -> tuple[int, list]:
@@ -107,11 +94,14 @@ from ompi_tpu_torch.serving.frontdoor import (  # noqa: E402
 from ompi_tpu_torch.serving.router import Router  # noqa: E402
 from ompi_tpu_torch.serving.worker import (  # noqa: E402
     ShardWorker, toy_draft_token, toy_token, worker_main)
+from ompi_tpu_torch.serving.fleet import (  # noqa: E402
+    PSET_POOL_PREFIX, FleetAutoscaler, FleetController, PoolSpec,
+    pool_specs_from_psets)
 from ompi_tpu_torch.serving.driver import (  # noqa: E402
     MixedPoissonDriver, PoissonDriver)
 
 __all__ = [
-    "PSET_ROUTER", "PSET_WORKERS", "roles",
+    "PSET_ROUTER", "PSET_WORKERS", "PSET_POOL_PREFIX", "roles",
     "ServeRequest", "ContinuousBatchScheduler",
     "KvSlabSender", "KvSlabReceiver",
     "PrefixRegistry", "PrefixStore", "block_hashes",
@@ -119,5 +109,7 @@ __all__ = [
     "toy_token", "toy_draft_token",
     "FrontDoor", "TokenBucket", "Decision",
     "SLO_INTERACTIVE", "SLO_BATCH",
+    "FleetController", "FleetAutoscaler", "PoolSpec",
+    "pool_specs_from_psets",
     "PoissonDriver", "MixedPoissonDriver",
 ]

@@ -1,9 +1,8 @@
 """serving/driver — the synthetic heavy-traffic drivers.
 
 Copy of ``ompi_tpu/serving/driver.py`` with its imports re-pointed.
-:class:`MixedPoissonDriver` takes a single :class:`~ompi_tpu_torch.serving.
-router.Router` (or anything with ``submit``/``tick``/``completed``) until
-the fleet is copied.
+:class:`MixedPoissonDriver` drives a :class:`~ompi_tpu_torch.serving.fleet.
+FleetController` or a single :class:`~ompi_tpu_torch.serving.router.Router`.
 
 :class:`PoissonDriver`: Poisson arrivals (seeded exponential
 inter-arrival gaps) with mixed prompt/decode lengths, fed into a

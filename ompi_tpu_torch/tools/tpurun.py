@@ -82,12 +82,15 @@ count.  The launcher itself stays free of torch.
 
 ``--router-ranks`` and ``--worker-ranks`` publish the serving role psets
 ``mpi://serving/router`` and ``mpi://serving/workers``
-(``ompi_tpu_torch.serving.roles`` resolves placement from them).
+(``ompi_tpu_torch.serving.roles`` resolves placement from them), and each
+``--pool MODEL:RANKS`` publishes one fleet pool pset
+``mpi://serving/pool/<MODEL>``
+(``ompi_tpu_torch.serving.fleet.pool_specs_from_psets`` resolves the pool
+tables from them).
 
 Not copied: ``--with-tpu``, which keeps a TPU attach hook in the ranks'
 environment (the port's ranks see the card already, and there is no such
-hook to strip), and the fleet's ``--pool`` (it comes with
-``serving/fleet.py``, ROADMAP A 7).
+hook to strip).
 """
 from __future__ import annotations
 
@@ -545,6 +548,17 @@ def main(argv=None) -> int:
                     help="Serving role flag: publish the given ranks as "
                          "the 'mpi://serving/workers' pset (the serving "
                          "router's model-shard worker table)")
+    ap.add_argument("--pool", action="append", default=[],
+                    metavar="MODEL:RANKS", dest="pool",
+                    help="Fleet pool flag (repeatable): publish the "
+                         "given ranks as the "
+                         "'mpi://serving/pool/<MODEL>' pset — one "
+                         "per-model worker pool of the serving fleet "
+                         "(ompi_tpu_torch.serving.fleet resolves pool "
+                         "placement from these, the way roles() "
+                         "resolves the router).  Same RANKS syntax as "
+                         "--pset: comma list with ranges, "
+                         "'llama:1,3-4'")
     ap.add_argument("--device-world", action="store_true",
                     dest="device_world",
                     help="Boot a multi-process device world: every rank "
@@ -612,6 +626,12 @@ def main(argv=None) -> int:
         if flag:
             _, pranks = _parse_pset(f"serving:{flag}", args.nprocs)
             server.publish_pset(pset_name, pranks, source="user")
+    # fleet pool psets (ompi_tpu_torch.serving.fleet.pool_specs_from_psets):
+    # one mpi://serving/pool/<model> set per --pool flag
+    for spec_s in args.pool:
+        model, pranks = _parse_pset(spec_s, args.nprocs)
+        server.publish_pset(f"mpi://serving/pool/{model}", pranks,
+                            source="user")
 
     if args.device_world:
         # rank 0's process hosts the rendezvous: advertise the address

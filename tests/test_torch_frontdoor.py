@@ -19,12 +19,20 @@ exact:
   over the same chunk schedule;
 * a door in front of a live port router: overload sheds with honoured
   retry-after hints, a breach preempts running batch work, and every
-  request completes with the reference's tokens.
-
-The fleet cases of ``tests/test_frontdoor.py`` (the fleet's escalation and
-the overload soak) come with the fleet.
+  request completes with the reference's tokens;
+* the fleet with its door armed, in process (sheds re-arrive, every
+  request completes, the report splits shed, retried and completed per
+  tenant and per SLO class, the ``frontdoor`` source publishes) and under
+  ``tpurun -n 3 --enable-recovery --pool m_a:1,2`` (the overload soak with
+  a worker chaos-killed mid-load: zero dropped, the interactive p99 held
+  within the SLO target while the batch class sheds).
 """
+import json
+import os
+import subprocess
+import sys
 import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -541,3 +549,137 @@ def test_door_before_live_router(world):
     for q in done:
         assert q.tokens == [jworker.toy_token(q.rid, i)
                             for i in range(q.max_new_tokens)]
+
+
+# ------------------------------------------------ the fleet's armed door
+
+def test_fleet_frontdoor_escalation_in_process(world):
+    """Fleet + armed door end to end: overload sheds with retry-after (the
+    driver re-arrives them), every request still completes with the
+    reference's tokens, the report splits shed/retried/completed per
+    tenant AND per SLO class, and the frontdoor telemetry source
+    publishes."""
+    from ompi_tpu_torch.runtime import telemetry
+    from ompi_tpu_torch.serving import (FleetController, MixedPoissonDriver,
+                                        PoolSpec, ShardWorker)
+
+    threads = _serve([ShardWorker(world.as_rank(r), router=0)
+                      for r in (1, 2)])
+    fleet = FleetController(
+        world.as_rank(0),
+        pools=[PoolSpec("m_a", [1, 2], max_batch=4, max_batch_tokens=4096)],
+        tenants={"int": 2, "bat": 1},
+        frontdoor=dict(queue_cap=4, backlog=2, retry_s=0.02))
+    assert fleet.frontdoor is not None
+    drv = MixedPoissonDriver({
+        "int": dict(model="m_a", rate_rps=800, n_requests=12,
+                    prompt_lens=(4, 8), decode_lens=(2, 4),
+                    slo="interactive"),
+        "bat": dict(model="m_a", rate_rps=800, n_requests=10,
+                    prompt_lens=(4, 8), decode_lens=(2, 4), slo="batch"),
+    }, seed=11)
+    rep = drv.run(fleet, max_wall_s=90, check_invariants=True)
+    door_stats = fleet.frontdoor.stats()
+    fleet.shutdown()
+    _join(threads)
+    assert rep["requests"] == 22
+    for req in fleet.completed():
+        assert req.tokens == [jworker.toy_token(req.rid, i)
+                              for i in range(req.max_new_tokens)]
+    assert rep["shed"] > 0 and rep["retried"] >= rep["shed"]
+    for name in ("int", "bat"):
+        tr = rep["tenants"][name]
+        assert tr["retried"] >= tr["shed"]
+    cls = rep["slo_classes"]
+    assert cls["interactive"]["requests"] == 12
+    assert cls["batch"]["requests"] == 10
+    assert cls["interactive"]["shed"] + cls["batch"]["shed"] == rep["shed"]
+    assert door_stats["shed"] == rep["shed"]
+    entry = telemetry._sources.get("frontdoor")
+    assert entry is not None, "frontdoor never registered its source"
+    fn = entry() if isinstance(entry, weakref.WeakMethod) else entry
+    assert isinstance(fn(), dict)
+
+
+_OVERLOAD_SOAK = """
+import json
+
+import ompi_tpu_torch
+from ompi_tpu_torch.base.var import registry
+from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.serving import (FleetController, MixedPoissonDriver,
+                                    ShardWorker)
+from ompi_tpu_torch.serving.worker import toy_token
+
+w = ompi_tpu_torch.init(device="cpu")
+if w.rank == 0:
+    registry.set("otpu_serving_slo_p99_ms", 800.0)
+    fleet = FleetController(
+        w, tenants={"int": 2, "bat": 1},
+        autoscale=dict(poll_ticks=10**9, idle_patience=10**9),
+        frontdoor=dict(queue_cap=6, backlog=3, retry_s=0.01,
+                       hold_ticks=20, window=16))
+    drv = MixedPoissonDriver({
+        "int": dict(model="m_a", rate_rps=150, n_requests=28,
+                    prompt_lens=(4, 8), decode_lens=(2, 4),
+                    slo="interactive"),
+        "bat": dict(model="m_a", rate_rps=400, n_requests=36,
+                    prompt_lens=(4, 8), decode_lens=(6, 12),
+                    slo="batch"),
+    }, seed=13)
+    rep = drv.run(fleet, max_wall_s=180, check_invariants=True)
+    total = 28 + 36
+    assert rep["requests"] == total, (rep["requests"], total)
+    assert len({q.rid for q in fleet.completed()}) == total
+    for q in fleet.completed():
+        assert q.tokens == [toy_token(q.rid, i)
+                            for i in range(q.max_new_tokens)], q
+    assert rep["requeued"] > 0, "victim died, nothing requeued"
+    assert rep["shed"] > 0, rep
+    assert rep["retried"] >= rep["shed"], rep
+    assert spc.read("serve_shed") == rep["shed"], \\
+        (spc.read("serve_shed"), rep["shed"])
+    cls = rep["slo_classes"]
+    assert cls["interactive"]["p99_exact_ms"] <= 800.0, cls
+    assert cls["batch"]["p99_exact_ms"] >= \\
+        cls["interactive"]["p99_exact_ms"], cls
+    assert cls["batch"]["shed"] > 0, cls
+    st = fleet.frontdoor.stats()
+    assert st["shed"] == rep["shed"]
+    fleet.shutdown()
+    print("OVERLOAD OK " + json.dumps(
+        {"shed": rep["shed"], "retried": rep["retried"],
+         "preempts": st["preempts"],
+         "int_p99": cls["interactive"]["p99_exact_ms"],
+         "bat_p99": cls["batch"]["p99_exact_ms"],
+         "requeued": rep["requeued"]}), flush=True)
+else:
+    if w.rank == 2:
+        from ompi_tpu_torch.ft import chaos
+        chaos.install_spec("kill:rank=2,site=serve_work,count=1")
+    ShardWorker(w, router=0).serve()
+    print(f"WORKER {w.rank} DONE", flush=True)
+"""
+
+
+def test_frontdoor_overload_soak_chaos_armed(tmp_path):
+    """Sustained overload across both SLO classes through the fleet's armed
+    door, a worker chaos-killed mid-load: the interactive p99 held within
+    the SLO target, the batch class degraded and shed with honoured
+    retry-after, zero dropped requests."""
+    script = tmp_path / "overload_soak.py"
+    script.write_text(_OVERLOAD_SOAK)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    for k in ("OTPU_RANK", "OTPU_NPROCS", "OTPU_COORD"):
+        env.pop(k, None)
+    r = subprocess.run(
+        [sys.executable, "-m", "ompi_tpu_torch.tools.tpurun", "-n", "3",
+         "--enable-recovery", "--pool", "m_a:1,2", sys.executable,
+         str(script)], capture_output=True, text=True, timeout=240,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env=env)
+    line = next((ln for ln in r.stdout.splitlines() if "OVERLOAD OK" in ln),
+                None)
+    assert line, r.stdout[-4000:] + r.stderr[-4000:]
+    got = json.loads(line.split("OVERLOAD OK ", 1)[1])
+    assert got["shed"] > 0 and got["requeued"] > 0

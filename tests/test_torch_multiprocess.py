@@ -663,6 +663,43 @@ def test_coll_sm_matches_the_reference(transport_worker, n):
                            '"SmCollModule", "reduce": "SmCollModule"}]')
 
 
+SM_EMPTY = r'''
+import numpy as np
+import ompi_tpu_torch
+from ompi_tpu_torch.mca.coll import sm_coll
+
+def _empty(name):
+    raise ValueError("cannot mmap an empty file")
+
+w0 = ompi_tpu_torch.init(device="cpu")
+if w0.rank == 1:
+    sm_coll._attach = _empty
+c = w0.dup()
+sm = c.c_coll["allreduce"].__self__
+out = c.allreduce(np.full(4, w0.rank + 1.0))
+print("segment", sm._seg is not None, np.asarray(out).tolist(), flush=True)
+ompi_tpu_torch.finalize()
+'''
+
+
+def test_coll_sm_gives_a_comm_whose_segment_is_unsized_to_the_fallback(
+        tmp_path):
+    """A peer that maps a coll/sm segment before rank 0 has sized it gets
+    ``ValueError`` from mmap (a re-init reuses the segment's name, and the
+    peer can read the previous boot's modex key): the comm's vote drops
+    the segment on every rank and the fallback module serves the
+    collectives, where the reference lets the error end the rank."""
+    script = tmp_path / "sm_empty.py"
+    script.write_text(SM_EMPTY)
+    r = _tpurun("torch", 2, [sys.executable, str(script)], timeout=90)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lines = _lines(r.stdout)
+    for rank in (0, 1):
+        assert lines[rank][-1] == "segment False [3.0, 3.0, 3.0, 3.0]", lines
+    assert "could not create/attach its shared segment (cannot mmap an " \
+        "empty file)" in r.stdout
+
+
 def test_finalize_drains_queued_sends(tmp_path):
     """A send completes once its frames are packed; over btl/sm the last
     of an 8 MB stream (RGET off: the stream rung) can still wait for ring

@@ -349,17 +349,45 @@ def test_a_tensor_receive_buffer_raises_like_the_reference(worlds, posted):
 
 
 NOT_COPIED = {
-    # the serving fleet (per-model pools, the telemetry-driven autoscaler):
-    # the rest of A 7
-    "fleet": lambda pkg: importlib.util.find_spec(f"{pkg}.serving.fleet")
-    is not None,
+    # the template components (a skeleton btl and pml to copy from): A 8
+    "btl_template": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.mca.btl.template") is not None,
+    "pml_template": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.mca.pml.template") is not None,
+    # the rest of base/containers (opal_lifo, opal_ring_buffer,
+    # opal_hotel): A 8
+    "containers_lifo": lambda pkg: hasattr(importlib.import_module(
+        f"{pkg}.base.containers"), "Lifo"),
+    "containers_ring_buffer": lambda pkg: hasattr(importlib.import_module(
+        f"{pkg}.base.containers"), "RingBuffer"),
+    "containers_hotel": lambda pkg: hasattr(importlib.import_module(
+        f"{pkg}.base.containers"), "Hotel"),
+    # the tools: otpu_info (and with it ``otpu_info --serving``): A 9
+    "otpu_info": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.tools.otpu_info") is not None,
 }
 
 #: reference behaviour a later slice copied (the sessions and dpm slice,
 #: the train-through-failure slice, the message logging and partitioned
-#: communication slice, the device world and launcher slice, then the
-#: serving engine slice): present in both packages now
+#: communication slice, the device world and launcher slice, the serving
+#: engine slice, then the serving fleet and PGAS/tool slice): present in
+#: both packages now
 COPIED = {
+    # the serving fleet (per-model pools, the telemetry-driven autoscaler,
+    # tpurun --pool): A 7
+    "fleet": lambda pkg: importlib.util.find_spec(f"{pkg}.serving.fleet")
+    is not None and "--pool" in inspect.getsource(importlib.import_module(
+        f"{pkg}.tools.tpurun")),
+    # the OpenSHMEM-style PGAS layer: A 8
+    "shmem": lambda pkg: importlib.util.find_spec(f"{pkg}.shmem")
+    is not None,
+    # MPI_T, the tool information interface: A 8
+    "tool": lambda pkg: importlib.util.find_spec(f"{pkg}.api.tool")
+    is not None,
+    # the debugger views over the live-communicator registry: A 8
+    "debugger": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.runtime.debugger") is not None and hasattr(
+        importlib.import_module(f"{pkg}.api.comm"), "live_comms"),
     # the serving engine (its KV stream rides part's Pready): A 7
     "serving_engine": lambda pkg: importlib.util.find_spec(
         f"{pkg}.serving") is not None,
@@ -415,7 +443,9 @@ def test_copied_now(what):
     ``test_torch_vprotocol.py``, ``test_torch_part.py``,
     ``test_torch_device_world.py``, ``test_torch_multihost_launch.py``,
     ``test_torch_hwloc.py``, ``test_torch_serving.py``,
-    ``test_torch_prefix_cache.py`` and ``test_torch_frontdoor.py``)."""
+    ``test_torch_prefix_cache.py``, ``test_torch_frontdoor.py``,
+    ``test_torch_fleet.py``, ``test_torch_shmem.py``, ``test_torch_tool.py``
+    and ``test_torch_debugger.py``)."""
     has = COPIED[what]
     assert has("ompi_tpu") and has("ompi_tpu_torch")
 

@@ -265,20 +265,22 @@ def test_driver_draws_match_reference():
 
 
 def test_slo_target_var_matches_reference():
-    """``otpu_serving_slo_p99_ms``, which the reference registers through
-    ``serving/fleet.py``, registered by the port's package import with the
-    reference's default, type and help."""
+    """``otpu_serving_slo_p99_ms`` is registered by ``serving/fleet.py`` in
+    both packages, with the reference's default, type and help, and the
+    package exports the reference's names."""
+    import inspect
+
     from ompi_tpu.base.var import registry as jreg
     from ompi_tpu_torch.base.var import registry as treg
+    from ompi_tpu_torch.serving import fleet
 
     tv = treg.lookup("otpu_serving_slo_p99_ms")
     jv = jreg.lookup("otpu_serving_slo_p99_ms")
     assert (tv.default, tv.vtype.name, tv.help) == \
         (jv.default, jv.vtype.name, jv.help)
-    assert "PSET_POOL_PREFIX" in J.serving.__all__
-    assert set(T.serving.__all__) == set(J.serving.__all__) - {
-        "PSET_POOL_PREFIX", "FleetController", "FleetAutoscaler",
-        "PoolSpec", "pool_specs_from_psets"}
+    assert fleet._slo_var is tv
+    assert "slo_p99_ms" not in inspect.getsource(T.serving)
+    assert T.serving.__all__ == J.serving.__all__
     assert all(hasattr(T.serving, name) for name in T.serving.__all__)
 
 

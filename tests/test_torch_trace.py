@@ -70,9 +70,19 @@ def _arm(on: bool, tdir=None) -> None:
 
 @pytest.fixture
 def tracers(tmp_path):
+    """Both tracers armed, with the histogram pvars that earlier tests in
+    this process registered (each package its own) set aside, so that each
+    test compares the pvars its own records create; the tables are put back
+    after it."""
+    saved = [(ns.reg, dict(ns.reg._pvars)) for ns in PKGS.values()]
+    for ns in PKGS.values():
+        ns.reg._pvars = {k: v for k, v in ns.reg._pvars.items()
+                         if not k.startswith("otpu_trace_hist_")}
     _arm(True, tmp_path)
     yield PKGS
     _arm(False, "")
+    for reg, pvars in saved:
+        reg._pvars = pvars
 
 
 class _FakeComm:
