@@ -222,6 +222,16 @@ def live_comms() -> list:
     return sorted(_live_comms or [], key=lambda c: (c.cid, c.epoch))
 
 
+def forget_live_comms() -> None:
+    """Empty the registry at the instance's teardown, which ends every
+    communicator it carried (``ompi_mpi_finalize`` destroys the remaining
+    comms): a comm of a torn-down instance that a reference cycle keeps
+    uncollected is no handle a debugger walks.  The JAX package's registry
+    keeps such a comm until the collector takes it."""
+    if _live_comms is not None:
+        _live_comms.clear()
+
+
 def _row_copy(table, r: int):
     """Row ``r`` of a device-world table, copied: a tensor's row stays on
     its device (a clone, no host copy); anything else becomes a numpy copy,

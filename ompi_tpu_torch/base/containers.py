@@ -1,15 +1,19 @@
-"""Container classes used across the host tier.
+"""Container classes used across the framework.
 
-Copy of the part of ``ompi_tpu/base/containers.py`` that the port's host
-tier uses (the reference's ``opal/class/`` containers): ``Fifo`` (btl
-queues), ``PointerArray`` (attribute keyvals) and ``Bitmap`` (the CID
-space) and ``IntervalTree`` (the accelerator's registration cache).
+Copy of ``ompi_tpu/base/containers.py`` (the reference's ``opal/class/``
+containers): ``Fifo`` (btl queues), ``Lifo``, ``PointerArray`` (attribute
+keyvals), ``Bitmap`` (the CID space), ``RingBuffer``, ``Hotel`` (a timeout
+pool swept from the progress loop), ``IntervalTree`` (the accelerator's
+registration cache) and ``Graph`` (a small weighted digraph).  Python's
+object model replaces ``opal_object_t``'s refcounting; the hot
+cross-process paths have native C++ twins in ``ompi_tpu_torch.native``.
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
-from typing import Any, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 
 class Fifo:
@@ -26,6 +30,25 @@ class Fifo:
     def pop(self) -> Optional[Any]:
         with self._lock:
             return self._q.popleft() if self._q else None
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+
+class Lifo:
+    """Thread-safe LIFO (``opal/class/opal_lifo.h`` analog)."""
+
+    def __init__(self) -> None:
+        self._q: list = []
+        self._lock = threading.Lock()
+
+    def push(self, item: Any) -> None:
+        with self._lock:
+            self._q.append(item)
+
+    def pop(self) -> Optional[Any]:
+        with self._lock:
+            return self._q.pop() if self._q else None
 
     def __len__(self) -> int:
         return len(self._q)
@@ -132,13 +155,86 @@ class Bitmap:
             i += 1
 
 
+class RingBuffer:
+    """Fixed-capacity overwriting ring (``opal/class/opal_ring_buffer.h``)."""
+
+    def __init__(self, capacity: int) -> None:
+        self._buf: deque = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def push(self, item: Any) -> None:
+        with self._lock:
+            self._buf.append(item)
+
+    def pop(self) -> Optional[Any]:
+        with self._lock:
+            return self._buf.popleft() if self._buf else None
+
+    def __len__(self) -> int:
+        return len(self._buf)
+
+    def snapshot(self) -> list:
+        with self._lock:
+            return list(self._buf)
+
+
+class Hotel:
+    """Timeout pool: check in an occupant, get a room; eviction on timeout.
+
+    Reference ``opal/class/opal_hotel.h`` — used for operations that need a
+    bounded wait with a callback on expiry (e.g. rendezvous timeouts).
+    Eviction is polled via :meth:`sweep` from the progress loop rather than a
+    libevent timer.
+    """
+
+    def __init__(self, num_rooms: int, eviction_s: float,
+                 on_evict: Callable[[int, Any], None]) -> None:
+        self._rooms: dict[int, tuple[Any, float]] = {}
+        self._free = list(range(num_rooms - 1, -1, -1))
+        self._eviction_s = eviction_s
+        self._on_evict = on_evict
+        self._lock = threading.Lock()
+
+    def checkin(self, occupant: Any) -> int:
+        with self._lock:
+            if not self._free:
+                return -1
+            room = self._free.pop()
+            self._rooms[room] = (occupant, time.monotonic() + self._eviction_s)
+            return room
+
+    def checkout(self, room: int) -> Optional[Any]:
+        with self._lock:
+            entry = self._rooms.pop(room, None)
+            if entry is None:
+                return None
+            self._free.append(room)
+            return entry[0]
+
+    def sweep(self, now: Optional[float] = None) -> int:
+        now = time.monotonic() if now is None else now
+        evicted = []
+        with self._lock:
+            for room, (occ, deadline) in list(self._rooms.items()):
+                if now >= deadline:
+                    del self._rooms[room]
+                    self._free.append(room)
+                    evicted.append((room, occ))
+        for room, occ in evicted:
+            self._on_evict(room, occ)
+        return len(evicted)
+
+    def __len__(self) -> int:
+        return len(self._rooms)
+
+
 class IntervalTree:
     """Interval -> value map with stabbing and overlap queries.
 
     Reference ``opal/class/opal_interval_tree.h`` (an augmented RB tree used
-    by the registration cache).  A sorted list of ``(low, high, value)``, as
-    in ``ompi_tpu/base/containers.py:234``: adequate for registration-cache
-    sizes.
+    by the registration cache).  This implementation keeps a sorted list of
+    ``(low, high, value)`` — adequate for registration-cache sizes and kept
+    simple deliberately; the native core provides the scaled variant.
     """
 
     def __init__(self) -> None:
@@ -147,7 +243,6 @@ class IntervalTree:
 
     def insert(self, low: int, high: int, value: Any) -> None:
         import bisect
-
         with self._lock:
             bisect.insort(self._iv, (low, high, value),
                           key=lambda t: (t[0], t[1]))
@@ -181,3 +276,53 @@ class IntervalTree:
     def __iter__(self):
         with self._lock:
             return iter(list(self._iv))
+
+
+class Graph:
+    """Small weighted digraph (``opal/class/opal_graph.h`` analog).
+
+    Used by topology reordering (treematch equivalent) and the reachability
+    framework's bipartite matching.
+    """
+
+    def __init__(self) -> None:
+        self.adj: dict[Any, dict[Any, float]] = {}
+
+    def add_vertex(self, v: Any) -> None:
+        self.adj.setdefault(v, {})
+
+    def add_edge(self, u: Any, v: Any, weight: float = 1.0) -> None:
+        self.add_vertex(u)
+        self.add_vertex(v)
+        self.adj[u][v] = weight
+
+    def neighbors(self, v: Any) -> dict[Any, float]:
+        return self.adj.get(v, {})
+
+    def vertices(self) -> Iterable[Any]:
+        return self.adj.keys()
+
+    def shortest_path(self, src: Any, dst: Any) -> Optional[list]:
+        """Dijkstra (reference uses it for reachability scoring)."""
+        import heapq
+        dist = {src: 0.0}
+        prev: dict[Any, Any] = {}
+        heap = [(0.0, 0, src)]
+        tie = 0
+        while heap:
+            d, _, u = heapq.heappop(heap)
+            if u == dst:
+                path = [dst]
+                while path[-1] != src:
+                    path.append(prev[path[-1]])
+                return path[::-1]
+            if d > dist.get(u, float("inf")):
+                continue
+            for v, w in self.adj.get(u, {}).items():
+                nd = d + w
+                if nd < dist.get(v, float("inf")):
+                    dist[v] = nd
+                    prev[v] = u
+                    tie += 1
+                    heapq.heappush(heap, (nd, tie, v))
+        return None

@@ -179,9 +179,13 @@ def live_comms() -> list:
 
 
 def forget_comms() -> None:
-    """Clear the record (the instance's teardown)."""
+    """Clear the record and the debugger's registry of live comms (the
+    instance's teardown)."""
+    from ompi_tpu_torch.api.comm import forget_live_comms
+
     with _lock:
         _comms.clear()
+    forget_live_comms()
 
 
 def init(device=None, rte=None, argv: Optional[list] = None):

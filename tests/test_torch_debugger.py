@@ -40,6 +40,10 @@ def worlds():
 
     jrt.reset_for_testing()
     trt.reset_for_testing()
+    # the JAX package's registry keeps a comm of an earlier test's world
+    # that a reference cycle holds until the collector runs; the port's
+    # teardown empties its own (test_teardown_empties_the_registry)
+    gc.collect()
     jw = ompi_tpu.init()
     if jw.size != 8:
         pytest.skip("needs 8 virtual devices")
@@ -83,6 +87,38 @@ def test_live_registry_is_weak(worlds):
     del dup
     gc.collect()
     assert len(live_comms()) == n0
+
+
+def test_teardown_empties_the_registry():
+    """A comm that a reference cycle keeps uncollected across a teardown:
+    the port's teardown empties the registry, so the next world's table
+    lists its own comms alone; the JAX package's registry keeps the old
+    dup until the collector takes it (pinned divergence)."""
+    from ompi_tpu.runtime import init as jrt
+    from ompi_tpu_torch.runtime import init as trt
+
+    tables = {}
+    gc.collect()
+    gc.disable()
+    try:
+        for pkg, rt, dbg, boot in (
+                ("jax", jrt, jdbg, ompi_tpu.init),
+                ("torch", trt, tdbg,
+                 lambda: ompi_tpu_torch.init(device="cpu"))):
+            rt.reset_for_testing()
+            dup = boot().dup()
+            dup.set_name("held_by_a_cycle")
+            dup.cycle = dup
+            del dup
+            rt.reset_for_testing()
+            boot()
+            tables[pkg] = [r["name"] for r in dbg.comm_table()]
+            rt.reset_for_testing()
+    finally:
+        gc.enable()
+        gc.collect()
+    assert tables["torch"] == ["COMM_WORLD", "COMM_SELF"]
+    assert tables["jax"] == ["COMM_WORLD", "COMM_SELF", "held_by_a_cycle"]
 
 
 def _queues(w, dbg) -> list:

@@ -349,30 +349,40 @@ def test_a_tensor_receive_buffer_raises_like_the_reference(worlds, posted):
 
 
 NOT_COPIED = {
+    # the static analyzer: otpu_info's --lint section (the registered
+    # analysis passes), the otpu_lint gate and the analysis package
+    "otpu_info_lint": lambda pkg: "analysis.all_passes" in inspect.getsource(
+        importlib.import_module(f"{pkg}.tools.otpu_info")),
+    "otpu_lint": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.tools.otpu_lint") is not None,
+    "analysis": lambda pkg: importlib.util.find_spec(
+        f"{pkg}.analysis") is not None,
+}
+
+#: reference behaviour a later slice copied (the sessions and dpm slice,
+#: the train-through-failure slice, the message logging and partitioned
+#: communication slice, the device world and launcher slice, the serving
+#: engine slice, the serving fleet and PGAS/tool slice, then the operator
+#: tools slice): present in both packages now
+COPIED = {
     # the template components (a skeleton btl and pml to copy from): A 8
     "btl_template": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.btl.template") is not None,
     "pml_template": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.pml.template") is not None,
     # the rest of base/containers (opal_lifo, opal_ring_buffer,
-    # opal_hotel): A 8
+    # opal_hotel, opal_graph): A 8
     "containers_lifo": lambda pkg: hasattr(importlib.import_module(
         f"{pkg}.base.containers"), "Lifo"),
     "containers_ring_buffer": lambda pkg: hasattr(importlib.import_module(
         f"{pkg}.base.containers"), "RingBuffer"),
     "containers_hotel": lambda pkg: hasattr(importlib.import_module(
         f"{pkg}.base.containers"), "Hotel"),
+    "containers_graph": lambda pkg: hasattr(importlib.import_module(
+        f"{pkg}.base.containers"), "Graph"),
     # the tools: otpu_info (and with it ``otpu_info --serving``): A 9
     "otpu_info": lambda pkg: importlib.util.find_spec(
         f"{pkg}.tools.otpu_info") is not None,
-}
-
-#: reference behaviour a later slice copied (the sessions and dpm slice,
-#: the train-through-failure slice, the message logging and partitioned
-#: communication slice, the device world and launcher slice, the serving
-#: engine slice, then the serving fleet and PGAS/tool slice): present in
-#: both packages now
-COPIED = {
     # the serving fleet (per-model pools, the telemetry-driven autoscaler,
     # tpurun --pool): A 7
     "fleet": lambda pkg: importlib.util.find_spec(f"{pkg}.serving.fleet")
@@ -444,8 +454,8 @@ def test_copied_now(what):
     ``test_torch_device_world.py``, ``test_torch_multihost_launch.py``,
     ``test_torch_hwloc.py``, ``test_torch_serving.py``,
     ``test_torch_prefix_cache.py``, ``test_torch_frontdoor.py``,
-    ``test_torch_fleet.py``, ``test_torch_shmem.py``, ``test_torch_tool.py``
-    and ``test_torch_debugger.py``)."""
+    ``test_torch_fleet.py``, ``test_torch_shmem.py``, ``test_torch_tool.py``,
+    ``test_torch_debugger.py`` and ``test_torch_tools.py``)."""
     has = COPIED[what]
     assert has("ompi_tpu") and has("ompi_tpu_torch")
 

@@ -303,8 +303,15 @@ def test_components_come_from_the_port(torch_world):
     op_fw = op_base._framework()
     assert sorted(op_fw.components) == ["builtin", "cuda_vpu"]
     pml_fw, btl_fw = mca.framework("pml"), mca.framework("btl")
-    assert sorted(pml_fw.components) == ["ob1"]
-    assert sorted(btl_fw.components) == ["self", "sm", "tcp"]
+    # the same pml and btl components as the JAX package's (the templates
+    # among them, kept out of every job by their negative priority)
+    from ompi_tpu.base import mca as jax_mca
+
+    for fw in (pml_fw, btl_fw):
+        ref = jax_mca.framework(fw.name)
+        ref.discover()
+        assert sorted(fw.components) == sorted(ref.components), fw.name
+    assert "ob1" in pml_fw.components and "template" in btl_fw.components
     assert [type(b).__name__ for b in torch_world.pml.bml.btls] == ["SelfBtl"]
     for comp in [*coll.components.values(), *op_fw.components.values(),
                  *pml_fw.components.values(), *btl_fw.components.values()]:
