@@ -516,6 +516,17 @@ K20's wgmma body has ``HGMMA``/``UTMALDG``, each of the byte mover's four
 each of the eight ``flash_block_kernel`` instances of K21 has ``FFMA``,
 ``LDS.128`` and ``LDGSTS`` (the ``cp.async`` copies) and no spills.
 
+The static analyzer (``analysis``; host only, no kernel) starts right after
+the build, beside the gate, and is waited for with it: three subprocesses
+at once, ``python -m ompi_tpu_torch.tools.otpu_lint ompi_tpu_torch/
+--timings`` (exit 0, 8 passes, 0 findings, 0 unused baseline entries),
+``python -m ompi_tpu_torch.analysis.scenarios`` (exit 0: each reverted race
+fails with its replay string, each fixed twin passes in 14, 14 and 287
+schedules) and ``python -m ompi_tpu_torch.tools.otpu_info --lint
+--parsable`` (8 pass rows).  One ``{"analysis": {...}}`` line: the
+findings, the suppressed count, the schedules, each pass's ms and each
+subprocess's wall seconds.
+
 Prints one JSON line per kernel, a ``{"phase_s": {...}}`` line with the
 wall seconds of each part of the run, the ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Needs one card; with none it exits 1
@@ -6178,6 +6189,106 @@ def finish_gate(gate: subprocess.Popen, gate_dir: str) -> dict:
     return report
 
 
+#: the analysis phase's subprocesses (run from the checkout's root)
+ANALYSIS_JOBS = {
+    "otpu_lint": ["-m", "ompi_tpu_torch.tools.otpu_lint", "ompi_tpu_torch/",
+                  "--timings"],
+    "scenarios": ["-m", "ompi_tpu_torch.analysis.scenarios"],
+    "otpu_info": ["-m", "ompi_tpu_torch.tools.otpu_info", "--lint",
+                  "--parsable"],
+}
+#: the scenarios' expected outcome: a reverted race's replay string, a
+#: fixed twin's number of schedules (the reference's)
+ANALYSIS_FAILS = {"staging-checkout": "staging-checkout@pb2:0.0.0.1.1.1.0",
+                  "tcp-conns": "tcp-conns@pb2:0.0.1.1.1.0",
+                  "coord-fence": "coord-fence@pb1:0.0.1.2"}
+ANALYSIS_PASSES = {"staging-checkout-fixed": 14, "tcp-conns-fixed": 14,
+                   "coord-fence-fixed": 287}
+
+
+def start_analysis(work_dir: str) -> dict:
+    """Start the analysis phase's three subprocesses at once, their output
+    to files under ``work_dir``; a thread a process notes when it ends."""
+    import threading
+
+    root = str(Path(__file__).resolve().parent)
+    jobs = {}
+    for name, argv in ANALYSIS_JOBS.items():
+        out = open(os.path.join(work_dir, f"{name}.out"), "w")
+        err = open(os.path.join(work_dir, f"{name}.err"), "w")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, *argv], stdout=out,
+                                stderr=err, cwd=root)
+        out.close()
+        err.close()
+        job = {"proc": proc, "t0": t0, "t1": None}
+
+        def note_end(job=job):
+            job["proc"].wait()
+            job["t1"] = time.perf_counter()
+
+        job["thread"] = threading.Thread(target=note_end, daemon=True)
+        job["thread"].start()
+        jobs[name] = job
+    return jobs
+
+
+def finish_analysis(jobs: dict, work_dir: str, smi: str) -> dict:
+    """Wait for the analysis subprocesses and print the ``analysis`` line.
+    Fails unless the lint is clean over 8 passes with no unused baseline
+    entry, every scenario ends as expected and ``otpu_info`` lists 8
+    passes."""
+    import re
+    import shutil
+
+    said, errs, wall = {}, {}, {}
+    try:
+        for name, job in jobs.items():
+            rc = job["proc"].wait(timeout=600)
+            job["thread"].join(timeout=60)
+            wall[name] = job["t1"] - job["t0"]
+            said[name] = Path(work_dir, f"{name}.out").read_text()
+            errs[name] = Path(work_dir, f"{name}.err").read_text()
+            require(rc == 0, f"analysis: {name} exited {rc}:\n"
+                    f"{said[name][-3000:]}\n{errs[name][-3000:]}")
+    finally:
+        for job in jobs.values():
+            if job["proc"].poll() is None:
+                job["proc"].kill()
+                job["proc"].wait()
+        shutil.rmtree(work_dir, ignore_errors=True)
+    m = re.search(r"otpu-lint: (\d+) finding\(s\), (\d+) suppressed, "
+                  r"(\d+) parse error\(s\), (\d+) unused suppression\(s\) "
+                  r"\[(\d+) passes over (\d+) files\]", said["otpu_lint"])
+    require(m is not None, f"otpu_lint printed no summary:\n"
+            f"{said['otpu_lint'][-2000:]}{errs['otpu_lint'][-2000:]}")
+    findings, suppressed, errors, unused, passes, files = map(int, m.groups())
+    require((findings, errors, unused, passes) == (0, 0, 0, 8),
+            f"otpu_lint: {m.group(0)}")
+    pass_ms = {k: float(v) for k, v in re.findall(
+        r"^\s+([\w-]+):\s+([\d.]+) ms$", said["otpu_lint"], re.M)}
+    total_ms = pass_ms.pop("total", None)
+    require(len(pass_ms) == 8, f"otpu_lint --timings: {pass_ms}")
+    schedules = {k: int(v) for k, v in re.findall(
+        r"weave\[([\w-]+)\]: PASS — (\d+) schedule", said["scenarios"])}
+    replays = dict(re.findall(r"weave\[([\w-]+)\]: FAIL .*\n\s+replay: (\S+)",
+                              said["scenarios"]))
+    require(schedules == ANALYSIS_PASSES and replays == ANALYSIS_FAILS
+            and said["scenarios"].count("ok   ") == 6,
+            f"scenarios: {schedules} {replays}\n{said['scenarios']}")
+    rows = [ln for ln in said["otpu_info"].splitlines()
+            if ln.startswith("lint pass ")]
+    require(len(rows) == 8, f"otpu_info --lint: {rows}")
+    out = {"card": smi, "findings": findings, "suppressed": suppressed,
+           "parse_errors": errors, "unused_suppressions": unused,
+           "passes": passes, "files": files, "pass_ms": pass_ms,
+           "lint_total_ms": total_ms, "schedules": schedules,
+           "failing_replays": replays, "otpu_info_rows": len(rows),
+           "wall_s": wall}
+    log(json.dumps({"analysis": out}))
+    return out
+
+
 #: the tools phase's job: 3 ranks of card tensors for TOOLS_SECS seconds
 TOOLS_SECS = 4.0
 TOOLS_NPROCS = 3
@@ -6357,6 +6468,8 @@ def main() -> int:
     _build.build_all()
     log(f"nvcc build of {', '.join(_build.LIBRARIES)}: "
         f"{time.perf_counter() - t0:.1f} s")
+    analysis_dir = tempfile.mkdtemp(prefix="analysis-")
+    analysis = start_analysis(analysis_dir)    # host only, beside the gate
 
     # full float32 products in the plain versions (both are the defaults)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6374,6 +6487,7 @@ def main() -> int:
     # the gate ran beside the build and the checks; it is waited for before
     # the paths, whose host timings its compilers would disturb
     timed("cuda_aot_wait", finish_gate, gate, gate_dir)
+    timed("analysis_wait", finish_analysis, analysis, analysis_dir, smi)
     main_launched = timed("main_path", main_path, gen)
     comm_launched, _ = timed("comm_path", comm_path, gen)
     launched = {k: v + comm_launched.get(k, 0)

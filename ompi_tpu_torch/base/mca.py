@@ -201,12 +201,19 @@ _fw_lock = threading.Lock()
 
 
 def framework(name: str, description: str = "", multi_select: bool = False) -> Framework:
-    """Get-or-create the process-global framework singleton ``name``."""
+    """Get-or-create the process-global framework singleton ``name``.
+
+    A call that carries a description fills in one that is still empty:
+    ``otpu_info`` creates every framework with none before the framework's
+    own module names it (MPI_T reads the description as the category's).
+    The reference keeps the first, empty one."""
     with _fw_lock:
         fw = _frameworks.get(name)
         if fw is None:
             fw = Framework(name, description, multi_select)
             _frameworks[name] = fw
+        elif description and not fw.description:
+            fw.description = description
         return fw
 
 

@@ -18,6 +18,11 @@ _streams: dict[int, "_Stream"] = {}
 _by_name: dict[str, int] = {}
 _next_id = 1
 
+#: otpu-lint lock-discipline contract: stream tables and the show_help
+#: dedup counts mutate only under the module lock (any thread may log)
+_GUARDED_BY = {"_streams": "_lock", "_by_name": "_lock",
+               "_next_id": "_lock", "_help_seen": "_lock"}
+
 
 @dataclass
 class _Stream:

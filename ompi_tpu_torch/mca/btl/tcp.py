@@ -170,6 +170,11 @@ class _Conn:
     #: of it, so bigger = more frames per syscall)
     SCRATCH = 1 << 18
 
+    #: otpu-lint lock-discipline contract: the out-queue and its byte
+    #: count mutate only under send_lock (helpers named *_locked run
+    #: with it held by the caller)
+    _guarded_by = {"outq": "send_lock", "out_bytes": "send_lock"}
+
     def __init__(self, sock: socket.socket, rank: Optional[int] = None):
         self.sock = sock
         self.rank = rank
@@ -206,6 +211,15 @@ class TcpBtl(Btl):
     max_send_size = 128 * 1024
     latency = 100
     bandwidth = 100
+
+    #: otpu-lint lock-discipline contract.  _by_rank is mutated from app
+    #: threads (connect, flush hard-error drop), the progress thread (EOF
+    #: drop, handshake append) and close(): every mutation takes
+    #: _conns_lock.  Reads stay lock-free snapshots (a GIL-atomic dict
+    #: get; _pick tolerates a concurrently shrunk list).
+    _guarded_by = {"_by_rank": "_conns_lock",
+                   "_suspects": "_conns_lock",
+                   "_connect_locks": "_locks_guard"}
 
     def __init__(self) -> None:
         super().__init__()

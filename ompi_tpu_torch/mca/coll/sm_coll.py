@@ -21,8 +21,12 @@ ladders; coll/basic only when nothing else is selected).  Priority 35,
 between tuned (30) and han (40); it declines in the device world, on a
 comm that spans nodes, and without the native core (``:259-280``).  A
 tensor is staged to the host once, at a slot's entry.  The segment's name
-is the reference's, job-qualified (``<prefix>_csm_<coord>_<job>_<cid>``),
-with the port's prefix (``otpt``).  A failed member turns a
+is the reference's, job-qualified, with the port's prefix (``otpt``) and,
+unlike the reference, qualified by the boot of the comm's rank 0 as well
+(``<prefix>_csm_<coord>_<job>_<boot>_<cid>``, the ``coll_sm_<boot>_<cid>``
+modex key): after a re-init in one job a peer never reads the previous
+boot's key, where the reference's peer can map a segment that is gone or
+not sized yet and die.  A failed member turns a
 counter wait into ``ProcFailedError`` (``sm_coll.py:150-176``; checked
 every 2048 spins) instead of a hang; unlike the reference, a revoked
 comm turns it into ``RevokedError`` (ULFM's revoke completes the comm's
@@ -90,20 +94,27 @@ class SmCollModule:
         tag = os.environ.get("OTPU_COORD", "l").replace(":", "_") \
             .replace(".", "_")
         rte = comm.rte
+        # qualified by rank 0's boot (its ``boot`` key is published before
+        # the init fence): a re-init in one job reuses the cids, and a peer
+        # must not read the previous boot's key
+        boot = getattr(rte, "boot", "0")
+        if comm.rank != 0 and hasattr(rte, "boot"):
+            boot = rte.modex_get(comm.group.world_rank(0), "boot")
+        key = f"coll_sm_{boot}_{comm.cid}"
         # job-qualified: a spawned job's cid-0 world must not collide with
         # the parent job's
-        name = f"{NAME_PREFIX}_csm_{tag}_{getattr(rte, 'job', '0')}_{comm.cid}"
+        name = (f"{NAME_PREFIX}_csm_{tag}_{getattr(rte, 'job', '0')}_"
+                f"{boot}_{comm.cid}")
         try:
             if comm.rank == 0:
                 shm = shared_memory.SharedMemory(name=name, create=True,
                                                  size=size)
                 shm.buf[:_HDR] = b"\0" * _HDR
-                rte.modex_put(f"coll_sm_{comm.cid}", name)
+                rte.modex_put(key, name)
             else:
                 # rank 0 publishes during ITS comm_enable; comm creation
                 # is collective so the blocking get cannot deadlock
-                got = rte.modex_get(comm.group.world_rank(0),
-                                    f"coll_sm_{comm.cid}")
+                got = rte.modex_get(comm.group.world_rank(0), key)
                 if got is False:
                     raise OSError("peer could not create the segment")
                 shm = _attach(got)
@@ -112,13 +123,11 @@ class SmCollModule:
             # 64MB): surrender the slots to the fallback module instead
             # of failing the communicator.  rank 0 publishes False so
             # peers don't block on a name that will never appear.  A
-            # re-init in one job reuses the segment's name, and a peer
-            # that reads the previous boot's modex key can map the
-            # segment before rank 0 has sized it: mmap then raises
+            # segment mapped before it is sized makes mmap raise
             # ValueError ("cannot mmap an empty file"); the vote below
             # hands that comm to the fallback, as for a missing segment.
             if comm.rank == 0:
-                rte.modex_put(f"coll_sm_{comm.cid}", False)
+                rte.modex_put(key, False)
             show_help("help-coll-sm", "no-segment", comm=comm.name,
                       error=str(exc))
             shm = None

@@ -161,6 +161,11 @@ class _MatchState:
 class Ob1Pml:
     """The pml module (one per process)."""
 
+    #: otpu-lint lock-discipline contract: the matching table mutates
+    #: only under the pml lock (app threads post/cancel recvs while the
+    #: progress thread delivers frags into the same queues)
+    _guarded_by = {"_match": "_lock"}
+
     def __init__(self, component: "Ob1Component", rte) -> None:
         self.component = component
         self.rte = rte

@@ -13,7 +13,10 @@ else the hostname, read back through the cached ``node_of``;
 ``split_type("shared")``'s colour is a crc32 of it (``locality_color``,
 stable across processes, unlike ``hash()``).  Each rank also publishes the
 ``device`` modex key, its device's name (``cuda:0``, ``cpu``), which the
-reference has no counterpart of.
+reference has no counterpart of, and the ``boot`` key, a token that names
+this boot of the process (``boot``): a key a peer reads after the init
+fence (coll/sm's segment) is qualified by it, so after a re-init in one job
+no peer reads the previous boot's value.  The reference has neither.
 
 dpm's job identity (``proc.py:44-101``): a spawned job has its own
 COMM_WORLD of GLOBAL ranks the coordination service allocated
@@ -38,6 +41,7 @@ copied: the ``hostname`` key.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import socket
 from typing import Any, Optional
@@ -45,6 +49,9 @@ from typing import Any, Optional
 from ompi_tpu_torch.base import cudaenv
 from ompi_tpu_torch.rte.base import Rte
 from ompi_tpu_torch.rte.coord import CoordClient
+
+#: this process's boots: with the pid, a token no earlier boot had
+_boots = itertools.count(1)
 
 
 class ProcRte(Rte):
@@ -91,6 +98,10 @@ class ProcRte(Rte):
         # the device this rank's world binds to, readable by any peer (a
         # fleet checks that an autoscaled worker came up on the card)
         self.modex_put("device", str(self.device))
+        # published before the init fence, so every peer past that fence
+        # reads this boot's token (never a re-init's predecessor's)
+        self.boot = f"{os.getpid()}b{next(_boots)}"
+        self.modex_put("boot", self.boot)
         if self.job != "0":
             # dpm join handshake: a spawned rank announces that it reached
             # the runtime as soon as its coordination connection is up, so

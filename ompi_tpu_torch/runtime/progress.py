@@ -32,6 +32,12 @@ _lock = threading.RLock()
 _callbacks: list[Callable[[], int]] = []
 _in_progress = threading.local()
 
+#: otpu-lint lock-discipline contract: the callback list and the waiter
+#: registry mutate only under the module lock (the reference's map also
+#: names its low-priority list and cadence counter, which the port has
+#: not got yet)
+_GUARDED_BY = {"_callbacks": "_lock", "_waiter_count": "_lock"}
+
 # -- event-based idle wait (the libevent role in opal_progress) ----------
 #
 # Transports register a readable fd that goes hot when work arrives (the

@@ -76,8 +76,12 @@ _drainbuf: np.ndarray = None
 _drainbuf_ptr = 0                # cached buffer address for the raw call
 _drain_fn = None                 # bound ctypes entry point (engage())
 
-# the handler registry and the reactor lifecycle fields mutate only under
-# the module lock (drain reads _byfd lock-free: a GIL-atomic dict get)
+#: otpu-lint lock-discipline contract: the handler registry and the
+#: reactor lifecycle fields mutate only under the module lock (drain
+#: reads _byfd lock-free: a GIL-atomic dict get, the same discipline as
+#: btl/tcp's _by_rank snapshots)
+_GUARDED_BY = {"_byfd": "_lock", "_handle": "_lock", "_pid": "_lock",
+               "_wait_fd": "_lock"}
 
 
 def configured() -> bool:

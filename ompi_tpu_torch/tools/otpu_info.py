@@ -6,9 +6,8 @@ and ``--parsable`` form, read from ``ompi_tpu_torch``'s registries.  The
 reference ``ompi_info`` walks every registered framework and the MCA var
 registry and prints one ``key: value`` line per item; ``--all`` shows
 everything, ``--param <fw> <comp>`` filters, ``--parsable`` emits
-machine-readable ``:``-separated output.  ``--lint`` (the static analyzer's
-passes) is not ported yet: it exits 2 with the reason, and ``--all`` has
-no lint rows.
+machine-readable ``:``-separated output, ``--lint`` the static analyzer's
+registered passes (``ompi_tpu_torch.analysis``; ``--all`` lists them too).
 
 Usage::
 
@@ -98,8 +97,10 @@ def main(argv=None) -> int:
     ap.add_argument("--pvars", action="store_true",
                     help="Show performance variables (MPI_T pvar analog)")
     ap.add_argument("--lint", action="store_true",
-                    help="Show registered otpu-lint analysis passes (the "
-                         "static analyzer is not ported yet: exits 2)")
+                    help="Show registered otpu-lint analysis passes "
+                         "(the invariant families the static analyzer "
+                         "enforces; run them with ompi_tpu_torch.tools"
+                         ".otpu_lint)")
     ap.add_argument("--trace", action="store_true",
                     help="Show the otpu-trace plane: the declared span "
                          "categories and flow-key categories "
@@ -158,12 +159,6 @@ def main(argv=None) -> int:
                          "initializes the runtime in this process")
     args = ap.parse_args(argv)
 
-    if args.lint:
-        print("otpu_info: --lint: the static analyzer (the analysis "
-              "passes and otpu_lint) is not ported to ompi_tpu_torch yet",
-              file=sys.stderr)
-        return 2
-
     if args.debug_dump:
         import json
 
@@ -219,6 +214,15 @@ def main(argv=None) -> int:
         for line in hwloc.summary().splitlines():
             out.append(_fmt("topo", line.strip(), p))
 
+    if args.all or args.lint:
+        # the dynamic-scan convention: enumerate the registry, never a
+        # hand-kept list — a pass added later shows up automatically
+        from ompi_tpu_torch import analysis
+
+        for lint_pass in analysis.all_passes():
+            out.append(_fmt(f"lint pass {lint_pass.name}",
+                            lint_pass.description, p))
+
     if args.all or args.trace:
         # registry-enumerated like --telemetry/--profile: the declared
         # category tables and the trace var group, never a hand-kept
@@ -234,7 +238,7 @@ def main(argv=None) -> int:
                             f"{var.value!r} — {var.help}", p))
 
     if args.all or args.telemetry:
-        # registry-enumerated like --psets: the schema constant
+        # registry-enumerated like --lint/--psets: the schema constant
         # and the telemetry/flight var groups, never a hand-kept list
         from ompi_tpu_torch.runtime import flight as _flight  # noqa: F401
         from ompi_tpu_torch.runtime import telemetry as _telemetry

@@ -186,8 +186,8 @@ def test_errhandlers(fresh):
 def test_top_level_names():
     """The names of ``ompi_tpu/__init__.py:19-68`` that have a port resolve
     to the same kind of object in both packages (``Session``, ``File``,
-    ``get_parent`` and ``open_port`` wait for their modules:
-    ``tests/test_torch_pml.py::test_not_copied_yet``)."""
+    ``get_parent`` and ``open_port``:
+    ``tests/test_torch_pml.py::test_copied_now``)."""
     names = ["init_thread", "query_thread", "is_thread_main", "wtime",
              "wtick", "get_processor_name", "get_version",
              "get_library_version", "alloc_mem", "free_mem", "Request",

@@ -21,6 +21,7 @@ matrix (btl/sm within a node, btl/tcp between), the quantized wire's 4 MB
 allreduce, a 16 MB stream striped over sm and tcp, and coll/sm's slots.
 Every subprocess has its own ``timeout=``.
 """
+import inspect
 import os
 import signal
 import subprocess
@@ -698,6 +699,52 @@ def test_coll_sm_gives_a_comm_whose_segment_is_unsized_to_the_fallback(
         assert lines[rank][-1] == "segment False [3.0, 3.0, 3.0, 3.0]", lines
     assert "could not create/attach its shared segment (cannot mmap an " \
         "empty file)" in r.stdout
+
+
+SM_REBOOT = r'''
+import numpy as np
+import ompi_tpu_torch
+from ompi_tpu_torch.mca.coll import sm_coll
+
+for boot in range(3):
+    w = ompi_tpu_torch.init(device="cpu")
+    c = w.dup()
+    sm = c.c_coll["allreduce"].__self__
+    out = c.allreduce(np.full(4, w.rank + 1.0))
+    print("boot", boot, isinstance(sm, sm_coll.SmCollModule),
+          sm._seg.name if getattr(sm, "_seg", None) else None,
+          np.asarray(out).tolist(), flush=True)
+    ompi_tpu_torch.finalize()
+'''
+
+
+def test_coll_sm_serves_every_boot_of_a_job(tmp_path):
+    """Three boots in one job: each boot's segment is named by rank 0's
+    boot token (its modex key too), so no peer reads a previous boot's key
+    and coll/sm serves the comm every time, with no fallback.  Divergence
+    from the reference, whose segment name and key are the job's and the
+    cid's only, so a peer after a re-init can read the previous boot's key
+    and die."""
+    import re
+
+    from ompi_tpu.mca.coll import sm_coll as jsm
+
+    script = tmp_path / "sm_reboot.py"
+    script.write_text(SM_REBOOT)
+    r = _tpurun("torch", 3, [sys.executable, str(script)], timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lines = _lines(r.stdout)
+    names = []
+    for boot in range(3):
+        row = [lines[rank][boot].split(" ", 4) for rank in range(3)]
+        assert all(x[:3] == ["boot", str(boot), "True"] for x in row), lines
+        assert all(x[4] == "[6.0, 6.0, 6.0, 6.0]" for x in row), lines
+        assert len({x[3] for x in row}) == 1, lines   # one segment a boot
+        names.append(row[0][3])
+    assert len(set(names)) == 3, names
+    assert "could not create/attach" not in r.stdout + r.stderr
+    ref = inspect.getsource(jsm.SmCollModule.comm_enable)
+    assert re.search(r'f"coll_sm_\{comm\.cid\}"', ref)
 
 
 def test_finalize_drains_queued_sends(tmp_path):

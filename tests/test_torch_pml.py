@@ -348,23 +348,20 @@ def test_a_tensor_receive_buffer_raises_like_the_reference(worlds, posted):
     assert "read-only" in err and untouched == [0.0] * 4
 
 
-NOT_COPIED = {
+#: reference behaviour a later slice copied (the sessions and dpm slice,
+#: the train-through-failure slice, the message logging and partitioned
+#: communication slice, the device world and launcher slice, the serving
+#: engine slice, the serving fleet and PGAS/tool slice, the operator tools
+#: slice, then the static analyzer slice): present in both packages now
+COPIED = {
     # the static analyzer: otpu_info's --lint section (the registered
-    # analysis passes), the otpu_lint gate and the analysis package
+    # analysis passes), the otpu_lint gate and the analysis package: A 9
     "otpu_info_lint": lambda pkg: "analysis.all_passes" in inspect.getsource(
         importlib.import_module(f"{pkg}.tools.otpu_info")),
     "otpu_lint": lambda pkg: importlib.util.find_spec(
         f"{pkg}.tools.otpu_lint") is not None,
     "analysis": lambda pkg: importlib.util.find_spec(
         f"{pkg}.analysis") is not None,
-}
-
-#: reference behaviour a later slice copied (the sessions and dpm slice,
-#: the train-through-failure slice, the message logging and partitioned
-#: communication slice, the device world and launcher slice, the serving
-#: engine slice, the serving fleet and PGAS/tool slice, then the operator
-#: tools slice): present in both packages now
-COPIED = {
     # the template components (a skeleton btl and pml to copy from): A 8
     "btl_template": lambda pkg: importlib.util.find_spec(
         f"{pkg}.mca.btl.template") is not None,
@@ -455,14 +452,7 @@ def test_copied_now(what):
     ``test_torch_hwloc.py``, ``test_torch_serving.py``,
     ``test_torch_prefix_cache.py``, ``test_torch_frontdoor.py``,
     ``test_torch_fleet.py``, ``test_torch_shmem.py``, ``test_torch_tool.py``,
-    ``test_torch_debugger.py`` and ``test_torch_tools.py``)."""
+    ``test_torch_debugger.py``, ``test_torch_tools.py``,
+    ``test_torch_analysis.py`` and ``test_torch_lint.py``)."""
     has = COPIED[what]
     assert has("ompi_tpu") and has("ompi_tpu_torch")
-
-
-@pytest.mark.parametrize("what", sorted(NOT_COPIED))
-def test_not_copied_yet(what):
-    """Reference behaviour this slice leaves out (ROADMAP C): present in
-    the JAX package, absent from the port."""
-    has = NOT_COPIED[what]
-    assert has("ompi_tpu") and not has("ompi_tpu_torch")

@@ -10,7 +10,7 @@ the JAX package on the CPU:
   ``--parsable`` and the summary on the same histories, output and exit
   codes equal; the default history is the port's own file;
 * ``otpu_info``: each section lists the reference's rows, apart from the
-  package name; ``--lint`` exits 2 (the static analyzer is not ported);
+  package name; ``--lint`` lists the reference's pass rows;
 * ``otpu_top``: the table, the parsable rows and the stale flag from canned
   samples equal to the reference's, exit 2 on an unreachable coordination
   service, and one live attach to a port ``tpurun -n 2`` job;
@@ -389,25 +389,32 @@ def test_otpu_info_sections_match_reference(flags):
 
 
 def test_otpu_info_all_and_package():
-    """``--all --parsable`` has the reference's sections but lint's; the
-    package row names the port; ``--lint`` exits 2 with the reason."""
+    """``--all --parsable`` has the reference's sections, lint's
+    included; the package row names the port; ``--lint`` lists the
+    reference's pass rows, in both forms and under ``--all``."""
     from ompi_tpu_torch.tools import otpu_info
 
     def sections(pkg):
         rc, keys = _info_keys(pkg, ["--all", "--parsable"])
         # a row's section: the key without its last word (the item)
-        return rc, sorted({k.rsplit(" ", 1)[0] for k in keys
-                           if not k.startswith("lint pass")})
+        return rc, sorted({k.rsplit(" ", 1)[0] for k in keys})
 
     rc, secs = _both(sections)
     assert rc == 0 and "mca var" in secs and "pvar" in secs
+    assert "lint pass" in secs
     rc, out = _run_main(otpu_info.main, ["--parsable"])
     assert rc == 0 and out.splitlines()[0] == (
         "package:ompi_tpu_torch (PyTorch/CUDA MPI)")
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        assert _run_main(otpu_info.main, ["--lint"]) == (2, "")
-    assert "not ported" in err.getvalue()
+
+    def lint_rows(pkg, flags):
+        rc, out = _run_main(_mod(pkg, "tools.otpu_info").main, flags)
+        return rc, [ln for ln in out.splitlines() if "lint pass " in ln]
+
+    for flags in (["--lint"], ["--lint", "--parsable"],
+                  ["--all", "--parsable"]):
+        rc, rows = _both(lambda pkg: lint_rows(pkg, flags))
+        assert rc == 0 and len(rows) == 8, rows
+    assert rows[0].startswith("lint pass buffer-ownership:")
     mca_names = {ln.split(":", 2)[1].split(" (")[0]
                  for ln in _run_main(otpu_info.main, ["--parsable"])[1]
                  .splitlines() if ln.startswith("mca pml")}
