@@ -49,7 +49,15 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and 1055 at d = 256, each with and without a per-rank causal bias, a
    fully masked block chained (the state bit-equal) and a fully masked row
    from m = -inf at 256 and 1055 keys, and q, k, v from storage offset 1
-   (the element path) at both.  The duplex ring (CUDA
+   (the element path) at both; the edges of the bfloat16 body's m16n8k16
+   fragments, sq 15, 16 and 17 against skv 7, 8, 9, 15 and 17 at d = 8,
+   16, 24, 136 and 248, with and without the causal bias, and at d = 64 and
+   256 with 64 and 1055 keys a bias masking one 8-key column of every
+   fragment and one leaving each row a single finite score (one lane of a
+   quad), from a running state and from m = -inf (no NaN); and the float32
+   body's outputs on ``chip_flash_bodies.py``'s cases bit-equal to the
+   digests recorded there (the body is the one it was before the bfloat16
+   body was split from it).  The duplex ring (CUDA
    C++): K8 ``all_reduce`` bidi at 4 MB per rank and K9 seg_bidi at 16 MB
    per rank (float32, every op), both on 23, 407 and 999 elements per rank
    in float16/32/64 with every op, from an aligned and an unaligned pointer;
@@ -157,7 +165,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    dp=1, pp=2, sp=2, tp=2; K21 exactly (M + pp - 1) x layers_local x sp
    times a step (4 and 6), twice that under remat; the step with
    ``use_flash=False`` within 1e-5 of the K21 step's loss and 1e-4 of each
-   leaf's update.
+   leaf's update.  Then the same with ``otpu_parallel_compute_dtype=
+   bfloat16`` (restored after; every K21 launch runs the mma.sync body),
+   with the counts set to 0 before and read after: two descending steps on
+   each mesh, K21 exactly 4 and 6 times a step, and the loss within 1e-3 of
+   the bfloat16 step with ``use_flash=False``.
 
    Then the MoE path, with the counts set to 0 before and read after: a
    world with coll/ring raised; ``parallel.moe.expert_ffn_fused`` on K20's
@@ -193,24 +205,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    enqueue one call of each kernel's wrapper and of its library call
    (200 calls while the card spins; K15's and K16's include the counts
    table each call makes and sends to the card).  K21 is timed at the
-   step's shape (float32, its kernels-line row) and at the bench shape
-   (bfloat16, the ``flash_block_bench`` line, beside
-   ``scaled_dot_product_attention`` as a yardstick); its bound is the
+   step's shape in float32 (its FFMA body, the kernels-line row
+   ``flash_block``, launched by the training path) and in bfloat16 (its
+   mma.sync body, the row ``flash_block_mma``, launched by the bfloat16
+   training path), and at the bench shape (bfloat16, the
+   ``flash_block_bench`` line, beside ``scaled_dot_product_attention`` as
+   a yardstick); its bound is the
    larger of 4·rows·sq·skv·d operations over the peak of the input dtype
    (67 TFLOP/s float32, 989 TFLOP/s bfloat16) and its bytes over 3.35
    TB/s.  The ``step_ms`` line is the host time of one training step
    ending in a sync (median and quartiles of 12 steps each), with K21 and
-   with ``use_flash=False`` in turns; ``step_profile`` traces one step of
-   each with ``torch.profiler`` (device time by kernel, idle share).
+   with ``use_flash=False``, in float32 and in bfloat16, in turns;
+   ``step_profile`` traces one step of each with ``torch.profiler``
+   (device time by kernel, idle share).
    K20's rows (float32, the MoE path's dtype, in the kernels line; bfloat16
    in a ``fused_matmul_bf16`` line, each row with its phase-2 band), at
    the Mixtral shape, beside
    ``torch.einsum("nmk,nko->mo")``, median of 25 calls or of 5 where one
    call takes over 50 ms; bound by operations, 2·M·K·N over the peak of
    the dtype.  The ``earlier_ms`` line repeats, as constants from PERF.md's
-   table and not measured here, the times of K4, K6, K9 and K20 before
-   their redesign, and of K10, K11, K13–K16 and the torus all-gather before
-   the byte mover.  The ``k1_compiled`` line gives K1's compiled kernel at
+   table and not measured here, the times of K4, K6, K9, K20 and K21 (in
+   float32 at the step's shape, in bfloat16 at the bench's and the step's)
+   before their redesign, and of K10, K11, K13–K16 and the torus
+   all-gather before the byte mover.  The ``k1_compiled`` line gives K1's compiled kernel at
    its row's shape: registers, spills, shared memory and persistent grid.
 5. The host tier (no kernel runs here): in the device world,
    ``as_rank(0).send`` of a 16 MB float32 tensor on the card to
@@ -513,8 +530,11 @@ registers, shared memory, stack, spills and SASS counts, and the Triton
 instances summed by kernel; the run fails unless every instance compiled,
 K20's wgmma body has ``HGMMA``/``UTMALDG``, each of the byte mover's four
 ``mover_kernel`` instances has ``UBLKCP`` and no copy kernel spills, and
-each of the eight ``flash_block_kernel`` instances of K21 has ``FFMA``,
-``LDS.128`` and ``LDGSTS`` (the ``cp.async`` copies) and no spills.
+K21 has exactly four instances of each body: each float32
+``flash_block_kernel`` has ``FFMA``, ``LDS.128`` and ``LDGSTS`` (the
+``cp.async`` copies), each bfloat16 ``flash_block_mma_kernel`` has ``HMMA``
+(``mma.sync``) and ``LDSM`` (``ldmatrix``), and none spills or touches
+local memory.
 
 The static analyzer (``analysis``; host only, no kernel) starts right after
 the build, beside the gate, and is waited for with it: three subprocesses
@@ -632,8 +652,9 @@ MOE_BUDGET = "0.02"
 #: PERF.md's table (an H100 80GB HBM3 at 700 W), not measured by this script,
 #: printed on their own ``earlier_ms`` line; K4, K6, K9 at 8 x 16 MB float32,
 #: K20 at the Mixtral shape; the byte mover's kernels at their rows' shapes
-#: and the torus all-gather, before the mover; K1 and K21 (the step's shape
-#: and the bench's) before their redesign
+#: and the torus all-gather, before the mover; K1, and K21 in float32 at
+#: the step's shape before its re-blocked FFMA body and in bfloat16 at the
+#: bench's and the step's shapes before its mma.sync body
 EARLIER_MS = {"all_reduce_seg": 0.0792, "reduce_scatter_seg": 0.0793,
               "all_reduce_seg_bidi": 0.0812, "matmul_allreduce": 60.98,
               "matmul_reduce_scatter": 60.98, "matmul_allreduce_bf16": 7.604,
@@ -642,7 +663,7 @@ EARLIER_MS = {"all_reduce_seg": 0.0792, "reduce_scatter_seg": 0.0793,
               "all_to_all": 0.1006, "all_to_all_v": 0.6780,
               "all_gather_v": 0.0922, "all_gather_torus": 0.0984,
               "reduce_stack": 0.0638, "flash_block": 0.2688,
-              "flash_block_bench": 6.2691}
+              "flash_block_mma": 0.1139, "flash_block_bench": 4.260}
 MOVER_SLOT, MOVER_SPAN = 16384, 32768   # the mover's slot and span, bytes
 ROT = tuple((i, (i + 1) % N) for i in range(N))       # the +1 rotation
 GENERAL = tuple((i, (i + 2) % N) for i in range(N - 1))   # rank 1: no source
@@ -1386,7 +1407,7 @@ def check_flash_kernel(gen, err: dict) -> None:
     def worse(a, b):
         return max(a[0], b[0]), max(a[1], b[1])
 
-    step, rest = (0.0, 0.0), (0.0, 0.0)
+    step, step16, rest = (0.0, 0.0), (0.0, 0.0), (0.0, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         q = rnd(*STEP_LEAD, STEP_S, STEP_D, dtype=dtype)
         kv = [rnd(*STEP_LEAD, STEP_S, STEP_D, dtype=dtype) for _ in range(4)]
@@ -1402,7 +1423,7 @@ def check_flash_kernel(gen, err: dict) -> None:
                 if dtype == torch.float32:
                     step = worse(step, e)
                 else:
-                    rest = worse(rest, e)
+                    step16 = worse(step16, e)
                 if causal and t == 1:  # sp rank 0's second block: all masked
                     require(all(torch.equal(g[:, :, 0], s[:, :, 0])
                                 for g, s in zip(got, state)),
@@ -1432,14 +1453,16 @@ def check_flash_kernel(gen, err: dict) -> None:
     bench = flash_close(fa.update(*args), fa.update_plain(*args),
                         torch.bfloat16, "K21 bench shape")
     rest = worse(rest, check_flash_edges(gen))
-    err["flash_block"], err["flash_block_bench"] = step, bench
+    err["flash_block"], err["flash_block_mma"] = step, step16
+    err["flash_block_bench"] = bench
     log("flash_block (K21): float32 and bfloat16 at the step's shape (32 "
         "rows, 256 x 256, d 256) unbiased and per-rank causal, from m = -inf "
         "and chained (a fully masked block leaves K21's state bit-equal), a "
         "fully masked row at m = -inf (NaN at the same places), ragged sq = "
         f"200, the bench shape {BENCH_FLASH} bfloat16: within 1e-6 (f32) / "
         f"2^-7 (bf16) of max |plain|; (abs, rel) err float32 step shape "
-        f"{step[0]:.3e}, {step[1]:.3e}; bench {bench[0]:.3e}, "
+        f"{step[0]:.3e}, {step[1]:.3e}, bfloat16 {step16[0]:.3e}, "
+        f"{step16[1]:.3e}; bench {bench[0]:.3e}, "
         f"{bench[1]:.3e}; other cases {rest[0]:.3e}, {rest[1]:.3e}")
 
 
@@ -1453,6 +1476,13 @@ def check_flash_kernel(gen, err: dict) -> None:
 FLASH_EDGE_D = (30, 32, 64, 66, 100, 128, 130, 200, 256)
 FLASH_EDGE_SKV = (1, 31, 64, 255, 256, 257, 320, 321, 1024, 1055)
 FLASH_SCORES_SKV, FLASH_RECOMPUTE_SKV = 256, 1055
+#: the edges of the bfloat16 body's m16n8k16 fragments: queries one short
+#: of, at and one past a 16-row m-tile; keys about an 8-key n-tile and a
+#: 16-key k-step; head dims of one, two and three k-steps (8 and 24 not a
+#: multiple of 16: the fragment's tail zero-filled) and past d = 128 (two
+#: warps a row group: 136, 248 off a k-step)
+FLASH_FRAG_SQ, FLASH_FRAG_SKV = (15, 16, 17), (7, 8, 9, 15, 17)
+FLASH_FRAG_D = (8, 16, 24, 136, 248)
 
 
 def check_flash_edges(gen) -> tuple:
@@ -1524,12 +1554,67 @@ def check_flash_edges(gen) -> tuple:
                 state = flash_state((2, 2), sq, d, dtype, False, gen)
                 run((*views, *state, None), f"{dtype} d={d} skv={skv} "
                     "offset 1")
+        for d in FLASH_FRAG_D:
+            for sq in FLASH_FRAG_SQ:
+                for skv in FLASH_FRAG_SKV:
+                    q = rnd(2, 2, sq, d, dtype=dtype)
+                    k, v = (rnd(2, 2, skv, d, dtype=dtype) for _ in range(2))
+                    state = flash_state((2, 2), sq, d, dtype, False, gen)
+                    for bias in (None, causal(2, sq, skv, dtype)):
+                        run((q, k, v, *state, bias), f"{dtype} fragment d={d} "
+                            f"sq={sq} skv={skv} bias={bias is not None}")
+        for d in (64, 256):
+            for skv in (64, FLASH_RECOMPUTE_SKV):
+                q = rnd(2, 2, 64, d, dtype=dtype)
+                k, v = (rnd(2, 2, skv, d, dtype=dtype) for _ in range(2))
+                for bias in fragment_masks(64, skv, dtype):
+                    for m_inf in (False, True):
+                        state = flash_state((2, 2), 64, d, dtype, m_inf, gen)
+                        got = run((q, k, v, *state, bias), f"{dtype} fragment "
+                                  f"mask d={d} skv={skv} m_inf={m_inf}")
+                        require(not any(bool(torch.isnan(g).any()) for g in got),
+                                f"K21 {dtype} d={d} skv={skv}: a row with a "
+                                "finite score gave NaN")
+    f32_digests_equal()
     log(f"flash_block (K21) edges: d {FLASH_EDGE_D} (sq 200, skv 100 and "
         f"{FLASH_RECOMPUTE_SKV}), skv {FLASH_EDGE_SKV} (d 256), with and "
         "without a per-rank causal bias; masked blocks and rows and offset-1 "
-        f"views at skv {FLASH_SCORES_SKV} and {FLASH_RECOMPUTE_SKV}: float32 "
-        "and bfloat16 within their bands")
+        f"views at skv {FLASH_SCORES_SKV} and {FLASH_RECOMPUTE_SKV}; the "
+        f"fragment edges sq {FLASH_FRAG_SQ} x skv {FLASH_FRAG_SKV} x d "
+        f"{FLASH_FRAG_D} with and without the causal bias, and at d 64 and "
+        f"256, skv 64 and {FLASH_RECOMPUTE_SKV}, a bias masking one 8-key "
+        "column of every fragment and one leaving each row a single finite "
+        "score, from a running state and from m = -inf: float32 and bfloat16 "
+        "within their bands; the float32 body's outputs bit-equal to its "
+        "recorded digests")
     return worst
+
+
+def fragment_masks(sq: int, skv: int, dtype) -> list:
+    """Biases aimed at the bfloat16 body's fragments: -inf over one 8-key
+    column (keys 8 to 15 of every 64-key tile: one lane quad's n-tile), and
+    -inf over every key but one a row, that key chosen so that one lane of
+    its quad holds the row's only finite score (key 2 (i % 4) + 8 (i % 8)
+    of the tile 64 (i % n) for query i, over the n tiles)."""
+    keys = torch.arange(skv, device="cuda")
+    column = torch.zeros((sq, skv), device="cuda")
+    column[:, (keys % 64 >= 8) & (keys % 64 < 16)] = -float("inf")
+    rows = torch.arange(sq, device="cuda")
+    tiles = (skv + 63) // 64
+    one = (2 * (rows % 4) + 8 * (rows % 8) + 64 * (rows % tiles)).clamp(max=skv - 1)
+    single = torch.full((sq, skv), -float("inf"), device="cuda")
+    single[rows, one] = 0.0
+    return [column.to(dtype), single.to(dtype)]
+
+
+def f32_digests_equal() -> None:
+    """K21's float32 outputs bit-equal to the float32 body's recorded ones
+    (``chip_flash_bodies.FLOAT32_DIGESTS``)."""
+    import chip_flash_bodies as bodies
+    from ompi_tpu_torch.ops import flash_attention as fa
+
+    got = bodies.float32_digests(fa)
+    require(got == bodies.FLOAT32_DIGESTS, f"K21 float32 outputs moved: {got}")
 
 
 # -- phase 3: the main path ---------------------------------------------
@@ -2067,14 +2152,76 @@ def training_path() -> dict:
         f"of its largest magnitude (band 1e-4) of the K21 step; K21 per step "
         f"{per_step['default']} (default mesh), {per_step['pp2']} (pp = 2), "
         f"{2 * per_step['default']} under remat: exact")
+    bf16_launched, bf16_variants = bfloat16_training(per_step)
     variants = {"K21": (step, state),
-                "use_flash=False": (plain_step, plain_state)}
+                "use_flash=False": (plain_step, plain_state), **bf16_variants}
     times = step_ms(variants)
     log(json.dumps({"step_ms": {**times, "mesh": STEP_MESHES["default"],
                                 "scale": int(scale), "layers": 1}}))
     log(json.dumps({"step_profile": {what: step_profile(*v)
                                      for what, v in variants.items()}}))
-    return {"flash_block": launched["flash_block"], "step_ms": times}
+    return {"flash_block": launched["flash_block"],
+            "flash_block_bf16": bf16_launched, "step_ms": times}
+
+
+#: the loss of the bfloat16 step against the same step with
+#: ``use_flash=False`` (tests/test_torch_parallel.py's bfloat16 band)
+BF16_STEP_BAND = 1e-3
+
+
+def bfloat16_training(per_step: dict) -> tuple:
+    """The training step with ``otpu_parallel_compute_dtype=bfloat16``
+    (restored after): every K21 launch is bfloat16 and so runs its mma.sync
+    body.  ``run_training_step`` with every count set to 0 before and read
+    after (two descending steps on each mesh), the exact K21 count of one
+    step on each mesh, and the loss within ``BF16_STEP_BAND`` of the same
+    step with ``use_flash=False``.  Returns the K21 launches of that run
+    and the two steps for ``step_ms`` and ``step_profile``."""
+    from ompi_tpu_torch.base.var import registry
+    from ompi_tpu_torch.parallel import dryrun
+    from ompi_tpu_torch.parallel.mesh import MeshSpec
+
+    var = registry.lookup("otpu_parallel_compute_dtype")
+    old = var.value
+    var.set("bfloat16")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = dryrun.run_training_step(lr=STEP_LR)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()["flash_block"]
+        want = 2 * per_step["default"] + 2 * per_step["pp2"]
+        require(launched == want, f"the bfloat16 training path launched K21 "
+                f"{launched} times, want {want}")
+        require(np.isfinite(loss), f"bfloat16 training loss {loss}")
+        for name, sizes in STEP_MESHES.items():
+            step, state, _ = dryrun.make_step_and_args(spec=MeshSpec(**sizes),
+                                                       lr=STEP_LR)
+            _, delta = launch_delta(lambda: step(*state))
+            require(delta == {"flash_block": per_step[name]},
+                    f"one bfloat16 step on {name}: launches {delta}, want "
+                    f"{per_step[name]} of K21")
+        step, state, _ = dryrun.make_step_and_args(lr=STEP_LR)
+        plain_step, plain_state, _ = dryrun.make_step_and_args(
+            use_flash=False, lr=STEP_LR)
+        (_, got), (_, want_loss) = step(*state), plain_step(*plain_state)
+    finally:
+        var.set(old)
+    got, want_loss = float(got), float(want_loss)
+    rel = abs(got - want_loss) / abs(want_loss)
+    require(np.isfinite(got) and rel <= BF16_STEP_BAND,
+            f"bfloat16 step loss {got} against use_flash=False {want_loss}: "
+            f"{rel:.3e} above {BF16_STEP_BAND:g}")
+    log(f"bfloat16 training path: run_training_step(lr={STEP_LR}) with "
+        f"otpu_parallel_compute_dtype=bfloat16, loss {loss:.6g} descending on "
+        f"both meshes, in {wall:.3f} s (host clock, includes the first-step "
+        f"set-up); K21 launches {launched} = 2 x {per_step['default']} + 2 x "
+        f"{per_step['pp2']}, one step exactly {per_step['default']} / "
+        f"{per_step['pp2']}; loss {got:.9g} within {rel:.3e} of the "
+        f"use_flash=False step's {want_loss:.9g} (band {BF16_STEP_BAND:g})")
+    return launched, {"K21 bf16": (step, state),
+                      "use_flash=False bf16": (plain_step, plain_state)}
 
 
 def moe_path(gen) -> dict:
@@ -2686,28 +2833,39 @@ def flash_row(gen, launches: int, err: tuple, lead, sq, skv, d,
             "library_ms": None}, err[1]
 
 
-def measure_flash(gen, launches: int, err: dict) -> dict:
-    """K21 at the step's shape (its kernels-line row) and at the JAX
-    bench's shape (a line of its own), with scaled_dot_product_attention
-    at the bench shape as a yardstick for a later redesign (it does not
-    return the carries, and the port never calls it)."""
-    row, rel = flash_row(gen, launches, err["flash_block"], STEP_LEAD,
-                         STEP_S, STEP_S, STEP_D, torch.float32)
+def measure_flash(gen, trained: dict, err: dict) -> list:
+    """K21's kernels-line rows at the step's shape: float32 (its FFMA body,
+    launched by the training path) and bfloat16 (its mma.sync body,
+    ``flash_block_mma``, launched by the bfloat16 training path); and the
+    bfloat16 body at the JAX bench's shape (a line of its own), with
+    scaled_dot_product_attention at the bench shape as a yardstick (it does
+    not return the carries, and the port never calls it)."""
+    row, rel = flash_row(gen, trained["flash_block"], err["flash_block"],
+                         STEP_LEAD, STEP_S, STEP_S, STEP_D, torch.float32)
     log(json.dumps({**row, "max_rel_err": rel, "shape": f"float32 q "
                     f"{(*STEP_LEAD, STEP_S, STEP_D)} (the step's, 32 rows), "
                     "unbiased"}))
+    mma, rel = flash_row(gen, trained["flash_block_bf16"],
+                         err["flash_block_mma"], STEP_LEAD, STEP_S, STEP_S,
+                         STEP_D, torch.bfloat16)
+    mma["name"] = "flash_block_mma"
+    log(json.dumps({**mma, "max_rel_err": rel, "shape": f"bfloat16 q "
+                    f"{(*STEP_LEAD, STEP_S, STEP_D)} (the step's, 32 rows), "
+                    "unbiased", "launches_per_step": k21_per_step(
+                        STEP_MESHES["default"])}))
     b, h, sq, skv, d = BENCH_FLASH
-    bench, rel = flash_row(gen, launches, err["flash_block_bench"], (b, h),
-                           sq, skv, d, torch.bfloat16)
+    bench, rel = flash_row(gen, trained["flash_block_bf16"],
+                           err["flash_block_bench"], (b, h), sq, skv, d,
+                           torch.bfloat16)
     q, k, v = (torch.randn((b, h, n, d), device="cuda", generator=gen,
                            dtype=torch.bfloat16) for n in (sq, skv, skv))
     sdpa = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v))
-    log(json.dumps({"flash_block_bench": {**bench, "max_rel_err": rel,
-                                          "shape": f"bfloat16 "
+    log(json.dumps({"flash_block_bench": {**bench, "name": "flash_block_mma",
+                                          "max_rel_err": rel, "shape": f"bfloat16 "
                     f"(b, h, sq, skv, d) = {BENCH_FLASH}, unbiased"},
                     "sdpa_ms_yardstick": sdpa}))
-    return row
+    return [row, mma]
 
 
 def slow_ms(fn) -> float:
@@ -6498,8 +6656,7 @@ def main() -> int:
     strided = timed("strided_type_wait", strided.result)
     pool.shutdown()
     rows = timed("measure", measure, gen, launched, err)
-    rows.append(timed("measure_flash", measure_flash, gen,
-                      trained["flash_block"], err))
+    rows += timed("measure_flash", measure_flash, gen, trained, err)
     rows += timed("measure_fused_matmul", measure_fused_matmul, gen,
                   moe_launched, err)
     tier = timed("host_tier", host_tier, gen, smi)

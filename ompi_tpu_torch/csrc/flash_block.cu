@@ -22,43 +22,79 @@
 // Bound on an H100: operations.  4*B*sq*skv*d of them (two products) on
 // 4*B*(sq + skv)*d elements: sq*skv/(sq + skv) operations per element, far
 // above the ridge at the step's (256) and the bench's (2048) sequence blocks.
-// So the design is about feeding the FFMA pipes (float32 on the CUDA cores
-// for both dtypes: no TF32, no tensor cores), the problem K20's float32 body
-// solved:
-//  * one CTA of 256 threads per (row, 64-query tile), one CTA per SM (the
-//    step's 32 rows x 4 tiles are one wave on 132 SMs);
-//  * Q, then K and V, reach shared memory by 16-byte cp.async, in their own
-//    dtype (cp.async does not convert; bf16 is widened to float32 as it is
-//    read), rows padded by 16 bytes against bank conflicts.  K and V stream
-//    in units through two stages, one unit in flight while the other is
-//    computed, one barrier a unit: a K unit is 64 keys x 128 of d (a score
-//    tile's depth runs over consecutive units, in ascending d), a V unit tv
-//    keys x all of d (tv = 32 at d = 256).  Where d is not a multiple of 16
-//    bytes' elements or a base is not 16-byte aligned, the same units are
-//    filled by element loads (the scalar path) and the rest is unchanged;
+// Two bodies, one per input dtype, behind one C entry; both keep one m' for
+// the whole block and the reference's unfused ends (s * scale then + bias;
+// num * c + pv, den * c + sum p, each rounded on its own), take d 1..256,
+// ragged sq and skv, misaligned bases and the per-rank bias, and share the
+// plan of the stream: one CTA per (row, query tile: 64 queries, 128 in the
+// bfloat16 body at d <= 128); Q, then K and V,
+// reach shared memory by 16-byte cp.async (element loads where d is not a
+// multiple of 16 bytes' elements or a base is not 16-byte aligned), rows
+// padded by 16 bytes against bank conflicts, K and V in units through two
+// stages, one in flight while the other is computed, one barrier a unit.
+// The block's scores stay on chip where 64 x skv of them fit beside Q and
+// the stages; otherwise (the bench's skv = 2048) the second pass recomputes
+// each 64-key score tile from K: three products.  The C entry picks the
+// form from d, skv and the dtype against the device's shared-memory cap.
+// exp is expf, full precision, so a fully masked row at m = -inf gives
+// exp(-inf + inf) = NaN as the reference does; keys past skv and queries
+// past sq are zero-filled and never enter the max, the sums or the stores.
+//
+// float32: flash_block_kernel, FFMA on the CUDA cores (no TF32), the
+// problem K20's float32 body solved:
+//  * 256 threads a CTA, one CTA per SM (the step's 32 rows x 4 tiles are
+//    one wave on 132 SMs); a K unit is 64 keys x 128 of d (a score tile's
+//    depth runs over consecutive units, in ascending d), a V unit tv keys x
+//    all of d (tv = 32 at d = 256);
 //  * operands are read from shared memory as 16 bytes of float32: a thread
 //    owns a 4 x 4 score tile (queries ty + 16i, keys tx + 16j), 8 reads per
 //    64 FFMA; for p v it owns 8 queries x 8 columns (d = 256; 8 x 4 at d <=
 //    128), reading p along keys and v along columns, 16 reads per 256 FFMA;
-//  * each score accumulates over d, and each output over keys, in ascending
-//    order, with the reference kernel's unfused ends: s * scale then + bias,
-//    and num * c + acc, den * c + sum p, each rounded on its own;
-//  * the block's scores stay on chip when 64 x skv of them fit beside Q and
-//    the stages (skv <= 320 at d = 256 in float32): the first pass stores
-//    them, each thread turns its own into p once m' is known, and the V
-//    units read p from there, so a call does the two products the function
-//    needs.  Otherwise (the bench's skv = 2048) the second pass recomputes
-//    each 64-key score tile from K, turns it into p in a 64 x 64 buffer and
-//    runs the V units of those keys: three products.  The C entry picks
-//    from d, skv and the dtype against the device's shared-memory cap;
+//    each score accumulates over d, and each output over keys, in
+//    ascending order;
+//  * kept scores: skv <= 320 at d = 256; each thread turns its own into p
+//    once m' is known and the V units read p from there; recomputed, each
+//    tile's p goes through a 64 x 64 float buffer;
 //  * num and den are read whole, 16 bytes at a time where aligned, before
-//    the outputs are stored (they may alias for all the compiler knows);
-//  * exp is expf, full precision, so a fully masked row at m = -inf gives
-//    exp(-inf + inf) = NaN as the reference does; keys past skv and queries
-//    past sq are zero-filled and never enter the max, the sums or the
-//    stores.
+//    the outputs are stored (they may alias for all the compiler knows).
 // What still bounds it (PERF.md): the FFMA issue, at about a third of the
 // float32 peak; neither the shared-memory reads nor more warps a SM moved it.
+//
+// bfloat16: flash_block_mma_kernel, both products on the tensor cores as
+// mma.sync m16n8k16 bf16 x bf16 -> float32, which is the reference's own
+// arithmetic (q k^T and p.astype(v.dtype) v on the MXU with float32
+// results, :53-67):
+//  * at d <= 128, 4 warps a CTA, each owning two 16-query m-tiles (128
+//    queries a CTA) that share every K and V fragment the warp loads, so
+//    ldmatrix reads half the bytes an mma that one m-tile a warp would; two
+//    CTAs a SM.  Past d = 128 the 16 x d accumulators of p v would not fit:
+//    8 warps, two to each of 4 row groups of one m-tile (64 queries), each
+//    taking half the keys of a score tile and half the output columns;
+//  * K and V units are whole 64-key tiles of all of d, d rounded up to 16
+//    (one k-step) with the tail zero-filled (two to four stages measured
+//    the same, PERF.md);
+//  * operands go from the stages to registers by ldmatrix: .x4 for Q (A)
+//    and K (the column-major B of q k^T), .x4.trans for V (B of p v); a
+//    warp's scores of a tile are made 32 keys at a time;
+//  * the first pass reduces its row max over the quad of lanes that shares
+//    a fragment row (__shfl_xor_sync over lanes 1 and 2), then over the two
+//    warps that split a tile's keys (through shared memory);
+//  * p = expf(s - m') is summed into sum p in float32, then rounded to bf16
+//    and only then multiplied with V.  Recomputed at d <= 128, a tile's p
+//    goes from the score fragments straight into p v's A fragments (the
+//    m16n8 C layout is the m16n8k16 A layout, two bf16 a register);
+//    otherwise it goes through a bf16 buffer in shared memory, which the
+//    warps of a row group read by ldmatrix;
+//  * kept scores (float32, 64 x skv: skv <= 320 at d = 256) are turned into
+//    bf16 p by the thread that made them once m' is known;
+//  * the score epilogue (scale, bias, the max, exp) is branch-free, so that
+//    the exps of a thread's 32 scores overlap;
+//  * num is read before its outputs are stored, by m-tile and half of the
+//    columns, two elements at a time where aligned; m is read where it is
+//    needed rather than held (the d <= 128 body uses all 255 registers).
+// What bounds it (PERF.md): ldmatrix's shared-memory reads and the barrier
+// a unit, at about a sixth of the bf16 peak at the bench's shape; wgmma
+// (64-row warpgroup tiles, B read from shared memory) is the next design.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -496,6 +532,501 @@ __global__ void __launch_bounds__(kThreads, 1) flash_block_kernel(Args a) {
   }
 }
 
+// ---- bfloat16: the tensor-core body ------------------------------------
+
+namespace mma {
+
+constexpr int kPad = 8;  // bf16 elements of padding a row: 16 bytes
+
+// A CTA's shape by NWC, the warps of a row group: 1 (d <= 128) or 2 (the
+// two warps of a row group each take half the keys of a score tile and half
+// the output columns); kRowGroups row groups; m-tiles of 16 queries a warp:
+// two at d <= 128, which share each K and V fragment the warp loads, one
+// past it, where the 16 x d accumulators of p v take the registers.
+constexpr int kRowGroups = 4;
+__host__ __device__ constexpr int mtiles_of(int nwc) { return nwc == 1 ? 2 : 1; }
+__host__ __device__ constexpr int rows_of(int nwc) { return 16 * mtiles_of(nwc) * kRowGroups; }
+__host__ __device__ constexpr int threads_of(int nwc) { return 32 * nwc * kRowGroups; }
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// The shared-memory plan of one bf16 launch, computed alike on host and
+// device: Q (rows x pitch bf16) and kStages stages of 64 keys x pitch bf16,
+// the p buffer (rows x ppitch bf16), then floats: the scores (rows x
+// spitch) and the cross-warp row reductions (2 x rows).
+struct Plan {
+  int rows;    // queries a CTA
+  int dpad;    // d rounded up to 16, one k-step of m16n8k16
+  int pitch;   // elements per Q, K and V row
+  int nkt;     // 64-key tiles
+  int ppitch;  // elements per p buffer row: all keys (scores kept), one tile
+               // (output columns split over two warps) or none
+  int spitch;  // floats per score row (0: the scores are recomputed)
+  size_t bytes;
+};
+
+__host__ __device__ inline Plan make_plan(int d, int skv, int nwc, bool scores) {
+  Plan p;
+  p.rows = rows_of(nwc);
+  p.dpad = (d + 15) & ~15;
+  p.pitch = p.dpad + kPad;
+  p.nkt = (skv + kTK - 1) / kTK;
+  p.ppitch = scores ? p.nkt * kTK + kPad : (nwc == 2 ? kTK + kPad : 0);
+  p.spitch = scores ? p.nkt * kTK + 8 : 0;
+  p.bytes = 2 * ((size_t)(p.rows + kStages * kTK) * p.pitch + (size_t)p.rows * p.ppitch) +
+            sizeof(float) * ((size_t)p.rows * p.spitch + 2 * p.rows);
+  return p;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; .trans hands each thread the transposed
+// fragment (V as the column-major B of p v).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr) : "memory");
+}
+
+// c += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 float32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// two floats rounded to bf16, the lower column in the lower half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Rows [r0, r0 + nrows) x columns [0, dpad) of an (n x d) matrix into
+// shared memory (row pitch `pitch`); rows past n and columns past d are zero.
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          int r0, int nrows, int n, int d,
+                                          int dpad, int pitch, bool vec) {
+  const int threads = blockDim.x;
+  if (vec) {  // d a multiple of 8: a 16-byte chunk is all in or all out
+    const int cpr = dpad / 8;
+    for (int id = threadIdx.x; id < nrows * cpr; id += threads) {
+      const int r = id / cpr, c = (id - r * cpr) * 8;
+      const bool ok = r0 + r < n && c < d;
+      cp_async16(dst + r * pitch + c, ok ? src + (int64_t)(r0 + r) * d + c : src, ok);
+    }
+  } else {
+    for (int id = threadIdx.x; id < nrows * dpad; id += threads) {
+      const int r = id / dpad, c = id - r * dpad;
+      const bool ok = r0 + r < n && c < d;
+      dst[r * pitch + c] = ok ? src[(int64_t)(r0 + r) * d + c]
+                              : zero_of<__nv_bfloat16>();
+    }
+  }
+}
+
+// Unit u of the stream: the first pass's K tiles, then the second pass's:
+// V tiles alone (scores kept), or per tile its K tile and then its V tile
+// (recompute).
+__device__ __forceinline__ void unit_at(int u, int nkt, bool scores,
+                                        bool& is_v, int& kt) {
+  if (u < nkt) {
+    is_v = false, kt = u;
+  } else if (scores) {
+    is_v = true, kt = u - nkt;
+  } else {
+    is_v = ((u - nkt) & 1) != 0, kt = (u - nkt) >> 1;
+  }
+}
+
+}  // namespace mma
+
+// NWC: the warps of a row group (1 or 2, see mma::kRowGroups); SCORES: the
+// block's scores stay in shared memory.  Warp w owns queries 16 MT (w % RG)
+// .. + 16 MT - 1 of the CTA's, in MT m16 tiles; in the m16n8 fragments lane
+// l holds rows l / 4 and l / 4 + 8, columns 2 (l % 4) and 2 (l % 4) + 1 of
+// each 8-column tile.
+template <int NWC, bool SCORES>
+__global__ void __launch_bounds__(mma::threads_of(NWC), 1)
+    flash_block_mma_kernel(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int RG = mma::kRowGroups, MT = mma::mtiles_of(NWC);
+  constexpr int KW = kTK / NWC;  // keys of a score tile a warp owns
+  constexpr int NT = 4;          // 8-key fragment tiles of a chunk of them
+  constexpr int CH = KW / 32;    // 32-key chunks a tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  const mma::Plan pl = mma::make_plan(a.d, a.skv, NWC, SCORES);
+  const int rows = pl.rows;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* St = Qs + rows * pl.pitch;
+  bf16* Ps = St + kStages * kTK * pl.pitch;
+  float* Ss = reinterpret_cast<float*>(Ps + rows * pl.ppitch);
+  float* Red = Ss + rows * pl.spitch;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * MT * (warp % RG), wc = warp / RG, kw0 = wc * KW;
+  // ldmatrix rows and columns of this lane: A operands (Q, p) and V's
+  // transposed B; K's B
+  const int ar = (lane & 7) + ((lane >> 3) & 1) * 8, ac = (lane >> 4) * 8;
+  const int br = (lane & 7) + (lane >> 4) * 8, bc = ((lane >> 3) & 1) * 8;
+  const int64_t row = blockIdx.x;
+  const int q0 = blockIdx.y * rows, sq = a.sq, skv = a.skv, d = a.d;
+  const bf16* kg = static_cast<const bf16*>(a.k) + row * skv * d;
+  const bf16* vg = static_cast<const bf16*>(a.v) + row * skv * d;
+  const int64_t bias_base = (row / a.rows_per_bias) * (int64_t)sq * skv;
+  const bool vec = a.vec != 0;
+  const int total = (SCORES ? 2 : 3) * pl.nkt;
+  // the warp's p v columns: 16-column pairs of fragment tiles [pc0, pc1)
+  const int npair = pl.dpad / 16, per = (npair + NWC - 1) / NWC;
+  const int pc0 = wc * per, pc1 = min(npair, pc0 + per);
+  // the local row of this lane's fragment row r of m-tile i
+  auto lrow = [&](int i, int r) { return row0 + 16 * i + g + 8 * r; };
+
+  auto issue = [&](int u) {
+    if (u < total) {
+      bool is_v;
+      int kt;
+      mma::unit_at(u, pl.nkt, SCORES, is_v, kt);
+      mma::load_tile(St + (u % kStages) * kTK * pl.pitch, is_v ? vg : kg, kt * kTK,
+                     kTK, skv, d, pl.dpad, pl.pitch, vec);
+    }
+    cp_async_commit();
+  };
+  // the query tile rides with the first unit
+  mma::load_tile(Qs, static_cast<const bf16*>(a.q) + row * sq * d, q0, rows, sq,
+                 d, pl.dpad, pl.pitch, vec);
+#pragma unroll
+  for (int u = 0; u < kStages - 1; ++u) issue(u);
+
+  // m' of the fragment rows: their running max over the first pass, then
+  // max(m, that) (m itself is read where it is needed, not held)
+  float s[MT][NT][4], acc[MT][16][4], new_m[MT][2], psum[MT][2];
+  unsigned pa[MT][4][4];  // p's A fragments of one tile (NWC == 1, recompute)
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) new_m[i][r] = -INFINITY, psum[i][r] = 0.f;
+  }
+  auto m_of = [&](int i, int r) {
+    const int qi = q0 + lrow(i, r);
+    return qi < sq ? ld_f(a.m, row * sq + qi, a.dt_m) : 0.f;
+  };
+
+  // s = q k^T over 32 keys of the tile from kc on, in float32 on the
+  // tensor cores; then * scale, then + bias, each rounded on its own
+  auto scores_of = [&](const bf16* K, int key0, int kc) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][nt][e] = 0.f;
+    const unsigned qa0 = mma::smem_u32(Qs + (row0 + ar) * pl.pitch + ac);
+    const unsigned kb0 = mma::smem_u32(K + (kc + br) * pl.pitch + bc);
+#pragma unroll 2
+    for (int k = 0; k < pl.dpad; k += 16) {
+      unsigned qa[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma::ldsm_x4(qa[i], qa0 + 2 * (16 * i * pl.pitch + k));
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned kb[4];
+        mma::ldsm_x4(kb, kb0 + 2 * (16 * np * pl.pitch + k));
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma::mma_bf16(s[i][2 * np], qa[i], kb[0], kb[1]);
+          mma::mma_bf16(s[i][2 * np + 1], qa[i], kb[2], kb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][nt][e] = __fmul_rn(s[i][nt][e], a.scale);
+    if (a.bias == nullptr) return;
+    // branch-free: each element reads its bias, or element 0 where the query
+    // or the key is out, and adds it where both are in
+    auto add_bias = [&](const auto* bias) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + lrow(i, e >> 1);
+            const int kj = key0 + kc + 8 * nt + 2 * t + (e & 1);
+            const bool in = qi < sq && kj < skv;
+            const float b = mma::to_float(bias[in ? bias_base + (int64_t)qi * skv + kj : 0]);
+            s[i][nt][e] = in ? __fadd_rn(s[i][nt][e], b) : s[i][nt][e];
+          }
+    };
+    if (a.dt_bias == DT_F32)
+      add_bias(static_cast<const float*>(a.bias));
+    else
+      add_bias(static_cast<const bf16*>(a.bias));
+  };
+  // p = exp(s - m') for a key, 0 past skv (branch-free); psum takes it
+  // before it is rounded to bf16, as the reference sums the float32 p
+  auto to_p = [&](float sv, int i, int r, int kj) {
+    const float e = expf(sv - new_m[i][r]);
+    const float p = kj < skv ? e : 0.f;
+    psum[i][r] += p;
+    return p;
+  };
+  // acc += p v over a V tile's 64 keys, 16 at a time; FULL: all 8 column
+  // pairs are the warp's (d = 128, 256), so no guard keeps ldmatrix from
+  // running ahead
+  auto pv_tile = [&](const bf16* V, int pcol, auto full) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      unsigned pj[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (NWC == 1 && !SCORES) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pj[i][e] = pa[i][j][e];
+        } else {
+          mma::ldsm_x4(pj[i], mma::smem_u32(Ps + (row0 + 16 * i + ar) * pl.ppitch +
+                                             pcol + 16 * j + ac));
+        }
+      }
+      const unsigned vb0 = mma::smem_u32(V + (16 * j + ar) * pl.pitch + ac) + 32 * pc0;
+#pragma unroll
+      for (int jp = 0; jp < 8; ++jp) {
+        if (decltype(full)::value || pc0 + jp < pc1) {
+          unsigned vb[4];
+          mma::ldsm_x4_t(vb, vb0 + 32 * jp);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            mma::mma_bf16(acc[i][2 * jp], pj[i], vb[0], vb[1]);
+            mma::mma_bf16(acc[i][2 * jp + 1], pj[i], vb[2], vb[3]);
+          }
+        }
+      }
+    }
+  };
+
+  for (int u = 0; u < total; ++u) {
+    cp_async_wait<kStages - 2>();  // unit u has landed (for this thread) ...
+    __syncthreads();               // ... for all; every thread is done with u - 1
+    issue(u + kStages - 1);        // into the stage of u - 1
+    bool is_v;
+    int kt;
+    mma::unit_at(u, pl.nkt, SCORES, is_v, kt);
+    const bf16* S = St + (u % kStages) * kTK * pl.pitch;
+    const int key0 = kt * kTK;
+    if (is_v) {
+      if (pc1 - pc0 == 8)
+        pv_tile(S, SCORES ? key0 : 0, mma::Flag<true>());
+      else
+        pv_tile(S, SCORES ? key0 : 0, mma::Flag<false>());
+      continue;
+    }
+#pragma unroll
+    for (int h = 0; h < CH; ++h) {
+      const int kc = kw0 + 32 * h;
+      scores_of(S, key0, kc);
+      if (u >= pl.nkt) {  // second pass, recompute: this chunk's p
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int kj = key0 + kc + 8 * nt + 2 * t;
+            const unsigned lo = mma::pack_bf16(to_p(s[i][nt][0], i, 0, kj),
+                                               to_p(s[i][nt][1], i, 0, kj + 1));
+            const unsigned hi = mma::pack_bf16(to_p(s[i][nt][2], i, 1, kj),
+                                               to_p(s[i][nt][3], i, 1, kj + 1));
+            if (NWC == 1) {  // the m16n8 C layout is the m16n8k16 A layout
+              pa[i][2 * h + (nt >> 1)][2 * (nt & 1)] = lo;
+              pa[i][2 * h + (nt >> 1)][2 * (nt & 1) + 1] = hi;
+            } else {
+              *reinterpret_cast<unsigned*>(Ps + lrow(i, 0) * pl.ppitch + kc + 8 * nt + 2 * t) = lo;
+              *reinterpret_cast<unsigned*>(Ps + lrow(i, 1) * pl.ppitch + kc + 8 * nt + 2 * t) = hi;
+            }
+          }
+        continue;
+      }
+      // first pass: the row max (and the kept scores)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float mx = max_nan(new_m[i][e >> 1], s[i][nt][e]);
+            new_m[i][e >> 1] = key0 + kc + 8 * nt + 2 * t + (e & 1) < skv ? mx : new_m[i][e >> 1];
+          }
+      if (SCORES) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              *reinterpret_cast<float2*>(Ss + lrow(i, r) * pl.spitch + key0 + kc + 8 * nt +
+                                         2 * t) = make_float2(s[i][nt][2 * r], s[i][nt][2 * r + 1]);
+      }
+    }
+    if (u != pl.nkt - 1) continue;
+    // m' over the quad that shares a row, then over the warps that split its
+    // keys
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        new_m[i][r] = max_nan(new_m[i][r], __shfl_xor_sync(0xffffffffu, new_m[i][r], 1));
+        new_m[i][r] = max_nan(new_m[i][r], __shfl_xor_sync(0xffffffffu, new_m[i][r], 2));
+      }
+    if (NWC > 1) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (t == 0) Red[wc * rows + lrow(i, r)] = new_m[i][r];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          new_m[i][r] = max_nan(Red[lrow(i, r)], Red[rows + lrow(i, r)]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) new_m[i][r] = max_nan(m_of(i, r), new_m[i][r]);
+    if (SCORES) {  // every kept score to its bf16 p, by the thread that made it
+      for (int kt2 = 0; kt2 < pl.nkt; ++kt2)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int nt = 0; nt < KW / 8; ++nt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int kl = kt2 * kTK + kw0 + 8 * nt + 2 * t;
+              const float2 sv =
+                  *reinterpret_cast<const float2*>(Ss + lrow(i, r) * pl.spitch + kl);
+              *reinterpret_cast<unsigned*>(Ps + lrow(i, r) * pl.ppitch + kl) =
+                  mma::pack_bf16(to_p(sv.x, i, r, kl), to_p(sv.y, i, r, kl + 1));
+            }
+    }
+  }
+  cp_async_wait<0>();
+
+  // Σp over the quad, then over the warps that split the keys
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[i][r] += __shfl_xor_sync(0xffffffffu, psum[i][r], 1);
+      psum[i][r] += __shfl_xor_sync(0xffffffffu, psum[i][r], 2);
+    }
+  if (NWC > 1) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (t == 0) Red[wc * rows + lrow(i, r)] = psum[i][r];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) psum[i][r] = Red[lrow(i, r)] + Red[rows + lrow(i, r)];
+  }
+  // per m-tile and half of the columns, num is read whole before its
+  // outputs are stored
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    float c[2], dv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + lrow(i, r);
+      c[r] = expf(m_of(i, r) - new_m[i][r]);
+      dv[r] = qi < sq ? ld_f(a.den, row * sq + qi, a.dt_den) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + lrow(i, r);
+      if (qi < sq && wc == 0 && t == 0) {
+        st_f(a.m_out, row * sq + qi, new_m[i][r], a.dt_m);
+        st_f(a.den_out, row * sq + qi, __fadd_rn(__fmul_rn(dv[r], c[r]), psum[i][r]),
+             a.dt_den);
+      }
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < 16; j0 += 8) {
+      float2 nv[8][2];
+#pragma unroll
+      for (int j = j0; j < j0 + 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = q0 + lrow(i, r);
+          const int col = 8 * (2 * pc0 + j) + 2 * t;
+          float2 x = make_float2(0.f, 0.f);
+          if (pc0 + j / 2 < pc1 && qi < sq && col < d) {
+            const int64_t e = (row * sq + qi) * d + col;
+            if (a.vec_num) {  // d % 4 == 0: the pair is in and aligned
+              if (a.dt_num == DT_F32) {
+                x = *reinterpret_cast<const float2*>(static_cast<const float*>(a.num) + e);
+              } else {
+                x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                    static_cast<const bf16*>(a.num) + e));
+              }
+            } else {
+              x.x = ld_f(a.num, e, a.dt_num);
+              if (col + 1 < d) x.y = ld_f(a.num, e + 1, a.dt_num);
+            }
+          }
+          nv[j - j0][r] = x;
+        }
+#pragma unroll
+      for (int j = j0; j < j0 + 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = q0 + lrow(i, r);
+          const int col = 8 * (2 * pc0 + j) + 2 * t;
+          if (!(pc0 + j / 2 < pc1 && qi < sq && col < d)) continue;
+          const float y0 = __fadd_rn(__fmul_rn(nv[j - j0][r].x, c[r]), acc[i][j][2 * r]);
+          const float y1 = __fadd_rn(__fmul_rn(nv[j - j0][r].y, c[r]), acc[i][j][2 * r + 1]);
+          const int64_t e = (row * sq + qi) * d + col;
+          if (a.vec_num) {
+            if (a.dt_num == DT_F32) {
+              *reinterpret_cast<float2*>(static_cast<float*>(a.num_out) + e) =
+                  make_float2(y0, y1);
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.num_out) + e) =
+                  __floats2bfloat162_rn(y0, y1);
+            }
+          } else {
+            st_f(a.num_out, e, y0, a.dt_num);
+            if (col + 1 < d) st_f(a.num_out, e + 1, y1, a.dt_num);
+          }
+        }
+    }
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
 // The most dynamic shared memory a block may opt in to on this device
@@ -545,6 +1076,42 @@ int launch_dtype(const Args& a, long long rows, cudaStream_t st) {
                   : launch<T, 1, false>(a, rows, dev, cap, st);
   return scores ? launch<T, 2, true>(a, rows, dev, cap, st)
                 : launch<T, 2, false>(a, rows, dev, cap, st);
+}
+
+// Launch one bf16 instance, opted in to the device's cap as above.
+template <int NWC, bool SCORES>
+int launch_mma(const Args& a, long long rows, int dev, int cap, cudaStream_t stream) {
+  static std::atomic<bool> done[kMaxDevices];
+  const mma::Plan pl = mma::make_plan(a.d, a.skv, NWC, SCORES);
+  if (pl.bytes > (size_t)cap) return (int)cudaErrorInvalidValue;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (!known || !done[dev].load(std::memory_order_acquire)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_block_mma_kernel<NWC, SCORES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+    if (err != cudaSuccess) return (int)err;
+    if (known) done[dev].store(true, std::memory_order_release);
+  }
+  const dim3 grid((unsigned)rows, (unsigned)((a.sq + pl.rows - 1) / pl.rows));
+  flash_block_mma_kernel<NWC, SCORES><<<grid, mma::threads_of(NWC), pl.bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16 runs the tensor-core body: two warps a row group past d = 128,
+// the scores kept where their plan fits the device's cap.
+template <>
+int launch_dtype<__nv_bfloat16>(const Args& a, long long rows, cudaStream_t st) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const int cap = smem_optin(dev);
+  const int nwc = a.d > 128 ? 2 : 1;
+  const bool scores = mma::make_plan(a.d, a.skv, nwc, true).bytes <= (size_t)cap;
+  if (nwc == 1)
+    return scores ? launch_mma<1, true>(a, rows, dev, cap, st)
+                  : launch_mma<1, false>(a, rows, dev, cap, st);
+  return scores ? launch_mma<2, true>(a, rows, dev, cap, st)
+                : launch_mma<2, false>(a, rows, dev, cap, st);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }

@@ -40,17 +40,21 @@ Mosaic's tiling (``:152-155``); the port keeps them ``(*lead, sq)``.
 
 Bound on an H100: operations.  A call does 4·B·sq·skv·d operations (two
 products) on 4·B·(sq + skv)·d elements, ~sq·skv/(sq + skv) operations per
-element, far above the ridge at the step's and the bench's shapes.  So the
-kernel (see its source) is built to feed the FFMA pipes: float32 FMAs on
-the CUDA cores for both dtypes (no TF32, no tensor cores), Q, K and V
-brought to shared memory by 16-byte ``cp.async`` (K and V in units through
-two stages, one in flight while the other is computed), operands read
-16 bytes at a time into 4 × 4 score and 8 × 8 ``p v`` register tiles, and
-the block's scores kept on chip where 64 × skv of them fit (skv ≤ 320 at
-d = 256 in float32: the step's 256), so that the second pass does not
-recompute ``q kᵀ``; a larger skv (the bench's 2048) recomputes it.  Each
-sum still runs in ascending order with the reference's unfused ends.  What
-still bounds it is the FFMA issue rate; its times are in ``PERF.md``.
+element, far above the ridge at the step's and the bench's shapes.  The
+kernel (see its source) has two bodies behind one C entry, picked by the
+input dtype; a CUDA tensor launches the body of its dtype or raises.  Both
+bring Q, K and V to shared memory by 16-byte ``cp.async`` (K and V in
+64-key units through stages, one in flight while another is computed),
+keep the block's scores on chip where 64 × skv of them fit (skv ≤ 320 at
+d = 256: the step's 256) and recompute ``q kᵀ`` in the second pass
+otherwise (the bench's 2048), and sum with the reference's unfused ends.
+float32 feeds the FFMA pipes (no TF32): operands read 16 bytes at a time
+into 4 × 4 score and 8 × 8 ``p v`` register tiles; what bounds it is the
+FFMA issue rate.  bfloat16 runs both products on the tensor cores as
+``mma.sync`` m16n8k16 (bf16 in, float32 out: the reference's own MXU
+arithmetic), operands by ``ldmatrix``, p rounded to bf16 from the score
+fragments into the A fragments of ``p v``; what bounds it is ``ldmatrix``'s
+shared-memory traffic.  Their times are in ``PERF.md``.
 """
 from __future__ import annotations
 

@@ -43,11 +43,16 @@ from pathlib import Path
 TARGET = "sm_90a"
 
 #: instructions counted in every kernel instance's SASS: the wgmma body's
-#: tensor-core and TMA instructions (K20), mma.sync's, the byte mover's
-#: bulk copies, K21's FMAs, 16-byte shared loads and cp.async, and local
-#: memory traffic (a spill or a stack array)
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "UBLKCP", "FFMA", "LDS.128",
+#: tensor-core and TMA instructions (K20), mma.sync's and ldmatrix's (K20's
+#: and K21's bfloat16 bodies), the byte mover's bulk copies, K21's float32
+#: FMAs, 16-byte shared loads and cp.async, and local memory traffic (a
+#: spill or a stack array)
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM", "UBLKCP", "FFMA", "LDS.128",
             "LDGSTS", "STL", "LDL")
+#: K21's instances by body: the float32 FFMA body and the bfloat16 mma.sync
+#: body, each with 1 or 2 column groups (warps a row group) x scores kept
+#: or recomputed
+FLASH_INSTANCES = {"flash_block_kernel": 4, "flash_block_mma_kernel": 4}
 
 #: the kernels each C entry of ``_build.LIBRARIES`` launches, as fragments
 #: of their (mangled) names; an entry that launches nothing maps to ()
@@ -63,7 +68,7 @@ C_ENTRIES = {
     "otpu_ring_bcast": ("bcast_kernel",),
     "otpu_ring_copy_tickets_dealt": (),
     "otpu_exchange_tickets_dealt": (),
-    "otpu_flash_block": ("flash_block_kernel",),
+    "otpu_flash_block": ("flash_block_kernel", "flash_block_mma_kernel"),
     "otpu_fused_matmul": ("fused_matmul_f32", "fused_matmul_mma_sync",
                           "fused_matmul_wgmma"),
 }
@@ -333,13 +338,21 @@ def missing_cases(rows: list) -> list:
     return missing
 
 
+def _body(kernel: str):
+    """Which of K21's bodies a (mangled) kernel name is, or None."""
+    return next((body for body in FLASH_INSTANCES if body in kernel), None)
+
+
 def requirements(rows: list) -> list:
     """What ``chip_smoke.py`` holds the build to: the wgmma body of K20
     issues HGMMA and UTMALDG; each of the byte mover's four
     ``mover_kernel`` instances issues ``UBLKCP`` and no copy kernel spills
-    or touches local memory; each of K21's eight ``flash_block_kernel``
-    instances issues FFMA, LDS.128 and LDGSTS, and none spills.  Other
-    kernels' spills are recorded, not refused.  Returns the problems."""
+    or touches local memory; K21 has exactly ``FLASH_INSTANCES`` of each
+    body, each of its float32 ``flash_block_kernel`` instances issues FFMA,
+    LDS.128 and LDGSTS, each of its bfloat16 ``flash_block_mma_kernel``
+    instances HMMA and LDSM, and none spills or touches local memory.
+    Other kernels' spills are recorded, not refused.  Returns the
+    problems."""
     problems = []
     lib_rows = {}
     for r in rows:
@@ -362,19 +375,25 @@ def requirements(rows: list) -> list:
                 or ("mover" in r["kernel"]
                     and (r["sass"].get("STL") or r["sass"].get("LDL")))):
             problems.append(f"a copy kernel spills: {r}")
-    flash = [r for r in lib_rows.get("flash_block", [])
-             if "flash_block_kernel" in r["kernel"]]
-    if len(flash) != 8:
-        problems.append(f"{len(flash)} flash_block_kernel instances, not 8")
-    for r in lib_rows.get("flash_block", []):
-        ops = r["sass"]
-        if r["spill_bytes"] or r["stack_bytes"] or (
-                "flash_block_kernel" in r["kernel"]
-                and not (ops.get("FFMA") and ops.get("LDS.128")
-                         and ops.get("LDGSTS") and not ops.get("STL")
-                         and not ops.get("LDL"))):
+    flash = lib_rows.get("flash_block", [])
+    for body, n in FLASH_INSTANCES.items():
+        got = sum(1 for r in flash if _body(r["kernel"]) == body)
+        if got != n:
+            problems.append(f"{got} {body} instances, not {n}")
+    for r in flash:
+        ops, body = r["sass"], _body(r["kernel"])
+        local = r["spill_bytes"] or r["stack_bytes"] or ops.get("STL") \
+            or ops.get("LDL")
+        if body == "flash_block_kernel" and (local or not (
+                ops.get("FFMA") and ops.get("LDS.128") and ops.get("LDGSTS"))):
             problems.append(f"a flash_block_kernel instance lacks FFMA, "
                             f"LDS.128 or LDGSTS, or spills: {r}")
+        elif body == "flash_block_mma_kernel" and (local or not (
+                ops.get("HMMA") and ops.get("LDSM"))):
+            problems.append(f"a flash_block_mma_kernel instance lacks HMMA "
+                            f"or LDSM, or spills: {r}")
+        elif body is None and local:
+            problems.append(f"a flash_block kernel spills: {r}")
     return problems
 
 

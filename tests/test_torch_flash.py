@@ -108,14 +108,21 @@ def test_chained_updates_match_pallas(shape, dtype, causal):
 # already differ by 0.9e-6 to 1.05e-6 of max |want| (the order of sums of
 # 200 terms and more, either state), at the float32 band itself: those
 # shapes are held here in bfloat16, and in float32 on the card against the
-# plain version.
+# plain version.  The bfloat16 body's m16n8k16 fragments add their edges:
+# queries one short of, at and one past a 16-row m-tile (15, 16, 17), keys
+# about an 8-key n-tile and a 16-key k-step (7, 8, 9, 15, 17), and head dims
+# of one to three k-steps and past d = 128 (8, 16, 24, 136, 248).
 EDGE_CASES = [(shape, dtype)
               for shape in [(1, 2, 8, 1, 100), (1, 1, 64, 257, 64),
                             (1, 1, 70, 255, 32), (1, 2, 200, 31, 100),
                             (1, 2, 200, 31, 30), (1, 1, 64, 257, 66)]
               for dtype in ("float32", "bfloat16")] + [
     ((1, 2, 200, 31, 200), "bfloat16"), ((1, 1, 16, 321, 256), "bfloat16"),
-    ((1, 1, 70, 255, 130), "bfloat16"), ((1, 1, 16, 1055, 64), "bfloat16")]
+    ((1, 1, 70, 255, 130), "bfloat16"), ((1, 1, 16, 1055, 64), "bfloat16")] + [
+    ((1, 2, sq, skv, d), "bfloat16")
+    for sq, skv, d in [(15, 7, 8), (16, 8, 16), (17, 9, 24), (15, 15, 16),
+                       (17, 17, 8), (16, 9, 136), (17, 15, 248),
+                       (15, 17, 136), (16, 7, 248)]]
 
 
 @pytest.mark.parametrize("shape, dtype", EDGE_CASES)
@@ -408,3 +415,78 @@ def test_kernel_misaligned_base_on_card(d, dtype):
             args[i] = view
         got = fa.update(*args)
         _held(got, args, dtype, f"K21 offset 1 {dtype} d={d} skv={skv}")
+
+
+#: the bfloat16 body's fragment edges on the card (as ``EDGE_CASES`` names
+#: them), each (sq, skv) pair at each head dim
+FRAG_SQ, FRAG_SKV, FRAG_D = (15, 16, 17), (7, 8, 9, 15, 17), (8, 16, 24, 136, 248)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", FRAG_D)
+def test_kernel_fragment_edges_on_card(d, dtype):
+    """K21 at the edges of an m16n8k16 fragment: sq 15-17 against skv 7-17,
+    unbiased and with a per-rank causal bias (skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for sq in FRAG_SQ:
+        for skv in FRAG_SKV:
+            shape = (2, 2, sq, skv, d)
+            for bias in (False, True):
+                args = _card_args(shape, dtype, sq * skv + d, bias)
+                got = fa.update(*args)
+                torch.cuda.synchronize()
+                _held(got, args, dtype, f"K21 {dtype} {shape} bias={bias}")
+
+
+def _fragment_masks(sq: int, skv: int, dtype: str) -> list:
+    """-inf over keys 8-15 of every 64-key tile (one n-tile of a lane
+    quad), and -inf over all keys but one a row, chosen so that a single
+    lane of its quad holds the row's only finite score."""
+    keys = np.arange(skv)
+    column = np.zeros((sq, skv), np.float32)
+    column[:, (keys % 64 >= 8) & (keys % 64 < 16)] = -np.inf
+    rows = np.arange(sq)
+    tiles = -(-skv // 64)
+    one = np.minimum(2 * (rows % 4) + 8 * (rows % 8) + 64 * (rows % tiles),
+                     skv - 1)
+    single = np.full((sq, skv), -np.inf, np.float32)
+    single[rows, one] = 0.0
+    return [_t(m.astype(NP[dtype])).cuda() for m in (column, single)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d, skv", [(64, 64), (64, RECOMPUTE_SKV), (256, 64),
+                                    (256, RECOMPUTE_SKV)])
+def test_kernel_fragment_masks_on_card(d, skv, dtype):
+    """A bias masking one 8-key column of every fragment, and one leaving a
+    single finite score a row (one lane of a quad), from a running state
+    and from m = -inf: within the band, and no NaN (skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    shape = (2, 2, 64, skv, d)
+    for m_inf in (False, True):
+        args = _card_args(shape, dtype, 41 + d, bias=False, m_inf=m_inf)
+        for mask in _fragment_masks(64, skv, dtype):
+            args[-1] = mask
+            got = fa.update(*args)
+            assert not any(bool(torch.isnan(g).any()) for g in got)
+            _held(got, args, dtype, f"K21 {dtype} {shape} m_inf={m_inf} mask")
+
+
+@pytest.mark.cuda
+def test_kernel_float32_outputs_keep_their_digests_on_card():
+    """The float32 body is the one it was before the bfloat16 body was
+    split from it: its outputs on chip_flash_bodies.py's cases are bit-equal
+    to the digests recorded there (skipped here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_flash_bodies as bodies
+
+    assert bodies.float32_digests(fa) == bodies.FLOAT32_DIGESTS

@@ -803,16 +803,26 @@ ptxas info    : Used 255 registers, 360 bytes cmem[0]
                                  spill=8)]
             + [row(lib, f"_Z12mover_kernelILi{i}E", UBLKCP=2)
                for lib in ("ring_copy", "exchange") for i in (0, 1)]
-            + [row("flash_block", f"_Z18flash_block_kernelILi{i}E", FFMA=9,
-                   **{"LDS.128": 3, "LDGSTS": 2}) for i in range(8)])
+            + [row("flash_block", f"_Z18flash_block_kernelIfLi{i}E", FFMA=9,
+                   **{"LDS.128": 3, "LDGSTS": 2}) for i in range(4)]
+            + [row("flash_block", f"_Z22flash_block_mma_kernelILi{i}E",
+                   HMMA=64, LDSM=24, LDGSTS=2) for i in range(4)])
     assert cuda_aot.requirements(good) == []
     bad = [dict(r) for r in good]
     bad[2] = row("ring_copy", "_Z12mover_kernelILi0E", spill=4, UBLKCP=2)
-    bad[-1] = row("flash_block", "_Z18flash_block_kernelILi7E", FFMA=9)
+    bad[-5] = row("flash_block", "_Z18flash_block_kernelIfLi3E", FFMA=9)
+    # a bfloat16 instance on the FFMA pipes, with no tensor-core instruction
+    bad[-1] = row("flash_block", "_Z22flash_block_mma_kernelILi3E", FFMA=9,
+                  LDSM=24, LDGSTS=2)
     problems = cuda_aot.requirements(bad)
-    assert len(problems) == 2
+    assert len(problems) == 3
     assert "copy kernel spills" in problems[0]
-    assert "flash_block_kernel" in problems[1]
+    assert "flash_block_kernel instance lacks" in problems[1]
+    assert "flash_block_mma_kernel instance lacks HMMA" in problems[2]
+    # the instances of each body are counted exactly
+    short = [r for r in good if "mma_kernelILi3E" not in r["kernel"]]
+    assert cuda_aot.requirements(short) == [
+        "3 flash_block_mma_kernel instances, not 4"]
 
 
 def test_cuda_aot_without_nvcc_exits_with_the_reason(tmp_path):
