@@ -504,7 +504,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    µs of an 8 B ``p`` and ``g`` to the right neighbour and MB/s of a 4 MB
    ``put``.  One ``{"fleet_pgas": {...}}`` line with the card's name and
    power limit and the phase's wall seconds.
-16. The operator tools against a live job (``tools``, last): one traced
+16. The operator tools against a live job (``tools``): one traced
    ``tpurun -n 3`` job of card tensors (``ompi_tpu_torch.examples.
    otpu_top_demo``'s worker for 4 s: each step folds the rank's 8 local
    1 MB shards with the ring all-reduce, K3, then allreduces 4 KB of the
@@ -519,6 +519,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    through coll/tuned's ``_load_rules``); ``otpu_info --all --parsable``
    and ``otpu_perf --check`` over a history the phase writes from this
    run's kernel times (exit 0 each).  One ``{"tools": {...}}`` line.
+17. The examples (``examples``, last): first ``init()`` on the card, where
+   ``api.env.query_accelerator_support()`` must be true, and false after
+   ``finalize()``; then all 16 of ``ompi_tpu_torch/examples/`` on the card
+   as a user runs them, each to its success line, with coll/ring's vars at
+   their defaults first.  In
+   this process through ``main(argv)``, every count set to 0 before each
+   and read after: ``hello``, ``connectivity``, ``ring``, ``serving_demo``
+   and ``fleet_demo`` (no kernel), ``ragged_dispatch`` (K15 exactly twice),
+   ``device_collectives`` (exactly K3, K12, K20 on its float32 ``ffma``
+   body, K11 and K10 once and K5 twice, the torus's two phases),
+   ``train_sharded --lr 1e-5`` (K21 exactly 2 x 4 + 2 x 6 on the FFMA body)
+   and ``train_tour --lr 1e-5`` at ``OTPU_MODEL_SCALE=64`` on ``dp=2,pp=2,
+   sp=2,tp=1`` (each of its six configurations two descending steps, K21
+   exactly 12 a configuration, 24 under remat, on the FFMA body, or on
+   the bfloat16 ``mma.sync`` body under bf16 and the works, as the C entry
+   reports; after it, outside the counted run, each configuration's losses
+   within 1e-5, bfloat16 1e-3, of the same steps with ``use_flash=False``,
+   zero1's equal to the baseline's, and zero1 and the works a third step,
+   where momentum reaches the loss, held also against the heavy ball added
+   to the plain SGD step).  Beside them,
+   three at a time as processes: ``ring`` and ``pgas_ring`` under
+   ``tpurun -n 4``, ``partitioned_pingpong`` under ``-n 2``, ``trace_demo``
+   under ``-n 4`` with tracing on, and the self-launching
+   ``profile_demo``, ``moe_train_demo`` (rank 2 blamed),
+   ``elastic_train_demo`` (bit-exact through a kill; the ranks on
+   ``cuda:0``) and ``otpu_top_demo``.  One ``example <name>: <s> s`` line
+   each and one ``{"examples": {...}}`` line.
 
 The compile gate, ``python -m ompi_tpu_torch.tools.cuda_aot``, starts beside
 the build and is waited for after the kernel checks (phase 2), before the
@@ -6600,6 +6627,303 @@ def tools(smi: str, kernel_rows: list) -> dict:
     return out
 
 
+#: the examples run in this process (the device world on the card), in
+#: order: {name: (argv, the line that says it succeeded)}
+EXAMPLES_IN_PROCESS = {
+    "hello": ([], "Hello, world, I am 0 of 8 "),
+    "connectivity": ([], "connectivity OK: 8 ranks fully connected "
+                         "(56 messages)"),
+    "ring": ([], "ring done: 80 hops on 8 ranks"),
+    "ragged_dispatch": ([], "dispatch verified on 8 ranks: ideal 2213 KiB, "
+                            "ragged wire 2424 KiB"),
+    "device_collectives": ([], "DEVICE COLLECTIVES OK"),
+    "train_sharded": (["--lr", str(STEP_LR)], "done; initial loss "),
+    "train_tour": (["--lr", str(STEP_LR)], "TRAIN TOUR OK"),
+    "serving_demo": ([], "SERVING DEMO OK "),
+    "fleet_demo": ([], "FLEET DEMO OK "),
+}
+#: the launches each in-process example must make, exactly (the tour's are
+#: checked by configuration); ring reductions at 4 KB a rank run the fused
+#: body, the torus reduce-scatter is two sub-ring launches of it and the
+#: torus all-gather one K10 launch
+EXAMPLE_LAUNCHES = {
+    "ragged_dispatch": {"all_to_all_v": 2},
+    "device_collectives": {"all_reduce_fused": 1, "bcast": 1,
+                           "matmul_allreduce": 1, "all_gather_bidi": 1,
+                           "reduce_scatter_fused": 2, "all_gather": 1},
+}
+#: the examples that start their own jobs, or run under tpurun, as
+#: processes: {name: (argv after the interpreter, the start of the line that
+#: says it succeeded)}
+EXAMPLE_JOBS = {
+    "ring_4": (["-m", "ompi_tpu_torch.tools.tpurun", "-n", "4", sys.executable,
+                "-m", "ompi_tpu_torch.examples.ring"], "[3] rank 3 exiting"),
+    "pgas_ring_4": (["-m", "ompi_tpu_torch.tools.tpurun", "-n", "4",
+                     sys.executable, "-m", "ompi_tpu_torch.examples.pgas_ring"],
+                    "[0] pgas ring OK: 4 PEs"),
+    "partitioned_pingpong_2": (["-m", "ompi_tpu_torch.tools.tpurun", "-n", "2",
+                                sys.executable, "-m",
+                                "ompi_tpu_torch.examples.partitioned_pingpong"],
+                               "[1] [rank 1] complete"),
+    "trace_demo_4": (["-m", "ompi_tpu_torch.tools.tpurun", "-n", "4",
+                      "--mca", "trace_enable", "1", "--mca", "trace_dir",
+                      "{tmp}", sys.executable, "-m",
+                      "ompi_tpu_torch.examples.trace_demo"],
+                     "[0] live pvar histograms (otpu_info --pvars):"),
+    "profile_demo": (["-m", "ompi_tpu_torch.examples.profile_demo"],
+                     "otpu_perf --diff exit code: 3"),
+    "moe_train_demo": (["-m", "ompi_tpu_torch.examples.moe_train_demo"],
+                       "hot-expert rank blamed: YES"),
+    "elastic_train_demo": (["-m", "ompi_tpu_torch.examples.elastic_train_demo"],
+                           "bit-exact vs failure-free restore: YES"),
+    "otpu_top_demo": (["-m", "ompi_tpu_torch.examples.otpu_top_demo"],
+                      "job ended; otpu_analyze over the merged timeline:"),
+}
+EXAMPLE_JOB_TIMEOUT = 300
+EXAMPLE_JOBS_AT_ONCE = 3
+
+
+def example_job(name: str, tmp: str) -> dict:
+    """One of ``EXAMPLE_JOBS`` as a process of its own, its output to files
+    under ``tmp``; on its timeout its whole process group is killed.  Fails
+    unless it exits 0 with its success line."""
+    import signal
+
+    argv, line = EXAMPLE_JOBS[name]
+    work = os.path.join(tmp, name)
+    os.makedirs(work)
+    argv = [a.replace("{tmp}", work) for a in argv]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OTPU_RANK", "OTPU_NPROCS", "OTPU_COORD")}
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "out"), "w") as so, \
+            open(os.path.join(work, "err"), "w") as se:
+        proc = subprocess.Popen([sys.executable, *argv], stdout=so, stderr=se,
+                                env=env, cwd=Path(__file__).resolve().parent,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=EXAMPLE_JOB_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall = time.perf_counter() - t0
+    said = Path(work, "out").read_text()
+    require(rc == 0 and any(ln.startswith(line) for ln in said.splitlines()),
+            f"example {name} exited {rc} without {line!r}:\n{said[-3000:]}\n"
+            f"{Path(work, 'err').read_text()[-3000:]}")
+    out = {"wall_s": wall, "exit_code": rc}
+    if name == "elastic_train_demo":
+        report = json.loads(next(ln for ln in said.splitlines()
+                                 if "ELASTIC " in ln).split("ELASTIC ", 1)[1])
+        require(report["device"] == "cuda:0",
+                f"the elastic ranks bound {report['device']}")
+        out["recoveries"] = len(report["recoveries"])
+    if name == "moe_train_demo":
+        out["said"] = [ln for ln in said.splitlines()
+                       if ln.startswith(("dispatched ", "critical path: "))]
+    return out
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """``ompi_tpu_torch.examples.<name>.main(argv)`` in this process, every
+    count set to 0 before and read after: (its return value, its stdout,
+    the launches, K20's and K21's launches by body, wall seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    from ompi_tpu_torch.ops import flash_attention, overlap
+
+    module = importlib.import_module(f"ompi_tpu_torch.examples.{name}")
+    tables = {"k20": overlap.bodies, "k21": flash_attention.bodies}
+    reset_counts()
+    before = {k: dict(t) for k, t in tables.items()}
+    said = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(said):
+        result = module.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in counts().items() if v}
+    bodies = {k: {b: v - before[k][b] for b, v in t.items()
+                  if v != before[k][b]} for k, t in tables.items()}
+    return result, said.getvalue(), launched, bodies, wall
+
+
+#: the training phase's bands for a step against its ``use_flash=False``
+#: twin, relative on the loss, by compute dtype
+TOUR_BANDS = {"float32": 1e-5, "bfloat16": BF16_STEP_BAND}
+
+
+def tour_losses(over: dict, steps: int, use_flash=None, momentum=None,
+                device=None, lr=STEP_LR) -> list:
+    """``steps`` losses of the tour's step from its seeded parameters, the
+    knobs at the tour's defaults but ``over`` (restored after).  With
+    ``momentum`` the step is plain SGD (ZeRO-1 and momentum off) and the
+    heavy ball is added to its parameters here, ``p' = sgd(p) + mu (p -
+    p_prev)``, the update ZeRO-1's sharded state must make."""
+    from ompi_tpu_torch.base.var import registry
+    from ompi_tpu_torch.examples import train_tour
+    from ompi_tpu_torch.parallel import dryrun
+    from ompi_tpu_torch.parallel import train  # noqa: F401  (the knobs)
+
+    if momentum is not None:
+        over = dict(over, otpu_parallel_zero1=False,
+                    otpu_parallel_momentum=0.0)
+    saved = {k: registry.lookup(k).value for k in train_tour.KNOBS}
+    try:
+        for k, dv in train_tour.KNOBS.items():
+            registry.lookup(k).set(over.get(k, dv))
+        step, (state, x), _ = dryrun.make_step_and_args(
+            device, dryrun.parse_spec(train_tour.SPEC), lr=lr,
+            use_flash=use_flash)
+        losses, prev = [], None
+        for _ in range(steps):
+            new, loss = step(state, x)
+            losses.append(float(loss))
+            if momentum is not None:
+                if prev is not None:
+                    new = {k: v + momentum * (state[k] - prev[k])
+                           for k, v in new.items()}
+                prev = state
+            state = new
+    finally:
+        for k, v in saved.items():
+            registry.lookup(k).set(v)
+    return losses
+
+
+def check_tour(result: dict, said: str) -> dict:
+    """The tour's six configurations at OTPU_MODEL_SCALE=64: each loss
+    descends (two steps), K21 runs 2 steps' launches (4 under remat) on
+    the float32 FFMA body, or on the bfloat16 mma.sync body under bf16 and
+    the works.  Then, outside the example's counted run: each
+    configuration's two losses within ``TOUR_BANDS`` of the same steps with
+    ``use_flash=False``; zero1's pair equal to the baseline's (its first
+    step is plain SGD); and zero1 and the works run a third step, where
+    momentum reaches the loss, held against ``use_flash=False`` and against
+    the heavy ball added to the plain SGD step (``tour_losses``)."""
+    import re
+
+    from ompi_tpu_torch.examples import train_tour
+    from ompi_tpu_torch.parallel.dryrun import parse_spec
+
+    per_step = k21_per_step(parse_spec(train_tour.SPEC).sizes())
+    pairs = [tuple(map(float, m)) for m in re.findall(
+        r"^dryrun ok: mesh=.* loss ([-\d.e+]+) -> ([-\d.e+]+)$", said, re.M)]
+    require(list(result) == list(train_tour.CONFIGS) and len(pairs) == 6,
+            f"train_tour ran {list(result)}, {len(pairs)} descending runs")
+    out = {}
+    for (tag, got), (first, second) in zip(result.items(), pairs):
+        over = train_tour.CONFIGS[tag]
+        steps = 4 if over.get("otpu_parallel_remat") else 2
+        dtype = over.get("otpu_parallel_compute_dtype", "float32")
+        body = "mma_sync" if dtype == "bfloat16" else "ffma"
+        want = steps * per_step
+        require(np.isfinite(first) and second < first
+                and got["launches"] == want and got["bodies"] == {
+                    "ffma": want if body == "ffma" else 0,
+                    "mma_sync": want if body == "mma_sync" else 0},
+                f"train_tour {tag}: loss {first} -> {second}, K21 "
+                f"{got['launches']} {got['bodies']}, want {want} on {body}")
+        out[tag] = {"loss": [first, second], "k21": want, "body": body}
+    for tag, row in out.items():
+        over = train_tour.CONFIGS[tag]
+        band = TOUR_BANDS[over.get("otpu_parallel_compute_dtype", "float32")]
+        mu = over.get("otpu_parallel_momentum")
+        losses = tour_losses(over, 3) if mu else row["loss"]
+        plain = tour_losses(over, len(losses), use_flash=False)
+        checks = {"use_flash=False": plain}
+        if mu:
+            printed = [float(f"{v:.6f}") for v in losses[:2]]  # as dryrun's
+            require(printed == row["loss"], f"train_tour {tag}: a rerun "
+                    f"gave {losses[:2]}, the tour {row['loss']}")
+            checks["sgd + heavy ball"] = tour_losses(over, 3, momentum=mu)
+        for what, ref in checks.items():
+            rel = max(abs(g - w) / abs(w) for g, w in zip(losses, ref))
+            require(np.isfinite(losses).all() and rel <= band,
+                    f"train_tour {tag}: losses {losses} against {what}'s "
+                    f"{ref}: {rel:.3e} above {band:g}")
+            row[what] = {"loss": ref, "rel": rel, "band": band}
+        row["loss"] = losses
+    printed = dict(zip(out, pairs))
+    require(printed["zero1"] == printed["baseline"],
+            f"zero1's losses {printed['zero1']} are not the baseline's "
+            f"{printed['baseline']}")
+    return out
+
+
+def examples(smi: str) -> dict:
+    """Every example of the port on the card, as a user runs it (phase 17
+    of the module docstring).  Returns the ``examples`` line's object."""
+    import shutil
+
+    import ompi_tpu_torch
+    from ompi_tpu_torch.api import env
+
+    t_phase = time.perf_counter()
+    ring_defaults()              # as in a fresh process: coll/builtin owns
+    # MPIX_Query_cuda_support's analog: true for a device world on the card
+    world = ompi_tpu_torch.init()
+    require(env.query_accelerator_support() and world.rte.device.type == "cuda",
+            f"query_accelerator_support() is false in a world on "
+            f"{world.rte.device}")
+    ompi_tpu_torch.finalize()
+    require(not env.query_accelerator_support(),
+            "query_accelerator_support() is true after finalize")
+    tmp = tempfile.mkdtemp(prefix="otpu-examples-")
+    pool = concurrent.futures.ThreadPoolExecutor(EXAMPLE_JOBS_AT_ONCE)
+    jobs = {name: pool.submit(example_job, name, tmp) for name in EXAMPLE_JOBS}
+    out = {"card": smi, "accelerator_support": True, "in_process": {},
+           "jobs": {}}
+    try:
+        for name, (argv, line) in EXAMPLES_IN_PROCESS.items():
+            result, said, launched, bodies, wall = run_example(name, argv)
+            require(any(ln.startswith(line) for ln in said.splitlines()),
+                    f"example {name} printed no {line!r}:\n{said[-3000:]}")
+            row = {"wall_s": wall, "launches": launched, "bodies": bodies}
+            if name in EXAMPLE_LAUNCHES:
+                require(launched == EXAMPLE_LAUNCHES[name],
+                        f"example {name} launched {launched}, want "
+                        f"{EXAMPLE_LAUNCHES[name]}")
+            elif name == "train_sharded":
+                per_step = {k: k21_per_step(v) for k, v in STEP_MESHES.items()}
+                want = 2 * per_step["default"] + 2 * per_step["pp2"]
+                require(launched == {"flash_block": want}
+                        and bodies["k21"] == {"ffma": want},
+                        f"train_sharded launched {launched} {bodies}, want "
+                        f"{want} of K21 on its FFMA body")
+            elif name == "train_tour":
+                row["configs"] = check_tour(result, said)
+            else:
+                require(launched == {}, f"example {name} launched {launched}")
+            if name == "device_collectives":
+                require(bodies["k20"] == {"ffma": 1},
+                        f"device_collectives ran K20 on {bodies['k20']}, "
+                        "want its float32 FFMA body once")
+            out["in_process"][name] = row
+            log(f"example {name}: {wall:.2f} s, {line.strip()}, "
+                f"launches {launched}")
+        for name, job in jobs.items():
+            out["jobs"][name] = job.result()
+            log(f"example {name}: {out['jobs'][name]['wall_s']:.2f} s, "
+                f"{EXAMPLE_JOBS[name][1]}")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    tour = out["in_process"]["train_tour"]["configs"]
+    log(f"train_tour at OTPU_MODEL_SCALE={os.environ.get('OTPU_MODEL_SCALE')}"
+        f", lr {STEP_LR}: " + ", ".join(
+            f"{tag} " + " -> ".join(f"{v:.4f}" for v in row["loss"])
+            + " (" + ", ".join(f"{what} {c['rel']:.3e}" for what, c in
+                               row.items() if isinstance(c, dict)) + ")"
+            for tag, row in tour.items()))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"examples": out}))
+    return out
+
+
 def outputs(result) -> tuple:
     """A kernel's outputs as a tuple (the encode returns two)."""
     return result if isinstance(result, tuple) else (result,)
@@ -6673,6 +6997,7 @@ def main() -> int:
     timed("serving", serving, smi)
     timed("fleet_pgas", fleet_pgas, smi)
     timed("tools", tools, smi, rows)
+    timed("examples", examples, smi)
     log(json.dumps({"phase_s": {"card": smi, **phase_s}}))
     log(json.dumps({"earlier_ms": {"source": "PERF.md constants, not measured "
                                              "in this run", **EARLIER_MS}}))

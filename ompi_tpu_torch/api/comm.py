@@ -1584,6 +1584,11 @@ class Comm:
 
         return dpm.merge(self, high)
 
+    def abort(self, errorcode: int = 1) -> None:
+        from ompi_tpu_torch.runtime import init as rt
+
+        rt.abort(self, errorcode)
+
     # -- ULFM (``ompi/mpiext/ftmpi``) ------------------------------------
     def revoke(self) -> None:
         from ompi_tpu_torch.ft import revoke as ft_revoke

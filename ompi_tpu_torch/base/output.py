@@ -52,6 +52,12 @@ def set_verbosity(stream: int | str, level: int) -> None:
             _streams[sid].verbosity = level
 
 
+def get_verbosity(stream: int | str) -> int:
+    with _lock:
+        sid = _by_name.get(stream, stream) if isinstance(stream, str) else stream
+        return _streams[sid].verbosity if sid in _streams else 0
+
+
 def output(stream: int | str, level: int, msg: str, *args) -> None:
     """Emit ``msg`` if the stream's verbosity is >= ``level``.
 
@@ -109,3 +115,9 @@ def show_help(topic: str, key: str, **kwargs) -> str:
                 flush=True,
             )
     return text
+
+
+def help_seen_counts() -> dict[tuple[str, str], int]:
+    with _lock:
+        return dict(_help_seen)
+

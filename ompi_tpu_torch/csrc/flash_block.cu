@@ -112,6 +112,8 @@ constexpr int kThreads = 256;  // score tile 16 x 16 (tx keys, ty queries)
 constexpr int kStages = 2;     // one unit in flight while one is computed
 constexpr int kPPad = 16;      // floats of padding per row of the p buffer
 enum { DT_F32 = 0, DT_BF16 = 1 };
+// The body a launch started, for the C entry's *body.
+enum { BODY_FFMA = 0, BODY_MMA_SYNC = 1 };
 
 // The shared-memory plan of one launch, computed alike on host and device:
 // Q (kTQ x qpitch) and kStages stages of `stage` elements, in the input
@@ -1046,7 +1048,8 @@ int smem_optin(int dev) {
 // Launch one instance, after opting it in to the device's shared-memory cap
 // once per device (each instance keeps its own flag).
 template <typename T, int NG, bool SCORES>
-int launch(const Args& a, long long rows, int dev, int cap, cudaStream_t stream) {
+int launch(const Args& a, long long rows, int dev, int cap, cudaStream_t stream,
+           int* body) {
   static std::atomic<bool> done[kMaxDevices];
   const size_t bytes = make_plan(a.d, a.skv, sizeof(T), SCORES).bytes;
   if (bytes > (size_t)cap) return (int)cudaErrorInvalidValue;
@@ -1059,28 +1062,30 @@ int launch(const Args& a, long long rows, int dev, int cap, cudaStream_t stream)
     if (known) done[dev].store(true, std::memory_order_release);
   }
   const dim3 grid((unsigned)rows, (unsigned)((a.sq + kTQ - 1) / kTQ));
+  *body = BODY_FFMA;
   flash_block_kernel<T, NG, SCORES><<<grid, kThreads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The scores stay on chip where their plan fits the device's cap.
 template <typename T>
-int launch_dtype(const Args& a, long long rows, cudaStream_t st) {
+int launch_dtype(const Args& a, long long rows, cudaStream_t st, int* body) {
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   const int cap = smem_optin(dev);
   const bool scores = make_plan(a.d, a.skv, sizeof(T), true).bytes <= (size_t)cap;
   if (a.d <= 128)
-    return scores ? launch<T, 1, true>(a, rows, dev, cap, st)
-                  : launch<T, 1, false>(a, rows, dev, cap, st);
-  return scores ? launch<T, 2, true>(a, rows, dev, cap, st)
-                : launch<T, 2, false>(a, rows, dev, cap, st);
+    return scores ? launch<T, 1, true>(a, rows, dev, cap, st, body)
+                  : launch<T, 1, false>(a, rows, dev, cap, st, body);
+  return scores ? launch<T, 2, true>(a, rows, dev, cap, st, body)
+                : launch<T, 2, false>(a, rows, dev, cap, st, body);
 }
 
 // Launch one bf16 instance, opted in to the device's cap as above.
 template <int NWC, bool SCORES>
-int launch_mma(const Args& a, long long rows, int dev, int cap, cudaStream_t stream) {
+int launch_mma(const Args& a, long long rows, int dev, int cap, cudaStream_t stream,
+               int* body) {
   static std::atomic<bool> done[kMaxDevices];
   const mma::Plan pl = mma::make_plan(a.d, a.skv, NWC, SCORES);
   if (pl.bytes > (size_t)cap) return (int)cudaErrorInvalidValue;
@@ -1093,6 +1098,7 @@ int launch_mma(const Args& a, long long rows, int dev, int cap, cudaStream_t str
     if (known) done[dev].store(true, std::memory_order_release);
   }
   const dim3 grid((unsigned)rows, (unsigned)((a.sq + pl.rows - 1) / pl.rows));
+  *body = BODY_MMA_SYNC;
   flash_block_mma_kernel<NWC, SCORES><<<grid, mma::threads_of(NWC), pl.bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1100,7 +1106,8 @@ int launch_mma(const Args& a, long long rows, int dev, int cap, cudaStream_t str
 // bfloat16 runs the tensor-core body: two warps a row group past d = 128,
 // the scores kept where their plan fits the device's cap.
 template <>
-int launch_dtype<__nv_bfloat16>(const Args& a, long long rows, cudaStream_t st) {
+int launch_dtype<__nv_bfloat16>(const Args& a, long long rows, cudaStream_t st,
+                                int* body) {
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -1108,10 +1115,10 @@ int launch_dtype<__nv_bfloat16>(const Args& a, long long rows, cudaStream_t st) 
   const int nwc = a.d > 128 ? 2 : 1;
   const bool scores = mma::make_plan(a.d, a.skv, nwc, true).bytes <= (size_t)cap;
   if (nwc == 1)
-    return scores ? launch_mma<1, true>(a, rows, dev, cap, st)
-                  : launch_mma<1, false>(a, rows, dev, cap, st);
-  return scores ? launch_mma<2, true>(a, rows, dev, cap, st)
-                : launch_mma<2, false>(a, rows, dev, cap, st);
+    return scores ? launch_mma<1, true>(a, rows, dev, cap, st, body)
+                  : launch_mma<1, false>(a, rows, dev, cap, st, body);
+  return scores ? launch_mma<2, true>(a, rows, dev, cap, st, body)
+                : launch_mma<2, false>(a, rows, dev, cap, st, body);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
@@ -1122,7 +1129,8 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // q, k, v, num: (rows, sq|skv, d) contiguous; m, den: (rows, sq); bias: NULL
 // or (rows / rows_per_bias, sq, skv).  Dtype codes 0 = float32, 1 =
 // bfloat16; q, k, v share dt_in.  1 <= d <= 256, rows < 2^31, sq, skv >= 1
-// (the wrapper checks).  Returns cudaGetLastError() after the launch
+// (the wrapper checks).  *body is set to the body launched (BODY_*).
+// Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for a d above 256).
 extern "C" int otpu_flash_block(const void* q, const void* k, const void* v,
                                 const void* m, const void* num, const void* den,
@@ -1130,7 +1138,7 @@ extern "C" int otpu_flash_block(const void* q, const void* k, const void* v,
                                 void* den_out, long long rows, int sq, int skv,
                                 int d, long long rows_per_bias, int dt_in,
                                 int dt_m, int dt_num, int dt_den, int dt_bias,
-                                void* stream) {
+                                int* body, void* stream) {
   using namespace otpu;
   if (d < 1 || d > 256 || sq < 1 || skv < 1) return (int)cudaErrorInvalidValue;
   const int es = dt_in == DT_F32 ? 4 : 2;
@@ -1140,6 +1148,6 @@ extern "C" int otpu_flash_block(const void* q, const void* k, const void* v,
   a.vec = d % (16 / es) == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   a.vec_num = d % 4 == 0 && aligned16(num) && aligned16(num_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dt_in == DT_F32 ? launch_dtype<float>(a, rows, st)
-                         : launch_dtype<__nv_bfloat16>(a, rows, st);
+  return dt_in == DT_F32 ? launch_dtype<float>(a, rows, st, body)
+                         : launch_dtype<__nv_bfloat16>(a, rows, st, body);
 }

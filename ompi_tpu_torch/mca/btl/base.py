@@ -120,5 +120,22 @@ class Btl(Component):
     def send(self, ep: Endpoint, frag: Frag) -> None:
         raise NotImplementedError
 
+    def prepare_src(self, ep: Endpoint, arr) -> Any:
+        """Expose a contiguous byte region for one-sided peer access;
+        returns a picklable remote key (``btl_register_mem`` +
+        descriptor prepare, ``btl.h:1095``)."""
+        raise NotImplementedError("this BTL has no RDMA registration")
+
+    def release_src(self, key: Any) -> None:
+        """Tear down a prepare_src exposure (deregistration)."""
+
+    def put(self, ep: Endpoint, local, remote_key: Any) -> None:
+        """Write ``local`` bytes into the peer region (btl.h:949)."""
+        raise NotImplementedError("this BTL has no RDMA put")
+
+    def get(self, ep: Endpoint, local, remote_key: Any) -> None:
+        """Read the peer region into ``local`` bytes (btl.h:987)."""
+        raise NotImplementedError("this BTL has no RDMA get")
+
     def progress(self) -> int:
         return 0

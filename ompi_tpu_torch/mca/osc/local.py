@@ -25,6 +25,9 @@ class LocalModule:
     def detach(self, win) -> None:
         self._bases.clear()
 
+    def base_of(self, rank: int) -> np.ndarray:
+        return self._bases[rank]
+
     # -- ops -------------------------------------------------------------
     def put(self, win, arr, target: int, offset: int) -> None:
         self._bases[target][offset:offset + arr.size] = arr

@@ -58,7 +58,7 @@ LIBRARIES = {
                   "otpu_exchange_tickets_dealt": []}),
     "flash_block": ("flash_block.cu",
                     {"otpu_flash_block": [_P] * 10 + [_LL, _I, _I, _I, _LL, _I, _I,
-                                                      _I, _I, _I, _P]}),
+                                                      _I, _I, _I, _P, _P]}),
     "fused_matmul": ("fused_matmul.cu",
                      {"otpu_fused_matmul": [_P, _P, _P] + [_I] * 8 + [_P, _P]}),
 }

@@ -32,7 +32,8 @@ and ``update_plain`` on a CPU tensor; the backward recomputes through
 ``update_twin`` (the reference's ``_update_jnp``) under autograd, as the
 reference's ``custom_vjp`` does (``:91-131``): nothing beyond the step's
 inputs is saved, and the backward launches no kernel.  ``launches``
-counts kernel launches; on a CUDA tensor a wrapper launches the kernel or
+counts kernel launches, ``bodies`` the same launches by the body the C
+entry reports it started; on a CUDA tensor a wrapper launches the kernel or
 raises.
 
 Layout: the reference pads m and den to ``(bh, sq, 128)`` lanes for
@@ -58,6 +59,7 @@ shared-memory traffic.  Their times are in ``PERF.md``.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -66,6 +68,11 @@ from ompi_tpu_torch.base import cudaenv
 
 #: kernel launches per wrapper (plain-version calls are not counted)
 launches = {"flash_block": 0}
+#: the same launches by the body the C entry started: the float32 FFMA body
+#: or the bfloat16 ``mma.sync`` body
+bodies = {"ffma": 0, "mma_sync": 0}
+#: body codes of the C entry point (``BODY_*`` in ``csrc/flash_block.cu``)
+_BODIES = ("ffma", "mma_sync")
 
 _DTCODE = {torch.float32: 0, torch.bfloat16: 1}
 #: a thread of the kernel owns at most 8 of a query's output columns, two
@@ -190,6 +197,7 @@ def _launch(q, k, v, m, num, den, bias):
         bias = bias.expand(*prefix, sq, skv).contiguous()
         groups, bias_ptr, bias_dt = math.prod(prefix), bias.data_ptr(), \
             _DTCODE[bias.dtype]
+    body = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         err = _build.load("flash_block").otpu_flash_block(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
@@ -197,10 +205,11 @@ def _launch(q, k, v, m, num, den, bias):
             num_out.data_ptr(), den_out.data_ptr(), rows, sq, skv, d,
             rows // groups, _DTCODE[q.dtype], _DTCODE[m.dtype],
             _DTCODE[num.dtype], _DTCODE[den.dtype], bias_dt,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            ctypes.byref(body), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"otpu_flash_block failed: CUDA error {err}")
     launches["flash_block"] += 1
+    bodies[_BODIES[body.value]] += 1
     return m_out, num_out, den_out
 
 

@@ -174,5 +174,8 @@ class ProcRte(Rte):
     def event_notify(self, event: str, payload: Any) -> None:
         self.client.event_publish(event, payload)
 
+    def event_poll(self):
+        return self.client.event_poll()
+
     def finalize(self) -> None:
         self.client.close()

@@ -286,6 +286,15 @@ def comm_self():
     return _self
 
 
+# Upper-case aliases of the lazy top-level API's names
+def COMM_WORLD():
+    return comm_world()
+
+
+def COMM_SELF():
+    return comm_self()
+
+
 def init_thread(required: int = 0, device=None, rte=None, argv=None):
     """``MPI_Init_thread``: returns (world, provided).  The engine is
     thread-safe throughout, so provided is always THREAD_MULTIPLE whatever

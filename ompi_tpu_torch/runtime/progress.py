@@ -150,6 +150,11 @@ def progress() -> int:
         _in_progress.active = False
 
 
+def callback_count() -> int:
+    with _lock:
+        return len(_callbacks)
+
+
 def reset_for_testing() -> None:
     # the native reactor registered a callback and a waiter here: stop its
     # thread BEFORE clearing the lists, so that no late record dispatch
